@@ -1,0 +1,181 @@
+"""RelationalLayer: the O(n^2) pairwise g_theta / f_phi core (inference).
+
+Port of ``rnet/models/relational.py``. All ordered object pairs go through
+the shared g_theta MLP, with the question joined at layer
+``question_injection_position``; the pairs are sum- (or mean-) pooled, then
+f_phi and a log-softmax in fp32. Three implementations share one parameter
+set (flax layout: ``g{l}_kernel`` (in, out), ``g{l}_bias``, ``f{l}_*``):
+
+  * ``naive``  — literal pair concatenation; the test oracle.
+  * ``xla``    — decomposed plain torch: u = x@W[:c], v = x@W[c:2c] and a
+      per-sample shift, so the pair tensor exists only as (B, n^2, H)
+      activations (the name is kept from rnet for configs and flags).
+  * ``pallas`` — ``rnet_torch.kernels.pairwise.fused_pairwise_g``: the
+      hand-written CUDA kernel on the card, its plain version on the CPU.
+
+``auto`` mirrors rnet's rule with "on CUDA in bf16" in place of "on TPU":
+the kernel for n >= 32 objects and uniform g widths that are multiples of
+128, else ``xla``. ``pallas_int8`` is not ported yet. Dropout, pair dropout
+and ``g_prefix_features`` come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels.pairwise import fused_pairwise_g
+from .initializers import fan_in_uniform, linear_kernel
+
+
+def g_input_dims(obj_dim: int, q_dim: int, g_layers: Tuple[int, ...], inject: int) -> List[int]:
+    """Input width of each g layer given the injection position."""
+    dims = []
+    for l in range(len(g_layers)):
+        d = 2 * obj_dim if l == 0 else g_layers[l - 1]
+        if l == inject:
+            d += q_dim
+        dims.append(d)
+    return dims
+
+
+class RelationalLayer(nn.Module):
+    def __init__(
+        self,
+        obj_dim: int,
+        q_dim: int,
+        g_layers: Tuple[int, ...] = (256, 256, 256, 256),
+        f_layers: Tuple[int, ...] = (256, 256),
+        n_answers: int = 28,
+        question_injection_position: int = 0,
+        pair_pool: str = "sum",
+        object_mask: bool = False,
+        impl: str = "auto",
+        dtype: torch.dtype = torch.bfloat16,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        inject = question_injection_position
+        if not 0 <= inject < len(g_layers):
+            raise ValueError(
+                f"question_injection_position {inject} out of range for {len(g_layers)} g layers"
+            )
+        if pair_pool not in ("sum", "mean"):
+            raise ValueError(f"pair_pool must be 'sum' or 'mean', got {pair_pool!r}")
+        self.g_layers = tuple(g_layers)
+        self.inject = inject
+        self.pair_pool = pair_pool
+        self.object_mask = object_mask
+        self.impl = impl
+        self.dtype = dtype
+        g_in = g_input_dims(obj_dim, q_dim, self.g_layers, inject)
+        for l, (d_in, width) in enumerate(zip(g_in, self.g_layers)):
+            self.register_parameter(f"g{l}_kernel", nn.Parameter(linear_kernel((d_in, width), gen)))
+            self.register_parameter(f"g{l}_bias", nn.Parameter(fan_in_uniform((width,), d_in, gen)))
+        f_dims = [self.g_layers[-1], *f_layers, n_answers]
+        self.n_f = len(f_dims) - 1
+        for l, (d_in, width) in enumerate(zip(f_dims[:-1], f_dims[1:])):
+            self.register_parameter(f"f{l}_kernel", nn.Parameter(linear_kernel((d_in, width), gen)))
+            self.register_parameter(f"f{l}_bias", nn.Parameter(fan_in_uniform((width,), d_in, gen)))
+
+    @property
+    def gw(self) -> List[torch.Tensor]:
+        return [getattr(self, f"g{l}_kernel") for l in range(len(self.g_layers))]
+
+    @property
+    def gb(self) -> List[torch.Tensor]:
+        return [getattr(self, f"g{l}_bias") for l in range(len(self.g_layers))]
+
+    # ---- implementation selection ----
+
+    def resolve_impl(self, n: int, device: torch.device) -> str:
+        impl = self.impl
+        if impl == "auto":
+            uniform = len(set(self.g_layers)) == 1 and self.g_layers[0] % 128 == 0
+            on_card = device.type == "cuda" and self.dtype == torch.bfloat16
+            impl = "pallas" if (n >= 32 and uniform and on_card) else "xla"
+        if impl == "pallas_int8":
+            raise NotImplementedError(
+                "rl_impl='pallas_int8' (the int8 g-chain kernel, "
+                "rnet/kernels/pairwise.py::_fwd_kernel_int8) is not ported yet: "
+                "ROADMAP.md lists it among the TPU kernels still to port"
+            )
+        if impl not in ("naive", "xla", "pallas"):
+            raise ValueError(f"unknown relational impl {impl!r}")
+        return impl
+
+    # ---- g over all pairs: (B, n, c), (B, h) -> (B, n^2, g_out) acts ----
+
+    def _g_naive(self, x, q):
+        B, n, c = x.shape
+        xi = x[:, :, None, :].expand(B, n, n, c)  # row i in slot 1
+        xj = x[:, None, :, :].expand(B, n, n, c)  # row j in slot 2
+        a = torch.cat([xi, xj], -1).reshape(B, n * n, 2 * c)
+        for l, (w, b) in enumerate(zip(self.gw, self.gb)):
+            if l == self.inject:
+                qb = q[:, None, :].expand(B, n * n, q.shape[-1])
+                a = torch.cat([a, qb.to(a.dtype)], -1)
+            a = torch.relu(a @ w.to(a.dtype) + b.to(a.dtype))
+        return a
+
+    def _g_xla(self, x, q):
+        B, n, c = x.shape
+        dt = x.dtype
+        gw, gb = self.gw, self.gb
+        w0 = gw[0].to(dt)
+        u = x @ w0[:c]  # (B, n, H0)
+        v = x @ w0[c : 2 * c]
+        shift0 = gb[0].to(dt)
+        if self.inject == 0:
+            shift0 = (shift0 + q @ w0[2 * c :])[:, None, None, :]
+        a = torch.relu(u[:, :, None, :] + v[:, None, :, :] + shift0).reshape(B, n * n, self.g_layers[0])
+        for l in range(1, len(gw)):
+            w, b = gw[l].to(dt), gb[l].to(dt)
+            if l == self.inject:
+                h_prev = self.g_layers[l - 1]
+                a = torch.relu(a @ w[:h_prev] + (q @ w[h_prev:] + b)[:, None, :])
+            else:
+                a = torch.relu(a @ w + b)
+        return a
+
+    # ---- full forward ----
+
+    def forward(self, x: torch.Tensor, q: torch.Tensor, n_objects: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, n, c) objects, (B, h) question -> (B, n_answers) fp32 log-probs."""
+        B, n = x.shape[0], x.shape[1]
+        impl = self.resolve_impl(n, x.device)
+        pair_mask = None
+        if self.object_mask:
+            if n_objects is None:
+                raise ValueError(
+                    "object_mask=True but the batch has no n_objects — the mask "
+                    "needs a state-description dataset"
+                )
+            if impl == "pallas":
+                raise ValueError(
+                    "object_mask needs the naive/xla impl (the fused kernel "
+                    "pools in-kernel); SD shapes resolve to xla by default"
+                )
+            valid = torch.arange(n, device=x.device)[None, :] < n_objects.to(x.device)[:, None]
+            pair_mask = (valid[:, :, None] & valid[:, None, :]).reshape(B, n * n)
+        x = x.to(self.dtype)
+        q = q.to(self.dtype)
+        if impl == "pallas":
+            pooled = fused_pairwise_g(x, q, self.gw, self.gb, inject=self.inject, dtype=self.dtype)
+        else:
+            a = self._g_naive(x, q) if impl == "naive" else self._g_xla(x, q)
+            if pair_mask is not None:
+                a = a * pair_mask[..., None].to(a.dtype)
+            pooled = a.sum(dim=1)
+
+        y = pooled.float()
+        if self.pair_pool == "mean":
+            y = y / float(n * n)
+        for l in range(self.n_f - 1):
+            y = torch.relu(y @ getattr(self, f"f{l}_kernel") + getattr(self, f"f{l}_bias"))
+        last = self.n_f - 1
+        y = y @ getattr(self, f"f{last}_kernel") + getattr(self, f"f{last}_bias")
+        return torch.log_softmax(y, dim=-1)

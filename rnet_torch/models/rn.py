@@ -1,0 +1,97 @@
+"""RN: the composition root (from-pixels / state-description switch).
+
+Port of ``rnet/models/rn.py`` (inference forward; ``extract`` and the
+training forward come with later slices):
+  * from-pixels: uint8 (B, S, S, 3) -> cast to the compute dtype, then /255
+    (in that order, as rnet does) -> ConvInputModel -> (B, g, g, C) flattened
+    row-major over (row, col) to (B, g^2, C), each object tagged with its
+    grid coordinate (cx, cy), cy varying over rows;
+  * state-description: objects (B, n, object_dim) straight from the request.
+Then the question LSTM and the RelationalLayer give (B, n_answers) log-probs.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from .conv import ConvInputModel
+from .relational import RelationalLayer
+from .text import QuestionEmbedModel
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    try:
+        return _DTYPES[cfg.compute_dtype]
+    except KeyError:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, got {cfg.compute_dtype!r}") from None
+
+
+def grid_coords(g: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(g*g, 2) coordinate tags in [-1, 1], row-major [(cx, cy)] order."""
+    lin = torch.linspace(-1.0, 1.0, g, dtype=dtype, device=device)
+    cy, cx = torch.meshgrid(lin, lin, indexing="ij")  # cy varies over rows
+    return torch.stack([cx.reshape(-1), cy.reshape(-1)], dim=-1)
+
+
+class RN(nn.Module):
+    """Inference-only RN; weights from ``generator`` (a seed-0 generator if
+    None) until a checkpoint is loaded over them."""
+
+    def __init__(self, cfg: ModelConfig, vocab_size: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.dtype = compute_dtype(cfg)
+        if not cfg.state_description:
+            self.conv = ConvInputModel(
+                channels=cfg.conv_channels, kernel=cfg.conv_kernel,
+                stride=cfg.conv_stride, dtype=self.dtype, generator=gen,
+            )
+        self.text = QuestionEmbedModel(
+            vocab_size=vocab_size, emb_dim=cfg.lstm_word_emb, hidden=cfg.lstm_hidden,
+            mask_pads=cfg.lstm_mask_pads, generator=gen,
+        )
+        self.relational = RelationalLayer(
+            obj_dim=cfg.obj_feat_dim, q_dim=cfg.lstm_hidden, g_layers=cfg.g_layers,
+            f_layers=cfg.f_layers, n_answers=cfg.n_answers,
+            question_injection_position=cfg.question_injection_position,
+            pair_pool=cfg.pair_pool, object_mask=cfg.object_mask,
+            impl=cfg.rl_impl, dtype=self.dtype, generator=gen,
+        )
+
+    def objects(self, inputs: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.state_description:
+            return inputs
+        if inputs.shape[1] != cfg.image_size or inputs.shape[2] != cfg.image_size:
+            raise ValueError(
+                f"expected (B, {cfg.image_size}, {cfg.image_size}, 3) images, got "
+                f"{tuple(inputs.shape)} (padded cached-pipeline images come with the data-feed slice)"
+            )
+        x = inputs
+        if x.dtype == torch.uint8:
+            x = x.to(self.dtype) / 255.0
+        feats = self.conv(x)  # (B, g, g, C)
+        B, g, _, C = feats.shape
+        objs = feats.reshape(B, g * g, C)
+        coords = grid_coords(g, dtype=objs.dtype, device=objs.device)
+        return torch.cat([objs, coords[None].expand(B, g * g, 2)], dim=-1)
+
+    def forward(
+        self,
+        inputs: torch.Tensor,  # (B,S,S,3) image or (B,n,obj_dim) objects
+        question: torch.Tensor,  # (B, T) integer token ids
+        n_objects: Optional[torch.Tensor] = None,  # (B,) SD real-object counts
+    ) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "the training forward (dropout, BatchNorm batch statistics) comes "
+                "with the training slice; call .eval() to run inference"
+            )
+        return self.relational(self.objects(inputs), self.text(question), n_objects=n_objects)
