@@ -10,6 +10,10 @@ The port's parameter names are the flax tree paths joined with ``.``
 ``conv.bn0.mean``/``var`` become buffers of the same path). The one layout
 change is the conv kernel: flax HWIO <-> torch OIHW. Both directions are
 exact, so flax -> torch -> flax returns the same arrays.
+
+The Adam state maps the same way: ``torch.optim.Adam``'s per-parameter
+``exp_avg``/``exp_avg_sq``/``step`` <-> optax's ``ScaleByAdamState``
+(``mu``, ``nu`` as flax param trees, ``count`` int32), also exactly.
 """
 
 from __future__ import annotations
@@ -73,3 +77,40 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))  # OIHW -> HWIO
         params[path] = arr
     return {"params": _nest(params), "batch_stats": _nest(stats)}
+
+
+# ---------------------------------------------------------------------------
+# Adam state: torch.optim.Adam <-> optax ScaleByAdamState (mu, nu, count)
+# ---------------------------------------------------------------------------
+
+
+def adam_state_to_flax(model: torch.nn.Module, adam: torch.optim.Adam) -> Dict[str, Any]:
+    """{"mu", "nu", "count"}: the first and second moments as flax param
+    trees (the layout of optax's ScaleByAdamState) and the step count as an
+    int32 scalar. A parameter Adam has not stepped yet has zero moments."""
+    mu, nu, count = {}, {}, 0
+    for name, p in model.named_parameters():
+        st = adam.state.get(p, {})
+        mu[name] = st["exp_avg"] if st else torch.zeros_like(p)
+        nu[name] = st["exp_avg_sq"] if st else torch.zeros_like(p)
+        if st:
+            count = int(st["step"])
+    return {
+        "mu": state_dict_to_flax(mu)["params"],
+        "nu": state_dict_to_flax(nu)["params"],
+        "count": np.asarray(count, dtype=np.int32),
+    }
+
+
+def flax_to_adam_state(model: torch.nn.Module, adam: torch.optim.Adam, state: Mapping[str, Any]) -> None:
+    """Load {"mu", "nu", "count"} in the layout of ``adam_state_to_flax``
+    into ``adam``'s state for ``model``'s parameters, in place."""
+    mu = flax_to_state_dict({"params": state["mu"]})
+    nu = flax_to_state_dict({"params": state["nu"]})
+    step = float(np.asarray(state["count"]))
+    for name, p in model.named_parameters():
+        adam.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(device=p.device, dtype=p.dtype).clone(),
+            "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype).clone(),
+        }

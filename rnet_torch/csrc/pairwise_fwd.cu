@@ -1,10 +1,16 @@
 // Fused pairwise g_theta forward for Hopper (sm_90a), bf16 in, fp32 out.
 //
 // Replaces the TPU kernel rnet/kernels/pairwise.py::_fwd_kernel (launched by
-// _fwd_pallas), forward only, pair_keep = 1. For every sample b it computes
+// _fwd_pallas) and, when pair_keep < 1, its pair mask _pair_mask. For every
+// sample b it computes
 //
-//     out[b] = sum_{i<ni, j<nj} g_{L-1}(... g_1(relu(u[b,i] + v[b,j] + s[b])))
+//     out[b] = sum_{i<ni, j<nj} m_bij * g_{L-1}(... g_1(relu(u[b,i] + v[b,j] + s[b])))
 //     g_l(a) = relu(a . W_l + b_l [+ qa[b] if l == inject])
+//
+// with m_bij = 1 at pair_keep = 1 and, below it, the inverted-dropout scale
+// of philox.cuh (1/keep for a kept pair, 0 for a dropped one), applied to
+// the last layer's fp32 row before the pool as _fwd_kernel does (:113-115).
+// keep = 1 compiles to a kernel without any Philox work (template DROP).
 //
 // with the same rounding points as _fwd_kernel: the layer-0 add in fp32, the
 // L-1 products on bf16 operands with fp32 accumulation, bias and injection
@@ -41,6 +47,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -57,16 +65,18 @@ template <int NC>
 size_t smem_bytes(int H) {
   return 2 * (size_t)BM * (H + PAD) * sizeof(bf16)   // activation ping-pong
          + (size_t)KC * (NC + PAD) * sizeof(bf16)     // weight chunk
-         + (size_t)WARPS * 256 * sizeof(float);       // epilogue staging
+         + (size_t)WARPS * 256 * sizeof(float)        // epilogue staging
+         + (size_t)BM * sizeof(float);                // per-row dropout scale
 }
 
-template <int NC>
+template <int NC, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 pairwise_fwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v,
                     const bf16* __restrict__ s, const bf16* __restrict__ qa,
                     const bf16* __restrict__ ws, const bf16* __restrict__ bs,
                     float* __restrict__ partial, int ni, int nj, int H, int L,
-                    int inject) {
+                    int inject, const int64_t* __restrict__ seed, uint32_t thr,
+                    float inv_keep) {
   constexpr int TPW = NC / 16 / (WARPS / ROW_TILES);  // column tiles per warp
   extern __shared__ __align__(128) unsigned char smem[];
   const int LDA = H + PAD;
@@ -74,7 +84,9 @@ pairwise_fwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v,
   bf16* cur = reinterpret_cast<bf16*>(smem);
   bf16* nxt = cur + BM * LDA;
   bf16* wbuf = nxt + BM * LDA;
-  float* stage = reinterpret_cast<float*>(wbuf + KC * LDW) + (threadIdx.x / 32) * 256;
+  float* stage_all = reinterpret_cast<float*>(wbuf + KC * LDW);
+  float* stage = stage_all + (threadIdx.x / 32) * 256;
+  float* rowscale = stage_all + WARPS * 256;
 
   const int b = blockIdx.y;
   const int p0 = blockIdx.x * BM;
@@ -83,6 +95,12 @@ pairwise_fwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v,
   const int lane = threadIdx.x % 32;
   const int rt = warp % ROW_TILES;
   const int ct0 = (warp / ROW_TILES) * TPW;
+
+  if (DROP) {  // inverted pair dropout: this block's rows, from philox.cuh
+    const uint64_t key = (uint64_t)*seed;
+    for (int r = threadIdx.x; r < BM; r += THREADS)
+      rowscale[r] = (r < rows && rnet::pair_kept(key, p0 + r, b, thr)) ? inv_keep : 0.0f;
+  }
 
   // ---- layer 0: a0 = relu(u_i + v_j + s) in fp32, rounded to bf16 ----
   const int vec = H / 8;  // 16-byte vectors per row
@@ -165,12 +183,27 @@ pairwise_fwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v,
     nxt = tmp;
   }
 
-  // ---- pool this block's valid rows in fp32 ----
+  // ---- pool this block's valid rows in fp32 (kept rows scaled by 1/keep) ----
   for (int c = threadIdx.x; c < H; c += THREADS) {
     float sum = 0.0f;
-    for (int r = 0; r < rows; ++r) sum += __bfloat162float(cur[r * LDA + c]);
+    for (int r = 0; r < rows; ++r) {
+      float x = __bfloat162float(cur[r * LDA + c]);
+      if (DROP) x *= rowscale[r];
+      sum += x;
+    }
     partial[((size_t)b * gridDim.x + blockIdx.x) * H + c] = sum;
   }
+}
+
+// mask[b, p] = 1 if pair p of sample b is kept, else 0 (philox.cuh). Used
+// to hold the in-kernel bits against the plain version; not on the model's
+// path, where the two pairwise kernels draw the bits themselves.
+__global__ void pair_mask_kernel(uint8_t* __restrict__ mask, int B, int npairs,
+                                 const int64_t* __restrict__ seed, uint32_t thr) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = blockIdx.y;
+  if (p >= npairs) return;
+  mask[(size_t)b * npairs + p] = rnet::pair_kept((uint64_t)*seed, p, b, thr) ? 1 : 0;
 }
 
 // out[b, c] = sum over blocks of partial[b, blk, c], in block order.
@@ -185,18 +218,32 @@ __global__ void pool_partials_kernel(const float* __restrict__ partial,
   out[(size_t)b * H + c] = sum;
 }
 
-template <int NC>
+template <int NC, bool DROP>
 cudaError_t launch_main(const bf16* u, const bf16* v, const bf16* s, const bf16* qa,
                         const bf16* ws, const bf16* bs, float* partial, int B,
                         int ni, int nj, int H, int L, int inject, int nblk,
+                        const int64_t* seed, uint32_t thr, float inv_keep,
                         cudaStream_t stream) {
   const size_t smem = smem_bytes<NC>(H);
   cudaError_t err = cudaFuncSetAttribute(
-      pairwise_fwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      pairwise_fwd_kernel<NC, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  pairwise_fwd_kernel<NC><<<dim3(nblk, B), THREADS, smem, stream>>>(
-      u, v, s, qa, ws, bs, partial, ni, nj, H, L, inject);
+  pairwise_fwd_kernel<NC, DROP><<<dim3(nblk, B), THREADS, smem, stream>>>(
+      u, v, s, qa, ws, bs, partial, ni, nj, H, L, inject, seed, thr, inv_keep);
   return cudaGetLastError();
+}
+
+template <bool DROP>
+cudaError_t launch_width(const bf16* u, const bf16* v, const bf16* s, const bf16* qa,
+                         const bf16* ws, const bf16* bs, float* partial, int B,
+                         int ni, int nj, int H, int L, int inject, int nblk,
+                         const int64_t* seed, uint32_t thr, float inv_keep,
+                         cudaStream_t stream) {
+  return (H % 256 == 0)
+             ? launch_main<256, DROP>(u, v, s, qa, ws, bs, partial, B, ni, nj, H, L, inject,
+                                      nblk, seed, thr, inv_keep, stream)
+             : launch_main<128, DROP>(u, v, s, qa, ws, bs, partial, B, ni, nj, H, L, inject,
+                                      nblk, seed, thr, inv_keep, stream);
 }
 
 }  // namespace
@@ -215,10 +262,13 @@ long long rnet_pairwise_fwd_smem_bytes(int H) {
 // Launches the fused kernel and the block reduction on `stream`. All pointers
 // are device pointers to contiguous tensors: u (B,ni,H), v (B,nj,H), s (B,H),
 // qa (B,H), ws (L-1,H,H), bs (L-1,H) in bf16; partial (B,nblk,H) and out
-// (B,H) in fp32. Requires H % 128 == 0 and L >= 2. Returns cudaGetLastError().
+// (B,H) in fp32; seed (1,) int64, read only when drop != 0. Pair dropout is
+// on iff drop != 0, with threshold thr and scale inv_keep (philox.cuh).
+// Requires H % 128 == 0 and L >= 2. Returns cudaGetLastError().
 int rnet_pairwise_fwd(const void* u, const void* v, const void* s, const void* qa,
                       const void* ws, const void* bs, void* partial, void* out,
                       int B, int ni, int nj, int H, int L, int inject,
+                      int drop, const void* seed, unsigned int thr, float inv_keep,
                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nblk = (ni * nj + BM - 1) / BM;
@@ -228,14 +278,24 @@ int rnet_pairwise_fwd(const void* u, const void* v, const void* s, const void* q
   const bf16* pq = static_cast<const bf16*>(qa);
   const bf16* pw = static_cast<const bf16*>(ws);
   const bf16* pb = static_cast<const bf16*>(bs);
+  const int64_t* sd = static_cast<const int64_t*>(seed);
   float* part = static_cast<float*>(partial);
   cudaError_t err =
-      (H % 256 == 0)
-          ? launch_main<256>(pu, pv, ps, pq, pw, pb, part, B, ni, nj, H, L, inject, nblk, st)
-          : launch_main<128>(pu, pv, ps, pq, pw, pb, part, B, ni, nj, H, L, inject, nblk, st);
+      drop ? launch_width<true>(pu, pv, ps, pq, pw, pb, part, B, ni, nj, H, L, inject, nblk,
+                                sd, thr, inv_keep, st)
+           : launch_width<false>(pu, pv, ps, pq, pw, pb, part, B, ni, nj, H, L, inject, nblk,
+                                 sd, thr, inv_keep, st);
   if (err != cudaSuccess) return (int)err;
   pool_partials_kernel<<<dim3((H + 127) / 128, B), 128, 0, st>>>(
       part, static_cast<float*>(out), nblk, H);
+  return (int)cudaGetLastError();
+}
+
+// Writes the keep mask (B, npairs) uint8 of philox.cuh for `seed` (1,) int64.
+int rnet_pair_mask(void* mask, int B, int npairs, const void* seed, unsigned int thr,
+                   void* stream) {
+  pair_mask_kernel<<<dim3((npairs + 255) / 256, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint8_t*>(mask), B, npairs, static_cast<const int64_t*>(seed), thr);
   return (int)cudaGetLastError();
 }
 

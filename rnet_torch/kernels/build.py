@@ -4,8 +4,9 @@ kernels are compiled by JAX itself).
 Each ``rnet_torch/csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``rnet_torch/_build/`` (listed in ``.gitignore``), then loaded with ctypes.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. The build
+The library's file name carries a hash of the source, the headers of
+``csrc/`` (``*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. The build
 happens at first use, inside the process that needs it; ``build`` starts one
 ``nvcc`` per source, all at once. A missing toolkit or a failed build raises.
 """
@@ -13,6 +14,7 @@ happens at first use, inside the process that needs it; ``build`` starts one
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -49,9 +51,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source_path(name), *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def log_path(name: str) -> str:

@@ -1,15 +1,19 @@
-"""ConvInputModel: the strided conv feature extractor (inference).
+"""ConvInputModel: the strided conv feature extractor.
 
 Port of ``rnet/models/conv.py``: per entry of ``channels``, Conv2d(k=3,
-stride 2, padding 1) in the compute dtype -> cast to fp32 -> BatchNorm from
-the running statistics (eps 1e-5) -> ReLU -> cast back. (B,128,128,3) ->
-(B,8,8,24). The public layout stays NHWC as in rnet; inside, the convs run
-NCHW, torch's own layout.
+stride 2, padding 1) in the compute dtype -> cast to fp32 -> BatchNorm (eps
+1e-5) -> ReLU -> cast back. (B,128,128,3) -> (B,8,8,24). The public layout
+stays NHWC as in rnet; inside, the convs run NCHW, torch's own layout.
+
+BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9)``: in eval mode it
+normalises with the running statistics; in train mode with the batch mean
+and the *biased* batch variance (fp32, with gradient), and it updates the
+running buffers as ``ra = 0.9 * ra + 0.1 * stat`` with that biased variance
+(``nn.BatchNorm2d`` would store the unbiased one).
 
 Parameter names follow the flax tree (``conv{i}``, ``bn{i}`` with ``scale``,
 ``bias`` and the ``mean``/``var`` buffers), so ``rnet_torch.convert`` only
-transposes the conv kernels (flax HWIO -> torch OIHW). Batch statistics in
-train mode come with the training slice.
+transposes the conv kernels (flax HWIO -> torch OIHW).
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .initializers import fan_in_uniform
+
+BN_MOMENTUM = 0.9  # flax's: the weight of the old running value
 
 
 class Conv2d(nn.Module):
@@ -34,7 +40,7 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over channel dim 1 with flax's parameter names."""
+    """BatchNorm over channel dim 1 with flax's parameter names and update."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -45,9 +51,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, self.mean, self.var, self.scale, self.bias, training=False, eps=self.eps
-        )
+        if not self.training:
+            return F.batch_norm(
+                x, self.mean, self.var, self.scale, self.bias, training=False, eps=self.eps
+            )
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            self.var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        return F.batch_norm(x, None, None, self.scale, self.bias, training=True, eps=self.eps)
 
 
 class ConvInputModel(nn.Module):

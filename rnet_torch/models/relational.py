@@ -1,4 +1,4 @@
-"""RelationalLayer: the O(n^2) pairwise g_theta / f_phi core (inference).
+"""RelationalLayer: the O(n^2) pairwise g_theta / f_phi core.
 
 Port of ``rnet/models/relational.py``. All ordered object pairs go through
 the shared g_theta MLP, with the question joined at layer
@@ -11,12 +11,19 @@ set (flax layout: ``g{l}_kernel`` (in, out), ``g{l}_bias``, ``f{l}_*``):
       per-sample shift, so the pair tensor exists only as (B, n^2, H)
       activations (the name is kept from rnet for configs and flags).
   * ``pallas`` — ``rnet_torch.kernels.pairwise.fused_pairwise_g``: the
-      hand-written CUDA kernel on the card, its plain version on the CPU.
+      hand-written CUDA kernels (forward and backward) on the card, their
+      plain versions on the CPU.
 
 ``auto`` mirrors rnet's rule with "on CUDA in bf16" in place of "on TPU":
 the kernel for n >= 32 objects and uniform g widths that are multiples of
-128, else ``xla``. ``pallas_int8`` is not ported yet. Dropout, pair dropout
-and ``g_prefix_features`` come with later slices.
+128, else ``xla``. ``pallas_int8`` is not ported yet.
+
+In train mode (``module.train()``) f_phi drops its last hidden layer's units
+with rate ``dropout`` (inverted, in fp32) and, with ``pair_dropout`` > 0,
+whole pairs before the pool: a Bernoulli (B, n^2) mask in the naive/xla
+impls, the kernels' own Philox mask (seeded per call) in the pallas impl.
+Every random draw comes from the ``generator`` passed to ``forward``, on
+the tensors' device. ``g_prefix_features`` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -28,6 +35,23 @@ from torch import nn
 
 from ..kernels.pairwise import fused_pairwise_g
 from .initializers import fan_in_uniform, linear_kernel
+
+
+def dropout(y: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout of single units: where(mask, y / keep, 0) with
+    mask ~ Bernoulli(keep = 1 - rate), as rnet's f_phi dropout."""
+    keep = 1.0 - rate
+    mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
+    return torch.where(mask, y / keep, 0.0)
+
+
+def pair_dropout(a: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout of whole pairs of the (B, n^2, H) activations, in
+    their dtype: a * mask / keep with mask ~ Bernoulli(keep) per (b, pair),
+    as rnet's ``_pool``."""
+    keep = 1.0 - rate
+    mask = torch.rand(a.shape[:2], generator=generator, device=a.device) < keep
+    return a * (mask[..., None].to(a.dtype) / torch.tensor(keep, dtype=a.dtype))
 
 
 def g_input_dims(obj_dim: int, q_dim: int, g_layers: Tuple[int, ...], inject: int) -> List[int]:
@@ -50,6 +74,8 @@ class RelationalLayer(nn.Module):
         f_layers: Tuple[int, ...] = (256, 256),
         n_answers: int = 28,
         question_injection_position: int = 0,
+        dropout: float = 0.5,
+        pair_dropout: float = 0.0,
         pair_pool: str = "sum",
         object_mask: bool = False,
         impl: str = "auto",
@@ -67,6 +93,8 @@ class RelationalLayer(nn.Module):
             raise ValueError(f"pair_pool must be 'sum' or 'mean', got {pair_pool!r}")
         self.g_layers = tuple(g_layers)
         self.inject = inject
+        self.dropout = dropout
+        self.pair_dropout = pair_dropout
         self.pair_pool = pair_pool
         self.object_mask = object_mask
         self.impl = impl
@@ -143,10 +171,23 @@ class RelationalLayer(nn.Module):
 
     # ---- full forward ----
 
-    def forward(self, x: torch.Tensor, q: torch.Tensor, n_objects: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, n, c) objects, (B, h) question -> (B, n_answers) fp32 log-probs."""
+    def forward(
+        self,
+        x: torch.Tensor,
+        q: torch.Tensor,
+        n_objects: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """(B, n, c) objects, (B, h) question -> (B, n_answers) fp32 log-probs.
+
+        In train mode with dropout or pair dropout, ``generator`` (on x's
+        device) supplies every random draw."""
         B, n = x.shape[0], x.shape[1]
         impl = self.resolve_impl(n, x.device)
+        f_drop = self.training and self.dropout > 0.0
+        pair_drop = self.training and self.pair_dropout > 0.0
+        if (f_drop or pair_drop) and generator is None:
+            raise ValueError("dropout in train mode needs a torch.Generator on the input's device")
         pair_mask = None
         if self.object_mask:
             if n_objects is None:
@@ -164,11 +205,19 @@ class RelationalLayer(nn.Module):
         x = x.to(self.dtype)
         q = q.to(self.dtype)
         if impl == "pallas":
-            pooled = fused_pairwise_g(x, q, self.gw, self.gb, inject=self.inject, dtype=self.dtype)
+            keep, seed = 1.0, None
+            if pair_drop:  # in-kernel inverted pair dropout
+                keep = 1.0 - self.pair_dropout
+                seed = torch.randint(0, 2**62, (1,), generator=generator, device=x.device)
+            pooled = fused_pairwise_g(
+                x, q, self.gw, self.gb, inject=self.inject, dtype=self.dtype, pair_keep=keep, seed=seed
+            )
         else:
             a = self._g_naive(x, q) if impl == "naive" else self._g_xla(x, q)
             if pair_mask is not None:
                 a = a * pair_mask[..., None].to(a.dtype)
+            if pair_drop:
+                a = pair_dropout(a, self.pair_dropout, generator)
             pooled = a.sum(dim=1)
 
         y = pooled.float()
@@ -176,6 +225,8 @@ class RelationalLayer(nn.Module):
             y = y / float(n * n)
         for l in range(self.n_f - 1):
             y = torch.relu(y @ getattr(self, f"f{l}_kernel") + getattr(self, f"f{l}_bias"))
+        if f_drop:
+            y = dropout(y, self.dropout, generator)
         last = self.n_f - 1
         y = y @ getattr(self, f"f{last}_kernel") + getattr(self, f"f{last}_bias")
         return torch.log_softmax(y, dim=-1)

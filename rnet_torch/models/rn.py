@@ -1,13 +1,19 @@
 """RN: the composition root (from-pixels / state-description switch).
 
-Port of ``rnet/models/rn.py`` (inference forward; ``extract`` and the
-training forward come with later slices):
+Port of ``rnet/models/rn.py`` (``extract`` comes with a later slice):
   * from-pixels: uint8 (B, S, S, 3) -> cast to the compute dtype, then /255
     (in that order, as rnet does) -> ConvInputModel -> (B, g, g, C) flattened
     row-major over (row, col) to (B, g^2, C), each object tagged with its
     grid coordinate (cx, cy), cy varying over rows;
   * state-description: objects (B, n, object_dim) straight from the request.
 Then the question LSTM and the RelationalLayer give (B, n_answers) log-probs.
+
+``module.train()`` selects the training forward: BatchNorm batch statistics,
+f_phi dropout and pair dropout, with every random draw from the
+``generator`` passed to ``forward``. The device augmentation of rnet's
+training path (random crop of padded images, rotation; ``device_augment``)
+is not ported yet (ROADMAP slice 4), so training with it, or on padded
+images, raises instead of training on other inputs than asked for.
 """
 
 from __future__ import annotations
@@ -40,8 +46,8 @@ def grid_coords(g: int, dtype=torch.float32, device=None) -> torch.Tensor:
 
 
 class RN(nn.Module):
-    """Inference-only RN; weights from ``generator`` (a seed-0 generator if
-    None) until a checkpoint is loaded over them."""
+    """Weights from ``generator`` (a seed-0 generator if None) until a
+    checkpoint is loaded over them."""
 
     def __init__(self, cfg: ModelConfig, vocab_size: int, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -61,6 +67,7 @@ class RN(nn.Module):
             obj_dim=cfg.obj_feat_dim, q_dim=cfg.lstm_hidden, g_layers=cfg.g_layers,
             f_layers=cfg.f_layers, n_answers=cfg.n_answers,
             question_injection_position=cfg.question_injection_position,
+            dropout=cfg.dropout, pair_dropout=cfg.pair_dropout,
             pair_pool=cfg.pair_pool, object_mask=cfg.object_mask,
             impl=cfg.rl_impl, dtype=self.dtype, generator=gen,
         )
@@ -69,6 +76,18 @@ class RN(nn.Module):
         cfg = self.cfg
         if cfg.state_description:
             return inputs
+        if self.training and cfg.device_augment:
+            raise NotImplementedError(
+                "training with device_augment=True needs the augment kernel "
+                "(random crop + rotation, rnet/kernels/augment.py), which is not "
+                "ported yet (ROADMAP slice 4); train with device_augment=False"
+            )
+        padded = inputs.shape[1] > cfg.image_size and inputs.shape[2] > cfg.image_size
+        if self.training and padded:
+            raise NotImplementedError(
+                f"training on padded {tuple(inputs.shape)} images needs the random "
+                "crop of the augment path, which is not ported yet (ROADMAP slice 4)"
+            )
         if inputs.shape[1] != cfg.image_size or inputs.shape[2] != cfg.image_size:
             raise ValueError(
                 f"expected (B, {cfg.image_size}, {cfg.image_size}, 3) images, got "
@@ -88,10 +107,8 @@ class RN(nn.Module):
         inputs: torch.Tensor,  # (B,S,S,3) image or (B,n,obj_dim) objects
         question: torch.Tensor,  # (B, T) integer token ids
         n_objects: Optional[torch.Tensor] = None,  # (B,) SD real-object counts
+        generator: Optional[torch.Generator] = None,  # train-mode dropout draws
     ) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "the training forward (dropout, BatchNorm batch statistics) comes "
-                "with the training slice; call .eval() to run inference"
-            )
-        return self.relational(self.objects(inputs), self.text(question), n_objects=n_objects)
+        return self.relational(
+            self.objects(inputs), self.text(question), n_objects=n_objects, generator=generator
+        )

@@ -240,10 +240,21 @@ def test_int8_impl_not_ported_raises():
 
 
 def test_training_forward_not_ported_raises():
-    _, tcfg = _shrunk("original-sd")
-    m = RN(tcfg, V)  # nn.Module default: training mode
-    with pytest.raises(NotImplementedError, match="eval"):
-        m(torch.zeros(1, 6, 18), torch.ones(1, 4, dtype=torch.int32))
+    """The training forward runs, except its device augmentation (random
+    crop + rotation, ROADMAP slice 4): training with device_augment=True or
+    on padded images raises instead of silently skipping it; eval does not
+    need it."""
+    _, tcfg = _shrunk("original-fp")
+    q = torch.ones(2, 4, dtype=torch.int32)
+    img = torch.zeros(2, 32, 32, 3, dtype=torch.uint8)
+    m = RN(tcfg.replace(device_augment=True), V)  # nn.Module default: training mode
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        m(img, q)
+    assert torch.isfinite(m.eval()(img, q)).all()
+    m = RN(tcfg, V)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        m(torch.zeros(2, 36, 36, 3, dtype=torch.uint8), q)
+    assert torch.isfinite(m(img, q)).all()  # the train forward itself runs
 
 
 def test_configs_match_rnet():
