@@ -40,6 +40,31 @@ Phases, each fatal (exit 1, no result line) when it fails:
      bucket and train questions/s on the host clock; torch.profiler
      breakdowns of a served forward and of a train step (device busy time by
      kernel, and the device's idle share).
+  9. Augment kernel vs its plain version on the card: B = 1, 7 and 512, fp32
+     and bf16 outputs, angles of ±2.8 degrees and 0, the four corner offsets
+     (where the shears wrap around the canvas), repeated indices, a cache of
+     2,048 canvases and a full-size CLEVR train cache of 70,000 x 144^2 x 3
+     uint8 (4.35 GB, made on the card from a seed) with indices above
+     34,500, and a batch-local source (idx = arange(B)). Angle 0 at offset
+     (8, 8) must give the centre crop x (1/255) exactly; an index outside
+     the cache gives NaN rows.
+ 10. Training through the entry point, ``rnet_torch.train.__main__.main``,
+     on a synthetic CLEVR directory the script writes itself (seeded
+     questions over every answer and family; the decoded caches written
+     directly, so nothing is decoded): (a) original-fp, device pipeline,
+     B=512, 2 epochs of 16 steps, checkpoints and reports; after the launch
+     counters are zeroed, augment = pairwise_bwd = train steps and
+     pairwise_fwd = train steps + eval batches; (b) the same resumed from a
+     copy of epoch 1 must give epoch 2's loss and parameters bit for bit;
+     (c) the cached pipeline (one augment launch per step, batch-local);
+     (d) the device pipeline with --no-device-augment (no augment launch).
+     Runs (a)-(d) use cuDNN's deterministic algorithms; (a) and (d) then run
+     again in the order a d d a with cuDNN free to choose, as the entry
+     point runs. Then the augment kernel's times (2,048 and 70,000
+     canvases, cold in L2), its plain version and bound, the epoch
+     questions/s of every run, one train step of (a) and of (d) timed
+     alternately in both cuDNN modes, and a profile of each with the
+     kernels whose device time differs most between them.
 Then one JSON line of kernel records and, last, the device line.
 
 Only torch, numpy and ``rnet_torch`` are imported (never JAX or ``rnet``).
@@ -60,6 +85,11 @@ TRAIN_B = 512  # rnet's bench.py batch
 TRAIN_STEPS = 5
 VOCAB = 90  # bench.py's vocabulary size
 LR = 1e-4  # bench.py's learning rate (clip 50)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+CANVAS, CROP = 144, 128  # padded CLEVR canvas, model input
+CLEVR_TRAIN_IMAGES = 70_000  # CLEVR v1.0 train split
+AUG_SMALL = 2_048  # the synthetic run's train images
+SYN_TRAIN_Q, SYN_VAL_IMAGES, SYN_VAL_Q = 8_192, 256, 1_024  # 16 train steps of 512 per epoch
 
 
 def fail(msg: str) -> None:
@@ -183,16 +213,17 @@ def profile_device(torch, fn, reps: int = 3):
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
     ]
     rows.sort(reverse=True)
-    return sum(r[0] for r in rows), sum(r[1] for r in rows), rows[:8]
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), rows
 
 
 def log_profile(torch, what, fn, wall_ms):
-    busy, n_kernels, top = profile_device(torch, fn)
+    """Log the profile of fn; returns (busy ms, every (ms, count, name) row)."""
+    busy, n_kernels, rows = profile_device(torch, fn)
     log(f"profile {what}: {wall_ms!r} ms (CUDA events), device busy {busy!r} ms "
         f"in {n_kernels!r} kernels, idle share {1.0 - busy / wall_ms!r}")
-    for ms_k, count, name in top:
+    for ms_k, count, name in rows[:8]:
         log(f"  {ms_k!r} ms x{count!r} {name[:100]}")
-    return busy
+    return busy, rows
 
 
 # Kernel agreement cases (B, ni, nj, H, L, inject): original-fp B=1/64,
@@ -574,11 +605,395 @@ def time_training(torch, cfg, state, batch):
                      "step_ms_events": step_ms,
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         log(f"train {impl} path, original-fp B={TRAIN_B}: {json.dumps(out[impl])}")
-        busy = log_profile(torch, f"train step ({impl} path)", lambda: steps.train_step(st, batch), step_ms)
+        busy, _ = log_profile(torch, f"train step ({impl} path)", lambda: steps.train_step(st, batch), step_ms)
         out[impl]["busy_ms"] = busy
         if impl == "xla":
             del st
             torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 9. The augment kernel
+# ---------------------------------------------------------------------------
+
+
+def aug_work(aug, B, S=CANVAS, out=CROP, C=3, out_bytes=2):
+    """(flops, bytes) the function needs. A crop reads canvas rows
+    oy-KY..oy+out-1+KY and columns ox-2KX..ox+out-1+2KX (the y shear and
+    the two x shears), each such pixel once; it writes the crop once and
+    reads idx, angle and offsets (16 B). FLOPs: 2*(2K+1) per element of
+    x1 (out+2KY rows x out+2KX columns), x2 (out x out+2KX) and x3
+    (out x out), in fp32."""
+    kx, ky = aug._shear_radii(S, out)
+    nbytes = B * ((out + 2 * ky) * (out + 4 * kx) * C + out * out * C * out_bytes + 16)
+    per_ch = ((out + 2 * ky) * (out + 2 * kx) * (2 * kx + 1) + out * (out + 2 * kx) * (2 * ky + 1)
+              + out * out * (2 * kx + 1))
+    return B * C * 2.0 * per_ch, nbytes
+
+
+def aug_bound(aug, B):
+    """(bound_ms, bound_by) of aug_work at the fp32 rate."""
+    return roofline(*aug_work(aug, B), peak_ops=PEAK_FP32_FLOPS)
+
+
+def aug_args(torch, np, N, B, seed, device="cuda"):
+    """Seeded idx (B,) int32 over [0, N) with a repeated index and, on a
+    large cache, indices above 34,500; angles with +-2.8 and 0 degrees;
+    offsets with the four corners."""
+    rs = np.random.RandomState(seed)
+    idx = rs.randint(0, N, B)
+    if B >= 2:
+        idx[1] = idx[0]
+    if B >= 4 and N > 34_500:
+        idx[2:4] = [N - 1, 34_561]
+    deg = rs.uniform(-2.8, 2.8, B)
+    deg[: min(B, 3)] = [2.8, -2.8, 0.0][: min(B, 3)]
+    offs = rs.randint(0, CANVAS - CROP + 1, (B, 2))
+    offs[: min(B, 4)] = [[0, 0], [16, 16], [0, 16], [16, 0]][: min(B, 4)]
+    return (torch.from_numpy(idx.astype(np.int32)).to(device),
+            torch.from_numpy(np.deg2rad(deg).astype(np.float32)).to(device),
+            torch.from_numpy(offs.astype(np.int32)).to(device))
+
+
+def check_augment(torch, np, aug, caches):
+    """Phase 9; returns (max |kernel - plain| at B=512 in bf16 on the full
+    cache, the same in fp32, and over all cases)."""
+    # Limits: the kernel and the plain version do the same fp32 arithmetic
+    # (the order of a few adds and FMA contraction differ): 1e-5 in fp32, as
+    # test_fused_augment_kernel_interpret_matches_oracle. bf16 rounds nearly
+    # equal fp32 values once: at most one bf16 step, 2^-8 below 1.0.
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2.0**-8}
+    at_main = at_main32 = worst = 0.0
+    for cname, cache in caches.items():
+        N = cache.shape[0]
+        for B in (1, 7, TRAIN_B):
+            idx, ang, offs = aug_args(torch, np, N, B, seed=B + N)
+            for dt in (torch.float32, torch.bfloat16):
+                got = aug.augment_cuda(cache, idx, ang, offs, CROP, dt)
+                want = aug.gather_augment_reference(cache, idx, ang, offs, CROP, dt)
+                torch.cuda.synchronize()
+                if got.shape != (B, CROP, CROP, 3) or got.dtype != dt or not torch.isfinite(got).all():
+                    fail(f"augment output at cache {cname} B={B} {dt} is not a finite {dt} (B, 128, 128, 3)")
+                err = (got.float() - want.float()).abs().max().item()
+                log(f"augment vs plain cache={cname} B={B} {dt}: max_abs_err {err!r} (limit {tol[dt]!r})")
+                if not err <= tol[dt]:
+                    fail(f"augment disagrees with its plain version at cache {cname} B={B} {dt}")
+                worst = max(worst, err)
+                if cname == "full" and B == TRAIN_B:
+                    if dt == torch.bfloat16:
+                        at_main = err
+                    else:
+                        at_main32 = err
+            del got, want
+    # batch-local source, as the cached pipeline's: the batch's own canvases
+    full = caches["full"]
+    idx, ang, offs = aug_args(torch, np, full.shape[0], TRAIN_B, seed=3)
+    src = full[idx.long()].contiguous()
+    local = torch.arange(TRAIN_B, dtype=torch.int32, device="cuda")
+    got = aug.augment_cuda(src, local, ang, offs, CROP, torch.bfloat16)
+    same = aug.augment_cuda(full, idx, ang, offs, CROP, torch.bfloat16)
+    want = aug.gather_augment_reference(src, local, ang, offs, CROP, torch.bfloat16)
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"augment batch-local source B={TRAIN_B}: max_abs_err {err!r}, equal to the gathered launch: "
+        f"{torch.equal(got, same)}")
+    if not err <= tol[torch.bfloat16] or not torch.equal(got, same):
+        fail("augment with a batch-local source disagrees")
+    worst = max(worst, err)
+    # angle 0 at offset (8, 8): exactly the centre crop times fp32(1/255)
+    idx, _, _ = aug_args(torch, np, full.shape[0], 7, seed=4)
+    zero = torch.zeros(7, dtype=torch.float32, device="cuda")
+    eight = torch.full((7, 2), 8, dtype=torch.int32, device="cuda")
+    centre = full[idx.long()][:, 8:8 + CROP, 8:8 + CROP].float() * (1.0 / 255.0)
+    for dt in (torch.float32, torch.bfloat16):
+        if not torch.equal(aug.augment_cuda(full, idx, zero, eight, CROP, dt), centre.to(dt)):
+            fail(f"augment at angle 0, offset (8, 8) is not the centre crop x (1/255) in {dt}")
+    log("augment at angle 0, offset (8, 8): exactly the centre crop x (1/255) in fp32 and bf16")
+    # an index outside the cache: NaN rows, the others untouched
+    bad = torch.tensor([0, -1, full.shape[0], 5], dtype=torch.int32, device="cuda")
+    out = aug.augment_cuda(full, bad, zero[:4], eight[:4], CROP, torch.float32)
+    if not (out[1:3].isnan().all() and torch.isfinite(out[[0, 3]]).all()):
+        fail("augment with indices outside the cache does not give NaN rows (and only there)")
+    log("augment with idx -1 and N: NaN rows, the others finite")
+    return at_main, at_main32, worst
+
+
+def time_augment(torch, np, aug, caches):
+    """Phase 10, times of the augment kernel at B=512 in bf16 on each cache,
+    cold in L2 (a fresh index vector every launch), and of its plain version."""
+    rows = {}
+    for cname, cache in caches.items():
+        N = cache.shape[0]
+        args = [aug_args(torch, np, N, TRAIN_B, seed=1000 + k) for k in range(32)]
+        it = iter(range(10**9))
+
+        def launch():
+            idx, ang, offs = args[next(it) % len(args)]
+            aug.augment_cuda(cache, idx, ang, offs, CROP, torch.bfloat16)
+
+        def plain():
+            idx, ang, offs = args[next(it) % len(args)]
+            aug.gather_augment_reference(cache, idx, ang, offs, CROP, torch.bfloat16)
+
+        b_ms, b_by = aug_bound(aug, TRAIN_B)
+        rows[cname] = {"B": TRAIN_B, "cache_images": N, "ms": cuda_ms(torch, launch, 30),
+                       "plain_ms": cuda_ms(torch, plain, 3, warmup=1), "bound_ms": b_ms, "bound_by": b_by,
+                       "library_ms": None}
+        # the bytes the function needs, over the kernel's time
+        rows[cname]["GB_per_s"] = aug_work(aug, TRAIN_B)[1] / rows[cname]["ms"] / 1e6
+        rows[cname]["x_bound"] = rows[cname]["ms"] / b_ms
+        log(f"time augment {json.dumps(rows[cname])}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 10. Training through the entry point on a synthetic CLEVR directory
+# ---------------------------------------------------------------------------
+
+# (program output function, question template, answers): every CLEVR family
+FAMILIES = [
+    ("count", "How many {c} {s}s are there?", "numbers"),
+    ("exist", "Are there any {z} {m} {s}s?", "bools"),
+    ("equal_integer", "Are there the same number of {c} things and {s}s?", "bools"),
+    ("greater_than", "Are there more {s}s than {c} things?", "bools"),
+    ("less_than", "Are there fewer {m} things than {s}s?", "bools"),
+    ("query_color", "What color is the {z} {s}?", "colors"),
+    ("query_shape", "What shape is the {c} {m} thing?", "shapes"),
+    ("query_material", "What material is the {c} {s}?", "materials"),
+    ("query_size", "What size is the {c} {s}?", "sizes"),
+    ("equal_color", "Is the {s} the same color as the {m} thing?", "bools"),
+    ("equal_shape", "Is the {c} thing the same shape as the {z} thing?", "bools"),
+    ("equal_material", "Is the {z} {s} made of the same material as the {c} thing?", "bools"),
+    ("equal_size", "Is the {m} {s} the same size as the {c} thing?", "bools"),
+]
+
+
+def write_synthetic_clevr(np, root, seed):
+    """A CLEVR-schema directory without PNGs: seeded questions over the 28
+    answers and every question family, and the decoded uint8 caches
+    (rnet_cache/<split>_128p8.u8 + .json) of seeded noise canvases, which
+    CachedClevrDataset reads as they are."""
+    import os
+
+    from rnet_torch.data.vocab import (
+        CLEVR_BOOLS, CLEVR_COLORS, CLEVR_MATERIALS, CLEVR_NUMBERS, CLEVR_SHAPES, CLEVR_SIZES,
+    )
+
+    answers = {"numbers": CLEVR_NUMBERS, "bools": CLEVR_BOOLS, "colors": CLEVR_COLORS,
+               "shapes": CLEVR_SHAPES, "materials": CLEVR_MATERIALS, "sizes": CLEVR_SIZES}
+    rs = np.random.RandomState(seed)
+    gen = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "questions"))
+    os.makedirs(os.path.join(root, "rnet_cache"))
+    for split, n_img, n_q in (("train", AUG_SMALL, SYN_TRAIN_Q), ("val", SYN_VAL_IMAGES, SYN_VAL_Q)):
+        files = [f"CLEVR_{split}_{i:06d}.png" for i in range(n_img)]
+        every = [(f, a) for f in FAMILIES for a in answers[f[2]]]  # each answer and family at least once
+        qs = []
+        for k in range(n_q):
+            fam = every[k] if k < len(every) else None
+            if fam is None:
+                f = FAMILIES[rs.randint(len(FAMILIES))]
+                fam = (f, answers[f[2]][rs.randint(len(answers[f[2]]))])
+            (fn, text, _), ans = fam
+            q = text.format(c=CLEVR_COLORS[rs.randint(8)], s=CLEVR_SHAPES[rs.randint(3)],
+                            m=CLEVR_MATERIALS[rs.randint(2)], z=CLEVR_SIZES[rs.randint(2)])
+            img = int(rs.randint(n_img))
+            qs.append({"split": split, "image_index": img, "image_filename": files[img], "question": q,
+                       "answer": ans, "question_index": k,
+                       "program": [{"function": fn, "inputs": [], "value_inputs": []}]})
+        with open(os.path.join(root, "questions", f"CLEVR_{split}_questions.json"), "w") as f:
+            json.dump({"info": {"split": split, "synthetic": True}, "questions": qs}, f)
+        base = os.path.join(root, "rnet_cache", f"{split}_{CROP}p8")
+        mm = np.lib.format.open_memmap(base + ".u8", mode="w+", dtype=np.uint8, shape=(n_img, CANVAS, CANVAS, 3))
+        for lo in range(0, n_img, 512):
+            mm[lo : lo + 512] = gen.integers(0, 256, size=mm[lo : lo + 512].shape, dtype=np.uint8)
+        mm.flush()
+        del mm
+        with open(base + ".json", "w") as f:
+            json.dump({"files": files, "image_size": CROP, "pad": 8, "n": n_img}, f)
+
+
+def run_cli(argv):
+    from rnet_torch.train.__main__ import main as train_main
+
+    t0 = time.perf_counter()
+    rc = train_main(argv)
+    if rc != 0:
+        fail(f"python -m rnet_torch.train {' '.join(argv)} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def read_history(path):
+    import os
+
+    with open(os.path.join(path, "history.json")) as f:
+        return json.load(f)
+
+
+def entry_point_phase(torch, np, pw, aug, root):
+    """Phase 10, runs (a)-(d); returns (counts of (a), history of (a), (c), (d))."""
+    import os
+    import shutil
+
+    write_synthetic_clevr(np, root, seed=5)
+    base = ["--clevr-dir", root, "--model", "original-fp", "--batch-size", str(TRAIN_B), "--lr", str(LR),
+            "--log-interval", "8", "--num-workers", "4"]
+    d = {k: os.path.join(root, k) for k in ("ck_a", "res_a", "ck_b", "res_b", "ck_c", "res_c", "ck_d", "res_d")}
+    steps_per_epoch = SYN_TRAIN_Q // TRAIN_B
+    eval_batches = -(-SYN_VAL_Q // TRAIN_B)
+    torch.backends.cudnn.deterministic = True  # (a) and (b) must agree bit for bit
+
+    # (a) the main path: device pipeline, augmentation on, 2 epochs
+    pw.reset_launches()
+    aug.reset_launches()
+    sec = run_cli(base + ["--data-pipeline", "device", "--epochs", "2", "--checkpoint-dir", d["ck_a"],
+                          "--test-results-dir", d["res_a"]])
+    torch.cuda.synchronize()
+    counts = {**pw.launches, **aug.launches}
+    hist_a = read_history(d["res_a"])
+    n_steps = 2 * steps_per_epoch
+    log(f"entry point (a) device pipeline, 2 epochs of {steps_per_epoch} steps at B={TRAIN_B}: "
+        f"{sec:.1f} s, launches {counts}; history {json.dumps(hist_a)}")
+    want = {aug.KERNEL: n_steps, pw.BWD_KERNEL: n_steps, pw.KERNEL: n_steps + 2 * eval_batches, "pair_mask": 0}
+    if counts != want:
+        fail(f"(a) expected launches {want} (augment = train steps, eval never augments), counted {counts}")
+    for h in hist_a:
+        if not (np.isfinite(h["train_loss"]) and np.isfinite(h["val_nll"]) and 0.0 <= h["val_acc"] <= 1.0):
+            fail(f"(a) epoch {h['epoch']} is not finite: {h}")
+    with open(os.path.join(d["res_a"], "val_epoch002_accuracy.csv")) as f:
+        fams = {line.split(",")[0] for line in f if line.startswith("category_")}
+    if len(fams) != 5:
+        fail(f"(a) the per-family report lacks families: {sorted(fams)}")
+
+    # (b) resume from a copy of epoch 1: epoch 2 again, bit for bit
+    os.makedirs(d["ck_b"])
+    for name in ("original-fp_epoch_001", "original-fp_dictionaries.json"):
+        shutil.copy(os.path.join(d["ck_a"], name), d["ck_b"])
+    run_cli(base + ["--data-pipeline", "device", "--epochs", "2", "--checkpoint-dir", d["ck_b"],
+                    "--test-results-dir", d["res_b"], "--resume", "1"])
+    (hb,) = read_history(d["res_b"])
+    pa = torch.load(os.path.join(d["ck_a"], "original-fp_epoch_002"), map_location="cpu", weights_only=True)
+    pb = torch.load(os.path.join(d["ck_b"], "original-fp_epoch_002"), map_location="cpu", weights_only=True)
+    differ = [k for k in pa["model"] if not torch.equal(pa["model"][k], pb["model"][k])]
+    log(f"entry point (b) resumed from epoch 1: epoch-2 loss {hb['train_loss']!r} vs {hist_a[1]['train_loss']!r}, "
+        f"val_nll {hb['val_nll']!r} vs {hist_a[1]['val_nll']!r}, "
+        f"{len(pa['model']) - len(differ)} of {len(pa['model'])} tensors bitwise equal, step {pb['step']} vs {pa['step']}")
+    if differ or hb["train_loss"] != hist_a[1]["train_loss"] or hb["val_nll"] != hist_a[1]["val_nll"] \
+            or pa["step"] != pb["step"]:
+        fail(f"the resumed run is not bitwise equal to the uninterrupted one: {differ}")
+
+    # (c) cached pipeline: host batches of padded canvases, augmented batch-locally
+    pw.reset_launches()
+    aug.reset_launches()
+    run_cli(base + ["--data-pipeline", "cached", "--epochs", "2", "--checkpoint-dir", d["ck_c"],
+                    "--test-results-dir", d["res_c"]])
+    torch.cuda.synchronize()
+    hist_c = read_history(d["res_c"])
+    log(f"entry point (c) cached pipeline: launches {dict(aug.launches)}; history {json.dumps(hist_c)}")
+    if aug.launches[aug.KERNEL] != n_steps or pw.launches[pw.BWD_KERNEL] != n_steps:
+        fail(f"(c) expected {n_steps} augment and pairwise_bwd launches, counted {aug.launches} {pw.launches}")
+
+    # (d) device pipeline without augmentation
+    aug.reset_launches()
+    run_cli(base + ["--data-pipeline", "device", "--no-device-augment", "--epochs", "2",
+                    "--checkpoint-dir", d["ck_d"], "--test-results-dir", d["res_d"]])
+    hist_d = read_history(d["res_d"])
+    log(f"entry point (d) device pipeline, --no-device-augment: launches {dict(aug.launches)}; "
+        f"history {json.dumps(hist_d)}")
+    if aug.launches[aug.KERNEL] != 0:
+        fail("(d) launched the augment kernel with --no-device-augment")
+    for h in hist_c + hist_d:
+        if not np.isfinite(h["train_loss"]):
+            fail(f"(c)/(d) non-finite loss: {h}")
+    torch.backends.cudnn.deterministic = False
+
+    # (a) and (d) again in the entry point's own mode (cuDNN free to pick its
+    # algorithms, as `python -m rnet_torch.train` runs), in the order a d d a
+    # so that neither always runs later in the call
+    abba = {"a": [], "d": []}
+    for k, arm in enumerate("adda"):
+        extra = [] if arm == "a" else ["--no-device-augment"]
+        run_cli(base + ["--data-pipeline", "device", "--epochs", "2", *extra,
+                        "--checkpoint-dir", os.path.join(root, f"ck_abba{k}"),
+                        "--test-results-dir", os.path.join(root, f"res_abba{k}")])
+        h = read_history(os.path.join(root, f"res_abba{k}"))
+        if not all(np.isfinite(e["train_loss"]) for e in h):
+            fail(f"run {k} ({arm}) of a d d a: non-finite loss {h}")
+        abba[arm].append([e["qps"] for e in h])
+    log(f"entry point (a) / (d) in the order a d d a, default cuDNN (epochs 1, 2 questions/s): {json.dumps(abba)}")
+    return counts, hist_a, hist_c, hist_d, abba
+
+
+def entry_step(torch, root, extra):
+    """One train step, as a function, of the entry point's Trainer for the
+    device pipeline at B=512 with the flags `extra`."""
+    from rnet_torch.cli import build_datasets, config_from_args, load_dicts
+    from rnet_torch.train import steps
+    from rnet_torch.train.__main__ import parse_args
+    from rnet_torch.train.loop import Trainer
+    from rnet_torch.train.schedules import DoublingSchedule
+
+    args = parse_args(["--clevr-dir", root, "--model", "original-fp", "--data-pipeline", "device",
+                       "--batch-size", str(TRAIN_B), *extra])
+    dicts = load_dicts(args)
+    cfg = config_from_args(args, dicts)
+    ds = build_datasets(args, cfg, dicts)
+    tr = Trainer(cfg, dicts.vocab_size, ds["train"], ds["val"], dicts, lr=DoublingSchedule(LR),
+                 bs=DoublingSchedule(TRAIN_B), checkpoint_dir=root + "/ck_profile", device_data=True,
+                 log_fn=lambda *a: None)
+    batch = {k: v[:TRAIN_B] for k, v in tr.train_data.items()}
+    return lambda: steps.train_step(tr.state, batch, tr.train_cache)
+
+
+def profile_entry_step(torch, root):
+    """One train step of run (a) (device pipeline with augmentation, B=512)
+    and of run (d) (without): their steps timed alternately, one at a time
+    (CUDA events around each step and the host clock to its synchronize),
+    with cuDNN's deterministic algorithms and without; then a profile of
+    each (device busy, idle share, the augment kernel's share) and the
+    kernels whose device time differs most between the two."""
+    fns = {"a": entry_step(torch, root, []), "d": entry_step(torch, root, ["--no-device-augment"])}
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = {}
+    for det in (True, False):
+        torch.backends.cudnn.deterministic = det
+        ms = {arm: {"events": [], "host": []} for arm in fns}
+        for k in range(8):
+            for arm in ("ad" if k % 2 == 0 else "da"):
+                if k == 0:
+                    fns[arm]()  # first step in this mode: cuDNN's algorithm choice
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev0.record()
+                fns[arm]()
+                ev1.record()
+                torch.cuda.synchronize()
+                ms[arm]["host"].append((time.perf_counter() - t0) * 1e3)
+                ms[arm]["events"].append(ev0.elapsed_time(ev1))
+        mean = {arm: {clock: sum(v) / len(v) for clock, v in m.items()} for arm, m in ms.items()}
+        times["deterministic" if det else "default"] = mean
+        log(f"entry steps (a) / (d) alternated, cudnn.deterministic={det}, 8 each (ms): {json.dumps(ms)}; "
+            f"means {json.dumps(mean)}")
+    torch.backends.cudnn.deterministic = False
+    out, kernel_ms = {"alternated_step_ms": times}, {}
+    for arm, what in (("a", "(a) device pipeline with augmentation"), ("d", "(d) --no-device-augment")):
+        wall = cuda_ms(torch, fns[arm], 5, warmup=1)
+        busy, rows = log_profile(torch, f"train step through the entry point's Trainer, {what}, B=512", fns[arm],
+                                 wall)
+        kernel_ms[arm] = {}
+        for r in rows:
+            kernel_ms[arm][r[2]] = kernel_ms[arm].get(r[2], 0.0) + r[0]
+        out[arm] = {"step_ms_events": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall}
+    names = set(kernel_ms["a"]) | set(kernel_ms["d"])
+    diff = sorted(((kernel_ms["a"].get(n, 0.0) - kernel_ms["d"].get(n, 0.0), n) for n in names),
+                  key=lambda x: -abs(x[0]))
+    for dms, name in diff[:8]:
+        log(f"  device ms (a) - (d): {dms!r} {name[:100]}")
+    aug_ms = sum(v for n, v in kernel_ms["a"].items() if "augment_kernel" in n)
+    out["a"].update(augment_ms=aug_ms, augment_share_of_busy=aug_ms / out["a"]["busy_ms"])
+    log(f"entry step profile {json.dumps(out)}")
+    if aug_ms <= 0 or any("augment_kernel" in n for n in kernel_ms["d"]):
+        fail("the profiled step of (a) shows no augment kernel, or that of (d) shows one")
     return out
 
 
@@ -596,6 +1011,7 @@ def main() -> int:
             CLEVR_BOOLS, CLEVR_COLORS, CLEVR_MATERIALS, CLEVR_NUMBERS,
             CLEVR_SHAPES, CLEVR_SIZES, Dictionaries,
         )
+        from rnet_torch.kernels import augment as aug
         from rnet_torch.kernels import build
         from rnet_torch.kernels import pairwise as pw
     except ImportError as e:
@@ -609,7 +1025,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- 2. build ----
-    kernels = [pw.KERNEL, pw.BWD_KERNEL]
+    kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL]
     t0 = time.perf_counter()
     build.build(kernels)
     log(f"build: {kernels} in {time.perf_counter() - t0:.1f} s")
@@ -668,10 +1084,47 @@ def main() -> int:
         inputs, q = server.batch_arrays(burst[:bucket], bucket)
         wall = cuda_ms(torch, lambda: server.log_probs(inputs, q), 20)
         log_profile(torch, f"served forward, bucket {bucket}", lambda: server.log_probs(inputs, q), wall)
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+    del server, state, batch
+    torch.cuda.empty_cache()
+
+    # ---- 9. the augment kernel vs its plain version ----
+    gen = torch.Generator(device="cuda").manual_seed(70_000)
+    caches = {
+        str(AUG_SMALL): torch.randint(0, 256, (AUG_SMALL, CANVAS, CANVAS, 3), generator=gen, device="cuda",
+                                      dtype=torch.uint8),
+        "full": torch.randint(0, 256, (CLEVR_TRAIN_IMAGES, CANVAS, CANVAS, 3), generator=gen, device="cuda",
+                              dtype=torch.uint8),
+    }
+    log(f"augment caches: {AUG_SMALL} and {CLEVR_TRAIN_IMAGES} canvases ({caches['full'].numel() / 1e9:.2f} GB)")
+    aug_err, aug_err32, aug_err_all = check_augment(torch, np, aug, caches)
+    aug_times = time_augment(torch, np, aug, caches)
+    del caches
+    torch.cuda.empty_cache()
+    log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 10. training through the entry point ----
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="rnet_torch_smoke_")
+    try:
+        entry_counts, hist_a, hist_c, hist_d, abba = entry_point_phase(torch, np, pw, aug, root)
+        qps = {"a_device_augment": [h["qps"] for h in hist_a], "c_cached_augment": [h["qps"] for h in hist_c],
+               "d_device_no_augment": [h["qps"] for h in hist_d]}
+        log(f"entry point epoch questions/s (host clock; epochs 1, 2): {json.dumps(qps)}")
+        log(f"epoch-2 questions/s, (a) / (d): {qps['a_device_augment'][1] / qps['d_device_no_augment'][1]!r}, "
+            f"(c) / (a): {qps['c_cached_augment'][1] / qps['a_device_augment'][1]!r}")
+        a2, d2 = (sum(r[1] for r in abba[arm]) / len(abba[arm]) for arm in "ad")
+        log(f"epoch-2 questions/s in the order a d d a, default cuDNN: (a) {a2!r}, (d) {d2!r}, (a) / (d) {a2 / d2!r}")
+        profile_entry_step(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
 
     # max_abs_err: at `shape`, the shape the times are taken at (keep 1 and
-    # 0.75); max_abs_err_all_cases: over every checked case.
+    # 0.75; the augment kernel's bf16 output); max_abs_err_all_cases: over
+    # every checked case.
     def record(name, source, replaces, launches, err, row, **extra):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -682,13 +1135,21 @@ def main() -> int:
     records = [
         record(pw.KERNEL, "rnet_torch/csrc/pairwise_fwd.cu", "rnet/kernels/pairwise.py:83",
                train_counts[pw.KERNEL], fwd_err_at_shape, fwd[TRAIN_B], shape=shape,
-               max_abs_err_all_cases=fwd_err, serve_launches=serve_launches),
+               max_abs_err_all_cases=fwd_err, serve_launches=serve_launches,
+               entry_point_launches=entry_counts[pw.KERNEL]),
         record(pw.BWD_KERNEL, "rnet_torch/csrc/pairwise_bwd.cu", "rnet/kernels/pairwise.py:120",
                train_counts[pw.BWD_KERNEL], bwd_err_at_shape, bwd[TRAIN_B], shape=shape,
-               max_abs_err_all_cases=bwd_err),
+               max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL]),
         record("pair_mask", "rnet_torch/csrc/philox.cuh", "rnet/kernels/pairwise.py:69",
                pd_counts["pair_mask"], float(mask_err), mask,
                shape={"B": TRAIN_B, "n": 64}, launches_of="one train step with pair_dropout 0.25"),
+        record(aug.KERNEL, "rnet_torch/csrc/augment.cu", "rnet/kernels/augment.py:134",
+               entry_counts[aug.KERNEL], aug_err, aug_times["full"],
+               shape={"B": TRAIN_B, "canvas": CANVAS, "crop": CROP, "cache_images": CLEVR_TRAIN_IMAGES,
+                      "out": "bfloat16"},
+               max_abs_err_fp32=aug_err32, max_abs_err_all_cases=aug_err_all,
+               ms_cache_2048=aug_times[str(AUG_SMALL)]["ms"],
+               launches_of="run (a): python -m rnet_torch.train --data-pipeline device, 2 epochs of 16 steps"),
     ]
     log(card)
     log(json.dumps({"kernels": records}))

@@ -48,7 +48,7 @@ def load_exported_dicts(path: str) -> Optional[Tuple[dict, dict]]:
     return (d["word_to_idx"], d["answer_to_idx"]) if d else None
 
 
-def _check_match(path: str, got: dict, want: dict) -> None:
+def check_match(path: str, got: dict, want: dict) -> None:
     """Raise naming every missing, unexpected or misshapen tensor (wrong --model?)."""
     problems = [f"  missing {k} (model expects {tuple(want[k].shape)})" for k in sorted(set(want) - set(got))]
     problems += [f"  unexpected {k} (checkpoint has {tuple(got[k].shape)})" for k in sorted(set(got) - set(want))]
@@ -74,7 +74,7 @@ def load_weights(model: nn.Module, checkpoint: str) -> None:
         )
     sd = flax_to_state_dict(_read_pkl(ck))
     want = model.state_dict()
-    _check_match(ck, sd, want)
+    check_match(ck, sd, want)
     model.load_state_dict({k: v.to(want[k].dtype) for k, v in sd.items()})
 
 

@@ -1,7 +1,7 @@
 """Shared CLI plumbing of the port's entry points.
 
-Port of the serving subset of ``rnet/cli.py``: ``add_common_args`` with the
-same flag names (so a command line carries across), ``config_from_args`` and
+Port of ``rnet/cli.py``: ``add_common_args`` with the same flag names (so a
+command line carries across), ``config_from_args``, ``build_datasets`` and
 ``load_dicts`` (dictionaries carried by the checkpoint, messages on stderr
 only: serve's stdout is a JSON-lines protocol). ``--platform`` picks the
 device: ``default`` is CUDA, ``cpu`` the opt-in; a missing card raises
@@ -13,8 +13,10 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import Any, Dict
 
 from .config import DEFAULT_CONFIG_PATH, ModelConfig, load_config
+from .data.clevr import ClevrDataset, ClevrDatasetStateDescription
 from .data.vocab import Dictionaries, build_dictionaries
 
 
@@ -85,6 +87,36 @@ def config_from_args(args: argparse.Namespace, dicts: Dictionaries) -> ModelConf
         overrides["device_augment"] = True
     cfg = load_config(args.model, args.config, overrides)
     return cfg.replace(n_answers=dicts.n_answers)
+
+
+def build_datasets(args: argparse.Namespace, cfg: ModelConfig, dicts: Dictionaries) -> Dict[str, Any]:
+    """The train and val datasets for ``--data-pipeline``: per-item PNG
+    decode (``pil``), or the decoded cache (``cached``; ``device`` also
+    serves image indices for the device-resident Trainer). With
+    ``device_augment`` the cached canvases ship padded for the on-device
+    crop, and the ``pil`` transform leaves the rotation to the device."""
+    out = {}
+    pipeline = getattr(args, "data_pipeline", "pil")
+    for split in ("train", "val"):
+        train_tf = split == "train"
+        if cfg.state_description:
+            out[split] = ClevrDatasetStateDescription(
+                args.clevr_dir, split, dicts, max_objects=cfg.max_objects, object_dim=cfg.object_dim,
+                question_max_len=cfg.question_max_len,
+            )
+        elif pipeline in ("cached", "device"):
+            from .data.cache import CachedClevrDataset
+
+            out[split] = CachedClevrDataset(
+                args.clevr_dir, split, dicts, image_size=cfg.image_size, question_max_len=cfg.question_max_len,
+                train_transform=train_tf, serve_padded=cfg.device_augment, serve_indices=(pipeline == "device"),
+            )
+        else:
+            out[split] = ClevrDataset(
+                args.clevr_dir, split, dicts, image_size=cfg.image_size, question_max_len=cfg.question_max_len,
+                train_transform=train_tf, max_rot_deg=0.0 if cfg.device_augment else 2.8,
+            )
+    return out
 
 
 def load_dicts(args: argparse.Namespace, checkpoint=None, checkpoint_dir=None) -> Dictionaries:

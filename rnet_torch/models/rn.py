@@ -8,12 +8,18 @@ Port of ``rnet/models/rn.py`` (``extract`` comes with a later slice):
   * state-description: objects (B, n, object_dim) straight from the request.
 Then the question LSTM and the RelationalLayer give (B, n_answers) log-probs.
 
+Padded images (S > image_size, the cached pipeline's canvases) are cropped
+before the cast: at random with per-group offsets in train mode with
+``device_augment``, else at the centre ((S - image_size) // 2). In train mode
+with ``device_augment`` the images are then rotated by a random small angle
+(``rnet_torch/data/augment.py``, in the compute dtype). ``augmented=True``
+says the inputs already went through the fused augment kernel
+(``rnet_torch/kernels/augment.py``): they go straight to the conv.
+
 ``module.train()`` selects the training forward: BatchNorm batch statistics,
-f_phi dropout and pair dropout, with every random draw from the
-``generator`` passed to ``forward``. The device augmentation of rnet's
-training path (random crop of padded images, rotation; ``device_augment``)
-is not ported yet (ROADMAP slice 4), so training with it, or on padded
-images, raises instead of training on other inputs than asked for.
+f_phi dropout, pair dropout and the augmentation, with every random draw
+from the ``generator`` passed to ``forward`` (crop offsets, then angles,
+then the relational layer's draws).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..data.augment import center_crop_batch, random_crop_batch, random_rotate_batch
 from .conv import ConvInputModel
 from .relational import RelationalLayer
 from .text import QuestionEmbedModel
@@ -72,30 +79,34 @@ class RN(nn.Module):
             impl=cfg.rl_impl, dtype=self.dtype, generator=gen,
         )
 
-    def objects(self, inputs: torch.Tensor) -> torch.Tensor:
+    def objects(self, inputs: torch.Tensor, generator: Optional[torch.Generator] = None,
+                augmented: bool = False) -> torch.Tensor:
         cfg = self.cfg
         if cfg.state_description:
             return inputs
-        if self.training and cfg.device_augment:
-            raise NotImplementedError(
-                "training with device_augment=True needs the augment kernel "
-                "(random crop + rotation, rnet/kernels/augment.py), which is not "
-                "ported yet (ROADMAP slice 4); train with device_augment=False"
-            )
-        padded = inputs.shape[1] > cfg.image_size and inputs.shape[2] > cfg.image_size
-        if self.training and padded:
-            raise NotImplementedError(
-                f"training on padded {tuple(inputs.shape)} images needs the random "
-                "crop of the augment path, which is not ported yet (ROADMAP slice 4)"
-            )
-        if inputs.shape[1] != cfg.image_size or inputs.shape[2] != cfg.image_size:
-            raise ValueError(
-                f"expected (B, {cfg.image_size}, {cfg.image_size}, 3) images, got "
-                f"{tuple(inputs.shape)} (padded cached-pipeline images come with the data-feed slice)"
-            )
         x = inputs
+        if augmented:
+            return self._grid_objects(x)
+        augment = self.training and cfg.device_augment
+        if augment and generator is None:
+            raise ValueError("device_augment in train mode needs a torch.Generator on the input's device")
+        if x.shape[1] > cfg.image_size:
+            if augment:
+                x = random_crop_batch(x, generator, cfg.image_size)
+            else:
+                x = center_crop_batch(x, cfg.image_size)
+        if x.shape[1] != cfg.image_size or x.shape[2] != cfg.image_size:
+            raise ValueError(
+                f"expected (B, {cfg.image_size}, {cfg.image_size}, 3) images or a larger "
+                f"square canvas, got {tuple(inputs.shape)}"
+            )
         if x.dtype == torch.uint8:
             x = x.to(self.dtype) / 255.0
+        if augment:
+            x = random_rotate_batch(x, generator)
+        return self._grid_objects(x)
+
+    def _grid_objects(self, x: torch.Tensor) -> torch.Tensor:
         feats = self.conv(x)  # (B, g, g, C)
         B, g, _, C = feats.shape
         objs = feats.reshape(B, g * g, C)
@@ -107,8 +118,8 @@ class RN(nn.Module):
         inputs: torch.Tensor,  # (B,S,S,3) image or (B,n,obj_dim) objects
         question: torch.Tensor,  # (B, T) integer token ids
         n_objects: Optional[torch.Tensor] = None,  # (B,) SD real-object counts
-        generator: Optional[torch.Generator] = None,  # train-mode dropout draws
+        generator: Optional[torch.Generator] = None,  # train-mode random draws
+        augmented: bool = False,  # inputs already cropped/rotated/normalized
     ) -> torch.Tensor:
-        return self.relational(
-            self.objects(inputs), self.text(question), n_objects=n_objects, generator=generator
-        )
+        objects = self.objects(inputs, generator, augmented)
+        return self.relational(objects, self.text(question), n_objects=n_objects, generator=generator)

@@ -1,0 +1,284 @@
+"""Epoch loop: train -> eval -> checkpoint, with LR and batch-size doubling.
+
+Port of ``rnet/train/loop.py::Trainer`` on one device (CUDA, or the CPU when
+asked for):
+  * host batches (``pil`` and ``cached`` pipelines): ``BatchIterator`` ->
+    pinned, prefetched device copies -> ``train_step``; a ``cached`` batch
+    of padded canvases goes through the fused augment kernel batch-locally;
+  * device-resident data (``device`` pipeline, ``device_data=True``): the
+    padded uint8 image cache of each split is uploaded to the card once
+    (4.35 GB for CLEVR train at 144^2), with the per-question tokens,
+    answers and image indices; each step gathers its batch on the device
+    from a (steps, B) index block uploaded once per epoch, with rnet's
+    permutation ``np.random.RandomState((seed * 1_000_003 + epoch) % 2**31)``,
+    so the host sends no pixels. Eval keeps predictions, labels, the valid
+    mask and the NLL sum on the device and fetches them once per epoch;
+  * every epoch: LR and batch size from their ``DoublingSchedule``s, eval
+    with the per-answer and per-family reports, a full-state checkpoint.
+Multi-GPU runs (rnet's ``--mesh``, ``--multihost``) come with a later
+slice; the CLI refuses them.
+"""
+
+from __future__ import annotations
+
+import re
+import time
+import warnings
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..data.pipeline import BatchIterator, prefetch_to_device
+from ..data.vocab import invert_questions
+from ..eval.metrics import EvalAccumulator
+from ..models import RN
+from ..serve import resolve_device
+from ..utils.profiling import ScalarWriter, profile_trace
+from . import steps
+from .checkpoint import CheckpointManager
+from .schedules import DoublingSchedule
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        vocab_size: int,
+        train_ds: Any,
+        val_ds: Any,
+        dicts: Any,
+        *,
+        lr: DoublingSchedule,
+        bs: DoublingSchedule,
+        clip_norm: float = 50.0,
+        weight_decay: float = 0.0,
+        seed: int = 42,
+        invert: bool = True,
+        num_threads: int = 8,
+        checkpoint_dir: str = "model",
+        keep_checkpoints: int = 0,
+        log_interval: int = 10,
+        log_fn=print,
+        tb_dir: Optional[str] = None,
+        profile_dir: Optional[str] = None,
+        profile_epoch: int = 1,
+        device_data: bool = False,
+        watchdog=None,
+        device="cuda",
+    ):
+        self.cfg = cfg
+        self.dicts = dicts
+        self.train_ds = train_ds
+        self.val_ds = val_ds
+        self.lr_sched = lr
+        self.bs_sched = bs
+        self.seed = seed
+        self.invert = invert
+        self.num_threads = num_threads
+        self.log_interval = max(1, log_interval)
+        self.log = log_fn
+        # heartbeat of the stall watchdog (rnet_torch/utils/watchdog.py)
+        self._beat = watchdog.beat if watchdog is not None else (lambda: None)
+        self.device = resolve_device(device)
+
+        model = RN(cfg, vocab_size, generator=torch.Generator().manual_seed(seed)).to(self.device)
+        self.state = steps.create_train_state(model, steps.make_optimizer(lr.base, clip_norm, weight_decay), seed=seed)
+        self.ckpt = CheckpointManager(checkpoint_dir, cfg.name, keep=keep_checkpoints, dicts=dicts)
+
+        self.train_cache = self._device_cache(train_ds)
+        self._beat()  # each heavy init stage restarts the stall clock
+        self.val_cache = self.train_cache if val_ds is train_ds else self._device_cache(val_ds)
+        self._beat()
+        self.train_data = self.val_data = None
+        if device_data and getattr(train_ds, "device_arrays", None) and train_ds.device_arrays() is not None:
+            self.train_data = self._device_data(train_ds, self.train_cache)
+            self.val_data = self.train_data if val_ds is train_ds else self._device_data(val_ds, self.val_cache)
+            self._beat()
+        self.epoch = 0
+        self.history: list = []
+        self.scalars = ScalarWriter(tb_dir)
+        self.profile_dir = profile_dir
+        self.profile_epoch = profile_epoch
+        self._last_bs = None
+
+    # ---- device-resident data ----
+
+    def _device_cache(self, ds) -> Optional[torch.Tensor]:
+        """The split's decoded padded uint8 images on the device, for
+        datasets that serve image indices (else None)."""
+        if not getattr(ds, "serve_indices", False):
+            return None
+        with warnings.catch_warnings():  # the memmap is read-only; nothing writes through it
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            host = torch.from_numpy(ds.images)
+        return host.to(self.device)
+
+    def _device_data(self, ds, cache) -> Dict[str, torch.Tensor]:
+        arrs = dict(ds.device_arrays())
+        if self.invert:
+            arrs["question"] = invert_questions(arrs["question"])
+        if "image_idx" in arrs:
+            idx = arrs["image_idx"]
+            if cache is None or idx.size and not 0 <= idx.min() <= idx.max() < cache.shape[0]:
+                raise ValueError("image indices of the dataset fall outside its image cache")
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in arrs.items()}
+
+    # ---- resume ----
+
+    @staticmethod
+    def _epoch_of(path_or_epoch) -> int:
+        if isinstance(path_or_epoch, int):
+            return path_or_epoch
+        m = re.search(r"_epoch_(\d+)", str(path_or_epoch))
+        return int(m.group(1)) if m else 0
+
+    def restore_weights(self, path_or_epoch) -> int:
+        """Parameters and BatchNorm buffers only (eval, inference)."""
+        self.ckpt.restore_weights(self.state, path_or_epoch)
+        self.epoch = self._epoch_of(path_or_epoch)
+        return self.epoch
+
+    def resume(self, path_or_epoch) -> int:
+        self.ckpt.restore(self.state, path_or_epoch)
+        self.epoch = self._epoch_of(path_or_epoch)
+        return self.epoch
+
+    # ---- epochs ----
+
+    def _val_categories(self):
+        fn = getattr(self.val_ds, "question_categories", None)
+        return fn() if fn is not None else None
+
+    def _log_step(self, epoch: int, done: int, nb: int, m: torch.Tensor, lr: float, bs: int) -> None:
+        """Log one step's (loss, accuracy, grad_norm); the fetch waits for it."""
+        loss, acc, gnorm = (float(x) for x in m.tolist())
+        self.log(f"Train Epoch: {epoch} [{done}/{nb}] Loss: {loss:.4f} Acc: {acc:.3f} LR: {lr:.2e} BS: {bs}")
+        self.scalars.write(
+            self.state.step,
+            {"train/loss": loss, "train/accuracy": acc, "train/grad_norm": gnorm, "train/lr": lr},
+        )
+        self._beat()
+
+    def _device_batches(self, epoch: int, bs: int):
+        """The epoch's batches gathered on the device, in rnet's order."""
+        n = len(self.train_ds)
+        nb = n // bs
+        order = (
+            np.random.RandomState((self.seed * 1_000_003 + epoch) % (2**31))
+            .permutation(n)[: nb * bs]
+            .astype(np.int32)
+            .reshape(nb, bs)
+        )
+        order = torch.from_numpy(order).to(self.device)  # one upload per epoch
+        for k in range(nb):
+            yield {key: v[order[k]] for key, v in self.train_data.items()}
+
+    def _train_steps(self, epoch: int, bs: int, lr: float) -> np.ndarray:
+        """Run the epoch's steps; (steps, 3) loss, accuracy, grad_norm."""
+        if self.train_data is not None:
+            batches, nb = self._device_batches(epoch, bs), len(self.train_ds) // bs
+        else:
+            it = BatchIterator(
+                self.train_ds, bs, shuffle=True, seed=self.seed, epoch=epoch, drop_last=True,
+                invert=self.invert, num_threads=self.num_threads,
+            )
+            batches, nb = prefetch_to_device(iter(it), self.device), len(it)
+        ms = []
+        for k, batch in enumerate(batches):
+            m = steps.train_step(self.state, batch, self.train_cache)
+            ms.append(torch.stack([m["loss"], m["accuracy"], m["grad_norm"]]))
+            if (k + 1) % self.log_interval == 0 or k + 1 == nb:
+                self._log_step(epoch, k + 1, nb, ms[-1], lr, bs)
+        # one fetch per epoch: the per-step metrics stayed on the device
+        return torch.stack(ms).cpu().numpy() if ms else np.zeros((0, 3), np.float32)
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        lr = self.lr_sched.value(epoch)
+        bs = max(1, self.bs_sched.int_value(epoch))
+        if self._last_bs is not None and bs != self._last_bs:
+            self.log(f"BS schedule: {self._last_bs} -> {bs} at epoch {epoch}")
+        self._last_bs = bs
+        steps.set_learning_rate(self.state, lr)
+        prof_dir = self.profile_dir if epoch == self.profile_epoch else None
+        t0 = time.time()
+        with profile_trace(prof_dir):
+            ms = self._train_steps(epoch, bs, lr)
+        dt = time.time() - t0
+        nan = float("nan")
+        return {
+            "epoch": epoch,
+            "train_loss": float(ms[:, 0].mean()) if len(ms) else nan,
+            "train_acc": float(ms[:, 1].mean()) if len(ms) else nan,
+            "lr": lr,
+            "batch_size": bs,
+            "sec": dt,
+            "qps": len(ms) * bs / dt if dt > 0 else 0.0,
+        }
+
+    def _eval_batches_device(self, bs: int):
+        """Device batches of the val split with valid/index, in order."""
+        n = len(self.val_ds)
+        nb = -(-n // bs)
+        idx = np.zeros((nb * bs,), np.int32)
+        idx[:n] = np.arange(n, dtype=np.int32)
+        valid = np.zeros((nb * bs,), bool)
+        valid[:n] = True
+        idx_d = torch.from_numpy(idx).to(self.device)
+        valid_d = torch.from_numpy(valid).to(self.device)
+        for k in range(nb):
+            sl = slice(k * bs, (k + 1) * bs)
+            batch = {key: v[idx_d[sl]] for key, v in self.val_data.items()}
+            batch["valid"] = valid_d[sl]
+            batch["index"] = idx_d[sl]
+            yield batch
+
+    def eval_epoch(self, epoch: int, batch_size: Optional[int] = None) -> Dict[str, Any]:
+        bs = max(1, batch_size or self.bs_sched.int_value(max(epoch, 1)))
+        acc = EvalAccumulator(self.dicts, categories=self._val_categories())
+        t0 = time.time()
+        if self.val_data is not None:
+            batches = self._eval_batches_device(bs)
+        else:
+            it = BatchIterator(
+                self.val_ds, bs, shuffle=False, drop_last=False, invert=self.invert, num_threads=self.num_threads
+            )
+            batches = prefetch_to_device(iter(it), self.device)
+        outs = {"pred": [], "label": [], "valid": [], "index": []}
+        nll = torch.zeros((), dtype=torch.float32, device=self.device)
+        for batch in batches:
+            out = steps.eval_step(self.state, batch, self.val_cache)
+            for k in outs:
+                outs[k].append(out[k])
+            nll = nll + out["nll_sum"]
+        # one fetch per epoch: everything stayed on the device until here
+        host = {k: torch.cat(v).cpu().numpy() for k, v in outs.items() if v}
+        if host:
+            acc.update(host["pred"], host["label"], host["valid"], float(nll), qidx=host["index"])
+        dt = time.time() - t0
+        self.log(f"Eval Epoch: {epoch} accuracy: {acc.accuracy:.4f} nll: {acc.mean_nll:.4f} ({acc.n / dt:.0f} q/s)")
+        self._beat()
+        return {
+            "epoch": epoch,
+            "val_acc": acc.accuracy,
+            "val_nll": acc.mean_nll,
+            "val_qps": acc.n / dt if dt > 0 else 0.0,
+            "_accumulator": acc,
+        }
+
+    def fit(self, epochs: int, eval_every: int = 1, save_every: int = 1, results_dir: Optional[str] = None) -> list:
+        for epoch in range(self.epoch + 1, epochs + 1):
+            stats = self.train_epoch(epoch)
+            if eval_every and epoch % eval_every == 0:
+                estats = self.eval_epoch(epoch)
+                acc = estats.pop("_accumulator")
+                stats.update(estats)
+                if results_dir:
+                    acc.dump(results_dir, tag=f"val_epoch{epoch:03d}")
+            if save_every and epoch % save_every == 0:
+                self.ckpt.save(self.state, epoch)
+                self._beat()
+            self.epoch = epoch
+            self.history.append(stats)
+        return self.history

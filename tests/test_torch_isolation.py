@@ -37,10 +37,15 @@ names = ["rnet_torch"] + [m.name for m in pkgutil.walk_packages(rnet_torch.__pat
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "rnet", "serve"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "rnet", "serve", "train", "PIL"))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 17, names
+want = {"rnet_torch.kernels.augment", "rnet_torch.data.augment", "rnet_torch.data.cache",
+        "rnet_torch.data.categories", "rnet_torch.data.pipeline", "rnet_torch.eval.metrics",
+        "rnet_torch.train.checkpoint", "rnet_torch.train.loop", "rnet_torch.train.__main__",
+        "rnet_torch.utils.watchdog", "rnet_torch.utils.profiling"}
+assert want <= set(names), sorted(want - set(names))
+assert len(names) >= 30, names
 """
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr

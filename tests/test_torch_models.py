@@ -193,6 +193,24 @@ def test_full_rn_matches_jax(name):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("pad", [8, 5])
+def test_padded_eval_matches_jax(pad):
+    """Eval on padded canvases (the cached/device pipelines' val cache):
+    both packages center-crop at (S - image_size) // 2, cast, divide by 255."""
+    jcfg, tcfg = _shrunk("original-fp")
+    rs = np.random.RandomState(8)
+    S = 32 + 2 * pad
+    inputs = rs.randint(0, 256, size=(3, S, S, 3)).astype(np.uint8)
+    tokens = rs.randint(1, V, size=(3, 12)).astype(np.int32)
+    jm = JaxRN(cfg=jcfg, vocab_size=V)
+    variables = _np_tree(jm.init(jax.random.key(9), jnp.asarray(inputs[:, :32, :32]), jnp.asarray(tokens)))
+    want = jm.apply(variables, jnp.asarray(inputs), jnp.asarray(tokens), train=False)
+    port = _load(RN(tcfg, V), variables)
+    with torch.no_grad():
+        got = port(torch.from_numpy(inputs), torch.from_numpy(tokens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=1e-4)
+
+
 @pytest.mark.parametrize("name", ["original-fp", "original-sd"])
 def test_convert_round_trip_is_exact(name):
     """flax -> torch state_dict -> flax returns the same arrays, and the
@@ -240,21 +258,25 @@ def test_int8_impl_not_ported_raises():
 
 
 def test_training_forward_not_ported_raises():
-    """The training forward runs, except its device augmentation (random
-    crop + rotation, ROADMAP slice 4): training with device_augment=True or
-    on padded images raises instead of silently skipping it; eval does not
-    need it."""
+    """The training forward with its device augmentation (random crop +
+    rotation) runs and draws from the generator, which it needs: without
+    one it raises instead of silently skipping the augmentation. Padded
+    canvases are center-cropped where no augmentation applies (train without
+    device_augment, and eval)."""
     _, tcfg = _shrunk("original-fp")
     q = torch.ones(2, 4, dtype=torch.int32)
-    img = torch.zeros(2, 32, 32, 3, dtype=torch.uint8)
+    canvas = torch.from_numpy(np.random.RandomState(4).randint(0, 256, (2, 40, 40, 3)).astype(np.uint8))
     m = RN(tcfg.replace(device_augment=True), V)  # nn.Module default: training mode
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        m(img, q)
-    assert torch.isfinite(m.eval()(img, q)).all()
+    with pytest.raises(ValueError, match="Generator"):
+        m(canvas, q)
+    a = m(canvas, q, generator=torch.Generator().manual_seed(1))
+    b = m(canvas, q, generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert torch.isfinite(a).all()
+    center = canvas[:, 4:36, 4:36]
+    torch.testing.assert_close(m.eval()(canvas, q), m(center, q), rtol=0, atol=0)
     m = RN(tcfg, V)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        m(torch.zeros(2, 36, 36, 3, dtype=torch.uint8), q)
-    assert torch.isfinite(m(img, q)).all()  # the train forward itself runs
+    torch.testing.assert_close(m(canvas, q), m(center, q), rtol=0, atol=0)  # the train forward itself runs
 
 
 def test_configs_match_rnet():
