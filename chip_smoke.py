@@ -5,9 +5,9 @@
 
 Phases, each fatal (exit 1, no result line) when it fails:
   1. CUDA present; print the card's name and power limit (nvidia-smi).
-  2. Build every CUDA kernel of the serving and training paths from
-     ``rnet_torch/csrc`` (one nvcc per source, started together); print
-     ptxas' resource lines.
+  2. Build every CUDA kernel of the serving, training and int8 inference
+     paths from ``rnet_torch/csrc`` (one nvcc per source, started together);
+     print ptxas' resource lines.
   3. Forward kernel vs plain version on the card at the paths' shapes
      (original-fp B=1/64/512 with inject 0 and 2 as in ir-fp, wide-fp's
      H=512 at B=64 and at B=140 > the SM count, a ragged small shape and a
@@ -20,6 +20,12 @@ Phases, each fatal (exit 1, no result line) when it fails:
      the SM count (the training shape B=512, and B=140 at H=512) are the
      ones where a CTA of the backward's persistent grid owns several
      samples.
+ 5b. The int8 kernel (``pairwise_fwd_int8``) vs its plain version on the
+     same folded inputs (``quantize_int8``): original-fp B = 1, 64, 512 and
+     ir-fp (inject 2) B=64 through ``pairwise_core_int8``, wide-fp's H=512
+     at B=64 and B=140, n=24 and a rectangular ni != nj through the wrapper;
+     each within 1e-5 of max|plain| and within 3e-2 of the fp32
+     ``pairwise_core_reference``; the B=512 launch twice, bitwise.
   6. Serving: an ``InferenceServer`` for original-fp at full width with
      seeded random weights, buckets 1/8/64. After ``warmup()`` the launch
      counters are zeroed, a burst of encoded requests goes through the
@@ -27,6 +33,11 @@ Phases, each fatal (exit 1, no result line) when it fails:
      counters are read: every served batch must have launched the forward
      kernel. Answers must decode with log_prob <= 0, and the log-probs must
      match the same server forced to ``rl_impl="xla"``.
+ 6b. Int8 serving: the same server with ``rl_impl="pallas_int8"`` (same
+     weights) and the same burst, with warnings as errors (a "NOT int8"
+     fallback fails the run): one ``pairwise_fwd_int8`` launch per served
+     batch and no ``pairwise_fwd`` launch; the share of answers equal to
+     the bf16 server's and the largest |log-prob difference| are logged.
   7. Training original-fp at full width, B=512 (the shape rnet's bench.py
      times), ``rl_impl=auto``, through ``rnet_torch.train.steps``: after a
      warm-up step the counters are zeroed and K steps taken; forward and
@@ -39,7 +50,12 @@ Phases, each fatal (exit 1, no result line) when it fails:
      yardstick (``library_ms``) and the roofline bound; serve latency per
      bucket and train questions/s on the host clock; torch.profiler
      breakdowns of a served forward and of a train step (device busy time by
-     kernel, and the device's idle share).
+     kernel, and the device's idle share). The int8 kernel at B = 64 and
+     512 (its yardstick: ``torch._int_mm`` on materialised pair rows), a
+     profile of one int8 eval batch at B=512 beside the bf16 one (the
+     calibration and folding ops around the kernel included), and serve
+     latency per bucket and burst throughput of the bf16 and int8 servers,
+     taken in turns (bf16 int8 int8 bf16).
   9. Augment kernel vs its plain version on the card: B = 1, 7 and 512, fp32
      and bf16 outputs, angles of ±2.8 degrees and 0, the four corner offsets
      (where the shears wrap around the canvas), repeated indices, a cache of
@@ -65,6 +81,14 @@ Phases, each fatal (exit 1, no result line) when it fails:
      questions/s of every run, one train step of (a) and of (d) timed
      alternately in both cuDNN modes, and a profile of each with the
      kernels whose device time differs most between them.
+10b. The eval entry point, ``rnet_torch.evaluate.main``, on (a)'s epoch-2
+     checkpoint: ``--data-pipeline device --split train --batch-size 512``
+     (8,192 questions, 16 batches), as is (16 ``pairwise_fwd`` launches,
+     no ``augment``, no int8) and with ``--rl-impl pallas_int8`` under
+     warnings as errors (16 ``pairwise_fwd_int8`` launches and nothing else,
+     the clip-fraction line printed), in the order bf16 int8 int8 bf16;
+     finite accuracy and NLL and the report files from each, the share of
+     equal predictions, and the eval questions/s of each run (host clock).
 Then one JSON line of kernel records and, last, the device line.
 
 Only torch, numpy and ``rnet_torch`` are imported (never JAX or ``rnet``).
@@ -79,6 +103,7 @@ import sys
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
 PEAK_INT32_OPS = 33.5e12  # half the 67 TFLOP/s fp32 CUDA-core rate: 64 INT32 lanes per SM beside 128 FP32
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TRAIN_B = 512  # rnet's bench.py batch
@@ -180,6 +205,15 @@ def fwd_bound(B, ni, nj, H, L):
     return roofline(flops, nbytes)
 
 
+def int8_bound(B, ni, nj, H, L):
+    """(bound_ms, bound_by) of the int8 kernel: int8 tensor-core operations
+    of the L-1 layers vs the bytes of its folded inputs read once (u, v, s
+    bf16; qa, m, b fp32; w8 int8) and the fp32 output written once."""
+    ops = 2.0 * B * ni * nj * (L - 1) * H * H
+    nbytes = 2.0 * (B * ni * H + B * nj * H + B * H) + 4.0 * (B * H + (L - 1) * (H + 1) + B * H) + (L - 1) * H * H
+    return roofline(ops, nbytes, peak_ops=PEAK_INT8_OPS)
+
+
 def bwd_bound(B, ni, nj, H, L):
     """Recompute, d = dpre W^T and dW = a^T dpre: 3x the forward's FLOPs;
     bytes: the bf16 inputs and fp32 g read once, the fp32 gradients written."""
@@ -216,12 +250,12 @@ def profile_device(torch, fn, reps: int = 3):
     return sum(r[0] for r in rows), sum(r[1] for r in rows), rows
 
 
-def log_profile(torch, what, fn, wall_ms):
+def log_profile(torch, what, fn, wall_ms, top=8):
     """Log the profile of fn; returns (busy ms, every (ms, count, name) row)."""
     busy, n_kernels, rows = profile_device(torch, fn)
     log(f"profile {what}: {wall_ms!r} ms (CUDA events), device busy {busy!r} ms "
         f"in {n_kernels!r} kernels, idle share {1.0 - busy / wall_ms!r}")
-    for ms_k, count, name in rows[:8]:
+    for ms_k, count, name in rows[:top]:
         log(f"  {ms_k!r} ms x{count!r} {name[:100]}")
     return busy, rows
 
@@ -351,6 +385,73 @@ def check_backward(torch, pw, seed):
     return max_err, at_shape
 
 
+# Int8 agreement cases (B, ni, nj, H, L, inject, through the core?):
+# original-fp B=1/64/512, ir-fp (inject 2) B=64, wide-fp (H=512) at B=64 and
+# B=140 > the SM count through ``pairwise_core_int8``; n=24 (576 pairs, a
+# ragged last block of 128 rows) and a rectangular ni != nj with the
+# injection at the last layer through the wrapper.
+INT8_MAIN = (TRAIN_B, 64, 64, 256, 4, 0)
+INT8_CASES = [
+    ((1, 64, 64, 256, 4, 0), True), ((64, 64, 64, 256, 4, 0), True), (INT8_MAIN, True),
+    ((64, 64, 64, 256, 4, 2), True), ((64, 64, 64, 512, 4, 0), True), ((140, 64, 64, 512, 4, 0), True),
+    ((3, 24, 24, 256, 4, 1), False), ((2, 16, 40, 256, 3, 2), False),
+]
+
+
+def int8_args(torch, pw, case, seed):
+    """(bf16 core inputs, their folded int8 form) for an agreement case."""
+    B, ni, nj, H, L, inject = case
+    args = pair_inputs(torch, B, nj, H, L, seed=seed)
+    args[0] = args[0][:, :ni].contiguous()
+    return args, pw.quantize_int8(*args, inject)
+
+
+def check_int8(torch, pw):
+    """Phase 5b; returns (max |kernel - plain| at INT8_MAIN, over all cases,
+    the largest drift from fp32)."""
+    # Tolerance: the kernel and the plain version compute the same int8 codes
+    # (exact int32 products, one fma and the same adds before each requant);
+    # the pooled fp32 sum over up to 4,096 rows runs in another order:
+    # 1e-5 of the largest pooled value. Drift: int8 within 3e-2 of the fp32
+    # chain (the bound of rnet's int8 tests).
+    at_main = worst = drift_max = 0.0
+    for k, (case, through_core) in enumerate(INT8_CASES):
+        B, ni, nj, H, L, inject = case
+        args, folded = int8_args(torch, pw, case, seed=300 + k)
+        before = pw.launches[pw.INT8_KERNEL]
+        if through_core:
+            out = pw.pairwise_core_int8(*args, inject=inject)
+        else:
+            out = pw.pairwise_fwd_int8_cuda(*folded, inject=inject)
+        ref = pw.pairwise_core_int8_reference(*folded, inject=inject)
+        fp32 = pw.pairwise_core_reference(*(a.float() for a in args), inject=inject)
+        torch.cuda.synchronize()
+        if out.shape != (B, H) or out.dtype != torch.float32 or not torch.isfinite(out).all():
+            fail(f"pairwise_fwd_int8 output at {case} is not a finite fp32 (B, H)")
+        if pw.launches[pw.INT8_KERNEL] != before + 1:
+            fail(f"pairwise_fwd_int8 at {case} did not launch the kernel once")
+        err = (out - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        drift = ((out - fp32).abs().max() / fp32.abs().max()).item()
+        log(f"pairwise_fwd_int8 vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} "
+            f"({'pairwise_core_int8' if through_core else 'wrapper'}): max_abs_err {err!r} "
+            f"(max|plain| {scale!r}, tol {1e-5 * scale!r}); drift from fp32 {drift!r}")
+        if not err <= 1e-5 * scale:
+            fail(f"pairwise_fwd_int8 disagrees with its plain version at {case}")
+        if not drift < 3e-2:
+            fail(f"pairwise_fwd_int8 drifts {drift} from the fp32 chain at {case}")
+        worst, drift_max = max(worst, err), max(drift_max, drift)
+        if case == INT8_MAIN:
+            at_main = err
+            again = pw.pairwise_fwd_int8_cuda(*folded, inject=inject)
+            if not torch.equal(again, pw.pairwise_fwd_int8_cuda(*folded, inject=inject)):
+                fail("pairwise_fwd_int8 is not bitwise repeatable")
+            log(f"pairwise_fwd_int8 at B={B}: the same launch twice gives bitwise-equal outputs")
+        del args, folded, out, ref, fp32
+        torch.cuda.empty_cache()
+    return at_main, worst, drift_max
+
+
 def serve_phase(torch, np, pw, cfg, dicts):
     """Phase 6 (PR 1's serving checks); returns (server, burst, launches)."""
     from rnet_torch.serve import InferenceServer
@@ -378,7 +479,7 @@ def serve_phase(torch, np, pw, cfg, dicts):
     served_batches = 2 + 1 + 1  # 64 + 36 (bucket 64), 1 (bucket 1), 5 (bucket 8)
     log(f"serve: {len(results)} answers, buckets {sorted({r['bucket'] for r in results})}, "
         f"launches {counts} for {served_batches} served batches")
-    if counts[pw.KERNEL] != served_batches or counts[pw.BWD_KERNEL] or counts["pair_mask"]:
+    if counts[pw.KERNEL] != served_batches or counts[pw.BWD_KERNEL] or counts["pair_mask"] or counts[pw.INT8_KERNEL]:
         fail(f"expected one pairwise_fwd launch per served batch ({served_batches}) and nothing else, counted {counts}")
     for r in results:
         if r["answer"] not in dicts.answer_to_idx or not r["log_prob"] <= 0.0:
@@ -404,6 +505,39 @@ def serve_phase(torch, np, pw, cfg, dicts):
     if not lp_err <= 2e-2 * lp_scale + 2e-2:
         fail("served log-probs of the kernel path disagree with the xla path")
     return server, burst, counts[pw.KERNEL]
+
+
+def int8_serve_phase(torch, np, pw, cfg, dicts, server, burst):
+    """Phase 6b; returns (the int8 server, launches of the int8 kernel, share
+    of answers equal to the bf16 server's, largest |log-prob difference|)."""
+    import warnings
+
+    from rnet_torch.serve import InferenceServer
+
+    s8 = InferenceServer(cfg.replace(rl_impl="pallas_int8"), dicts, max_batch=64, device="cuda")
+    s8.init_weights(seed=0)  # the bf16 server's weights
+    if s8.model.relational.resolve_impl(cfg.n_objects, s8.device) != "pallas_int8":
+        fail("rl_impl=pallas_int8 does not resolve to the int8 path")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a "NOT int8" fallback fails the run
+        s8.warmup()
+        torch.cuda.synchronize()
+        pw.reset_launches()
+        results = s8.serve_samples(burst) + s8.serve_samples(burst[:1]) + s8.serve_samples(burst[:5])
+        counts = dict(pw.launches)
+    served_batches = 4
+    log(f"int8 serve: {len(results)} answers, buckets {sorted({r['bucket'] for r in results})}, "
+        f"launches {counts} for {served_batches} served batches")
+    if counts != {pw.KERNEL: 0, pw.BWD_KERNEL: 0, "pair_mask": 0, pw.INT8_KERNEL: served_batches}:
+        fail(f"expected one pairwise_fwd_int8 launch per served batch and nothing else, counted {counts}")
+    bf16 = server.serve_samples(burst) + server.serve_samples(burst[:1]) + server.serve_samples(burst[:5])
+    for r in results:
+        if r["answer"] not in dicts.answer_to_idx or not r["log_prob"] <= 0.0:
+            fail(f"bad int8 served result {r}")
+    agree = float(np.mean([a["answer"] == b["answer"] for a, b in zip(results, bf16)]))
+    dlp = max(abs(a["log_prob"] - b["log_prob"]) for a, b in zip(results, bf16))
+    log(f"int8 vs bf16 server, same weights and burst: {agree!r} of answers equal, max |d log_prob| {dlp!r}")
+    return s8, counts[pw.INT8_KERNEL], agree, dlp
 
 
 def train_batch(torch, np, cfg, B, seed):
@@ -477,7 +611,7 @@ def train_phase(torch, np, pw, cfg):
     pd_counts = dict(pw.launches)
     log(f"train with pair_dropout 0.25: launches {pd_counts}, loss {float(m['loss'])!r}, "
         f"grad_norm {float(m['grad_norm'])!r}")
-    if pd_counts != {pw.KERNEL: 1, pw.BWD_KERNEL: 1, "pair_mask": 2}:
+    if pd_counts != {pw.KERNEL: 1, pw.BWD_KERNEL: 1, "pair_mask": 2, pw.INT8_KERNEL: 0}:
         fail(f"a pair-dropout step should launch each kernel once, both drawing the mask; counted {pd_counts}")
     if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
         fail("the pair-dropout step is not finite")
@@ -580,6 +714,74 @@ def time_kernels(torch, pw, seed):
     mask = {"B": TRAIN_B, "n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     log(f"time pair_mask {json.dumps(mask)}")
     return fwd, bwd, mask
+
+
+def library_chain_int8(torch, u, v, s, qa, w8, m, bs, inject):
+    """The int8 function through cuBLAS int8 products (``torch._int_mm``) on
+    materialised (B*ni*nj, H) pair rows, the epilogue in torch ops: the int8
+    kernel's yardstick, used nowhere in the port."""
+    B, ni, H = u.shape
+    a = torch.relu(u.float()[:, :, None, :] + v.float()[:, None, :, :] + s.float()[:, None, None, :])
+    a8 = torch.clamp(a.reshape(-1, H) + 0.5, max=127.0).to(torch.int8)
+    for l in range(1, w8.shape[0] + 1):
+        pre = torch._int_mm(a8, w8[l - 1]).float() * m[l - 1] + bs[l - 1]
+        if l == inject:
+            pre = (pre.view(B, -1, H) + qa[:, None, :]).view(-1, H)
+        a = torch.relu(pre)
+        if l < w8.shape[0]:
+            a8 = torch.clamp(a + 0.5, max=127.0).to(torch.int8)
+    return a.view(B, -1, H).sum(dim=1)
+
+
+def time_int8(torch, pw):
+    """Phase 8, the int8 kernel at B = 64 and 512 (original-fp's n, H, L):
+    the wrapper on folded inputs, its plain version, the ``torch._int_mm``
+    yardstick, the bound, and the whole core (calibration + folding +
+    kernel)."""
+    rows = {}
+    for B in (64, TRAIN_B):
+        case = (B, 64, 64, 256, 4, 0)
+        args, folded = int8_args(torch, pw, case, seed=400 + B)
+        iters = 50 if B <= 64 else 20
+        ms = cuda_ms(torch, lambda: pw.pairwise_fwd_int8_cuda(*folded, inject=0), iters)
+        core_ms = cuda_ms(torch, lambda: pw.pairwise_core_int8(*args, inject=0), iters)
+        plain_ms = cuda_ms(torch, lambda: pw.pairwise_core_int8_reference(*folded, inject=0), 3, warmup=1)
+        lib = library_chain_int8(torch, *folded, 0)
+        ref = pw.pairwise_core_int8_reference(*folded, inject=0)
+        lib_err = ((lib - ref).abs().max() / ref.abs().max()).item()
+        library_ms = cuda_ms(torch, lambda: library_chain_int8(torch, *folded, 0), 5, warmup=1)
+        b_ms, b_by = int8_bound(B, 64, 64, 256, 4)
+        ops = 2.0 * B * 64 * 64 * 3 * 256 * 256
+        rows[B] = {"B": B, "n": 64, "H": 256, "L": 4, "ms": ms, "ms_with_calibration": core_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "library_rel_err": lib_err, "bound_ms": b_ms, "bound_by": b_by,
+                   "tops": ops / (ms * 1e-3) / 1e12, "x_bound": ms / b_ms}
+        log(f"time pairwise_fwd_int8 {json.dumps(rows[B])}")
+        del args, folded, lib, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profile_int8_eval(torch, np, cfg):
+    """Phase 8: one eval batch of original-fp at B=512 (seeded weights and
+    batch) through ``pallas_int8`` and through the bf16 kernel, profiled."""
+    from rnet_torch.models import RN
+
+    batch = train_batch(torch, np, cfg, TRAIN_B, seed=9)
+    out = {}
+    for impl in ("pallas_int8", "pallas"):
+        model = RN(cfg.replace(rl_impl=impl), VOCAB, generator=torch.Generator().manual_seed(0)).cuda().eval()
+        with torch.no_grad():
+            def fwd():
+                return model(batch["image"], batch["question"])
+
+            wall = cuda_ms(torch, fwd, 10)
+            busy, rows = log_profile(torch, f"eval batch of original-fp at B={TRAIN_B}, rl_impl={impl}", fwd, wall,
+                                     top=16)
+        kern = sum(r[0] for r in rows if "pairwise_fwd" in r[2])
+        out[impl] = {"ms_events": wall, "busy_ms": busy, "idle_share": 1.0 - busy / wall, "pairwise_kernel_ms": kern}
+        del model
+    log(f"eval batch profile {json.dumps(out)}")
+    return out
 
 
 def time_training(torch, cfg, state, batch):
@@ -854,7 +1056,8 @@ def entry_point_phase(torch, np, pw, aug, root):
     n_steps = 2 * steps_per_epoch
     log(f"entry point (a) device pipeline, 2 epochs of {steps_per_epoch} steps at B={TRAIN_B}: "
         f"{sec:.1f} s, launches {counts}; history {json.dumps(hist_a)}")
-    want = {aug.KERNEL: n_steps, pw.BWD_KERNEL: n_steps, pw.KERNEL: n_steps + 2 * eval_batches, "pair_mask": 0}
+    want = {aug.KERNEL: n_steps, pw.BWD_KERNEL: n_steps, pw.KERNEL: n_steps + 2 * eval_batches, "pair_mask": 0,
+            pw.INT8_KERNEL: 0}
     if counts != want:
         fail(f"(a) expected launches {want} (augment = train steps, eval never augments), counted {counts}")
     for h in hist_a:
@@ -922,6 +1125,97 @@ def entry_point_phase(torch, np, pw, aug, root):
         abba[arm].append([e["qps"] for e in h])
     log(f"entry point (a) / (d) in the order a d d a, default cuDNN (epochs 1, 2 questions/s): {json.dumps(abba)}")
     return counts, hist_a, hist_c, hist_d, abba
+
+
+def run_eval_cli(argv, int8):
+    """``rnet_torch.evaluate.main(argv)`` with its standard output captured
+    (and logged) and each eval step's predictions recorded; int8 runs under
+    warnings as errors, so a "NOT int8" fallback fails the run. Returns
+    (output, predictions by question index, seconds)."""
+    import contextlib
+    import io
+    import warnings
+
+    from rnet_torch.evaluate import main as eval_main
+    from rnet_torch.train import steps
+
+    preds = []
+    real = steps.eval_step
+
+    def recording(*a, **kw):
+        out = real(*a, **kw)
+        preds.append((out["index"], out["pred"], out["valid"]))
+        return out
+
+    buf = io.StringIO()
+    steps.eval_step = recording
+    try:
+        with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+            if int8:
+                warnings.simplefilter("error")
+            t0 = time.perf_counter()
+            rc = eval_main(argv)
+            sec = time.perf_counter() - t0
+    finally:
+        steps.eval_step = real
+    text = buf.getvalue()
+    log("\n".join(f"  | {line}" for line in text.splitlines()))
+    if rc != 0:
+        fail(f"python -m rnet_torch.evaluate {' '.join(argv)} exited {rc}")
+    by_q = {}
+    for idx, pred, valid in preds:
+        for i, p, ok in zip(idx.tolist(), pred.tolist(), valid.tolist()):
+            if ok:
+                by_q[i] = p
+    return text, by_q, sec
+
+
+def eval_entry_phase(torch, np, pw, aug, root):
+    """Phase 10b: ``python -m rnet_torch.evaluate`` on run (a)'s epoch 2, as
+    is and with ``--rl-impl pallas_int8``, in the order bf16 int8 int8 bf16;
+    returns (int8 launches, share of equal predictions, eval q/s of each
+    run)."""
+    import os
+    import re
+
+    n_batches = SYN_TRAIN_Q // TRAIN_B
+    runs, qps_runs = {}, {"bf16": [], "int8": []}
+    for k, tag in enumerate(("bf16", "int8", "int8", "bf16")):
+        extra = ["--rl-impl", "pallas_int8"] if tag == "int8" else []
+        res = os.path.join(root, f"eval_{k}_{tag}")
+        argv = ["--clevr-dir", root, "--model", "original-fp", "--checkpoint", "2",
+                "--checkpoint-dir", os.path.join(root, "ck_a"), "--test-results-dir", res,
+                "--data-pipeline", "device", "--split", "train", "--batch-size", str(TRAIN_B),
+                "--num-workers", "4", *extra]
+        pw.reset_launches()
+        aug.reset_launches()
+        text, preds, sec = run_eval_cli(argv, int8=(tag == "int8"))
+        torch.cuda.synchronize()
+        counts = {**pw.launches, **aug.launches}
+        m = re.search(r"overall accuracy: (\S+) \| mean NLL: (\S+)", text)
+        q = re.search(r"\((\d+) q/s\)", text)
+        if m is None or q is None:
+            fail(f"eval ({tag}) printed no accuracy or q/s line")
+        acc, nll, qps = float(m.group(1)), float(m.group(2)), float(q.group(1))
+        want = {pw.KERNEL: 0 if tag == "int8" else n_batches, pw.INT8_KERNEL: n_batches if tag == "int8" else 0,
+                pw.BWD_KERNEL: 0, "pair_mask": 0, aug.KERNEL: 0}
+        log(f"eval entry point ({tag}): {sec:.1f} s, {qps!r} q/s (eval epoch, host clock), accuracy {acc!r}, "
+            f"NLL {nll!r}, {len(preds)} questions, launches {counts}")
+        if counts != want:
+            fail(f"eval ({tag}) expected launches {want}, counted {counts}")
+        if not (np.isfinite(acc) and np.isfinite(nll) and 0.0 <= acc <= 1.0) or len(preds) != SYN_TRAIN_Q:
+            fail(f"eval ({tag}) is not finite or did not predict every question")
+        for f in ("train_accuracy.csv", "train_confusion.csv"):
+            if not os.path.exists(os.path.join(res, f)):
+                fail(f"eval ({tag}) wrote no {f}")
+        if tag == "int8" and "int8 calibration clip fractions per layer: [" not in text:
+            fail("the int8 eval printed no clip-fraction line")
+        runs.setdefault(tag, preds)
+        qps_runs[tag].append(qps)
+    same = float(np.mean([runs["int8"][i] == p for i, p in runs["bf16"].items()]))
+    log(f"eval entry point, int8 vs bf16 on the same checkpoint: {same!r} of predictions equal; eval q/s in the "
+        f"order bf16 int8 int8 bf16: {json.dumps(qps_runs)}")
+    return n_batches, same, qps_runs
 
 
 def entry_step(torch, root, extra):
@@ -1025,7 +1319,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- 2. build ----
-    kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL]
+    kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL, pw.INT8_KERNEL]
     t0 = time.perf_counter()
     build.build(kernels)
     log(f"build: {kernels} in {time.perf_counter() - t0:.1f} s")
@@ -1040,7 +1334,8 @@ def main() -> int:
     fwd_err, fwd_err_at_shape = check_forward(torch, pw, seed)
     mask_err = check_mask(torch, pw, seed)
     bwd_err, bwd_err_at_shape = check_backward(torch, pw, seed)
-    log(f"phases 1-5 done at {time.perf_counter() - t_start:.1f} s")
+    int8_err, int8_err_all, int8_drift = check_int8(torch, pw)
+    log(f"phases 1-5b done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 6. serving original-fp at full width ----
     answers = [*CLEVR_NUMBERS, *CLEVR_BOOLS, *CLEVR_COLORS, *CLEVR_SHAPES, *CLEVR_MATERIALS, *CLEVR_SIZES]
@@ -1053,7 +1348,8 @@ def main() -> int:
     dicts = Dictionaries({w: i + 1 for i, w in enumerate(dict.fromkeys(words))}, {a: i for i, a in enumerate(answers)})
     cfg = load_config("original-fp").replace(n_answers=dicts.n_answers)
     server, burst, serve_launches = serve_phase(torch, np, pw, cfg, dicts)
-    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    s8, int8_serve_launches, int8_agree, int8_dlp = int8_serve_phase(torch, np, pw, cfg, dicts, server, burst)
+    log(f"phase 6b done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 7. training original-fp at full width, B=512 ----
     state, batch, train_counts, pd_counts = train_phase(torch, np, pw, cfg)
@@ -1067,25 +1363,36 @@ def main() -> int:
     qps_ratio = train_times["auto"]["qps"] / train_times["xla"]["qps"]
     log(f"train questions/s, kernel path / xla path: {qps_ratio!r}")
 
-    latency = {}
+    int8_rows = time_int8(torch, pw)
+    profile_int8_eval(torch, np, cfg)
+    # bf16 and int8 served in turns (bf16 int8 int8 bf16 ...): neither path
+    # always runs later in the call
+    servers, turns = {"bf16": server, "int8": s8}, ("bf16", "int8", "int8", "bf16")
     for bucket in server.buckets:
         sub = burst[:bucket]
-        for _ in range(3):
-            server.serve_samples(sub)
-        lat = sorted(server.serve_samples(sub)[0]["latency_ms"] for _ in range(20))
-        latency[bucket] = {"median_ms": lat[len(lat) // 2], "min_ms": lat[0], "max_ms": lat[-1]}
-    t0 = time.perf_counter()
+        for srv in servers.values():
+            for _ in range(3):
+                srv.serve_samples(sub)
+        lat = {tag: [] for tag in servers}
+        for tag in turns * 5:
+            lat[tag].append(servers[tag].serve_samples(sub)[0]["latency_ms"])
+        latency = {tag: {"median_ms": sorted(v)[len(v) // 2], "min_ms": min(v), "max_ms": max(v)}
+                   for tag, v in lat.items()}
+        log(f"serve latency at bucket {bucket}, 10 calls each in turns (host clock, ms): {json.dumps(latency)}")
     big = burst * 7  # 700 requests, 11 full buckets of 64 + one of 60
-    server.serve_samples(big)
-    qps = len(big) / (time.perf_counter() - t0)
-    log(f"serve latency per bucket (host clock, ms): {json.dumps(latency)}")
-    log(f"serve burst throughput: {qps!r} questions/s over {len(big)} requests")
+    bursts = {"bf16": [], "int8": []}
+    for tag in turns:
+        t0 = time.perf_counter()
+        servers[tag].serve_samples(big)
+        bursts[tag].append(len(big) / (time.perf_counter() - t0))
+    log(f"serve burst throughput over {len(big)} requests, in the order bf16 int8 int8 bf16 "
+        f"(questions/s): {json.dumps(bursts)}")
     for bucket in (1, 64):
         inputs, q = server.batch_arrays(burst[:bucket], bucket)
         wall = cuda_ms(torch, lambda: server.log_probs(inputs, q), 20)
         log_profile(torch, f"served forward, bucket {bucket}", lambda: server.log_probs(inputs, q), wall)
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
-    del server, state, batch
+    del server, s8, state, batch
     torch.cuda.empty_cache()
 
     # ---- 9. the augment kernel vs its plain version ----
@@ -1110,6 +1417,7 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="rnet_torch_smoke_")
     try:
         entry_counts, hist_a, hist_c, hist_d, abba = entry_point_phase(torch, np, pw, aug, root)
+        int8_eval_launches, int8_eval_same, eval_runs = eval_entry_phase(torch, np, pw, aug, root)
         qps = {"a_device_augment": [h["qps"] for h in hist_a], "c_cached_augment": [h["qps"] for h in hist_c],
                "d_device_no_augment": [h["qps"] for h in hist_d]}
         log(f"entry point epoch questions/s (host clock; epochs 1, 2): {json.dumps(qps)}")
@@ -1150,6 +1458,15 @@ def main() -> int:
                max_abs_err_fp32=aug_err32, max_abs_err_all_cases=aug_err_all,
                ms_cache_2048=aug_times[str(AUG_SMALL)]["ms"],
                launches_of="run (a): python -m rnet_torch.train --data-pipeline device, 2 epochs of 16 steps"),
+        record(pw.INT8_KERNEL, "rnet_torch/csrc/pairwise_fwd_int8.cu", "rnet/kernels/pairwise.py:190",
+               int8_eval_launches, int8_err, int8_rows[TRAIN_B], shape=shape,
+               max_abs_err_all_cases=int8_err_all, max_drift_from_fp32=int8_drift,
+               serve_launches=int8_serve_launches, serve_answers_equal_to_bf16=int8_agree,
+               serve_max_abs_dlogp=int8_dlp, eval_predictions_equal_to_bf16=int8_eval_same,
+               eval_qps=eval_runs,
+               ms_b64=int8_rows[64]["ms"], ms_with_calibration=int8_rows[TRAIN_B]["ms_with_calibration"],
+               launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
+                           "--split train --batch-size 512 (16 batches)"),
     ]
     log(card)
     log(json.dumps({"kernels": records}))

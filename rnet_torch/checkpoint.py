@@ -69,7 +69,7 @@ def load_weights(model: nn.Module, checkpoint: str) -> None:
     if not ck.endswith(".pkl"):
         raise NotImplementedError(
             f"{ck!r} is not a weights-only .pkl: restoring orbax checkpoints comes "
-            "with a later slice of the port; export weights with "
+            "with a later slice of the port (ROADMAP.md); export weights with "
             "rnet/train/checkpoint.py::export_weights and pass the .pkl"
         )
     sd = flax_to_state_dict(_read_pkl(ck))

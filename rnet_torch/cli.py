@@ -55,8 +55,8 @@ def add_common_args(p: argparse.ArgumentParser, clevr_required: bool = True) -> 
         "--rl-impl", choices=["auto", "naive", "xla", "pallas", "pallas_int8"], default=None,
         dest="rl_impl",
         help="pairwise-core implementation: auto (default), naive, xla (decomposed "
-        "torch), pallas (the CUDA kernel; plain version on the CPU); pallas_int8 "
-        "is not ported yet",
+        "torch), pallas (the CUDA kernel; plain version on the CPU), pallas_int8 "
+        "(inference only: the int8 CUDA kernel; plain version on the CPU)",
     )
     p.add_argument("--mesh", default=None, help="multi-device mesh (not ported yet)")
     p.add_argument(
@@ -89,16 +89,20 @@ def config_from_args(args: argparse.Namespace, dicts: Dictionaries) -> ModelConf
     return cfg.replace(n_answers=dicts.n_answers)
 
 
-def build_datasets(args: argparse.Namespace, cfg: ModelConfig, dicts: Dictionaries) -> Dict[str, Any]:
-    """The train and val datasets for ``--data-pipeline``: per-item PNG
+def build_datasets(
+    args: argparse.Namespace, cfg: ModelConfig, dicts: Dictionaries, splits=("train", "val"), eval_only: bool = False
+) -> Dict[str, Any]:
+    """The datasets of ``splits`` for ``--data-pipeline``: per-item PNG
     decode (``pil``), or the decoded cache (``cached``; ``device`` also
     serves image indices for the device-resident Trainer). With
     ``device_augment`` the cached canvases ship padded for the on-device
-    crop, and the ``pil`` transform leaves the rotation to the device."""
+    crop, and the ``pil`` transform leaves the rotation to the device.
+    ``eval_only`` gives every split the deterministic eval transform
+    (accuracy on ``--split train`` is not measured under augmentation)."""
     out = {}
     pipeline = getattr(args, "data_pipeline", "pil")
-    for split in ("train", "val"):
-        train_tf = split == "train"
+    for split in splits:
+        train_tf = split == "train" and not eval_only
         if cfg.state_description:
             out[split] = ClevrDatasetStateDescription(
                 args.clevr_dir, split, dicts, max_objects=cfg.max_objects, object_dim=cfg.object_dim,

@@ -9,7 +9,9 @@ packages.
   * ``naive``  — literal pair concatenation (test oracle);
   * ``xla``    — the decomposed plain-torch path (u/v/s factoring);
   * ``pallas`` — the hand-written CUDA kernel (``rnet_torch/csrc``);
-  * ``pallas_int8`` — not ported yet (raises ``NotImplementedError``);
+  * ``pallas_int8`` — inference only: the int8 CUDA kernel
+    (``rnet_torch/csrc/pairwise_fwd_int8.cu``) in eval mode, ``pallas`` in
+    train mode (with a warning);
   * ``auto``   — the kernel on CUDA in bf16 for large uniform shapes, else xla.
 """
 

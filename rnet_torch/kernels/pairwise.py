@@ -26,15 +26,26 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   recomputes the n^2 activations. There is no fallback from the card to the
   plain versions.
 * ``fused_pairwise_g`` — objects + question -> pooled g (B, H) through
-  ``_project_pair_inputs`` and ``pairwise_core``.
+  ``_project_pair_inputs`` and ``pairwise_core`` (or, with ``int8=True``,
+  ``pairwise_core_int8``).
 
-The int8 kernel and the sharded island come with later slices (ROADMAP.md).
+The int8 inference path (rnet's ``pairwise_core_int8`` and
+``_fwd_pallas_int8``): ``activation_scales`` calibrates per-layer activation
+scales on a strided subsample of the batch, ``quantize_int8`` folds every
+scale outside the kernel (int8 weights, inputs prescaled into layer 0's
+int8 domain, one fp32 multiplier per layer), and
+``pairwise_core_int8_reference`` / ``pairwise_fwd_int8_cuda`` (the kernel of
+``csrc/pairwise_fwd_int8.cu``) run the int8 g-chain. ``int8_clip_fractions``
+and ``pairwise_clip_fractions`` report the share of activations the
+calibration would clip. The sharded island comes with a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -43,12 +54,17 @@ from . import build
 
 KERNEL = "pairwise_fwd"
 BWD_KERNEL = "pairwise_bwd"
+INT8_KERNEL = "pairwise_fwd_int8"
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+INT8_MARGIN = 1.2  # calibration margin over the subsample's activation maxima
+# Largest width at which the plain int8 version's fp32 matmul of int8 codes
+# is exact: every partial sum is an integer of magnitude <= 127 * 127 * H < 2^24.
+INT8_EXACT_MAX_H = 1040
 
 # Kernel launches since the last reset_launches() (the main-path proof in
 # chip_smoke.py). "pair_mask" counts the launches that drew Philox pair-mask
 # bits: a forward or backward launch with pair_keep < 1, or the mask kernel.
-launches = {KERNEL: 0, BWD_KERNEL: 0, "pair_mask": 0}
+launches = {KERNEL: 0, BWD_KERNEL: 0, "pair_mask": 0, INT8_KERNEL: 0}
 
 _libs = {}
 
@@ -59,7 +75,7 @@ def reset_launches() -> None:
 
 
 def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
-    """Declare the C interface of library `name` (KERNEL or BWD_KERNEL)."""
+    """Declare the C interface of library `name` (KERNEL, BWD_KERNEL or INT8_KERNEL)."""
     vp, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
     if name == KERNEL:
         lib.rnet_pairwise_fwd.argtypes = [vp] * 8 + [i32] * 7 + [vp, u32, f32, vp]
@@ -70,6 +86,13 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.rnet_pairwise_fwd_smem_bytes.restype = ctypes.c_longlong
         lib.rnet_pair_mask.argtypes = [vp, i32, i32, vp, u32, vp]
         lib.rnet_pair_mask.restype = i32
+    elif name == INT8_KERNEL:
+        lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+        lib.rnet_pairwise_fwd_int8.restype = i32
+        lib.rnet_pairwise_fwd_int8_block_rows.argtypes = []
+        lib.rnet_pairwise_fwd_int8_block_rows.restype = i32
+        lib.rnet_pairwise_fwd_int8_smem_bytes.argtypes = [i32]
+        lib.rnet_pairwise_fwd_int8_smem_bytes.restype = ctypes.c_longlong
     else:
         lib.rnet_pairwise_bwd.argtypes = [vp] * 16 + [i32] * 9 + [vp, u32, f32, vp]
         lib.rnet_pairwise_bwd.restype = i32
@@ -223,30 +246,40 @@ def pairwise_core_bwd_reference(u, v, s, qa, ws, bs, g, inject: int, keep: float
 # ---------------------------------------------------------------------------
 
 
-def check_kernel_inputs(u, v, s, qa, ws, bs) -> Tuple[int, int, int, int, int]:
-    """Validate what the kernels take; (B, ni, nj, H, L) or ValueError."""
-    ts = {"u": u, "v": v, "s": s, "qa": qa, "ws": ws, "bs": bs}
+def _check_core_inputs(what: str, ts: dict, dtypes: dict) -> Tuple[int, int, int, int, int]:
+    """Dtype, contiguity and shape checks of a pairwise kernel's inputs: ``ts``
+    maps u, v, s, qa, the stacked weights (``ws`` or ``w8``, (L-1, H, H)), the
+    biases ``bs`` and the int8 multipliers ``m`` to tensors; (B, ni, nj, H,
+    L) or ValueError."""
     for name, t in ts.items():
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"pairwise kernels take bfloat16 tensors; {name} is {t.dtype}")
+        if t.dtype != dtypes[name]:
+            raise ValueError(f"{what}: {name} must be {dtypes[name]}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"pairwise kernels take contiguous tensors; {name} is not")
+            raise ValueError(f"{what}: inputs must be contiguous; {name} is not")
+    u, v = ts["u"], ts["v"]
     if u.dim() != 3 or v.dim() != 3:
         raise ValueError(f"u and v must be (B, n, H); got {tuple(u.shape)} and {tuple(v.shape)}")
     B, ni, H = u.shape
     nj = v.shape[1]
-    L = ws.shape[0] + 1
-    want = {"v": (B, nj, H), "s": (B, H), "qa": (B, H), "ws": (L - 1, H, H), "bs": (L - 1, H)}
-    for name, shape in want.items():
-        if tuple(ts[name].shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(ts[name].shape)}")
+    L = ts["ws" if "ws" in ts else "w8"].shape[0] + 1
+    want = {"v": (B, nj, H), "s": (B, H), "qa": (B, H), "ws": (L - 1, H, H), "w8": (L - 1, H, H),
+            "bs": (L - 1, H), "m": (L - 1,)}
+    for name, t in ts.items():
+        if name in want and tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
     if H % 128 != 0:
-        raise ValueError(f"pairwise kernels need H % 128 == 0, got H={H}")
+        raise ValueError(f"{what}: H % 128 == 0 is required, got H={H}")
     if L < 2:
-        raise ValueError(f"pairwise kernels need L >= 2 layers, got L={L}")
+        raise ValueError(f"{what}: L >= 2 layers are required, got L={L}")
     if ni < 1 or nj < 1 or not 1 <= B <= 65535:
-        raise ValueError(f"pairwise kernels need ni, nj >= 1 and 1 <= B <= 65535; got B={B}, ni={ni}, nj={nj}")
+        raise ValueError(f"{what}: ni, nj >= 1 and 1 <= B <= 65535 are required; got B={B}, ni={ni}, nj={nj}")
     return B, ni, nj, H, L
+
+
+def check_kernel_inputs(u, v, s, qa, ws, bs) -> Tuple[int, int, int, int, int]:
+    """Validate what the bf16 kernels take; (B, ni, nj, H, L) or ValueError."""
+    ts = {"u": u, "v": v, "s": s, "qa": qa, "ws": ws, "bs": bs}
+    return _check_core_inputs("the pairwise kernels", ts, dict.fromkeys(ts, torch.bfloat16))
 
 
 def _check_device(name: str, tensors) -> torch.device:
@@ -348,6 +381,205 @@ def pair_mask_cuda(seed: torch.Tensor, B: int, ni: int, nj: int, keep: float) ->
 
 
 # ---------------------------------------------------------------------------
+# Int8 inference path
+# ---------------------------------------------------------------------------
+
+
+def _subsample(u, v, s, qa, probe: bool):
+    """The calibration subsample of ``_activation_scales`` (:253-260) in fp32:
+    <= 4 samples x <= 16 i- and j-objects, ceil-strided over the batch and
+    both object axes (a head subsample would miss the live maxima of sorted
+    batches); ``probe`` starts each axis half a stride later, as
+    ``int8_clip_fractions`` does, to reach rows the calibration never saw."""
+    nb, no = min(u.shape[0], 4), min(u.shape[1], 16)
+    sb, so, sv = -(-u.shape[0] // nb), -(-u.shape[1] // no), -(-v.shape[1] // no)
+    ob, oo, ov = (sb // 2, so // 2, sv // 2) if probe else (0, 0, 0)
+    ub = u[ob::sb][:nb, oo::so][:, :no].float()
+    vb = v[ob::sb][:nb, ov::sv][:, :no].float()
+    return ub, vb, s[ob::sb][:nb].float(), qa[ob::sb][:nb].float()
+
+
+def _subsample_acts(ub, vb, sb, qb, ws, bs, inject: int):
+    """The fp32 activations of layers 0 .. L-2 on a subsample (the points the
+    int8 chain quantizes), each (rows, pairs, H) — rows is the ACTUAL number of
+    strided samples (B=5 gives 3)."""
+    a = torch.relu(ub[:, :, None, :] + vb[:, None, :, :] + sb[:, None, None, :])
+    a = a.reshape(ub.shape[0], -1, ub.shape[-1])
+    acts = [a]
+    for l in range(1, ws.shape[0]):
+        pre = a @ ws[l - 1].float() + bs[l - 1].float()
+        if l == inject:
+            pre = pre + qb[:, None, :]
+        a = torch.relu(pre)
+        acts.append(a)
+    return acts
+
+
+def activation_scales(u, v, s, qa, ws, bs, inject: int, margin: float = INT8_MARGIN) -> torch.Tensor:
+    """Per-layer activation scales (L-1,) fp32 (rnet's ``_activation_scales``):
+    the maxima of the fp32 chain on the calibration subsample, floored at
+    1e-6, times ``margin`` (values beyond it clip at 127)."""
+    acts = _subsample_acts(*_subsample(u, v, s, qa, probe=False), ws, bs, inject)
+    return torch.stack([a.amax() for a in acts]).clamp_min(1e-6) * margin
+
+
+def int8_clip_fractions(u, v, s, qa, ws, bs, inject: int, margin: float = INT8_MARGIN) -> torch.Tensor:
+    """Calibration-drift diagnostic (L-1,): per layer, the fraction of probe
+    activations above the scale ``activation_scales`` gives this batch, i.e.
+    that the int8 chain would clip at 127. When B <= 4 and both object axes
+    are <= 16 the probe is the calibration subsample, which then covers the
+    whole input: with margin >= 1 the result is exactly 0."""
+    c = activation_scales(u, v, s, qa, ws, bs, inject, margin=margin)
+    acts = _subsample_acts(*_subsample(u, v, s, qa, probe=True), ws, bs, inject)
+    return torch.stack([(a > c[l]).float().mean() for l, a in enumerate(acts)])
+
+
+def quantize_int8(u, v, s, qa, ws, bs, inject: int):
+    """Fold every scale of the int8 chain outside the kernel, as
+    ``_fwd_pallas_int8`` (:333-352) does, in its dtypes; returns
+    (u, v, s, qa_f, w8, m, b_f):
+
+    * sw = max|W_l| in ws's dtype (floored at 1e-9), w8 = clip(round(W_l /
+      sw * 127), +-127) int8 (symmetric, per layer);
+    * c = ``activation_scales``; u, v, s scaled by 127 / c_0 in fp32 and cast
+      back to their dtype (layer 0's int8 domain);
+    * requant = [127 / c_1, ..., 127 / c_{L-2}, 1] (the last layer dequantizes
+      to real values), m = c * (sw / 127 in ws's dtype) / 127 * requant and
+      b_f = b * requant in fp32; qa scaled by requant[inject - 1] when
+      0 < inject < L.
+    """
+    L = ws.shape[0] + 1
+    sw = ws.abs().amax(dim=(1, 2)).clamp_min(1e-9)
+    w8 = torch.round(ws.float() / sw.float()[:, None, None] * 127.0).clamp(-127, 127).to(torch.int8)
+    c = activation_scales(u, v, s, qa, ws, bs, inject)
+    # 127 / c as a true division: torch computes `127.0 / c` as 127 * (1 / c),
+    # which can differ from it by an ulp
+    q127 = torch.full_like(c, 127.0) / c
+    u, v, s = ((t.float() * q127[0]).to(t.dtype) for t in (u, v, s))
+    requant = torch.cat([q127[1:], torch.ones(1, dtype=torch.float32, device=c.device)])
+    m = (c * (sw / 127.0).float() / 127.0) * requant
+    b_f = bs.float() * requant[:, None]
+    qa_f = qa.float()
+    if 0 < inject < L:
+        qa_f = qa_f * requant[inject - 1]
+    return u.contiguous(), v.contiguous(), s.contiguous(), qa_f.contiguous(), w8, m, b_f
+
+
+def _requant(a: torch.Tensor) -> torch.Tensor:
+    """int8(min(a + 0.5, 127)); the cast truncates as astype does (a >= 0)."""
+    return torch.clamp(a + 0.5, max=127.0).to(torch.int8)
+
+
+def pairwise_core_int8_reference(u, v, s, qa, w8, m, bs, inject: int) -> torch.Tensor:
+    """The plain version of the int8 kernel (rnet's ``_fwd_kernel_int8``,
+    :190-238) on folded inputs; (B, H) fp32:
+
+        a0 = int8(min(relu((u + v) + s) + 0.5, 127))             (fp32 math)
+        pre = fma(float(a8 . w8_l), m_l, b_l) [+ qa at the inject layer]
+        a = relu(pre); requantized except at the last layer, which is pooled
+        in fp32.
+
+    ``float(acc) * m_l + b_l`` is rounded once, as one fused multiply-add:
+    XLA contracts it so when it compiles rnet's kernel (interpret mode on the
+    CPU), and two roundings move a few int8 codes across a rounding boundary,
+    past the 1e-5 agreement of tests/test_torch_int8.py. The fma is
+    emulated in float64: the product of an integer below 2^24 and an fp32
+    value is exact there, and rounding the float64 sum to fp32 gives the
+    fused result unless that sum was itself rounded onto an fp32 tie (double
+    rounding). The int8 product runs as an fp32 matmul of the int8
+    codes: exact, since every partial sum is an integer below 2^24 for
+    H <= INT8_EXACT_MAX_H (and codes of at most 127 are exact in TF32 too)."""
+    B, ni, H = u.shape
+    nj = v.shape[1]
+    if H > INT8_EXACT_MAX_H:
+        raise ValueError(f"the plain int8 version is exact only for H <= {INT8_EXACT_MAX_H}, got H={H}")
+    a = torch.relu(u.float()[:, :, None, :] + v.float()[:, None, :, :] + s.float()[:, None, None, :])
+    a8 = _requant(a.reshape(B, ni * nj, H))
+    n_l = w8.shape[0]
+    for l in range(1, n_l + 1):
+        acc = a8.float() @ w8[l - 1].float()
+        pre = (acc.double() * m[l - 1].double() + bs[l - 1].double()).float()
+        if l == inject:
+            pre = pre + qa[:, None, :]
+        a = torch.relu(pre)
+        if l < n_l:
+            a8 = _requant(a)
+    return a.sum(dim=1)
+
+
+def check_int8_inputs(u, v, s, qa, w8, m, bs) -> Tuple[int, int, int, int, int]:
+    """Validate what the int8 kernel takes; (B, ni, nj, H, L), or
+    NotImplementedError for fp32 u/v/s and ValueError for anything else."""
+    if any(t.dtype == torch.float32 for t in (u, v, s)):
+        raise NotImplementedError(
+            "the int8 kernel takes bfloat16 u, v, s: int8 with fp32 compute on the "
+            "card is not ported (ROADMAP.md)"
+        )
+    f32, bf16 = torch.float32, torch.bfloat16
+    dtypes = {"u": bf16, "v": bf16, "s": bf16, "qa": f32, "w8": torch.int8, "m": f32, "bs": f32}
+    ts = {"u": u, "v": v, "s": s, "qa": qa, "w8": w8, "m": m, "bs": bs}
+    B, ni, nj, H, L = _check_core_inputs("the int8 kernel", ts, dtypes)
+    if any(t.data_ptr() % 16 for t in (u, v, s)):
+        raise ValueError("the int8 kernel reads u, v, s in 16-byte vectors: their storage must be 16-byte aligned")
+    return B, ni, nj, H, L
+
+
+def pairwise_fwd_int8_cuda(u, v, s, qa, w8, m, bs, *, inject: int) -> torch.Tensor:
+    """Launch the int8 kernel on the current stream for folded inputs (those
+    of ``quantize_int8``); (B, H) fp32. Raises on anything the kernel does
+    not take, on CPU tensors, and on a failed build or launch."""
+    B, ni, nj, H, L = check_int8_inputs(u, v, s, qa, w8, m, bs)
+    dev = _check_device(INT8_KERNEL, (u, v, s, qa, w8, m, bs))
+    lib = _kernel_lib(INT8_KERNEL)
+    smem = lib.rnet_pairwise_fwd_int8_smem_bytes(H)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"pairwise_fwd_int8 kernel at H={H} needs {smem} B of shared memory (> {SMEM_LIMIT})")
+    nblk = -(-ni * nj // lib.rnet_pairwise_fwd_int8_block_rows())
+    w8t = w8.transpose(1, 2).contiguous()  # row n = column n of W_l: the kernel's B-fragment layout
+    partial = torch.empty((B, nblk, H), dtype=torch.float32, device=dev)
+    out = torch.empty((B, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rnet_pairwise_fwd_int8(
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), w8t.data_ptr(), m.data_ptr(),
+            bs.data_ptr(), partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, int(inject), stream,
+        )
+    _raise_on_error(lib, err, INT8_KERNEL)
+    launches[INT8_KERNEL] += 1
+    return out
+
+
+def int8_supported(ni: int, nj: int, H: int, L: int) -> bool:
+    """rnet's ``_supported`` (:449-451) as a shape predicate: H % 128 == 0,
+    L >= 2, ni a multiple of 8 and nj either <= 128 or a multiple of 128
+    (``_tiles``' tiling, without its model of the TPU's VMEM)."""
+    tj = nj if nj <= 128 else 128
+    return H % 128 == 0 and L >= 2 and ni % 8 == 0 and tj > 0 and nj % tj == 0
+
+
+def pairwise_core_int8(u, v, s, qa, ws, bs, *, inject: int) -> torch.Tensor:
+    """Int8 inference core (no gradient): calibrate, fold, then the plain
+    version for CPU tensors or the kernel for CUDA tensors. On shapes rnet's
+    kernel does not take it warns ("NOT int8"), as rnet's
+    ``pairwise_core_int8`` does, and runs the fp core ``pairwise_core``
+    instead (the bf16 kernel on the card, the plain version on the CPU)."""
+    ni, nj, H, L = u.shape[1], v.shape[1], u.shape[-1], ws.shape[0] + 1
+    with torch.no_grad():
+        if not int8_supported(ni, nj, H, L):
+            warnings.warn(
+                f"pallas_int8 requested but the shape is unsupported by the int8 kernel (ni={ni}, "
+                f"nj={nj}, H={H}, L={L}: needs H%128==0, L>=2 and tileable object counts); running "
+                "the fp pairwise core instead — reported numbers are NOT int8",
+                stacklevel=2,
+            )
+            return pairwise_core(u, v, s, qa, ws, bs, inject=inject)
+        folded = quantize_int8(u, v, s, qa, ws, bs, inject)
+        if u.device.type == "cpu":
+            return pairwise_core_int8_reference(*folded, inject=inject)
+        return pairwise_fwd_int8_cuda(*folded, inject=inject)
+
+
+# ---------------------------------------------------------------------------
 # Autograd: the custom VJP of rnet's _make_core
 # ---------------------------------------------------------------------------
 
@@ -411,10 +643,24 @@ def _project_pair_inputs(x, q, gw: Sequence[torch.Tensor], gb: Sequence[torch.Te
     return u.contiguous(), v.contiguous(), s.contiguous(), qa, ws, bs
 
 
+@torch.no_grad()
+def pairwise_clip_fractions(x, q, gw, gb, *, inject: int, dtype=torch.bfloat16, margin: float = INT8_MARGIN):
+    """``int8_clip_fractions`` from objects + question: per layer, the share
+    of probe activations this batch's int8 scales would clip (the drift
+    report ``python -m rnet_torch.evaluate --rl-impl pallas_int8`` prints)."""
+    u, v, s, qa, ws, bs = _project_pair_inputs(x, q, gw, gb, inject, dtype)
+    return int8_clip_fractions(u, v, s, qa, ws, bs, inject, margin=margin)
+
+
 def fused_pairwise_g(
-    x, q, gw, gb, *, inject: int, dtype=torch.bfloat16, pair_keep: float = 1.0, seed=None
+    x, q, gw, gb, *, inject: int, dtype=torch.bfloat16, pair_keep: float = 1.0, seed=None, int8: bool = False
 ) -> torch.Tensor:
     """Pooled g_theta over all object pairs; (B, g_out) fp32, differentiable
-    in x, q, gw and gb."""
+    in x, q, gw and gb — except with ``int8=True`` (inference only:
+    ``pairwise_core_int8``, no gradient)."""
+    if int8 and pair_keep < 1.0:
+        raise ValueError("int8 is inference-only; pair dropout cannot be active")
     u, v, s, qa, ws, bs = _project_pair_inputs(x, q, gw, gb, inject, dtype)
+    if int8:
+        return pairwise_core_int8(u, v, s, qa, ws, bs, inject=inject)
     return pairwise_core(u, v, s, qa, ws, bs, inject=inject, pair_keep=pair_keep, seed=seed)

@@ -13,10 +13,14 @@ set (flax layout: ``g{l}_kernel`` (in, out), ``g{l}_bias``, ``f{l}_*``):
   * ``pallas`` — ``rnet_torch.kernels.pairwise.fused_pairwise_g``: the
       hand-written CUDA kernels (forward and backward) on the card, their
       plain versions on the CPU.
+  * ``pallas_int8`` — inference only: in eval mode the g-chain runs in int8
+      (``fused_pairwise_g(int8=True)``: the int8 kernel on the card, its
+      plain version on the CPU; a loud fp fallback on shapes it does not
+      take); in train mode it warns and runs ``pallas``.
 
 ``auto`` mirrors rnet's rule with "on CUDA in bf16" in place of "on TPU":
 the kernel for n >= 32 objects and uniform g widths that are multiples of
-128, else ``xla``. ``pallas_int8`` is not ported yet.
+128, else ``xla``.
 
 In train mode (``module.train()``) f_phi drops its last hidden layer's units
 with rate ``dropout`` (inverted, in fp32) and, with ``pair_dropout`` > 0,
@@ -28,12 +32,13 @@ the tensors' device. ``g_prefix_features`` comes with a later slice.
 
 from __future__ import annotations
 
+import warnings
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..kernels.pairwise import fused_pairwise_g
+from ..kernels.pairwise import fused_pairwise_g, pairwise_clip_fractions
 from .initializers import fan_in_uniform, linear_kernel
 
 
@@ -125,13 +130,7 @@ class RelationalLayer(nn.Module):
             uniform = len(set(self.g_layers)) == 1 and self.g_layers[0] % 128 == 0
             on_card = device.type == "cuda" and self.dtype == torch.bfloat16
             impl = "pallas" if (n >= 32 and uniform and on_card) else "xla"
-        if impl == "pallas_int8":
-            raise NotImplementedError(
-                "rl_impl='pallas_int8' (the int8 g-chain kernel, "
-                "rnet/kernels/pairwise.py::_fwd_kernel_int8) is not ported yet: "
-                "ROADMAP.md lists it among the TPU kernels still to port"
-            )
-        if impl not in ("naive", "xla", "pallas"):
+        if impl not in ("naive", "xla", "pallas", "pallas_int8"):
             raise ValueError(f"unknown relational impl {impl!r}")
         return impl
 
@@ -184,6 +183,17 @@ class RelationalLayer(nn.Module):
         device) supplies every random draw."""
         B, n = x.shape[0], x.shape[1]
         impl = self.resolve_impl(n, x.device)
+        int8 = impl == "pallas_int8" and not self.training
+        if impl == "pallas_int8":
+            if self.training:
+                # the int8 chain has no backward: an explicit int8 request
+                # must not silently train another numeric path
+                warnings.warn(
+                    "rl_impl='pallas_int8' is inference-only (no VJP); "
+                    "training steps run the bf16 pallas kernel instead",
+                    stacklevel=2,
+                )
+            impl = "pallas"
         f_drop = self.training and self.dropout > 0.0
         pair_drop = self.training and self.pair_dropout > 0.0
         if (f_drop or pair_drop) and generator is None:
@@ -210,7 +220,7 @@ class RelationalLayer(nn.Module):
                 keep = 1.0 - self.pair_dropout
                 seed = torch.randint(0, 2**62, (1,), generator=generator, device=x.device)
             pooled = fused_pairwise_g(
-                x, q, self.gw, self.gb, inject=self.inject, dtype=self.dtype, pair_keep=keep, seed=seed
+                x, q, self.gw, self.gb, inject=self.inject, dtype=self.dtype, pair_keep=keep, seed=seed, int8=int8
             )
         else:
             a = self._g_naive(x, q) if impl == "naive" else self._g_xla(x, q)
@@ -230,3 +240,11 @@ class RelationalLayer(nn.Module):
         last = self.n_f - 1
         y = y @ getattr(self, f"f{last}_kernel") + getattr(self, f"f{last}_bias")
         return torch.log_softmax(y, dim=-1)
+
+    def int8_clip_report(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """(L-1,) per-layer int8 calibration clip fractions on this batch
+        (``pairwise_clip_fractions``; the ``pallas_int8`` eval diagnostic:
+        fractions >> 1e-3 mean the calibration margin is being exceeded)."""
+        return pairwise_clip_fractions(
+            x.to(self.dtype), q.to(self.dtype), self.gw, self.gb, inject=self.inject, dtype=self.dtype
+        )

@@ -1,6 +1,7 @@
 """RN: the composition root (from-pixels / state-description switch).
 
-Port of ``rnet/models/rn.py`` (``extract`` comes with a later slice):
+Port of ``rnet/models/rn.py`` (``extract`` comes with a later slice;
+``int8_clip_report`` is the ``pallas_int8`` drift diagnostic):
   * from-pixels: uint8 (B, S, S, 3) -> cast to the compute dtype, then /255
     (in that order, as rnet does) -> ConvInputModel -> (B, g, g, C) flattened
     row-major over (row, col) to (B, g^2, C), each object tagged with its
@@ -123,3 +124,14 @@ class RN(nn.Module):
     ) -> torch.Tensor:
         objects = self.objects(inputs, generator, augmented)
         return self.relational(objects, self.text(question), n_objects=n_objects, generator=generator)
+
+    @torch.no_grad()
+    def int8_clip_report(self, inputs: torch.Tensor, question: torch.Tensor) -> torch.Tensor:
+        """(L-1,) int8 calibration clip fractions on a live batch, with the
+        objects computed in eval mode (``RelationalLayer.int8_clip_report``)."""
+        was_training = self.training
+        self.eval()
+        try:
+            return self.relational.int8_clip_report(self.objects(inputs), self.text(question))
+        finally:
+            self.train(was_training)

@@ -22,6 +22,8 @@ stderr)::
         | python -m rnet_torch.serve --model original-fp --checkpoint w.pkl
 
 Runs on CUDA unless ``--platform cpu`` (``device="cpu"``) is given.
+``--rl-impl pallas_int8`` serves through the int8 kernel (the model runs in
+eval mode), calibrating the int8 scales on each served batch.
 """
 
 from __future__ import annotations

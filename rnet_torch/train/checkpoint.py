@@ -102,6 +102,12 @@ class CheckpointManager:
 
     def _load(self, path_or_epoch, state: TrainState) -> dict:
         path = self._resolve(path_or_epoch)
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                f"{path} is a directory, an orbax checkpoint of rnet: restoring orbax "
+                "checkpoints comes with a later slice of the port (ROADMAP.md); export "
+                "weights with rnet/train/checkpoint.py::export_weights and pass the .pkl"
+            )
         payload = torch.load(path, map_location="cpu", weights_only=True)
         check_match(path, payload["model"], state.model.state_dict())
         return payload

@@ -14,7 +14,9 @@ asked for):
     so the host sends no pixels. Eval keeps predictions, labels, the valid
     mask and the NLL sum on the device and fetches them once per epoch;
   * every epoch: LR and batch size from their ``DoublingSchedule``s, eval
-    with the per-answer and per-family reports, a full-state checkpoint.
+    with the per-answer and per-family reports, a full-state checkpoint;
+  * ``int8_clip_report``: the ``pallas_int8`` calibration-drift receipt on
+    one val batch (printed by ``python -m rnet_torch.evaluate``).
 Multi-GPU runs (rnet's ``--mesh``, ``--multihost``) come with a later
 slice; the CLI refuses them.
 """
@@ -144,6 +146,19 @@ class Trainer:
         self.ckpt.restore(self.state, path_or_epoch)
         self.epoch = self._epoch_of(path_or_epoch)
         return self.epoch
+
+    # ---- diagnostics ----
+
+    def int8_clip_report(self, batch_size: int = 64) -> np.ndarray:
+        """(L-1,) per-layer int8 calibration clip fractions on the first val
+        batch, in order (``RN.int8_clip_report``)."""
+        it = BatchIterator(
+            self.val_ds, min(batch_size, len(self.val_ds)), shuffle=False, invert=self.invert,
+            num_threads=self.num_threads,
+        )
+        b = steps._batch_tensors(next(iter(it)), self.device)
+        inputs = steps._inputs_of(b, self.cfg, self.val_cache)
+        return self.state.model.int8_clip_report(inputs, b["question"]).cpu().numpy()
 
     # ---- epochs ----
 

@@ -252,9 +252,23 @@ def test_auto_impl_rule(name, device, dtype, want):
 
 
 def test_int8_impl_not_ported_raises():
+    """pallas_int8 resolves now (the int8 kernel is ported); what it still
+    refuses raises: int8 with fp32 compute on the card (ROADMAP.md), and the
+    object mask, which needs the naive/xla impl as pallas does."""
+    from rnet_torch.kernels import pairwise as tpw
+
     cfg = load_config("original-fp", overrides={"rl_impl": "pallas_int8"})
+    assert RN(cfg, V).relational.resolve_impl(cfg.n_objects, torch.device("cpu")) == "pallas_int8"
+    rs = np.random.RandomState(6)
+    args = [torch.from_numpy(rs.randn(*shape).astype(np.float32))
+            for shape in ((2, 16, 128), (2, 16, 128), (2, 128), (2, 128), (2, 128, 128), (2, 128))]
+    u, v, s, qa, w8, m, bs = tpw.quantize_int8(*args, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RN(cfg, V).relational.resolve_impl(cfg.n_objects, torch.device("cpu"))
+        tpw.pairwise_fwd_int8_cuda(u, v, s, qa, w8, m, bs, inject=0)  # fp32 u, v, s
+    jm, tm = _relational_pair("pallas_int8", 0, "sum", object_mask=True)
+    x, q = torch.from_numpy(rs.randn(2, 6, 7).astype(np.float32)), torch.from_numpy(rs.randn(2, 12).astype(np.float32))
+    with pytest.raises(ValueError, match="naive/xla"):
+        tm.eval()(x, q, n_objects=torch.tensor([6, 3]))
 
 
 def test_training_forward_not_ported_raises():

@@ -10,6 +10,7 @@ ladder, chunking vs padding, the stdin micro-batcher and the CLI round trip.
 import io
 import json
 import os
+import warnings
 
 import jax
 import numpy as np
@@ -234,11 +235,46 @@ def test_load_refuses_orbax_dir_and_wrong_skeleton(dicts, sd_pair, tmp_path):
 
 
 def test_int8_impl_raises(fixture_dir, dicts, sd_pair):
+    """An int8 server of original-sd (n=12, a shape the int8 kernel does not
+    take) answers through the fp core with rnet's loud "NOT int8" warning,
+    the answers of the fp server."""
     _, server, path = sd_pair
     s8 = tserve.InferenceServer(server.cfg.replace(rl_impl="pallas_int8"), dicts, device="cpu")
     s8.load(path)
-    with pytest.raises(NotImplementedError, match="pallas_int8"):
-        s8.answer(_sd_requests(fixture_dir, k=1))
+    reqs = _sd_requests(fixture_dir, k=5)
+    with pytest.warns(UserWarning, match="NOT int8"):
+        got = s8.answer(reqs)
+    _assert_same(got, server.answer(reqs))
+
+
+def test_int8_server_matches_rnet(fixture_dir, dicts, tmp_path, monkeypatch):
+    """An int8 server of original-fp shrunk to a shape the int8 kernel takes
+    (32x32 images, a 4x4 grid of objects, g of 4 x 128) answers PNG requests
+    through the plain int8 core, once per served batch and with no warning,
+    as rnet's int8 server does with its kernel in interpret mode (off a TPU
+    rnet would fall back to fp)."""
+    from rnet.kernels import pairwise as rpw
+    from rnet_torch.kernels import pairwise as tpw
+
+    orig = rpw.pairwise_core_int8
+    monkeypatch.setattr(rpw, "pairwise_core_int8",
+                        lambda *a, inject, interpret=False: orig(*a, inject=inject, interpret=True))
+    calls = []
+    real = tpw.pairwise_core_int8_reference
+    monkeypatch.setattr(tpw, "pairwise_core_int8_reference", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    kw = dict(FP_KW, image_size=32, conv_channels=(24, 24, 24), g_layers=(128,) * 4, f_layers=(32, 32))
+    path = str(tmp_path / "fp_int8.pkl")
+    jserver, tcfg = _exported("original-fp", kw, dicts, path, seed=9, max_batch=4)
+    j8 = JaxServer(jserver.cfg.replace(rl_impl="pallas_int8"), dicts, max_batch=4)
+    j8.params, j8.batch_stats = jserver.params, jserver.batch_stats
+    s8 = tserve.InferenceServer(tcfg.replace(rl_impl="pallas_int8"), dicts, max_batch=4, device="cpu")
+    s8.load(path)
+    reqs = _fp_requests(fixture_dir, k=5)  # chunked 4 + 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = s8.answer(reqs)
+    assert len(calls) == 2
+    _assert_same(got, j8.answer(reqs))
 
 
 def _cli_config(tmp_path, cfg):
