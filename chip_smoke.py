@@ -6,13 +6,14 @@
 Phases, each fatal (exit 1, no result line) when it fails:
   1. CUDA present; print the card's name and power limit (nvidia-smi).
   2. Build every CUDA kernel of the serving, training and int8 inference
-     paths from ``rnet_torch/csrc`` (one nvcc per source, started together);
-     print ptxas' resource lines.
+     paths from ``rnet_torch/csrc`` (one nvcc per source, started together),
+     and beside them the phase-timing build of the two bf16 pairwise kernels
+     (``-DRNET_PHASE_TIMES``); print ptxas' resource lines.
   3. Forward kernel vs plain version on the card at the paths' shapes
      (original-fp B=1/64/512 with inject 0 and 2 as in ir-fp, wide-fp's
-     H=512 at B=64 and at B=140 > the SM count, a ragged small shape and a
-     rectangular ni != nj), seeded numpy inputs in bf16, at pair_keep 1 and
-     0.75.
+     H=512 at B=64 and at B=140 > the SM count, a ragged small shape, a
+     rectangular ni != nj and stretch-fp-32's 1,024 objects), seeded numpy
+     inputs in bf16, at pair_keep 1 and 0.75.
   4. Philox pair mask: the mask kernel's bits equal ``pair_mask_reference``
      exactly.
   5. Backward kernel vs plain version at the same shapes and keeps, and the
@@ -47,8 +48,12 @@ Phases, each fatal (exit 1, no result line) when it fails:
      kernels; the kernel path's loss and gradients agree with the ``xla``
      path's.
   8. Times with CUDA events: each kernel, its plain version, one PyTorch
-     yardstick (``library_ms``) and the roofline bound; serve latency per
-     bucket and train questions/s on the host clock; torch.profiler
+     yardstick (``library_ms``) and the roofline bound; the phase breakdown
+     of ``pairwise_fwd`` and ``pairwise_bwd`` at B = 64 and 512 (the
+     phase-timing build: clock64() cycles per phase summed over the CTAs'
+     first consumer threads, as shares of their total); serve latency per
+     bucket and train questions/s on the host clock (kernel and xla paths in
+     the order kernel xla xla kernel); torch.profiler
      breakdowns of a served forward and of a train step (device busy time by
      kernel, and the device's idle share). The int8 kernel at B = 64 and
      512 (its yardstick: ``torch._int_mm`` on materialised pair rows), a
@@ -261,8 +266,9 @@ def log_profile(torch, what, fn, wall_ms, top=8):
 
 
 # Kernel agreement cases (B, ni, nj, H, L, inject): original-fp B=1/64,
-# ir-fp (inject 2) B=1/64, wide-fp (H=512), ragged n=12, rectangular, and
-# two with B above the SM count (132 on an H100 SXM), where each CTA of the
+# ir-fp (inject 2) B=1/64, wide-fp (H=512), ragged n=12, rectangular,
+# stretch-fp-32's grid of 1,024 objects (a million pair rows), and two with
+# B above the SM count (132 on an H100 SXM), where each CTA of the
 # backward's persistent grid of min(B, SMs) takes several samples into one
 # dW/db partial: original-fp at the training shape B=512 (3-4 samples a
 # CTA, 128-row blocks) and H=512 with inject 2 at B=140 (64-row blocks).
@@ -270,7 +276,7 @@ TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0)
 CASES = [
     (1, 64, 64, 256, 4, 0), (64, 64, 64, 256, 4, 0), (1, 64, 64, 256, 4, 2),
     (64, 64, 64, 256, 4, 2), (64, 64, 64, 512, 4, 0), (3, 12, 12, 128, 3, 1),
-    (2, 16, 64, 256, 4, 1), TRAIN_CASE, (140, 64, 64, 512, 4, 2),
+    (2, 16, 64, 256, 4, 1), (1, 1024, 1024, 256, 4, 1), TRAIN_CASE, (140, 64, 64, 512, 4, 2),
 ]
 KEEPS = (1.0, 0.75)
 GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
@@ -716,6 +722,38 @@ def time_kernels(torch, pw, seed):
     return fwd, bwd, mask
 
 
+def phase_breakdown(torch, pw):
+    """Phase 8: one launch of each bf16 pairwise kernel's phase-timing build
+    at original-fp B = 64 and 512: the clock64() cycles of every phase,
+    summed over the CTAs, as shares of their total (and the total)."""
+    n, H, L, inject = 64, 256, 4, 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for B in (64, TRAIN_B):
+        args = pair_inputs(torch, B, n, H, L, seed=100 + B)
+        g = upstream(torch, B, H, seed=200 + B)
+        for kind, names in (("fwd", pw.FWD_PHASES), ("bwd", pw.BWD_PHASES)):
+            plan = pw.tile_plan(kind, B, n, n, H, L, sms)
+            cycles = torch.zeros((plan.grid, pw.PHASE_SLOTS), dtype=torch.int64, device="cuda")
+            if kind == "fwd":
+                got = pw.pairwise_fwd_cuda(*args, inject=inject, phases=cycles)
+                want = pw.pairwise_fwd_cuda(*args, inject=inject)
+            else:
+                got = pw.pairwise_bwd_cuda(*args, g, inject=inject, phases=cycles)[4]
+                want = pw.pairwise_bwd_cuda(*args, g, inject=inject)[4]
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"the phase-timing build of pairwise_{kind} computes other values than the kernel")
+            total = cycles.sum(dim=0).double()
+            row = {"B": B, "total_cycles": int(total.sum().item()), "ctas": plan.grid,
+                   "shares": {name: (total[k] / total.sum()).item() for k, name in enumerate(names)}}
+            out[(kind, B)] = row
+            log(f"phases pairwise_{kind} {json.dumps(row)}")
+        del args, g
+        torch.cuda.empty_cache()
+    return out
+
+
 def library_chain_int8(torch, u, v, s, qa, w8, m, bs, inject):
     """The int8 function through cuBLAS int8 products (``torch._int_mm``) on
     materialised (B*ni*nj, H) pair rows, the epilogue in torch ops: the int8
@@ -786,32 +824,38 @@ def profile_int8_eval(torch, np, cfg):
 
 def time_training(torch, cfg, state, batch):
     """Phase 8, training: questions/s of the kernel and xla paths (host
-    clock over TRAIN_STEPS steps ending in a synchronize), and a profile of
-    one kernel-path step."""
+    clock over windows of TRAIN_STEPS steps ending in a synchronize, taken
+    in the order kernel xla xla kernel, so that neither path always runs
+    later in the call; both are host-bound at times), and a profile of one
+    step of each."""
     from rnet_torch.train import steps
 
-    out = {}
-    for impl in ("auto", "xla"):
-        st = state if impl == "auto" else new_state(torch, cfg.replace(rl_impl="xla"), state.model.state_dict())
+    states = {"auto": state, "xla": new_state(torch, cfg.replace(rl_impl="xla"), state.model.state_dict())}
+    for st in states.values():
         for _ in range(2):
             steps.train_step(st, batch)
+    windows = {impl: [] for impl in states}
+    for impl in ("auto", "xla", "xla", "auto"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(TRAIN_STEPS):
-            steps.train_step(st, batch)
+            steps.train_step(states[impl], batch)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
+        windows[impl].append(time.perf_counter() - t0)
+    out = {}
+    for impl, st in states.items():
+        dt = sum(windows[impl])
         torch.cuda.reset_peak_memory_stats()
         step_ms = cuda_ms(torch, lambda: steps.train_step(st, batch), 3, warmup=0)
-        out[impl] = {"qps": TRAIN_B * TRAIN_STEPS / dt, "step_ms_host": dt / TRAIN_STEPS * 1e3,
-                     "step_ms_events": step_ms,
+        out[impl] = {"qps": TRAIN_B * TRAIN_STEPS * len(windows[impl]) / dt,
+                     "qps_windows": [TRAIN_B * TRAIN_STEPS / w for w in windows[impl]],
+                     "step_ms_host": dt / (TRAIN_STEPS * len(windows[impl])) * 1e3, "step_ms_events": step_ms,
                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
         log(f"train {impl} path, original-fp B={TRAIN_B}: {json.dumps(out[impl])}")
         busy, _ = log_profile(torch, f"train step ({impl} path)", lambda: steps.train_step(st, batch), step_ms)
         out[impl]["busy_ms"] = busy
-        if impl == "xla":
-            del st
-            torch.cuda.empty_cache()
+    del states
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1318,11 +1362,16 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} | device {kind}")
     t_start = time.perf_counter()
 
-    # ---- 2. build ----
+    # ---- 2. build (the kernels and the phase-timing build, all nvcc at once) ----
+    from concurrent.futures import ThreadPoolExecutor
+
     kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL, pw.INT8_KERNEL]
+    timed = [pw.KERNEL, pw.BWD_KERNEL]
     t0 = time.perf_counter()
-    build.build(kernels)
-    log(f"build: {kernels} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as ex:
+        for job in [ex.submit(build.build, kernels), ex.submit(build.build, timed, pw.PHASE_DEFINES)]:
+            job.result()
+    log(f"build: {kernels} and {timed} with {pw.PHASE_DEFINES} in {time.perf_counter() - t0:.1f} s")
     for name in kernels:
         with open(build.log_path(name)) as f:
             for line in f:
@@ -1359,6 +1408,7 @@ def main() -> int:
 
     # ---- 8. times ----
     fwd, bwd, mask = time_kernels(torch, pw, seed)
+    phases = phase_breakdown(torch, pw)
     train_times = time_training(torch, cfg, state, batch)
     qps_ratio = train_times["auto"]["qps"] / train_times["xla"]["qps"]
     log(f"train questions/s, kernel path / xla path: {qps_ratio!r}")
@@ -1444,10 +1494,12 @@ def main() -> int:
         record(pw.KERNEL, "rnet_torch/csrc/pairwise_fwd.cu", "rnet/kernels/pairwise.py:83",
                train_counts[pw.KERNEL], fwd_err_at_shape, fwd[TRAIN_B], shape=shape,
                max_abs_err_all_cases=fwd_err, serve_launches=serve_launches,
+               phase_shares=phases[("fwd", TRAIN_B)]["shares"],
                entry_point_launches=entry_counts[pw.KERNEL]),
         record(pw.BWD_KERNEL, "rnet_torch/csrc/pairwise_bwd.cu", "rnet/kernels/pairwise.py:120",
                train_counts[pw.BWD_KERNEL], bwd_err_at_shape, bwd[TRAIN_B], shape=shape,
-               max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL]),
+               max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL],
+               phase_shares=phases[("bwd", TRAIN_B)]["shares"]),
         record("pair_mask", "rnet_torch/csrc/philox.cuh", "rnet/kernels/pairwise.py:69",
                pd_counts["pair_mask"], float(mask_err), mask,
                shape={"B": TRAIN_B, "n": 64}, launches_of="one train step with pair_dropout 0.25"),

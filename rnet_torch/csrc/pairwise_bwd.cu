@@ -1,7 +1,8 @@
 // Fused pairwise g_theta backward for Hopper (sm_90a): bf16 in, fp32 grads.
 //
-// Replaces the TPU kernel rnet/kernels/pairwise.py::_bwd_kernel (launched by
-// _bwd_pallas, the custom VJP of _make_core), pair mask included. With
+// Replaces the TPU kernel rnet/kernels/pairwise.py::_bwd_kernel (:120,
+// launched by _bwd_pallas, :485, the custom VJP of _make_core), pair mask
+// included. With
 //     a_0 = bf16(relu(u_i + v_j + s)),  a_l = bf16(relu(a_{l-1} W_l + b_l [+ qa]))
 // for every pair row p = i*nj + j of sample b, and the pooled upstream
 // gradient g[b] broadcast to every row (times the pair's dropout scale of
@@ -18,380 +19,422 @@
 // What bounds it: tensor-core operations. The recompute, d and dW products
 // are each 2*B*ni*nj*(L-1)*H^2 FLOPs, 3x the forward: at original-fp B=512
 // (n=64, H=256, L=4) 2.47 TFLOP, 2.50 ms at 989 TFLOP/s bf16, against ~20 MB
-// of inputs and outputs (6 us at 3.35 TB/s).
+// of inputs and outputs. Behind them: the W feed (every 128-row block reads
+// all of W twice) and the dW partial, (L-1)*H^2 fp32 (786 KB at H=256)
+// added once per block by each of up to 132 CTAs, 104 MB in all, twice L2.
 //
-// Design. The TPU summed dW, db (all samples) and dv, ds, dqa (all i-tiles
-// of a sample) into output blocks revisited across its sequential grid. CTAs
-// run in no order, so here every output has one fixed writer:
-//   * a persistent grid of G = min(B, #SMs) CTAs; CTA k takes the samples
-//     b = k, k+G, ... and walks all their blocks of BM pair rows in order;
-//   * du, dv, ds, dqa of a sample are read-modified-written in device memory
-//     by the one CTA that owns the sample, each column by one thread;
-//   * each CTA adds its dW/db to its own fp32 partial (G, L-1, H, H) /
-//     (G, L-1, H) (each dW tile by one warp), and a second kernel adds the
-//     G partials in a fixed order.
-// So gradients are bitwise the same from run to run (no atomics).
-//
-// A CTA (8 warps) keeps the activation tiles of its BM rows in shared
-// memory, one slot each for a_1 .. a_{L-1}; a_0 lives in a_{L-1}'s slot
-// until layer 1 has used it and is rebuilt from u, v, s (cheap) for the
-// last backward layer. That is 3 slots of BM*(H+8) bf16 at L=4: 203 KB at
-// BM=128, H=256. dpre_l overwrites a_l in place once a_l's relu mask has
-// been read. W_l streams through two (32 x 128) chunk buffers with
-// cp.async, the next chunk in flight while the tensor cores work on the
-// current one: row-major for the recompute and transposed (the col-major
-// wmma B operand) for d = dpre W^T. BM is the largest of 128/64/32 that
-// fits 227 KB: 128 at H=256 (with 0.5 KB to spare), 64 at H=512 (wide-fp,
-// original-sd). dpre_0 goes to a per-CTA fp32 scratch (BM, H) in device
-// memory (L2-resident), from which the column pass forms du/dv/ds.
-//
-// What bounds this simple kernel is the dW partial: (L-1)*H*H fp32, read
-// and written once per row block, more than L2 holds across 132 CTAs. Its
-// traffic per pair row falls as 1/BM, which is why BM is as large as
-// shared memory allows. Memory latency is hidden by keeping several
-// requests in flight from one warp or thread: a warp updates 8 dW tiles of
-// its partial at once (8 loads, 8*BM/16 products, 8 stores), and the
-// column pass reads and writes dv for 8 pair rows at once.
+// Design (pairwise_chain.cuh has the layout, the W feed and the products).
+// CTAs run in no order, so every output has one fixed writer, and the
+// gradients are bitwise the same from run to run:
+//   * a persistent grid of min(B, #SMs) CTAs; CTA k owns the samples
+//     b = k, k+G, ... and walks all their blocks of BM = 64*WGS pair rows in
+//     order (WGS = 2 up to H=256, 1 at H=512); dW / db go to the CTA's own
+//     fp32 partial, which a second kernel adds over the CTAs in CTA order;
+//   * warpgroup WGS is the producer (one thread of it): per block it streams the packed W_l^T
+//     chunks of the recompute and the packed W_l chunks of the L-1 d
+//     products through the ring, running ahead into the next block;
+//   * the WGS consumer warpgroups own 64 rows each and keep max(3, L-1)
+//     activation slots of BM x H bf16 (192 KB at H=256 or 512, L=4):
+//     a_0 .. a_{L-2} in slots 0 .. L-2, and dpre_{L-1}, which the last
+//     recompute epilogue forms straight from its accumulators (no separate
+//     pass), in slot L-1 or, when that does not exist, in slot 0 (a_0 is
+//     rebuilt from u, v, s for layer 1). dpre_{l-1} overwrites a_{l-1} in
+//     place in the epilogue of d = dpre_l W_l^T.
+//   * The dW flush. dW_l = a_{l-1}^T dpre_l is wgmma on both slots read
+//     MN-major, 64 x 128 tiles split between the warpgroups. The partial
+//     tile, kept in the accumulator's own fragment order (coalesced 16-byte
+//     loads and stores, one thread per element), is loaded as the
+//     accumulator and wgmma adds the block's rows onto it; the next tile's
+//     partial loads while this tile's product runs, so the load is off the
+//     critical path, and the partials are read and written with an L2
+//     evict-first policy, so that they do not push the W chunks and du / dv
+//     out of L2. A fixed thread adds every element, once per block, in
+//     block order: the order of adds is fixed. Vector reductions
+//     (red.add.v4.f32) took as long, and there is no shared memory left for
+//     a staged bulk reduction: the slots and a 4-stage ring fill 227 KB.
+//   * The serial phases. db_l (and dqa) are one more wgmma, 1^T dpre_l,
+//     against a single core matrix of ones read with both strides 0, so the
+//     column sums come from the tensor cores. dpre_0 = d * [a_0 > 0] goes in
+//     fp32 from the accumulators into a dead slot of shared memory, never to
+//     device memory, and the column pass adds it into du, dv, ds with
+//     fire-and-forget reductions, four threads per column pair, each du /
+//     dv / ds entry by one fixed thread in row order (one thread's
+//     reductions to one address apply in program order), so no thread waits
+//     on a load from device memory.
+// With -DRNET_PHASE_TIMES the first consumer thread of each CTA sums
+// clock64() per phase (recompute, dW products, dW flush, d products,
+// column pass, W feed waits, a_0, barriers) into `phases` (grid, NPHASE).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "pairwise_chain.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using namespace rnet;
 
-constexpr int KC = 32;   // reduction depth of a streamed W chunk
-constexpr int NC = 128;  // output columns of a streamed W chunk
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;   // bf16 row padding in shared memory (bank spread)
-constexpr int WBUF = (KC * (NC + PAD) > NC * (KC + PAD)) ? KC * (NC + PAD) : NC * (KC + PAD);
-constexpr int DW_TILES = 8;  // dW tiles a warp updates together
-constexpr int COL_ROWS = 8;  // pair rows the column pass handles together
+enum { PH_RECOMPUTE, PH_DW, PH_FLUSH, PH_D, PH_COLUMNS, PH_FEED, PH_A0, PH_SYNC };
 
-// Activation slots: a_1 .. a_{L-1} each have one; a_0 shares the slot of
-// a_{L-1} (it is dead while a_{L-1} lives and is rebuilt from u, v, s for
-// the last backward layer), except at L = 2, where it gets its own.
-__host__ __device__ inline int act_slots(int L) { return L - 1 > 2 ? L - 1 : 2; }
-
-size_t smem_bytes(int BM, int H, int L) {
-  return (size_t)act_slots(L) * BM * (H + PAD) * sizeof(bf16)  // activation slots
-         + 2 * (size_t)WBUF * sizeof(bf16)           // two weight chunks
-         + (size_t)WARPS * 256 * sizeof(float)       // epilogue staging
-         + (size_t)BM * sizeof(float);               // per-row gradient scale
+// Shared memory: the activation slots, the W ring and its mbarriers, the
+// per-row scale and one core matrix of ones.
+size_t smem_bytes(int bm, int H, int slots, int stages) {
+  return (size_t)slots * bm * H * sizeof(bf16) + (size_t)stages * (CHUNK_BYTES + 16) + (size_t)bm * sizeof(float) +
+         128;
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// Element offset of (r, c) in the fp32 dpre_0 tile of width NT: rows of NT
+// floats, 8-float groups swizzled by the row, so that a warp's fragment
+// stores spread over the banks.
+__device__ __forceinline__ int f32_off(int r, int c) { return r * NT + (c ^ ((r & 7) << 3)); }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Starts the copy of chunk (n0, k0) of W into buf: W[k0:k0+KC, n0:n0+NC]
-// row-major, or with TRANS the block W[n0:n0+NC, k0:k0+KC] as stored, which
-// is the col-major B operand of D W^T.
-template <bool TRANS>
-__device__ __forceinline__ void issue_chunk(const bf16* __restrict__ W, int H, int n0, int k0, bf16* buf) {
-  if (!TRANS) {
-    for (int idx = threadIdx.x; idx < KC * (NC / 8); idx += THREADS) {
-      const int r = idx / (NC / 8);
-      const int c8 = (idx % (NC / 8)) * 8;
-      cp_async16(buf + r * (NC + PAD) + c8, W + (size_t)(k0 + r) * H + n0 + c8);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < NC * (KC / 8); idx += THREADS) {
-      const int c = idx / (KC / 8);
-      const int k8 = (idx % (KC / 8)) * 8;
-      cp_async16(buf + c * (KC + PAD) + k8, W + (size_t)(n0 + c) * H + k0 + k8);
-    }
-  }
-  cp_async_commit();
-}
-
-// acc = A[rt tile] . W (or W^T with BWD) over one (BM, NC) output chunk per
-// n0, each warp owning row tile rt and TPW column tiles from ct0; W streams
-// through wb[0], wb[1] in (n0, k0) chunk order. At the end of each n0 the
-// epilogue runs on the warp's fragments:
-//   forward:  out = bf16(relu(acc + bias [+ qa_row]))
-//   backward: with prev, prev = bf16(acc * [prev > 0]) in place (dpre_{l-1});
-//             without it (l == 1), acc is stored in fp32 to d0 (BM, H).
-template <int TPW, bool BWD>
-__device__ void chunked_layer(const bf16* A, const bf16* __restrict__ W, int H, int LDA,
-                              bf16* const wb[2], float* stage, int rt, int ct0, int lane,
-                              bf16* out, const bf16* __restrict__ bias,
-                              const bf16* __restrict__ qa_row, float* d0) {
-  const int kch = H / KC;
-  const int nq = (H / NC) * kch;
-  FragC acc[TPW];
-  issue_chunk<BWD>(W, H, 0, 0, wb[0]);
-  for (int q = 0; q < nq; ++q) {
-    const int n0 = (q / kch) * NC;
-    const int k0 = (q % kch) * KC;
-    if (k0 == 0) {
-#pragma unroll
-      for (int t = 0; t < TPW; ++t) wmma::fill_fragment(acc[t], 0.0f);
-    }
-    if (q + 1 < nq) {
-      issue_chunk<BWD>(W, H, ((q + 1) / kch) * NC, ((q + 1) % kch) * KC, wb[(q + 1) & 1]);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk q (and, at q == 0, A) complete for every warp
-    const bf16* buf = wb[q & 1];
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      FragA af;
-      wmma::load_matrix_sync(af, A + rt * 16 * LDA + k0 + kk, LDA);
-#pragma unroll
-      for (int t = 0; t < TPW; ++t) {
-        if (BWD) {
-          FragBT bfr;
-          wmma::load_matrix_sync(bfr, buf + (ct0 + t) * 16 * (KC + PAD) + kk, KC + PAD);
-          wmma::mma_sync(acc[t], af, bfr, acc[t]);
-        } else {
-          FragB bfr;
-          wmma::load_matrix_sync(bfr, buf + kk * (NC + PAD) + (ct0 + t) * 16, NC + PAD);
-          wmma::mma_sync(acc[t], af, bfr, acc[t]);
-        }
-      }
-    }
-    if (k0 + KC == H) {
-#pragma unroll
-      for (int t = 0; t < TPW; ++t) {
-        const int col0 = n0 + (ct0 + t) * 16;
-        if (BWD && out == nullptr) {
-          wmma::store_matrix_sync(d0 + (size_t)rt * 16 * H + col0, acc[t], H, wmma::mem_row_major);
-          continue;
-        }
-        wmma::store_matrix_sync(stage, acc[t], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          bf16* po = out + (rt * 16 + e / 16) * LDA + col0 + e % 16;
-          if (BWD) {
-            *po = __bfloat162float(*po) > 0.0f ? __float2bfloat16(stage[e]) : __float2bfloat16(0.0f);
-          } else {
-            const int c = col0 + e % 16;
-            float x = stage[e] + __bfloat162float(bias[c]);
-            if (qa_row) x += __bfloat162float(qa_row[c]);
-            *po = __float2bfloat16(fmaxf(x, 0.0f));
-          }
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();  // every warp is done with wb[q & 1] before chunk q+2 lands there
-  }
-}
-
-// dW += Aprev^T D over the BM rows; warp w owns the dW row tiles w, w+8, ...
-// and updates DW_TILES of their column tiles at a time.
-template <int BM>
-__device__ void weight_grad(const bf16* Aprev, const bf16* D, float* dW, int H, int LDA, int warp) {
-  const int T = H / 16;
-  for (int tr = warp; tr < T; tr += WARPS) {
-    FragAT af[BM / 16];
-#pragma unroll
-    for (int k = 0; k < BM / 16; ++k)
-      wmma::load_matrix_sync(af[k], Aprev + k * 16 * LDA + tr * 16, LDA);
-    float* row = dW + (size_t)tr * 16 * H;
-    for (int tc0 = 0; tc0 < T; tc0 += DW_TILES) {
-      FragC acc[DW_TILES];
-#pragma unroll
-      for (int t = 0; t < DW_TILES; ++t)
-        wmma::load_matrix_sync(acc[t], row + (tc0 + t) * 16, H, wmma::mem_row_major);
-#pragma unroll
-      for (int k = 0; k < BM / 16; ++k) {
-#pragma unroll
-        for (int t = 0; t < DW_TILES; ++t) {
-          FragB bfr;
-          wmma::load_matrix_sync(bfr, D + k * 16 * LDA + (tc0 + t) * 16, LDA);
-          wmma::mma_sync(acc[t], af[k], bfr, acc[t]);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < DW_TILES; ++t)
-        wmma::store_matrix_sync(row + (tc0 + t) * 16, acc[t], H, wmma::mem_row_major);
-    }
-  }
-}
-
-// a_0 = bf16(relu(u_i + v_j + s)) in fp32 for the BM rows from pair p0 of
-// sample b (rows past `rows` zero), into the tile `a0` (leading dim LDA).
-__device__ void make_a0(const bf16* __restrict__ u, const bf16* __restrict__ v,
-                        const bf16* __restrict__ s, bf16* a0, int b, int p0, int rows, int ni,
-                        int nj, int H, int LDA, int BM) {
-  const int vec = H / 8;
-  for (int idx = threadIdx.x; idx < BM * vec; idx += THREADS) {
-    const int r = idx / vec;
-    const int c8 = (idx % vec) * 8;
-    uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) {
-      const int p = p0 + r;
-      const int i = p / nj;
-      const int j = p - i * nj;
-      const uint4 uu = *reinterpret_cast<const uint4*>(u + ((size_t)b * ni + i) * H + c8);
-      const uint4 vv = *reinterpret_cast<const uint4*>(v + ((size_t)b * nj + j) * H + c8);
-      const uint4 ss = *reinterpret_cast<const uint4*>(s + (size_t)b * H + c8);
-      const bf16* pu = reinterpret_cast<const bf16*>(&uu);
-      const bf16* pv = reinterpret_cast<const bf16*>(&vv);
-      const bf16* ps = reinterpret_cast<const bf16*>(&ss);
-      bf16* po = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float x = __bfloat162float(pu[k]) + __bfloat162float(pv[k]) + __bfloat162float(ps[k]);
-        po[k] = __float2bfloat16(fmaxf(x, 0.0f));
-      }
-    }
-    *reinterpret_cast<uint4*>(a0 + r * LDA + c8) = packed;
-  }
-}
-
-template <int BM, bool DROP>
-__global__ void __launch_bounds__(THREADS, 1)
-pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v,
-                    const bf16* __restrict__ s, const bf16* __restrict__ qa,
-                    const bf16* __restrict__ ws, const bf16* __restrict__ bs,
-                    const float* __restrict__ g, float* __restrict__ du,
-                    float* __restrict__ dv, float* __restrict__ ds, float* __restrict__ dqa,
-                    float* __restrict__ dw_part, float* __restrict__ db_part,
-                    float* __restrict__ scratch, int B, int ni, int nj, int H, int L,
-                    int inject, const int64_t* __restrict__ seed, uint32_t thr,
-                    float inv_keep) {
-  constexpr int ROW_TILES = BM / 16;
-  constexpr int TPW = NC / 16 / (WARPS / ROW_TILES);  // column tiles per warp and chunk
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int LDA = H + PAD;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int rt = warp % ROW_TILES;
-  const int ct0 = (warp / ROW_TILES) * TPW;
-  const int slots = act_slots(L);
-  bf16* acts = reinterpret_cast<bf16*>(smem);  // activation slots, BM*LDA each
-  bf16* const wb[2] = {acts + (size_t)slots * BM * LDA, acts + (size_t)slots * BM * LDA + WBUF};
-  float* stage_all = reinterpret_cast<float*>(wb[1] + WBUF);
-  float* stage = stage_all + warp * 256;
-  float* rowscale = stage_all + WARPS * 256;
-
+// The consumer warpgroups' part of pairwise_bwd_kernel (below).
+template <int WGS, bool DROP>
+__device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16* __restrict__ v,
+                                         const bf16* __restrict__ s, const bf16* __restrict__ qa,
+                                         const bf16* __restrict__ bs, const float* __restrict__ g,
+                                         float* __restrict__ du, float* __restrict__ dv, float* __restrict__ ds,
+                                         float* __restrict__ dqa, float* __restrict__ dw_part,
+                                         float* __restrict__ db_part, int B, int ni, int nj, int H, int L,
+                                         int inject, int nslots, bf16* slots, float* rowscale, const bf16* ones,
+                                         Ring& r, PhaseClock& pc, const int64_t* __restrict__ seed, uint32_t thr,
+                                         float inv_keep, long long* phases) {
+  constexpr int BM = 64 * WGS;
+  constexpr int NC = WGS * WG_THREADS;  // consumer threads
   const int npairs = ni * nj;
   const int nblk = (npairs + BM - 1) / BM;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int tid = threadIdx.x - wg * WG_THREADS;  // thread in the warpgroup
+  const int ctid = threadIdx.x;                   // thread among the consumers
+  const int r0 = 64 * wg;                         // this warpgroup's rows of a block
+  const int fbase = frag_base(tid, r0, H);
+  const int frow = r0 + 16 * (tid / 32) + (tid & 31) / 4;  // the thread's first fragment row
+  const int dtop = (L - 1 < nslots) ? L - 1 : 0;  // the slot of dpre_{L-1}
+  auto slot = [&](int k) { return slots + (size_t)k * BM * H; };
+  const int dw_tiles = (H / 64) * (H / NT);
   float* dwp = dw_part + (size_t)blockIdx.x * (L - 1) * H * H;
   float* dbp = db_part + (size_t)blockIdx.x * (L - 1) * H;
-  float* d0 = scratch + (size_t)blockIdx.x * BM * H;
   const uint64_t key = DROP ? (uint64_t)*seed : 0;
-  auto act = [&](int l) { return acts + (size_t)(l == 0 ? slots - 1 : l - 1) * BM * LDA; };
+  const uint64_t pol = l2_evict_first();
 
   for (int b = blockIdx.x; b < B; b += gridDim.x) {
     const float* gb = g + (size_t)b * H;
     for (int blk = 0; blk < nblk; ++blk) {
       const int p0 = blk * BM;
-      const int rows = min(BM, npairs - p0);
-      __syncthreads();  // the previous block's column pass is done with a_0, d0
-      for (int r = threadIdx.x; r < BM; r += THREADS) {
-        float sc = r < rows ? 1.0f : 0.0f;
-        if (DROP && r < rows) sc = rnet::pair_kept(key, p0 + r, b, thr) ? inv_keep : 0.0f;
-        rowscale[r] = sc;
+      const int valid = min(BM, npairs - p0);
+      pc.mark(PH_SYNC);
+      bar_sync(1, NC);  // the previous block's column pass is done with the slots
+      pc.mark(PH_A0);
+      for (int rr = ctid; rr < BM; rr += NC) {
+        float sc = rr < valid ? 1.0f : 0.0f;
+        if (DROP && rr < valid) sc = pair_kept(key, p0 + rr, b, thr) ? inv_keep : 0.0f;
+        rowscale[rr] = sc;
       }
+      make_a0(u, v, s, slot(0), b, p0, r0, 64, valid, ni, nj, H, tid, WG_THREADS);
+      pc.mark(PH_SYNC);
+      fence_proxy_async();
+      bar_sync(1, NC);
 
-      make_a0(u, v, s, act(0), b, p0, rows, ni, nj, H, LDA, BM);
-      // ---- recompute: a_1 .. a_{L-1} ----
-      for (int l = 1; l < L; ++l)
-        chunked_layer<TPW, false>(act(l - 1), ws + (size_t)(l - 1) * H * H, H, LDA, wb, stage, rt,
-                                  ct0, lane, act(l), bs + (size_t)(l - 1) * H,
-                                  l == inject ? qa + (size_t)b * H : nullptr, nullptr);
-
-      // ---- dpre_{L-1} = bf16(g * scale_row * [a_{L-1} > 0]), in place ----
-      bf16* top = act(L - 1);
-      for (int idx = threadIdx.x; idx < BM * H; idx += THREADS) {
-        const int r = idx / H;
-        const int c = idx - r * H;
-        bf16* pa = top + r * LDA + c;
-        const float x = gb[c] * rowscale[r];
-        *pa = __bfloat162float(*pa) > 0.0f ? __float2bfloat16(x) : __float2bfloat16(0.0f);
+      // ---- recompute a_1 .. a_{L-2}; the last layer's epilogue forms dpre_{L-1} ----
+      for (int l = 1; l < L; ++l) {
+        const bf16* A = slot(l - 1);
+        bf16* out = slot(l < L - 1 ? l : dtop);
+        const bf16* bias = bs + (size_t)(l - 1) * H;
+        const bf16* qrow = (l == inject) ? qa + (size_t)b * H : nullptr;
+        for (int nt = 0; nt < H / NT; ++nt) {
+          // register 4j + 2h + e: row frow + 8h, column nt*NT + 8j + 2q + e;
+          // the accumulator starts as b_l (+ qa) in fp32
+          float acc[NT / 2];
+          const bf16* bq = bias + nt * NT + 2 * (tid & 3);
+          const bf16* qq = qrow ? qrow + nt * NT + 2 * (tid & 3) : nullptr;
+#pragma unroll
+          for (int j = 0; j < NT / 8; ++j) {
+            float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bq + 8 * j));
+            if (qq) {
+              const float2 q = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qq + 8 * j));
+              bb.x += q.x;
+              bb.y += q.y;
+            }
+            acc[4 * j] = acc[4 * j + 2] = bb.x;
+            acc[4 * j + 1] = acc[4 * j + 3] = bb.y;
+          }
+          pc.mark(PH_RECOMPUTE);
+          streamed_product(acc, smem_u32(A + r0 * H), H, r, tid == 0, pc, PH_FEED);
+          bf16* o0 = out + fbase + nt * (NT / 8) * 64;
+          bf16* o1 = o0 + 8 * H;
+          if (l < L - 1) {
+#pragma unroll
+            for (int j = 0; j < NT / 8; ++j) {
+              *reinterpret_cast<__nv_bfloat162*>(o0 + 64 * j) =
+                  __floats2bfloat162_rn(fmaxf(acc[4 * j], 0.0f), fmaxf(acc[4 * j + 1], 0.0f));
+              *reinterpret_cast<__nv_bfloat162*>(o1 + 64 * j) =
+                  __floats2bfloat162_rn(fmaxf(acc[4 * j + 2], 0.0f), fmaxf(acc[4 * j + 3], 0.0f));
+            }
+          } else {  // dpre_{L-1} = bf16(g * scale_row * [bf16(relu(pre)) > 0])
+            const float* gq = gb + nt * NT + 2 * (tid & 3);
+            const float sc0 = rowscale[frow], sc1 = rowscale[frow + 8];
+#pragma unroll
+            for (int j = 0; j < NT / 8; ++j) {
+              const float2 gg = *reinterpret_cast<const float2*>(gq + 8 * j);
+              const float2 f0 =
+                  __bfloat1622float2(__floats2bfloat162_rn(fmaxf(acc[4 * j], 0.0f), fmaxf(acc[4 * j + 1], 0.0f)));
+              const float2 f1 = __bfloat1622float2(
+                  __floats2bfloat162_rn(fmaxf(acc[4 * j + 2], 0.0f), fmaxf(acc[4 * j + 3], 0.0f)));
+              *reinterpret_cast<__nv_bfloat162*>(o0 + 64 * j) =
+                  __floats2bfloat162_rn(f0.x > 0.0f ? gg.x * sc0 : 0.0f, f0.y > 0.0f ? gg.y * sc0 : 0.0f);
+              *reinterpret_cast<__nv_bfloat162*>(o1 + 64 * j) =
+                  __floats2bfloat162_rn(f1.x > 0.0f ? gg.x * sc1 : 0.0f, f1.y > 0.0f ? gg.y * sc1 : 0.0f);
+            }
+          }
+        }
+        pc.mark(PH_SYNC);
+        fence_proxy_async();
+        bar_sync(2 + wg, WG_THREADS);  // this warpgroup's rows of the layer's output are complete
       }
 
       // ---- layers L-1 .. 1 ----
       for (int l = L - 1; l >= 1; --l) {
-        __syncthreads();  // dpre_l complete
-        if (l == 1 && L > 2) {  // a_0's slot is free again: rebuild a_0 for dW_1 and dpre_0
-          make_a0(u, v, s, act(0), b, p0, rows, ni, nj, H, LDA, BM);
-          __syncthreads();
-        }
-        const bf16* D = act(l);
-        for (int c = threadIdx.x; c < H; c += THREADS) {
-          float sum = 0.0f;
-          for (int r = 0; r < rows; ++r) sum += __bfloat162float(D[r * LDA + c]);
-          dbp[(size_t)(l - 1) * H + c] += sum;
-          if (l == inject) dqa[(size_t)b * H + c] += sum;
-        }
-        weight_grad<BM>(act(l - 1), D, dwp + (size_t)(l - 1) * H * H, H, LDA, warp);
-        chunked_layer<TPW, true>(D, ws + (size_t)(l - 1) * H * H, H, LDA, wb, stage, rt, ct0, lane,
-                                 l >= 2 ? act(l - 1) : nullptr, nullptr, nullptr, d0);
-      }
-      __syncthreads();  // d0 complete
+        bf16* D = slot(l == L - 1 ? dtop : l);  // dpre_l
+        bf16* P = slot(l - 1);                  // a_{l-1}
+        pc.mark(PH_A0);
+        if (l == 1 && dtop == 0)  // slot 0 held dpre_{L-1}, dead since layer L-2's barriers: rebuild a_0
+          make_a0(u, v, s, slot(0), b, p0, r0, 64, valid, ni, nj, H, tid, WG_THREADS);
+        pc.mark(PH_SYNC);
+        fence_proxy_async();
+        bar_sync(1, NC);  // dpre_l (and a_0) complete in every row
 
-      // ---- column pass: dpre_0 = d0 * [a_0 > 0] into ds, du, dv ----
-      // Thread c walks column c over the rows in groups of COL_ROWS, whose
-      // dv entries are distinct when nj >= COL_ROWS: their loads are all
-      // issued before the adds and stores. Smaller nj goes row by row.
-      const bf16* a0 = act(0);
-      const int group = nj >= COL_ROWS ? COL_ROWS : 1;
-      for (int c = threadIdx.x; c < H; c += THREADS) {
-        int i = p0 / nj;
-        int j = p0 - i * nj;
-        float run = 0.0f, ssum = 0.0f;
-        for (int r0 = 0; r0 < rows; r0 += group) {
-          const int nr = min(group, rows - r0);
-          float x[COL_ROWS], old[COL_ROWS];
-          size_t at[COL_ROWS];
+        // dW_l tiles (the warpgroup's tiles wg, wg + WGS, ...): the partial
+        // tile, in fragment order, is the accumulator that wgmma adds the
+        // block's rows onto; the next tile's partial loads while this one's
+        // product runs. Then one tile per NT columns of 1^T dpre_l: every
+        // row of it is the column sums db_l (and dqa at the inject layer).
+        {
+          float4* part = reinterpret_cast<float4*>(dwp + (size_t)(l - 1) * dw_tiles * 64 * NT) + tid;
+          float nxt[NT / 2];
+          pc.mark(PH_FLUSH);
+          if (wg < dw_tiles) {
 #pragma unroll
-          for (int k = 0; k < COL_ROWS; ++k) {
-            if (k < nr) {
-              const int r = r0 + k;
-              const int jj = j + k < nj ? j + k : j + k - nj;
-              at[k] = ((size_t)b * nj + jj) * H + c;
-              x[k] = __bfloat162float(a0[r * LDA + c]) > 0.0f ? d0[(size_t)r * H + c] : 0.0f;
-              old[k] = dv[at[k]];
+            for (int j = 0; j < NT / 8; ++j) {
+              const float4 o = ld_stream(part + (size_t)wg * 16 * NT + j * WG_THREADS, pol);
+              nxt[4 * j] = o.x;
+              nxt[4 * j + 1] = o.y;
+              nxt[4 * j + 2] = o.z;
+              nxt[4 * j + 3] = o.w;
             }
           }
+          for (int tile = wg; tile < dw_tiles; tile += WGS) {
+            float acc[NT / 2];
 #pragma unroll
-          for (int k = 0; k < COL_ROWS; ++k) {
-            if (k < nr) {
-              dv[at[k]] = old[k] + x[k];
-              ssum += x[k];
-              run += x[k];
-              if (++j == nj) {
-                du[((size_t)b * ni + i) * H + c] += run;
-                run = 0.0f;
-                j = 0;
-                ++i;
+            for (int i = 0; i < NT / 2; ++i) acc[i] = nxt[i];
+            if (tile + WGS < dw_tiles) {
+#pragma unroll
+              for (int j = 0; j < NT / 8; ++j) {
+                const float4 o = ld_stream(part + (size_t)(tile + WGS) * 16 * NT + j * WG_THREADS, pol);
+                nxt[4 * j] = o.x;
+                nxt[4 * j + 1] = o.y;
+                nxt[4 * j + 2] = o.z;
+                nxt[4 * j + 3] = o.w;
               }
             }
+            pc.mark(PH_DW);
+            dw_product(acc, smem_u32(P), smem_u32(D), tile / (H / NT), tile % (H / NT), H, BM);
+            pc.mark(PH_FLUSH);
+#pragma unroll
+            for (int j = 0; j < NT / 8; ++j)
+              st_stream(part + (size_t)tile * 16 * NT + j * WG_THREADS,
+                        make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]), pol);
           }
         }
-        if (j != 0) du[((size_t)b * ni + i) * H + c] += run;
-        ds[(size_t)b * H + c] += ssum;
+        for (int nt = wg; nt < H / NT; nt += WGS) {
+          float acc[NT / 2];
+          pc.mark(PH_DW);
+          colsum_product(acc, smem_u32(ones), smem_u32(D), nt, H, BM);
+          pc.mark(PH_FLUSH);
+          if (tid < 4) {  // row 0 of the tile: registers i with (i / 2) even
+#pragma unroll
+            for (int i = 0; i < NT / 2; ++i) {
+              if ((i >> 1) & 1) continue;
+              const int c = nt * NT + frag_col(tid, i);
+              atomicAdd(dbp + (size_t)(l - 1) * H + c, acc[i]);  // one writer: in order
+              if (l == inject) atomicAdd(dqa + (size_t)b * H + c, acc[i]);
+            }
+          }
+        }
+        pc.mark(PH_SYNC);
+        bar_sync(1, NC);  // every dW_l product has read a_{l-1} before it is overwritten
+
+        // ---- d = dpre_l W_l^T: dpre_{l-1} in place over a_{l-1}, or dpre_0 ----
+        for (int nt = 0; nt < H / NT; ++nt) {
+          float acc[NT / 2];
+#pragma unroll
+          for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
+          pc.mark(PH_D);
+          streamed_product(acc, smem_u32(D + r0 * H), H, r, tid == 0, pc, PH_FEED);
+          bf16* p0p = P + fbase + nt * (NT / 8) * 64;  // a_{l-1} at the fragment's rows
+          bf16* p1p = p0p + 8 * H;
+          if (l >= 2) {
+#pragma unroll
+            for (int j = 0; j < NT / 8; ++j) {
+              __nv_bfloat162* q0 = reinterpret_cast<__nv_bfloat162*>(p0p + 64 * j);
+              __nv_bfloat162* q1 = reinterpret_cast<__nv_bfloat162*>(p1p + 64 * j);
+              const float2 a0 = __bfloat1622float2(*q0), a1 = __bfloat1622float2(*q1);
+              *q0 = __floats2bfloat162_rn(a0.x > 0.0f ? acc[4 * j] : 0.0f, a0.y > 0.0f ? acc[4 * j + 1] : 0.0f);
+              *q1 = __floats2bfloat162_rn(a1.x > 0.0f ? acc[4 * j + 2] : 0.0f, a1.y > 0.0f ? acc[4 * j + 3] : 0.0f);
+            }
+            continue;
+          }
+          // l == 1: dpre_0 = d * [a_0 > 0] in fp32, into the dead slots (slot 1 and 2
+          // when one tile spans H; else slot 2), then the column pass of these NT columns
+          float* F = reinterpret_cast<float*>(slot(H / NT == 1 ? 1 : 2));
+          pc.mark(PH_SYNC);
+          bar_sync(1, NC);  // every warpgroup's product has read dpre_1 (slot 1)
+          pc.mark(PH_D);
+          {
+            const int sw = frow & 7;  // f32_off's swizzle, the same for both rows
+            float* f0p = F + frow * NT + 2 * (tid & 3);
+            float* f1p = f0p + 8 * NT;
+#pragma unroll
+            for (int j = 0; j < NT / 8; ++j) {
+              const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p0p + 64 * j));
+              const float2 a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p1p + 64 * j));
+              *reinterpret_cast<float2*>(f0p + 8 * (j ^ sw)) =
+                  make_float2(a0.x > 0.0f ? acc[4 * j] : 0.0f, a0.y > 0.0f ? acc[4 * j + 1] : 0.0f);
+              *reinterpret_cast<float2*>(f1p + 8 * (j ^ sw)) =
+                  make_float2(a1.x > 0.0f ? acc[4 * j + 2] : 0.0f, a1.y > 0.0f ? acc[4 * j + 3] : 0.0f);
+            }
+          }
+          pc.mark(PH_SYNC);
+          bar_sync(1, NC);  // dpre_0 of these columns complete
+          pc.mark(PH_COLUMNS);
+          // Four threads per column pair, lanes l, l+8, l+16, l+24 of a warp:
+          // quarter h takes the j in [h*jq, (h+1)*jq). Every du, dv and ds
+          // entry has one writer thread, in every block of the sample, which
+          // adds to it with fire-and-forget 8-byte reductions in row order
+          // (one thread's reductions to one address apply in program order),
+          // so no load waits on device memory. du and ds add the quarters'
+          // sums as (q0 + q1) + (q2 + q3).
+          const int jq = (nj + 3) / 4;
+          const int lane = ctid & 31;
+          const int h = lane >> 3;
+          const int pend = p0 + valid;
+          for (int cp0 = 0; cp0 < NT / 2; cp0 += NC / 4) {
+            const int cc = 2 * (cp0 + (ctid >> 5) * 8 + (lane & 7));
+            const int c = nt * NT + cc;
+            const int jlo = h * jq, jhi = min(nj, jlo + jq);
+            float2 ssum = make_float2(0.0f, 0.0f);
+            for (int i = p0 / nj; i * nj < pend; ++i) {
+              float2 run = make_float2(0.0f, 0.0f);
+              const int jb = min(jhi, pend - i * nj);
+              for (int j = max(jlo, p0 - i * nj); j < jb; ++j) {
+                const float2 x = *reinterpret_cast<const float2*>(F + f32_off(i * nj + j - p0, cc));
+                atomicAdd(reinterpret_cast<float2*>(dv + ((size_t)b * nj + j) * H + c), x);
+                run.x += x.x;
+                run.y += x.y;
+              }
+              ssum.x += run.x;
+              ssum.y += run.y;
+              run.x += __shfl_xor_sync(0xffffffffu, run.x, 8);
+              run.y += __shfl_xor_sync(0xffffffffu, run.y, 8);
+              run.x += __shfl_xor_sync(0xffffffffu, run.x, 16);
+              run.y += __shfl_xor_sync(0xffffffffu, run.y, 16);
+              if (h == 0) atomicAdd(reinterpret_cast<float2*>(du + ((size_t)b * ni + i) * H + c), run);
+            }
+            ssum.x += __shfl_xor_sync(0xffffffffu, ssum.x, 8);
+            ssum.y += __shfl_xor_sync(0xffffffffu, ssum.y, 8);
+            ssum.x += __shfl_xor_sync(0xffffffffu, ssum.x, 16);
+            ssum.y += __shfl_xor_sync(0xffffffffu, ssum.y, 16);
+            if (h == 0) atomicAdd(reinterpret_cast<float2*>(ds + (size_t)b * H + c), ssum);
+          }
+          if (nt + 1 < H / NT) {
+            pc.mark(PH_SYNC);
+            bar_sync(1, NC);  // the column pass is done with F before the next tile's dpre_0
+          }
+        }
       }
     }
   }
+  pc.mark(PH_A0);
+  if (ctid == 0 && phases) pc.store(phases + (size_t)blockIdx.x * NPHASE);
+}
+
+template <int WGS, bool DROP>
+__global__ void __launch_bounds__((WGS + 1) * WG_THREADS, 1)
+pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, const bf16* __restrict__ s,
+                    const bf16* __restrict__ qa, const bf16* __restrict__ wt_chunks,
+                    const bf16* __restrict__ w_chunks, const bf16* __restrict__ bs, const float* __restrict__ g,
+                    float* __restrict__ du, float* __restrict__ dv, float* __restrict__ ds,
+                    float* __restrict__ dqa, float* __restrict__ dw_part, float* __restrict__ db_part, int B,
+                    int ni, int nj, int H, int L, int inject, int nslots, int stages,
+                    const int64_t* __restrict__ seed, uint32_t thr, float inv_keep, long long* phases) {
+  constexpr int BM = 64 * WGS;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  bf16* slots = reinterpret_cast<bf16*>(smem);
+  unsigned char* ring = smem + (size_t)nslots * BM * H * sizeof(bf16);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)stages * CHUNK_BYTES);
+  float* rowscale = reinterpret_cast<float*>(bars + 2 * stages);
+  bf16* ones = reinterpret_cast<bf16*>(rowscale + BM);  // one 8 x 8 core matrix of 1.0
+  Ring r{smem_u32(ring), smem_u32(bars), smem_u32(bars + stages), stages, 0, 0};
+  if (threadIdx.x < 64) {
+    ones[threadIdx.x] = __float2bfloat16(1.0f);
+    fence_proxy_async();
+  }
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < stages; ++k) {
+      mbar_init(r.full + 8 * k, 1);
+      mbar_init(r.empty + 8 * k, WGS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int npairs = ni * nj;
+  const int nblk = (npairs + BM - 1) / BM;
+  const int per_layer = (H / NT) * (H / KC);  // W chunks of one layer
+  const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / WG_THREADS, 0);  // warp-uniform
+  PhaseClock pc;
+  pc.start(PH_A0);
+  if (role == WGS) {  // the producer warpgroup: one thread streams W
+    if (threadIdx.x == WGS * WG_THREADS) {
+      for (int b = blockIdx.x; b < B; b += gridDim.x)
+        for (int blk = 0; blk < nblk; ++blk) {
+          produce(r, wt_chunks, (L - 1) * per_layer, pc, PH_FEED);
+          for (int l = L - 1; l >= 1; --l)
+            produce(r, w_chunks + (size_t)(l - 1) * per_layer * (CHUNK_BYTES / 2), per_layer, pc, PH_FEED);
+        }
+    }
+  } else {
+    consumer<WGS, DROP>(u, v, s, qa, bs, g, du, dv, ds, dqa, dw_part, db_part, B, ni, nj, H, L, inject,
+                            nslots, slots, rowscale, ones, r, pc, seed, thr, inv_keep, phases);
+  }
+}
+
+// dws[l, m, n] = sum over CTAs c = 0..G-1 (in order) of the partial element
+// k holding it. A partial is laid out as the consumers' accumulators: per
+// layer, per 64 x NT tile (mt, nt), per group j of 4 registers, per thread t
+// of the warpgroup, 4 floats; register 4j + e of thread t holds row
+// 16*(t/32) + (t%32)/4 + 8*(e/2) and column 8j + 2*(t%4) + e%2 of the tile.
+__global__ void reduce_dw_kernel(const float* __restrict__ part, float* __restrict__ out, int G, int H, long long n) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  float sum = 0.0f;
+  for (int c = 0; c < G; ++c) sum += part[(size_t)c * n + k];
+  const long long per = (long long)H * H;
+  const int l = (int)(k / per);
+  const int kk = (int)(k % per);
+  const int tile = kk / (64 * NT);
+  const int w = kk % (64 * NT);
+  const int j = w / (4 * WG_THREADS);
+  const int t = (w / 4) % WG_THREADS;
+  const int e = w % 4;
+  const int row = (tile / (H / NT)) * 64 + (t / 32) * 16 + (t % 32) / 4 + 8 * (e / 2);
+  const int col = (tile % (H / NT)) * NT + 8 * j + 2 * (t % 4) + e % 2;
+  out[l * per + (long long)row * H + col] = sum;
 }
 
 // out[k] = sum over CTAs c = 0..G-1 of part[c, k], in CTA order.
-__global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                       int G, long long n) {
+__global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int G, long long n) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   float sum = 0.0f;
@@ -399,101 +442,75 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, float* __
   out[k] = sum;
 }
 
-template <int BM, bool DROP>
-cudaError_t launch_main(const bf16* u, const bf16* v, const bf16* s, const bf16* qa,
-                        const bf16* ws, const bf16* bs, const float* g, float* du, float* dv,
-                        float* ds, float* dqa, float* dw_part, float* db_part, float* scratch,
-                        int B, int ni, int nj, int H, int L, int inject, int grid,
-                        const int64_t* seed, uint32_t thr, float inv_keep, cudaStream_t stream) {
-  const size_t smem = smem_bytes(BM, H, L);
-  cudaError_t err = cudaFuncSetAttribute(pairwise_bwd_kernel<BM, DROP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+struct Args {
+  const bf16 *u, *v, *s, *qa, *wt, *w, *bs;
+  const float* g;
+  float *du, *dv, *ds, *dqa, *dw_part, *db_part;
+  int B, ni, nj, H, L, inject, slots, stages;
+  const int64_t* seed;
+  uint32_t thr;
+  float inv_keep;
+  long long* phases;
+};
+
+template <int WGS, bool DROP>
+cudaError_t launch(const Args& a, int grid, size_t smem, cudaStream_t st) {
+  auto kern = pairwise_bwd_kernel<WGS, DROP>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  pairwise_bwd_kernel<BM, DROP><<<grid, THREADS, smem, stream>>>(
-      u, v, s, qa, ws, bs, g, du, dv, ds, dqa, dw_part, db_part, scratch, B, ni, nj, H, L,
-      inject, seed, thr, inv_keep);
+  kern<<<grid, (WGS + 1) * WG_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.wt, a.w, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
+                                                   a.dw_part, a.db_part, a.B, a.ni, a.nj, a.H, a.L, a.inject,
+                                                   a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
   return cudaGetLastError();
 }
 
 template <bool DROP>
-cudaError_t launch_rows(int BM, const bf16* u, const bf16* v, const bf16* s, const bf16* qa,
-                        const bf16* ws, const bf16* bs, const float* g, float* du, float* dv,
-                        float* ds, float* dqa, float* dw_part, float* db_part, float* scratch,
-                        int B, int ni, int nj, int H, int L, int inject, int grid,
-                        const int64_t* seed, uint32_t thr, float inv_keep, cudaStream_t st) {
-  switch (BM) {
-    case 128:
-      return launch_main<128, DROP>(u, v, s, qa, ws, bs, g, du, dv, ds, dqa, dw_part, db_part,
-                                    scratch, B, ni, nj, H, L, inject, grid, seed, thr, inv_keep, st);
-    case 64:
-      return launch_main<64, DROP>(u, v, s, qa, ws, bs, g, du, dv, ds, dqa, dw_part, db_part,
-                                   scratch, B, ni, nj, H, L, inject, grid, seed, thr, inv_keep, st);
-    case 32:
-      return launch_main<32, DROP>(u, v, s, qa, ws, bs, g, du, dv, ds, dqa, dw_part, db_part,
-                                   scratch, B, ni, nj, H, L, inject, grid, seed, thr, inv_keep, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(const Args& a, int wgs, int grid, size_t smem, cudaStream_t st) {
+  return wgs == 2 ? launch<2, DROP>(a, grid, smem, st) : launch<1, DROP>(a, grid, smem, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Pair rows per block at width H and depth L: the largest of 128/64/32
-// whose shared memory fits `smem_limit` bytes, or 0 if none does (H > 512
-// at L = 4; no configuration is that wide).
-int rnet_pairwise_bwd_block_rows(int H, int L, long long smem_limit) {
-  for (int bm = 128; bm >= 32; bm /= 2)
-    if ((long long)smem_bytes(bm, H, L) <= smem_limit) return bm;
-  return 0;
-}
-
-// Launches the backward on `stream`: the fused kernel on `grid` CTAs (BM rows
-// per block), then the ordered sums of the dW and db partials. Device
-// pointers to contiguous tensors: u (B,ni,H), v (B,nj,H), s, qa (B,H),
-// ws (L-1,H,H), bs (L-1,H) in bf16; g (B,H) fp32; outputs du (B,ni,H),
-// dv (B,nj,H), ds, dqa (B,H), dws (L-1,H,H), dbs (L-1,H) fp32, of which du,
-// dv, ds and dqa must be zero; dw_part (grid,L-1,H,H) and db_part
-// (grid,L-1,H) fp32 zero; scratch (grid,BM,H) fp32. Pair dropout as in
+// Launches the backward on `stream` for the tile plan (wgs, slots,
+// stages, grid, smem) of kernels/pairwise.py::tile_plan: the fused kernel,
+// then the ordered sums of the dW and db partials; returns
+// cudaErrorInvalidValue for a plan it cannot take. Device pointers to
+// contiguous tensors: u (B,ni,H), v (B,nj,H), s, qa (B,H), bs (L-1,H) in
+// bf16; wt_chunks = pack_weight_chunks(W^T), w_chunks =
+// pack_weight_chunks(W); g (B,H) fp32; outputs du (B,ni,H), dv (B,nj,H),
+// ds, dqa (B,H), dws (L-1,H,H), dbs (L-1,H) fp32, of which du, dv, ds and
+// dqa must be zero; dw_part (grid,L-1,H,H) and db_part (grid,L-1,H) fp32
+// zero; phases (grid, 8) int64 or null. Pair dropout as in
 // rnet_pairwise_fwd. Returns cudaGetLastError().
-int rnet_pairwise_bwd(const void* u, const void* v, const void* s, const void* qa,
-                      const void* ws, const void* bs, const void* g, void* du, void* dv,
-                      void* ds, void* dqa, void* dws, void* dbs, void* dw_part, void* db_part,
-                      void* scratch, int B, int ni, int nj, int H, int L, int inject, int BM,
-                      int grid, int drop, const void* seed, unsigned int thr, float inv_keep,
-                      void* stream) {
+int rnet_pairwise_bwd(const void* u, const void* v, const void* s, const void* qa, const void* wt_chunks,
+                      const void* w_chunks, const void* bs, const void* g, void* du, void* dv, void* ds, void* dqa,
+                      void* dws, void* dbs, void* dw_part, void* db_part, int B, int ni, int nj, int H, int L,
+                      int inject, int wgs, int slots, int stages, int grid, long long smem, int drop,
+                      const void* seed, unsigned int thr, float inv_keep, void* phases, void* stream) {
+  if ((wgs != 1 && wgs != 2) || H % NT != 0 || L < 2 ||
+      slots < (L - 1 > 3 ? L - 1 : 3) || stages < 3 || grid < 1 ||
+      smem != (long long)smem_bytes(64 * wgs, H, slots, stages))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* pu = static_cast<const bf16*>(u);
-  const bf16* pv = static_cast<const bf16*>(v);
-  const bf16* ps = static_cast<const bf16*>(s);
-  const bf16* pq = static_cast<const bf16*>(qa);
-  const bf16* pw = static_cast<const bf16*>(ws);
-  const bf16* pb = static_cast<const bf16*>(bs);
-  const float* pg = static_cast<const float*>(g);
-  float* f_du = static_cast<float*>(du);
-  float* f_dv = static_cast<float*>(dv);
-  float* f_ds = static_cast<float*>(ds);
-  float* f_dqa = static_cast<float*>(dqa);
-  float* f_wp = static_cast<float*>(dw_part);
-  float* f_bp = static_cast<float*>(db_part);
-  float* f_sc = static_cast<float*>(scratch);
-  const int64_t* sd = static_cast<const int64_t*>(seed);
-  cudaError_t err =
-      drop ? launch_rows<true>(BM, pu, pv, ps, pq, pw, pb, pg, f_du, f_dv, f_ds, f_dqa, f_wp, f_bp,
-                               f_sc, B, ni, nj, H, L, inject, grid, sd, thr, inv_keep, st)
-           : launch_rows<false>(BM, pu, pv, ps, pq, pw, pb, pg, f_du, f_dv, f_ds, f_dqa, f_wp, f_bp,
-                                f_sc, B, ni, nj, H, L, inject, grid, sd, thr, inv_keep, st);
+  Args a{static_cast<const bf16*>(u), static_cast<const bf16*>(v), static_cast<const bf16*>(s),
+         static_cast<const bf16*>(qa), static_cast<const bf16*>(wt_chunks), static_cast<const bf16*>(w_chunks),
+         static_cast<const bf16*>(bs), static_cast<const float*>(g), static_cast<float*>(du),
+         static_cast<float*>(dv), static_cast<float*>(ds), static_cast<float*>(dqa), static_cast<float*>(dw_part),
+         static_cast<float*>(db_part), B, ni, nj, H, L, inject, slots, stages, static_cast<const int64_t*>(seed),
+         thr, inv_keep, static_cast<long long*>(phases)};
+  cudaError_t err = drop ? dispatch<true>(a, wgs, grid, (size_t)smem, st)
+                         : dispatch<false>(a, wgs, grid, (size_t)smem, st);
   if (err != cudaSuccess) return (int)err;
   const long long nw = (long long)(L - 1) * H * H;
   const long long nb = (long long)(L - 1) * H;
-  reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(f_wp, static_cast<float*>(dws), grid, nw);
-  reduce_partials_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(f_bp, static_cast<float*>(dbs), grid, nb);
+  reduce_dw_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid, H, nw);
+  reduce_partials_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(a.db_part, static_cast<float*>(dbs), grid,
+                                                                        nb);
   return (int)cudaGetLastError();
 }
 
-const char* rnet_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
+const char* rnet_cuda_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 }  // extern "C"

@@ -19,7 +19,11 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   of every dpre_l with l >= 1) and the mask's integer arithmetic exactly.
 * ``pairwise_fwd_cuda``, ``pairwise_bwd_cuda``, ``pair_mask_cuda`` — the
   wrappers of ``csrc/pairwise_fwd.cu`` and ``csrc/pairwise_bwd.cu``, each with
-  its launch count in ``launches``.
+  its launch count in ``launches``. ``tile_plan`` decides how a kernel
+  covers a shape (rows per block, W ring stages, shared memory, grid) and
+  ``pack_weight_chunks`` lays W out as the kernels stream it; both are pure
+  and tested on the CPU. A ``phases`` buffer selects the phase-timing build
+  (``PHASE_DEFINES``).
 * ``pairwise_core`` — a ``torch.autograd.Function`` (as ``_make_core``'s
   custom VJP): CPU tensors take the plain versions, CUDA tensors the kernels
   or an exception. It saves only its inputs and the seed; the backward
@@ -46,6 +50,7 @@ from __future__ import annotations
 import ctypes
 import math
 import warnings
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -76,14 +81,10 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """Declare the C interface of library `name` (KERNEL, BWD_KERNEL or INT8_KERNEL)."""
-    vp, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+    vp, i32, u32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
     if name == KERNEL:
-        lib.rnet_pairwise_fwd.argtypes = [vp] * 8 + [i32] * 7 + [vp, u32, f32, vp]
+        lib.rnet_pairwise_fwd.argtypes = [vp] * 8 + [i32] * 9 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_fwd.restype = i32
-        lib.rnet_pairwise_fwd_block_rows.argtypes = []
-        lib.rnet_pairwise_fwd_block_rows.restype = i32
-        lib.rnet_pairwise_fwd_smem_bytes.argtypes = [i32]
-        lib.rnet_pairwise_fwd_smem_bytes.restype = ctypes.c_longlong
         lib.rnet_pair_mask.argtypes = [vp, i32, i32, vp, u32, vp]
         lib.rnet_pair_mask.restype = i32
     elif name == INT8_KERNEL:
@@ -92,21 +93,20 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.rnet_pairwise_fwd_int8_block_rows.argtypes = []
         lib.rnet_pairwise_fwd_int8_block_rows.restype = i32
         lib.rnet_pairwise_fwd_int8_smem_bytes.argtypes = [i32]
-        lib.rnet_pairwise_fwd_int8_smem_bytes.restype = ctypes.c_longlong
+        lib.rnet_pairwise_fwd_int8_smem_bytes.restype = i64
     else:
-        lib.rnet_pairwise_bwd.argtypes = [vp] * 16 + [i32] * 9 + [vp, u32, f32, vp]
+        lib.rnet_pairwise_bwd.argtypes = [vp] * 16 + [i32] * 10 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd.restype = i32
-        lib.rnet_pairwise_bwd_block_rows.argtypes = [i32, i32, ctypes.c_longlong]
-        lib.rnet_pairwise_bwd_block_rows.restype = i32
     lib.rnet_cuda_error_string.argtypes = [i32]
     lib.rnet_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _kernel_lib(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
+def _kernel_lib(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    key = (name, tuple(defines))
+    lib = _libs.get(key)
     if lib is None:
-        lib = _libs[name] = _bind(build.load(name), name)
+        lib = _libs[key] = _bind(build.load(name, defines), name)
     return lib
 
 
@@ -242,6 +242,122 @@ def pairwise_core_bwd_reference(u, v, s, qa, ws, bs, g, inject: int, keep: float
 
 
 # ---------------------------------------------------------------------------
+# Tile plan and weight packing of the bf16 kernels (csrc/pairwise_chain.cuh)
+# ---------------------------------------------------------------------------
+
+CHUNK_BYTES = 8192  # one streamed W chunk
+WG_ROWS = 64  # pair rows of one consumer warpgroup (wgmma's M)
+TILE_N = 128  # output columns of one wgmma tile, the rows of a W chunk
+MIN_STAGES, MAX_STAGES = 3, 8  # depth of the W chunk ring
+H100_SMS = 132
+# The phase-timing build: -DRNET_PHASE_TIMES makes both kernels sum clock64()
+# cycles per phase and CTA into a (grid, PHASE_SLOTS) int64 buffer.
+PHASE_DEFINES = ("RNET_PHASE_TIMES",)
+PHASE_SLOTS = 8
+FWD_PHASES = ("products", "epilogues", "pool", "feed_wait", "a0", "barriers")
+BWD_PHASES = ("recompute", "dW_products", "dW_flush", "d_products", "column_pass", "feed_wait", "a0", "barriers")
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """How a bf16 pairwise kernel covers (B, ni, nj, H, L): ``wgs`` consumer
+    warpgroups of 64 pair rows per CTA (``bm`` rows a block), a ring of
+    ``stages`` 8 KB W chunks, ``slots`` activation tiles of bm x H bf16,
+    ``grid`` persistent CTAs and ``smem`` bytes of shared memory each. The C
+    launchers check it and refuse what they cannot take."""
+
+    kind: str  # "fwd" or "bwd"
+    B: int
+    ni: int
+    nj: int
+    H: int
+    L: int
+    wgs: int
+    stages: int
+    slots: int
+    grid: int
+    smem: int
+
+    @property
+    def bm(self) -> int:
+        return WG_ROWS * self.wgs
+
+    @property
+    def nblk(self) -> int:
+        """Row blocks per sample; the last one is ragged when bm does not divide ni*nj."""
+        return -(-self.ni * self.nj // self.bm)
+
+    def blocks(self, cta: int):
+        """(b, first pair row, valid rows) of every block CTA `cta` runs, in
+        its order: the forward walks tiles t = cta, cta + grid, ... (t = b *
+        nblk + block); the backward owns samples b = cta, cta + grid, ... and
+        walks all their blocks."""
+        npairs = self.ni * self.nj
+        if self.kind == "fwd":
+            tiles = range(cta, self.B * self.nblk, self.grid)
+            return [(t // self.nblk, t % self.nblk * self.bm, min(self.bm, npairs - t % self.nblk * self.bm))
+                    for t in tiles]
+        return [(b, k * self.bm, min(self.bm, npairs - k * self.bm))
+                for b in range(cta, self.B, self.grid) for k in range(self.nblk)]
+
+
+def smem_bytes(kind: str, bm: int, H: int, L: int, slots: int, stages: int) -> int:
+    """Shared memory of a CTA: the activation slots, the W ring, its full and
+    empty mbarriers (8 B each) and a per-row fp32 scale; the forward adds the
+    biases in fp32 and one row of H column sums per warp (bm / 16 warps), the
+    backward a core matrix of ones."""
+    n = slots * bm * H * 2 + stages * (CHUNK_BYTES + 16) + bm * 4
+    if kind == "fwd":
+        n += (L - 1) * H * 4 + bm // 16 * H * 4
+    else:
+        n += 128  # one 8 x 8 core matrix of ones (the column sums' wgmma operand)
+    return n
+
+
+def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H100_SMS) -> TilePlan:
+    """The tile plan of the forward (``kind="fwd"``) or backward kernel.
+
+    Two warpgroups (128 rows a block) up to H=256; one at H > 256, where the
+    activation tiles of 128 rows would not leave room for the ring, and in
+    the forward when 128-row tiles would not give every SM one (serving
+    buckets). The forward keeps two activation slots (ping-pong), the
+    backward max(3, L-1). The ring takes what shared memory is left, up to
+    MAX_STAGES. ValueError if the plan does not fit."""
+    if kind not in ("fwd", "bwd"):
+        raise ValueError(f"kind must be 'fwd' or 'bwd', got {kind!r}")
+    if H % 128 != 0:
+        raise ValueError(f"the pairwise kernels need H % 128 == 0, got H={H}")
+    wgs = 1 if H > 256 else 2
+    if kind == "fwd" and wgs == 2 and B * -(-ni * nj // (2 * WG_ROWS)) < sms:
+        wgs = 1
+    bm = WG_ROWS * wgs
+    slots = 2 if kind == "fwd" else max(3, L - 1)
+    stages = min(MAX_STAGES, (SMEM_LIMIT - smem_bytes(kind, bm, H, L, slots, 0)) // (CHUNK_BYTES + 16))
+    if stages < MIN_STAGES:
+        raise ValueError(
+            f"pairwise_{kind} kernel at H={H}, L={L} does not fit {SMEM_LIMIT} B of shared memory "
+            f"({slots} activation tiles of {bm} x {H} bf16 and {MIN_STAGES} W stages)"
+        )
+    nblk = -(-ni * nj // bm)
+    grid = min(B * nblk if kind == "fwd" else B, sms)
+    return TilePlan(kind, B, ni, nj, H, L, wgs, stages, slots, grid, smem_bytes(kind, bm, H, L, slots, stages))
+
+
+def pack_weight_chunks(x: torch.Tensor) -> torch.Tensor:
+    """x (L-1, N, K), row n holding B^T's row (the K-major B operand of
+    ``a . B``), packed as the kernels stream it: per layer, per tile of
+    nt = TILE_N rows, per depth chunk of kc = 4096 / nt columns, one 8 KB
+    chunk of 8 x 8 core matrices (8 rows of 8 contiguous bf16), the depth's
+    core matrices innermost. Returns a contiguous (L-1, N/nt, K/kc, nt/8,
+    kc/8, 8, 8)."""
+    n_l, N, K = x.shape
+    nt = TILE_N
+    kc = CHUNK_BYTES // 2 // nt
+    y = x.reshape(n_l, N // nt, nt // 8, 8, K // kc, kc // 8, 8)
+    return y.permute(0, 1, 4, 2, 5, 3, 6).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -302,26 +418,41 @@ def _drop_args(pair_keep: float, seed, dev) -> Tuple[int, Optional[int], int, fl
     return 1, seed.data_ptr(), thr, inv_keep
 
 
-def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.0, seed=None) -> torch.Tensor:
+def _phase_buffer(phases, grid: int, dev) -> Tuple[Optional[int], Tuple[str, ...]]:
+    """(pointer, build defines) for an optional per-CTA phase-cycle buffer."""
+    if phases is None:
+        return None, ()
+    if phases.dtype != torch.int64 or tuple(phases.shape) != (grid, PHASE_SLOTS) or phases.device != dev:
+        raise ValueError(f"phases must be an int64 ({grid}, {PHASE_SLOTS}) tensor on {dev}")
+    return phases.data_ptr(), PHASE_DEFINES
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.0, seed=None,
+                      phases=None) -> torch.Tensor:
     """Launch the forward kernel on the current stream; (B, H) fp32. Raises on
     anything the kernel does not take, on CPU tensors, and on a failed build
-    or launch."""
+    or launch. ``phases``, an int64 (grid, PHASE_SLOTS) tensor for the grid of
+    ``tile_plan("fwd", ...)``, selects the build with -DRNET_PHASE_TIMES,
+    which sums clock64() cycles per FWD_PHASES entry and CTA into it."""
     B, ni, nj, H, L = check_kernel_inputs(u, v, s, qa, ws, bs)
     dev = _check_device(KERNEL, (u, v, s, qa, ws, bs))
     drop, seed_ptr, thr, inv_keep = _drop_args(pair_keep, seed, dev)
-    lib = _kernel_lib(KERNEL)
-    smem = lib.rnet_pairwise_fwd_smem_bytes(H)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"pairwise_fwd kernel at H={H} needs {smem} B of shared memory (> {SMEM_LIMIT})")
-    nblk = -(-ni * nj // lib.rnet_pairwise_fwd_block_rows())
-    partial = torch.empty((B, nblk, H), dtype=torch.float32, device=dev)
+    plan = tile_plan("fwd", B, ni, nj, H, L, _sms(dev))
+    phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
+    lib = _kernel_lib(KERNEL, defines)
+    chunks = pack_weight_chunks(ws.transpose(1, 2))
+    partial = torch.empty((B, plan.nblk * plan.wgs, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_fwd(
-            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(),
-            ws.data_ptr(), bs.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            B, ni, nj, H, L, int(inject), drop, seed_ptr, thr, inv_keep, stream,
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), chunks.data_ptr(), bs.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, int(inject), plan.wgs, plan.stages,
+            plan.grid, plan.smem, drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, KERNEL)
     launches[KERNEL] += 1
@@ -329,33 +460,35 @@ def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.
     return out
 
 
-def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float = 1.0, seed=None):
+def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float = 1.0, seed=None, phases=None):
     """Launch the backward kernel on the current stream for the upstream
     gradient g (B, H) fp32; (du, dv, ds, dqa, dws, dbs) in fp32. Raises as
-    ``pairwise_fwd_cuda`` does."""
+    ``pairwise_fwd_cuda`` does; ``phases`` as there, for the grid of
+    ``tile_plan("bwd", ...)`` and the BWD_PHASES."""
     B, ni, nj, H, L = check_kernel_inputs(u, v, s, qa, ws, bs)
     if g.dtype != torch.float32 or tuple(g.shape) != (B, H) or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous fp32 ({B}, {H}) tensor; got {g.dtype} {tuple(g.shape)}")
     dev = _check_device(BWD_KERNEL, (u, v, s, qa, ws, bs, g))
     drop, seed_ptr, thr, inv_keep = _drop_args(pair_keep, seed, dev)
-    lib = _kernel_lib(BWD_KERNEL)
-    bm = lib.rnet_pairwise_bwd_block_rows(H, L, SMEM_LIMIT)
-    if bm == 0:
-        raise ValueError(f"pairwise_bwd kernel at H={H}, L={L} does not fit {SMEM_LIMIT} B of shared memory")
-    grid = min(B, torch.cuda.get_device_properties(dev).multi_processor_count)
+    plan = tile_plan("bwd", B, ni, nj, H, L, _sms(dev))
+    phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
+    lib = _kernel_lib(BWD_KERNEL, defines)
+    wt_chunks = pack_weight_chunks(ws.transpose(1, 2))
+    w_chunks = pack_weight_chunks(ws)
     f32 = dict(dtype=torch.float32, device=dev)
     du, dv = torch.zeros((B, ni, H), **f32), torch.zeros((B, nj, H), **f32)
     ds, dqa = torch.zeros((B, H), **f32), torch.zeros((B, H), **f32)
     dws, dbs = torch.empty((L - 1, H, H), **f32), torch.empty((L - 1, H), **f32)
-    dw_part, db_part = torch.zeros((grid, L - 1, H, H), **f32), torch.zeros((grid, L - 1, H), **f32)
-    scratch = torch.empty((grid, bm, H), **f32)
+    dw_part = torch.zeros((plan.grid, L - 1, H, H), **f32)
+    db_part = torch.zeros((plan.grid, L - 1, H), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_bwd(
-            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-            g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(),
-            dws.data_ptr(), dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), scratch.data_ptr(),
-            B, ni, nj, H, L, int(inject), bm, grid, drop, seed_ptr, thr, inv_keep, stream,
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), wt_chunks.data_ptr(), w_chunks.data_ptr(),
+            bs.data_ptr(), g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(),
+            dws.data_ptr(), dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), B, ni, nj, H, L, int(inject),
+            plan.wgs, plan.slots, plan.stages, plan.grid, plan.smem, drop, seed_ptr, thr, inv_keep,
+            phase_ptr, stream,
         )
     _raise_on_error(lib, err, BWD_KERNEL)
     launches[BWD_KERNEL] += 1

@@ -378,3 +378,25 @@ def test_library_name_tracks_source(monkeypatch, tmp_path):
     assert build.library_path("k") != first
     assert first.startswith(build.BUILD_DIR) and first.endswith(".so")
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_library_name_tracks_defines(monkeypatch, tmp_path):
+    """A compile-time define (the pairwise kernels' phase-timing build) gets
+    a library and a build log of its own, so one variant never loads for
+    another; the name is stable for the same defines."""
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text("// v1\n")
+    plain = build.library_path("k")
+    timed = build.library_path("k", tpw.PHASE_DEFINES)
+    assert timed != plain and timed == build.library_path("k", tuple(tpw.PHASE_DEFINES))
+    assert build.library_path("k", ("OTHER",)) not in (plain, timed)
+    assert build.log_path("k", tpw.PHASE_DEFINES) != build.log_path("k")
+
+
+def test_phase_buffer_is_checked_before_any_launch():
+    """The phase-timing build is asked for through an int64 (grid, 8) buffer;
+    on CPU tensors the wrappers refuse before they look at it."""
+    args = _bf16(_inputs(1, 8, 128, 3))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tpw.pairwise_fwd_cuda(*args, inject=0, phases=torch.zeros(1, tpw.PHASE_SLOTS, dtype=torch.int64))
+    assert len(tpw.FWD_PHASES) <= tpw.PHASE_SLOTS and len(tpw.BWD_PHASES) <= tpw.PHASE_SLOTS
