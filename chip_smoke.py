@@ -7,7 +7,7 @@ Phases, each fatal (exit 1, no result line) when it fails:
   1. CUDA present; print the card's name and power limit (nvidia-smi).
   2. Build every CUDA kernel of the serving, training and int8 inference
      paths from ``rnet_torch/csrc`` (one nvcc per source, started together),
-     and beside them the phase-timing build of the two bf16 pairwise kernels
+     and beside them the phase-timing build of the three pairwise kernels
      (``-DRNET_PHASE_TIMES``); print ptxas' resource lines.
   3. Forward kernel vs plain version on the card at the paths' shapes
      (original-fp B=1/64/512 with inject 0 and 2 as in ir-fp, wide-fp's
@@ -24,9 +24,10 @@ Phases, each fatal (exit 1, no result line) when it fails:
  5b. The int8 kernel (``pairwise_fwd_int8``) vs its plain version on the
      same folded inputs (``quantize_int8``): original-fp B = 1, 64, 512 and
      ir-fp (inject 2) B=64 through ``pairwise_core_int8``, wide-fp's H=512
-     at B=64 and B=140, n=24 and a rectangular ni != nj through the wrapper;
-     each within 1e-5 of max|plain| and within 3e-2 of the fp32
-     ``pairwise_core_reference``; the B=512 launch twice, bitwise.
+     at B=64 and B=140, n=24 and a rectangular ni != nj through the wrapper,
+     and original-fp B=64 with fp32 u, v, s; each within 1e-5 of max|plain|
+     and within 3e-2 of the fp32 ``pairwise_core_reference``; the B=512
+     launch twice, bitwise.
   6. Serving: an ``InferenceServer`` for original-fp at full width with
      seeded random weights, buckets 1/8/64. After ``warmup()`` the launch
      counters are zeroed, a burst of encoded requests goes through the
@@ -49,9 +50,10 @@ Phases, each fatal (exit 1, no result line) when it fails:
      path's.
   8. Times with CUDA events: each kernel, its plain version, one PyTorch
      yardstick (``library_ms``) and the roofline bound; the phase breakdown
-     of ``pairwise_fwd`` and ``pairwise_bwd`` at B = 64 and 512 (the
-     phase-timing build: clock64() cycles per phase summed over the CTAs'
-     first consumer threads, as shares of their total); serve latency per
+     of ``pairwise_fwd``, ``pairwise_bwd`` and ``pairwise_fwd_int8`` at B =
+     64 and 512 (the phase-timing build: clock64() cycles per phase summed
+     over the CTAs' first consumer threads, as shares of their total), and
+     the int8 kernel's time over ``pairwise_fwd``'s; serve latency per
      bucket and train questions/s on the host clock (kernel and xla paths in
      the order kernel xla xla kernel); torch.profiler
      breakdowns of a served forward and of a train step (device busy time by
@@ -391,23 +393,26 @@ def check_backward(torch, pw, seed):
     return max_err, at_shape
 
 
-# Int8 agreement cases (B, ni, nj, H, L, inject, through the core?):
-# original-fp B=1/64/512, ir-fp (inject 2) B=64, wide-fp (H=512) at B=64 and
-# B=140 > the SM count through ``pairwise_core_int8``; n=24 (576 pairs, a
-# ragged last block of 128 rows) and a rectangular ni != nj with the
-# injection at the last layer through the wrapper.
+# Int8 agreement cases (B, ni, nj, H, L, inject, through the core?, input
+# dtype): original-fp B=1/64/512, ir-fp (inject 2) B=64, wide-fp (H=512) at
+# B=64 and B=140 > the SM count through ``pairwise_core_int8``; n=24 (576
+# pairs, a ragged last block of 64 rows) and a rectangular ni != nj with the
+# injection at the last layer through the wrapper; original-fp B=64 with
+# fp32 u, v, s (int8 with fp32 compute, as rnet's kernel reads them).
 INT8_MAIN = (TRAIN_B, 64, 64, 256, 4, 0)
 INT8_CASES = [
-    ((1, 64, 64, 256, 4, 0), True), ((64, 64, 64, 256, 4, 0), True), (INT8_MAIN, True),
-    ((64, 64, 64, 256, 4, 2), True), ((64, 64, 64, 512, 4, 0), True), ((140, 64, 64, 512, 4, 0), True),
-    ((3, 24, 24, 256, 4, 1), False), ((2, 16, 40, 256, 3, 2), False),
+    ((1, 64, 64, 256, 4, 0), True, "bfloat16"), ((64, 64, 64, 256, 4, 0), True, "bfloat16"),
+    (INT8_MAIN, True, "bfloat16"), ((64, 64, 64, 256, 4, 2), True, "bfloat16"),
+    ((64, 64, 64, 512, 4, 0), True, "bfloat16"), ((140, 64, 64, 512, 4, 0), True, "bfloat16"),
+    ((3, 24, 24, 256, 4, 1), False, "bfloat16"), ((2, 16, 40, 256, 3, 2), False, "bfloat16"),
+    ((64, 64, 64, 256, 4, 0), True, "float32"),
 ]
 
 
-def int8_args(torch, pw, case, seed):
-    """(bf16 core inputs, their folded int8 form) for an agreement case."""
+def int8_args(torch, pw, case, seed, dtype="bfloat16"):
+    """(core inputs in `dtype`, their folded int8 form) for an agreement case."""
     B, ni, nj, H, L, inject = case
-    args = pair_inputs(torch, B, nj, H, L, seed=seed)
+    args = [a.to(getattr(torch, dtype)) for a in pair_inputs(torch, B, nj, H, L, seed=seed)]
     args[0] = args[0][:, :ni].contiguous()
     return args, pw.quantize_int8(*args, inject)
 
@@ -421,9 +426,11 @@ def check_int8(torch, pw):
     # 1e-5 of the largest pooled value. Drift: int8 within 3e-2 of the fp32
     # chain (the bound of rnet's int8 tests).
     at_main = worst = drift_max = 0.0
-    for k, (case, through_core) in enumerate(INT8_CASES):
+    for k, (case, through_core, dtype) in enumerate(INT8_CASES):
         B, ni, nj, H, L, inject = case
-        args, folded = int8_args(torch, pw, case, seed=300 + k)
+        args, folded = int8_args(torch, pw, case, seed=300 + k, dtype=dtype)
+        if folded[0].dtype != getattr(torch, dtype):
+            fail(f"quantize_int8 gave {folded[0].dtype} u for {dtype} inputs")
         before = pw.launches[pw.INT8_KERNEL]
         if through_core:
             out = pw.pairwise_core_int8(*args, inject=inject)
@@ -439,7 +446,7 @@ def check_int8(torch, pw):
         err = (out - ref).abs().max().item()
         scale = ref.abs().max().item()
         drift = ((out - fp32).abs().max() / fp32.abs().max()).item()
-        log(f"pairwise_fwd_int8 vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} "
+        log(f"pairwise_fwd_int8 vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} {dtype} u, v, s "
             f"({'pairwise_core_int8' if through_core else 'wrapper'}): max_abs_err {err!r} "
             f"(max|plain| {scale!r}, tol {1e-5 * scale!r}); drift from fp32 {drift!r}")
         if not err <= 1e-5 * scale:
@@ -447,7 +454,7 @@ def check_int8(torch, pw):
         if not drift < 3e-2:
             fail(f"pairwise_fwd_int8 drifts {drift} from the fp32 chain at {case}")
         worst, drift_max = max(worst, err), max(drift_max, drift)
-        if case == INT8_MAIN:
+        if case == INT8_MAIN and dtype == "bfloat16":
             at_main = err
             again = pw.pairwise_fwd_int8_cuda(*folded, inject=inject)
             if not torch.equal(again, pw.pairwise_fwd_int8_cuda(*folded, inject=inject)):
@@ -723,21 +730,26 @@ def time_kernels(torch, pw, seed):
 
 
 def phase_breakdown(torch, pw):
-    """Phase 8: one launch of each bf16 pairwise kernel's phase-timing build
-    at original-fp B = 64 and 512: the clock64() cycles of every phase,
-    summed over the CTAs, as shares of their total (and the total)."""
+    """Phase 8: one launch of each pairwise kernel's phase-timing build
+    (bf16 forward and backward, int8 forward) at original-fp B = 64 and 512:
+    the clock64() cycles of every phase, summed over the CTAs, as shares of
+    their total (and the total)."""
     n, H, L, inject = 64, 256, 4, 0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for B in (64, TRAIN_B):
         args = pair_inputs(torch, B, n, H, L, seed=100 + B)
         g = upstream(torch, B, H, seed=200 + B)
-        for kind, names in (("fwd", pw.FWD_PHASES), ("bwd", pw.BWD_PHASES)):
+        folded = pw.quantize_int8(*args, inject)
+        for kind, names in (("fwd", pw.FWD_PHASES), ("bwd", pw.BWD_PHASES), ("int8", pw.INT8_PHASES)):
             plan = pw.tile_plan(kind, B, n, n, H, L, sms)
             cycles = torch.zeros((plan.grid, pw.PHASE_SLOTS), dtype=torch.int64, device="cuda")
             if kind == "fwd":
                 got = pw.pairwise_fwd_cuda(*args, inject=inject, phases=cycles)
                 want = pw.pairwise_fwd_cuda(*args, inject=inject)
+            elif kind == "int8":
+                got = pw.pairwise_fwd_int8_cuda(*folded, inject=inject, phases=cycles)
+                want = pw.pairwise_fwd_int8_cuda(*folded, inject=inject)
             else:
                 got = pw.pairwise_bwd_cuda(*args, g, inject=inject, phases=cycles)[4]
                 want = pw.pairwise_bwd_cuda(*args, g, inject=inject)[4]
@@ -745,11 +757,11 @@ def phase_breakdown(torch, pw):
             if not torch.equal(got, want):
                 fail(f"the phase-timing build of pairwise_{kind} computes other values than the kernel")
             total = cycles.sum(dim=0).double()
-            row = {"B": B, "total_cycles": int(total.sum().item()), "ctas": plan.grid,
+            row = {"B": B, "total_cycles": int(total.sum().item()), "ctas": plan.grid, "warpgroups": plan.wgs,
                    "shares": {name: (total[k] / total.sum()).item() for k, name in enumerate(names)}}
             out[(kind, B)] = row
-            log(f"phases pairwise_{kind} {json.dumps(row)}")
-        del args, g
+            log(f"phases {'pairwise_fwd_int8' if kind == 'int8' else 'pairwise_' + kind} {json.dumps(row)}")
+        del args, g, folded
         torch.cuda.empty_cache()
     return out
 
@@ -868,13 +880,13 @@ def aug_work(aug, B, S=CANVAS, out=CROP, C=3, out_bytes=2):
     """(flops, bytes) the function needs. A crop reads canvas rows
     oy-KY..oy+out-1+KY and columns ox-2KX..ox+out-1+2KX (the y shear and
     the two x shears), each such pixel once; it writes the crop once and
-    reads idx, angle and offsets (16 B). FLOPs: 2*(2K+1) per element of
-    x1 (out+2KY rows x out+2KX columns), x2 (out x out+2KX) and x3
-    (out x out), in fp32."""
+    reads idx, angle and offsets (16 B). FLOPs: a multiply and an add for
+    each of the two taps with a non-zero weight per element of x1 (out+2KY
+    rows x out+2KX columns), x2 (out x out+2KX) and x3 (out x out), in
+    fp32."""
     kx, ky = aug._shear_radii(S, out)
     nbytes = B * ((out + 2 * ky) * (out + 4 * kx) * C + out * out * C * out_bytes + 16)
-    per_ch = ((out + 2 * ky) * (out + 2 * kx) * (2 * kx + 1) + out * (out + 2 * kx) * (2 * ky + 1)
-              + out * out * (2 * kx + 1))
+    per_ch = ((out + 2 * ky) * (out + 2 * kx) + out * (out + 2 * kx) + out * out) * 2
     return B * C * 2.0 * per_ch, nbytes
 
 
@@ -1366,7 +1378,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL, pw.INT8_KERNEL]
-    timed = [pw.KERNEL, pw.BWD_KERNEL]
+    timed = [pw.KERNEL, pw.BWD_KERNEL, pw.INT8_KERNEL]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
         for job in [ex.submit(build.build, kernels), ex.submit(build.build, timed, pw.PHASE_DEFINES)]:
@@ -1414,6 +1426,9 @@ def main() -> int:
     log(f"train questions/s, kernel path / xla path: {qps_ratio!r}")
 
     int8_rows = time_int8(torch, pw)
+    for B in (64, TRAIN_B):
+        log(f"pairwise_fwd_int8 / pairwise_fwd at original-fp B={B}, same call: "
+            f"{int8_rows[B]['ms'] / fwd[B]['ms']!r} ({int8_rows[B]['ms']!r} / {fwd[B]['ms']!r} ms)")
     profile_int8_eval(torch, np, cfg)
     # bf16 and int8 served in turns (bf16 int8 int8 bf16 ...): neither path
     # always runs later in the call
@@ -1517,6 +1532,8 @@ def main() -> int:
                serve_max_abs_dlogp=int8_dlp, eval_predictions_equal_to_bf16=int8_eval_same,
                eval_qps=eval_runs,
                ms_b64=int8_rows[64]["ms"], ms_with_calibration=int8_rows[TRAIN_B]["ms_with_calibration"],
+               phase_shares=phases[("int8", TRAIN_B)]["shares"], ms_over_pairwise_fwd=int8_rows[TRAIN_B]["ms"]
+               / fwd[TRAIN_B]["ms"], tops=int8_rows[TRAIN_B]["tops"],
                launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
                            "--split train --batch-size 512 (16 batches)"),
     ]

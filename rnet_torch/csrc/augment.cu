@@ -22,33 +22,39 @@
 // once, to fp32 or bf16 (round to nearest even, as torch's .to()). An idx
 // outside [0, N) gives NaN rows (the callers validate indices on the host).
 //
+// Two taps a shear. hat(t - k) is non-zero only at k = floor(t) and
+// floor(t) + 1, and a tap of weight 0 adds exactly +0 to the (finite,
+// non-negative) sum. So the 2K+1-tap sum in ascending k equals the sum of
+// the taps k0 and k0 + 1, k0 = floor(t) clamped to [-K, K-1] (the taps
+// stay inside the reference's [-K, K]; past it the clamped pair holds the
+// one tap that can be non-zero), each weight computed as hat(t - k): 19
+// taps become 6 (tests/test_torch_augment.py holds the two-tap sum to the
+// 2K+1-tap one bit for bit; FMA contraction may differ, as it always did).
+//
 // What bounds it: bytes. A crop reaches canvas rows oy - KY .. oy + OUT - 1 +
 // KY and columns ox - 2*KX .. ox + OUT - 1 + 2*KX, 136 x 136 x 3 = 55,488 B
 // of the 62,208 B canvas at S = 144, OUT = 128, (KX, KY) = (2, 4). At B = 512
 // that read, one 98,304 B bf16 crop written and 16 B of idx/angle/offsets
-// per sample are 78.7 MB: 23.5 us at 3.35 TB/s. The fp32 shear arithmetic
-// over the same region (2*(2K+1) flops per element of x1, x2, x3), 0.99
-// GFLOP, is 14.8 us at 67 TFLOP/s.
+// per sample are 78.7 MB: 23.5 us at 3.35 TB/s. The two-tap arithmetic is a
+// small fraction of that at 67 TFLOP/s.
 //
-// Design (staged shears). The TPU processed a whole canvas per grid step in
-// VMEM; a 144x144x3 fp32 canvas is 249 KB, more than a block's 227 KB of
-// shared memory, so the output is tiled in row bands: grid (B, ceil(OUT/R)),
-// R = 16 output rows per block. Each block loads only the R + 2*KY canvas
-// rows its band needs (uint8, 16-byte loads), builds the hat weights of its
-// rows and columns, and stages x1 (R + 2*KY rows) and x2 (R rows) in shared
-// memory over the OUT + 2*KX columns the crop reaches, channel-interleaved
-// as the canvas is, so a horizontal shift of k pixels is a shift of C*k
-// floats. No intermediate leaves the SM: device memory sees each canvas
-// band once (plus the 2*KY halo rows the neighbouring bands also read, and
-// whole rows of S pixels) and each output element once: 82,944 B read per
-// sample at R = 16, 1.5x what the crop reaches. Each thread owns one channel
-// column of the band and walks down its rows, so the index arithmetic
-// (division by C, the wrap mod S) is done once per column and not per tap;
-// a first version that redid it per tap ran 0.71 ms at B = 512 (PERF.md).
-// Every tap of the sums is evaluated (5 + 9 + 5), weights of zero included,
-// in the reference's order. Left for later: two taps per shear instead of
-// 2K+1, wider bands (less halo), packed bf16 stores, and more blocks per SM
-// than the 79 KB of shared memory leave (2).
+// Design. A block takes a band of RB = 32 output rows of one sample (grid
+// (bands, B): a sample's bands are neighbouring blocks, so the 2*KY halo rows
+// they share come from L2). It copies the RB + 2*KY canvas rows the band
+// reaches into shared memory with 16-byte cp.async, each row padded on both
+// sides with PADPX pixels of the other edge, so that no tap computes a
+// column mod S. Then, per group of G = 16 output rows:
+//   * x2 (the y shear, fused with the first x shear: x1 is never stored):
+//     one thread per channel column c of x2; a row's x2 is the sum of two
+//     x1 values of that column (the two taps of the column's y shift), and
+//     each x1 the sum of two canvas pixels (the two taps of its row's x
+//     shift). The y taps of a column are fixed, so a group's G rows of x2
+//     need G + 1 x1 values of the column, computed independently (their
+//     loads overlap);
+//   * x3: two x2 values of the same row (the row's x taps), the crop written
+//     two elements at a time (bf16 x 2 or float2).
+// x2 is double-buffered, one barrier a group. A band needs ~72 KB of shared
+// memory, three blocks an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,27 +62,29 @@
 
 namespace {
 
-constexpr int R = 16;          // output rows per block
+constexpr int RB = 32;         // output rows per block
+constexpr int G = 16;          // output rows per x2 group
 constexpr int C = 3;           // RGB, as the cache stores it
-constexpr int THREADS = 416;   // 13 warps: one pass over a band row of (OUT + 2*KX) * C = 396 floats
+constexpr int THREADS = 416;   // 13 warps: one x2 channel column each at OUT + 2*KX = 132
 
 struct Smem {
-  size_t img, x1, x2, wx, wy, total;
+  int padpx, row_bytes;  // pad pixels on each side of a staged row; bytes of a staged row
+  size_t img, tab, x2, total;
 };
 
 __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
-// Byte offsets of the shared-memory regions for a band of R output rows.
+// Pad pixels: a multiple of 16 (48 bytes, so rows stay 16-byte aligned) of at
+// least the 2*KX columns the crop reaches past either canvas edge.
 __host__ __device__ inline Smem smem_layout(int S, int OUT, int KX, int KY) {
-  const int rows1 = R + 2 * KY;               // canvas rows of the band's x1
-  const int w1 = (OUT + 2 * KX) * C;          // floats per x1/x2 row
   Smem s;
+  s.padpx = (2 * KX + 15) / 16 * 16;
+  s.row_bytes = (S + 2 * s.padpx) * C;
+  const int nrows = RB + 2 * KY;
   s.img = 0;
-  s.x1 = align16(s.img + (size_t)rows1 * S * C);
-  s.x2 = align16(s.x1 + (size_t)rows1 * w1 * sizeof(float));
-  s.wx = align16(s.x2 + (size_t)R * w1 * sizeof(float));
-  s.wy = align16(s.wx + (size_t)rows1 * (2 * KX + 1) * sizeof(float));
-  s.total = align16(s.wy + (size_t)(OUT + 2 * KX) * (2 * KY + 1) * sizeof(float));
+  s.tab = align16((size_t)nrows * s.row_bytes);
+  s.x2 = align16(s.tab + (size_t)nrows * sizeof(float4));
+  s.total = align16(s.x2 + 2 * (size_t)G * (OUT + 2 * KX) * C * sizeof(float));
   return s;
 }
 
@@ -87,8 +95,32 @@ __device__ inline int wrap(int i, int S) {
 
 __device__ inline float hat(float t) { return fmaxf(0.0f, 1.0f - fabsf(t)); }
 
-__device__ inline void store(float* p, float v) { *p = v; }
-__device__ inline void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+// The two taps of shift t: (hat(t - k0), hat(t - k0 - 1), k0), k0 = floor(t)
+// clamped to [-K, K-1]; the fourth slot is the caller's.
+__device__ inline float4 taps(float t, int K) {
+  const int k0 = min(max((int)floorf(t), -K), K - 1);
+  return make_float4(hat(t - (float)k0), hat(t - (float)(k0 + 1)), __int_as_float(k0), 0.0f);
+}
+
+// fp32(b) * fp32(1/255) for a byte b, as the reference normalizes, without a
+// conversion instruction (they run at an eighth of the fp32 rate): the bits
+// 0x4B000000 + b are the float 2^23 + b.
+__device__ inline float unit(uint32_t b) {
+  return __fmul_rn(__fsub_rn(__uint_as_float(0x4B000000u | b), 8388608.0f), 1.0f / 255.0f);
+}
+
+__device__ inline void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ inline void store1(float* p, float v) { *p = v; }
+__device__ inline void store1(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ inline void store2(float* p, float a, float b) { *reinterpret_cast<float2*>(p) = make_float2(a, b); }
+__device__ inline void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 template <typename OutT>
 __global__ void __launch_bounds__(THREADS)
@@ -98,19 +130,15 @@ augment_kernel(const uint8_t* __restrict__ cache, long long N, int S, const int*
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem L = smem_layout(S, OUT, KX, KY);
   uint8_t* img = smem + L.img;
-  float* x1 = reinterpret_cast<float*>(smem + L.x1);
-  float* x2 = reinterpret_cast<float*>(smem + L.x2);
-  float* wx = reinterpret_cast<float*>(smem + L.wx);
-  float* wy = reinterpret_cast<float*>(smem + L.wy);
+  float4* tab = reinterpret_cast<float4*>(smem + L.tab);
+  float* x2buf = reinterpret_cast<float*>(smem + L.x2);
 
-  const int b = blockIdx.x;
-  const int y0 = blockIdx.y * R;
-  const int rows = min(R, OUT - y0);          // output rows of this band
-  const int rows1 = rows + 2 * KY;            // x1 / canvas rows of this band
-  const int cols = OUT + 2 * KX;              // x1 / x2 columns (pixels)
-  const int w1 = cols * C;
-  const int row_bytes = S * C;
-  const int nkx = 2 * KX + 1, nky = 2 * KY + 1;
+  const int b = blockIdx.y;
+  const int y0 = blockIdx.x * RB;
+  const int rows = min(RB, OUT - y0);  // output rows of this band
+  const int nrows = rows + 2 * KY;     // canvas rows of this band
+  const int w2 = (OUT + 2 * KX) * C;   // x2 floats a row
+  const int wo = OUT * C;              // output elements a row
   const int tid = threadIdx.x;
 
   const long long src_i = idx[b];
@@ -120,88 +148,89 @@ augment_kernel(const uint8_t* __restrict__ cache, long long N, int S, const int*
   const float cx = (float)ox_raw + (float)(OUT - 1) / 2.0f;
   const int oy = min(max(oy_raw, 0), S - OUT);  // dynamic_slice clamps the start
   const int ox = min(max(ox_raw, 0), S - OUT);
-  OutT* dst = out + ((size_t)b * OUT + y0) * OUT * C;
+  OutT* dst = out + ((size_t)b * OUT + y0) * wo;
 
   if (src_i < 0 || src_i >= N) {
-    for (int e = tid; e < rows * OUT * C; e += THREADS) store(dst + e, __int_as_float(0x7fc00000));
+    for (int e = tid; e < rows * wo; e += THREADS) store1(dst + e, __int_as_float(0x7fc00000));
     return;
   }
   // 64-bit: idx * S*S*C passes 2^31 beyond ~34,500 canvases of 144^2 x 3.
   const uint8_t* src = cache + (size_t)src_i * S * S * C;
-  const int r_first = oy + y0 - KY;           // canvas row of band row 0 (before wrap)
+  const int r_first = oy + y0 - KY;  // canvas row of band row 0 (before wrap)
 
-  // 1. the band's canvas rows, full width (columns wrap mod S), in 16-byte
-  //    loads: the wrapper takes only a 16-byte-aligned cache with S*C a
-  //    multiple of 16, so every canvas row starts on a 16-byte boundary.
-  const int per_row = row_bytes / 16;
-  for (int e = tid; e < rows1 * per_row; e += THREADS) {
-    const int j = e / per_row, q = e - j * per_row;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src + (size_t)wrap(r_first + j, S) * row_bytes);
-    reinterpret_cast<uint4*>(img + (size_t)j * row_bytes)[q] = __ldg(s4 + q);
+  // 1. the band's canvas rows (wrapped mod S), each staged as [the last
+  //    padpx pixels | the row | the first padpx pixels], in 16-byte copies:
+  //    the wrapper takes only a 16-byte-aligned cache with S*C a multiple
+  //    of 16, so every canvas row starts on a 16-byte boundary.
+  {
+    const int per_row = L.row_bytes / 16, pad16 = L.padpx * C / 16, body16 = S * C / 16;
+    for (int e = tid; e < nrows * per_row; e += THREADS) {
+      const int j = e / per_row, q = e - j * per_row;
+      const int qs = q < pad16 ? body16 - pad16 + q : (q < pad16 + body16 ? q - pad16 : q - pad16 - body16);
+      cp_async16(img + (size_t)j * L.row_bytes + 16 * q, src + (size_t)wrap(r_first + j, S) * S * C + 16 * qs);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
-  // 2. hat weights: per canvas row for the x shears, per canvas column for y.
-  const float t = tanf(ang / 2.0f);
-  const float s = -sinf(ang);
-  for (int e = tid; e < rows1 * nkx; e += THREADS) {
-    const int j = e / nkx, k = e - j * nkx - KX;
-    const float sx = t * ((float)wrap(r_first + j, S) - cy);
-    wx[e] = hat(sx - (float)k);
+  // 2. the x taps of every band row (x1 and x3 shear the same row by sx),
+  //    with the byte offset in the staged rows of the row's tap k0
+  const float tx = tanf(ang / 2.0f);
+  for (int j = tid; j < nrows; j += THREADS) {
+    float4 t = taps(tx * ((float)wrap(r_first + j, S) - cy), KX);
+    t.w = __int_as_float(j * L.row_bytes - __float_as_int(t.z) * C);
+    tab[j] = t;
   }
-  for (int e = tid; e < cols * nky; e += THREADS) {
-    const int p = e / nky, k = e - p * nky - KY;
-    const float sy = s * ((float)wrap(ox - KX + p, S) - cx);
-    wy[e] = hat(sy - (float)k);
-  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  // Each thread owns one column f = p*C + ch of the band (the index math is
-  // done once per column) and walks down the rows; taps run k = -K..K in
-  // the reference's order.
-  // 3. x1 = shear_x(img / 255) on rows1 x cols; column p is canvas column
-  //    ox - KX + p and tap k reads canvas column (ox - KX + p - k) mod S,
-  //    which starts at (ox + p) mod S and steps down by one, wrapping.
-  const float inv255 = 1.0f / 255.0f;
-  for (int f = tid; f < w1; f += THREADS) {
-    const int p = f / C, ch = f - p * C;
-    const int col0 = wrap(ox + p, S);
-    for (int j = 0; j < rows1; ++j) {
-      const uint8_t* row = img + (size_t)j * row_bytes + ch;
-      const float* w = wx + j * nkx;
-      float acc = 0.0f;
-      int col = col0;
-      for (int q = 0; q < nkx; ++q) {
-        acc += w[q] * ((float)row[col * C] * inv255);
-        col = col == 0 ? S - 1 : col - 1;
+  const float sy = -sinf(ang);
+  // x3 takes the output two elements at a time: pp pairs of a row and rp
+  // rows at once
+  const int pp = min((wo + 1) / 2, THREADS);
+  const int rp = THREADS / pp;
+  for (int g0 = 0; g0 < rows; g0 += G) {
+    float* x2 = x2buf + ((g0 / G) & 1) * G * w2;
+    const int gr = min(G, rows - g0);
+    // x2 rows g0 .. g0 + gr - 1 of channel column f = p*C + ch: column p is
+    // canvas column ox - KX + p; the y taps (k0, k0+1) read x1 at band rows
+    // i + KY - k0 and one above, each x1 the x taps of its row's pixels.
+    for (int f = tid; f < w2; f += THREADS) {
+      const int p = f / C, ch = f - p * C;
+      const float4 ty = taps(sy * ((float)wrap(ox - KX + p, S) - cx), KY);
+      const uint8_t* col = img + (L.padpx + ox - KX + p) * C + ch;
+      const int q0 = g0 + KY - __float_as_int(ty.z) - 1;  // x1 row of tap k0 + 1 at row g0
+      float x1[G + 1];
+#pragma unroll
+      for (int k = 0; k <= G; ++k) {
+        if (k <= gr) {
+          const float4 t = tab[q0 + k];
+          const uint8_t* px = col + __float_as_int(t.w);
+          x1[k] = t.x * unit(px[0]) + t.y * unit(px[-C]);
+        }
       }
-      x1[j * w1 + f] = acc;
+#pragma unroll
+      for (int i = 0; i < G; ++i)
+        if (i < gr) x2[i * w2 + f] = ty.x * x1[i + 1] + ty.y * x1[i];
     }
-  }
-  __syncthreads();
-
-  // 4. x2 = shear_y(x1) on the band's rows: output row i (canvas row
-  //    oy + y0 + i) reads x1 row i + KY - k.
-  for (int f = tid; f < w1; f += THREADS) {
-    const float* w = wy + (f / C) * nky;
-    for (int i = 0; i < rows; ++i) {
-      const float* col = x1 + (i + 2 * KY) * w1 + f;  // tap k = -KY
-      float acc = 0.0f;
-      for (int q = 0; q < nky; ++q) acc += w[q] * col[-q * w1];
-      x2[i * w1 + f] = acc;
-    }
-  }
-  __syncthreads();
-
-  // 5. x3 = shear_x(x2), cropped: output column x reads x2 column
-  //    x + KX - k; row i uses the weights of canvas row oy + y0 + i.
-  const int wo = OUT * C;
-  for (int f = tid; f < wo; f += THREADS) {
-    const int x = f / C, ch = f - x * C;
-    for (int i = 0; i < rows; ++i) {
-      const float* w = wx + (i + KY) * nkx;
-      const float* row = x2 + i * w1 + (x + 2 * KX) * C + ch;  // tap k = -KX
-      float acc = 0.0f;
-      for (int q = 0; q < nkx; ++q) acc += w[q] * row[-q * C];
-      store(dst + i * wo + f, acc);
+    __syncthreads();  // x2 of this group complete; the other buffer was read before
+    // x3 of the group: output column x reads x2 columns x + KX - k0 and one
+    // left of it, k0 the row's x tap. A thread takes the element pairs e0,
+    // e0 + 2 pp, ... of rows tid / pp, + rp, ...
+    if (tid < rp * pp) {
+      for (int e0 = 2 * (tid % pp); e0 < wo; e0 += 2 * pp) {
+        for (int i = tid / pp; i < gr; i += rp) {
+          const float4 t = tab[g0 + i + KY];
+          // output element e = x*C + ch reads x2 element e + (KX - k) * C for tap k
+          const float* row = x2 + i * w2 + (KX - __float_as_int(t.z)) * C + e0;
+          const float va = t.x * row[0] + t.y * row[-C];
+          OutT* o = dst + (size_t)(g0 + i) * wo + e0;
+          if (wo % 2 == 0) {
+            store2(o, va, t.x * row[1] + t.y * row[1 - C]);
+          } else {
+            store1(o, va);
+            if (e0 + 1 < wo) store1(o + 1, t.x * row[1] + t.y * row[1 - C]);
+          }
+        }
+      }
     }
   }
 }
@@ -209,11 +238,12 @@ augment_kernel(const uint8_t* __restrict__ cache, long long N, int S, const int*
 template <typename OutT>
 cudaError_t launch(const void* cache, long long N, int S, const void* idx, const void* angles,
                    const void* offs, void* out, int B, int OUT, int KX, int KY, cudaStream_t stream) {
+  if (KX < 1 || KY < 1 || 2 * KX > S) return cudaErrorInvalidValue;
   const size_t smem = smem_layout(S, OUT, KX, KY).total;
   cudaError_t err = cudaFuncSetAttribute(augment_kernel<OutT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(B, (OUT + R - 1) / R);
+  dim3 grid((OUT + RB - 1) / RB, B);
   augment_kernel<OutT><<<grid, THREADS, smem, stream>>>(
       static_cast<const uint8_t*>(cache), N, S, static_cast<const int*>(idx),
       static_cast<const float*>(angles), static_cast<const int*>(offs), static_cast<OutT*>(out), OUT,

@@ -161,7 +161,7 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
             acc[4 * j + 1] = acc[4 * j + 3] = bb.y;
           }
           pc.mark(PH_RECOMPUTE);
-          streamed_product(acc, smem_u32(A + r0 * H), H, r, tid == 0, pc, PH_FEED);
+          streamed_product(acc, smem_u32(A + r0 * H), 2 * H, r, tid == 0, pc, PH_FEED);
           bf16* o0 = out + fbase + nt * (NT / 8) * 64;
           bf16* o1 = o0 + 8 * H;
           if (l < L - 1) {
@@ -271,7 +271,7 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
 #pragma unroll
           for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
           pc.mark(PH_D);
-          streamed_product(acc, smem_u32(D + r0 * H), H, r, tid == 0, pc, PH_FEED);
+          streamed_product(acc, smem_u32(D + r0 * H), 2 * H, r, tid == 0, pc, PH_FEED);
           bf16* p0p = P + fbase + nt * (NT / 8) * 64;  // a_{l-1} at the fragment's rows
           bf16* p1p = p0p + 8 * H;
           if (l >= 2) {

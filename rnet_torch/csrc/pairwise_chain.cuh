@@ -1,6 +1,8 @@
 // Device code shared by the pairwise g_theta kernels for Hopper (sm_90a):
-// pairwise_fwd.cu (replaces rnet/kernels/pairwise.py::_fwd_kernel, :83) and
-// pairwise_bwd.cu (replaces ::_bwd_kernel, :120). Both run the chain
+// pairwise_fwd.cu (replaces rnet/kernels/pairwise.py::_fwd_kernel, :83),
+// pairwise_bwd.cu (replaces ::_bwd_kernel, :120) and, for the W feed and the
+// products in int8, pairwise_fwd_int8.cu (::_fwd_kernel_int8, :190). The
+// bf16 kernels run the chain
 //     a_l = bf16(relu(a_{l-1} W_l + b_l [+ qa]))
 // over tiles of 64 pair rows per consumer warpgroup; the backward adds
 // dpre_{l-1} = bf16((dpre_l W_l^T) * [a_{l-1} > 0]) and dW_l += a_{l-1}^T dpre_l.
@@ -27,6 +29,9 @@
 //   wgmma has read the stage. The ring runs on across layers and row
 //   tiles, so the next layer's (or tile's) first chunks load during the
 //   current epilogue.
+//   An int8 core matrix is 8 rows x 16 bytes, the same 128 bytes at twice
+//   the depth, so the byte offsets of the feed and the products hold for
+//   both element types.
 // * Products. wgmma m64n128k16 from shared memory, fp32 accumulators in
 //   registers (64 a thread); one commit group per chunk, the previous chunk
 //   released as soon as wait_group<1> says it was read. The chain's
@@ -302,28 +307,75 @@ struct Ring {
 };
 
 // Producer (one thread): copy `n` consecutive chunks from `src` into the ring.
-__device__ __forceinline__ void produce(Ring& r, const bf16* __restrict__ src, int n, PhaseClock& pc,
+__device__ __forceinline__ void produce(Ring& r, const void* __restrict__ src, int n, PhaseClock& pc,
                                         int wait_phase) {
+  const char* p = static_cast<const char*>(src);
   for (int k = 0; k < n; ++k) {
     const int was = pc.mark(wait_phase);
     mbar_wait(r.empty + 8 * r.stage, r.parity ^ 1);
     pc.mark(was);
     mbar_expect_tx(r.full + 8 * r.stage, CHUNK_BYTES);
-    bulk_g2s(r.buf + r.stage * CHUNK_BYTES, src + (size_t)k * (CHUNK_BYTES / 2), CHUNK_BYTES,
-             r.full + 8 * r.stage);
+    bulk_g2s(r.buf + r.stage * CHUNK_BYTES, p + (size_t)k * CHUNK_BYTES, CHUNK_BYTES, r.full + 8 * r.stage);
     r.advance();
   }
 }
 
-// acc += A . B over depth H for one NT-column output tile (acc comes in
-// holding the bias, so that the epilogue has less to do), where A is the
-// warpgroup's 64-row core-matrix tile at shared address a_addr (width H)
-// and B streams through the ring as H / KC chunks (packed K-major: NT rows
-// of B^T, KC columns). `lead` (one thread of the warpgroup) releases each
-// stage once the warpgroup's wgmma has read it.
-__device__ __forceinline__ void streamed_product(float (&acc)[NT / 2], uint32_t a_addr, int H, Ring& r, bool lead,
-                                                 PhaseClock& pc, int wait_phase) {
-  const int nk = H / KC;
+// Walk `n` chunks of the ring without reading them: wait for each to land
+// and release it (a warpgroup with no tile in a round of the persistent
+// loop, so that the stream stays shared).
+__device__ __forceinline__ void skip_chunks(Ring& r, int n, bool lead) {
+  for (int k = 0; k < n; ++k) {
+    if (lead) {
+      mbar_wait(r.full + 8 * r.stage, r.parity);
+      mbar_arrive(r.empty + 8 * r.stage);
+    }
+    r.advance();
+  }
+}
+
+// One 32-byte-deep step of a product from shared memory: bf16 (m64n128k16,
+// fp32 accumulators) or int8 (m64n128k32, int32 accumulators; int8 wgmma
+// reads both operands K-major only).
+__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  wgmma_m64n128<0, 0>(d, da, db, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_step(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// acc (+)= A . B for one NT-column output tile, where A is the warpgroup's
+// 64-row core-matrix tile at shared address a_addr (`row_bytes` bytes of
+// depth a row: 2H in bf16, H in int8) and B streams through the ring as
+// row_bytes / DEPTH_BYTES chunks (packed K-major: NT rows of B^T). Every
+// chunk holds DEPTH_BYTES = 64 bytes of depth a row, four core matrices,
+// read as two 32-byte steps, so the byte offsets are the same for both
+// element types. The accumulators come in initialised (bf16: the bias;
+// int8: 0). `lead` (one thread of the warpgroup) releases each stage once
+// the warpgroup's wgmma has read it.
+constexpr int DEPTH_BYTES = CHUNK_BYTES / NT;
+
+template <typename Acc>
+__device__ __forceinline__ void streamed_product(Acc (&acc)[NT / 2], uint32_t a_addr, int row_bytes, Ring& r,
+                                                 bool lead, PhaseClock& pc, int wait_phase) {
+  const int nk = row_bytes / DEPTH_BYTES;
   int prev = 0;
   wgmma_fence();
   for (int kc = 0; kc < nk; ++kc) {
@@ -332,9 +384,9 @@ __device__ __forceinline__ void streamed_product(float (&acc)[NT / 2], uint32_t 
     pc.mark(was);
     const uint32_t b = r.buf + r.stage * CHUNK_BYTES;
 #pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks)
-      wgmma_m64n128<0, 0>(acc, desc(a_addr + (kc * (KC / 8) + 2 * ks) * 128, 128, 16 * H),
-                          desc(b + ks * 256, 128, 16 * KC), 1);
+    for (int ks = 0; ks < DEPTH_BYTES / 32; ++ks)
+      wgmma_step(acc, desc(a_addr + (kc * (DEPTH_BYTES / 16) + 2 * ks) * 128, 128, 8 * row_bytes),
+                 desc(b + ks * 256, 128, 8 * DEPTH_BYTES), 1);
     wgmma_commit();
     if (kc > 0) {
       wgmma_wait<1>();

@@ -152,7 +152,7 @@ pairwise_fwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, cons
             acc[4 * j + 1] = acc[4 * j + 3] = bb.y;
           }
           pc.mark(PH_PRODUCTS);
-          streamed_product(acc, smem_u32(cur + r0 * H), H, r, tid == 0, pc, PH_FEED);
+          streamed_product(acc, smem_u32(cur + r0 * H), 2 * H, r, tid == 0, pc, PH_FEED);
           pc.mark(PH_EPILOGUES);
           float pool[NT / 4];
           if (l < L - 1) {

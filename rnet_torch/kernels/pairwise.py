@@ -88,12 +88,8 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.rnet_pair_mask.argtypes = [vp, i32, i32, vp, u32, vp]
         lib.rnet_pair_mask.restype = i32
     elif name == INT8_KERNEL:
-        lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 6 + [vp]
+        lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 9 + [i64, i32, vp, vp]
         lib.rnet_pairwise_fwd_int8.restype = i32
-        lib.rnet_pairwise_fwd_int8_block_rows.argtypes = []
-        lib.rnet_pairwise_fwd_int8_block_rows.restype = i32
-        lib.rnet_pairwise_fwd_int8_smem_bytes.argtypes = [i32]
-        lib.rnet_pairwise_fwd_int8_smem_bytes.restype = i64
     else:
         lib.rnet_pairwise_bwd.argtypes = [vp] * 16 + [i32] * 10 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd.restype = i32
@@ -242,31 +238,37 @@ def pairwise_core_bwd_reference(u, v, s, qa, ws, bs, g, inject: int, keep: float
 
 
 # ---------------------------------------------------------------------------
-# Tile plan and weight packing of the bf16 kernels (csrc/pairwise_chain.cuh)
+# Tile plan and weight packing of the kernels on csrc/pairwise_chain.cuh
 # ---------------------------------------------------------------------------
 
 CHUNK_BYTES = 8192  # one streamed W chunk
 WG_ROWS = 64  # pair rows of one consumer warpgroup (wgmma's M)
 TILE_N = 128  # output columns of one wgmma tile, the rows of a W chunk
 MIN_STAGES, MAX_STAGES = 3, 8  # depth of the W chunk ring
+INT8_MAX_WGS = 3  # consumer warpgroups of an int8 CTA, each on its own tile
 H100_SMS = 132
-# The phase-timing build: -DRNET_PHASE_TIMES makes both kernels sum clock64()
+KINDS = ("fwd", "bwd", "int8")
+# The phase-timing build: -DRNET_PHASE_TIMES makes the kernels sum clock64()
 # cycles per phase and CTA into a (grid, PHASE_SLOTS) int64 buffer.
 PHASE_DEFINES = ("RNET_PHASE_TIMES",)
 PHASE_SLOTS = 8
 FWD_PHASES = ("products", "epilogues", "pool", "feed_wait", "a0", "barriers")
 BWD_PHASES = ("recompute", "dW_products", "dW_flush", "d_products", "column_pass", "feed_wait", "a0", "barriers")
+INT8_PHASES = FWD_PHASES
 
 
 @dataclass(frozen=True)
 class TilePlan:
-    """How a bf16 pairwise kernel covers (B, ni, nj, H, L): ``wgs`` consumer
-    warpgroups of 64 pair rows per CTA (``bm`` rows a block), a ring of
-    ``stages`` 8 KB W chunks, ``slots`` activation tiles of bm x H bf16,
-    ``grid`` persistent CTAs and ``smem`` bytes of shared memory each. The C
-    launchers check it and refuse what they cannot take."""
+    """How a pairwise kernel covers (B, ni, nj, H, L): ``wgs`` consumer
+    warpgroups of 64 pair rows per CTA, a ring of ``stages`` 8 KB W chunks,
+    ``slots`` activation tiles per block, ``grid`` persistent CTAs and
+    ``smem`` bytes of shared memory each. The bf16 kernels' warpgroups share
+    a block of ``bm`` = 64 * wgs rows; the int8 kernel's each take their own
+    64-row block (``bm`` = 64), wgs consecutive blocks a round of the CTA's
+    contiguous range. The C launchers check the plan and refuse what they
+    cannot take."""
 
-    kind: str  # "fwd" or "bwd"
+    kind: str  # one of KINDS
     B: int
     ni: int
     nj: int
@@ -280,7 +282,8 @@ class TilePlan:
 
     @property
     def bm(self) -> int:
-        return WG_ROWS * self.wgs
+        """Pair rows of one block."""
+        return WG_ROWS if self.kind == "int8" else WG_ROWS * self.wgs
 
     @property
     def nblk(self) -> int:
@@ -290,70 +293,101 @@ class TilePlan:
     def blocks(self, cta: int):
         """(b, first pair row, valid rows) of every block CTA `cta` runs, in
         its order: the forward walks tiles t = cta, cta + grid, ... (t = b *
-        nblk + block); the backward owns samples b = cta, cta + grid, ... and
-        walks all their blocks."""
+        nblk + block); the int8 forward the contiguous range [cta * tiles //
+        grid, (cta + 1) * tiles // grid), wgs tiles a round; the backward
+        owns samples b = cta, cta + grid, ... and walks all their blocks."""
         npairs = self.ni * self.nj
+        ntiles = self.B * self.nblk
+        if self.kind == "bwd":
+            return [(b, k * self.bm, min(self.bm, npairs - k * self.bm))
+                    for b in range(cta, self.B, self.grid) for k in range(self.nblk)]
         if self.kind == "fwd":
-            tiles = range(cta, self.B * self.nblk, self.grid)
-            return [(t // self.nblk, t % self.nblk * self.bm, min(self.bm, npairs - t % self.nblk * self.bm))
-                    for t in tiles]
-        return [(b, k * self.bm, min(self.bm, npairs - k * self.bm))
-                for b in range(cta, self.B, self.grid) for k in range(self.nblk)]
+            tiles = range(cta, ntiles, self.grid)
+        else:
+            tiles = range(cta * ntiles // self.grid, (cta + 1) * ntiles // self.grid)
+        return [(t // self.nblk, t % self.nblk * self.bm, min(self.bm, npairs - t % self.nblk * self.bm))
+                for t in tiles]
 
 
-def smem_bytes(kind: str, bm: int, H: int, L: int, slots: int, stages: int) -> int:
-    """Shared memory of a CTA: the activation slots, the W ring, its full and
-    empty mbarriers (8 B each) and a per-row fp32 scale; the forward adds the
-    biases in fp32 and one row of H column sums per warp (bm / 16 warps), the
-    backward a core matrix of ones."""
-    n = slots * bm * H * 2 + stages * (CHUNK_BYTES + 16) + bm * 4
+def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int) -> int:
+    """Shared memory of a CTA with `wgs` consumer warpgroups: the activation
+    slots, the W ring and its full and empty mbarriers (8 B each). The bf16
+    kernels' slots are (64 * wgs) x H bf16 and they keep a per-row fp32
+    scale; the forward adds the biases in fp32 and one row of H column sums
+    per warp, the backward a core matrix of ones. The int8 kernel keeps
+    `slots` tiles of 64 x H int8 per warpgroup, the biases in fp32 and one
+    row of H column sums per warp."""
+    ring = stages * (CHUNK_BYTES + 16)
+    warps_sums = 4 * wgs * H * 4
+    if kind == "int8":
+        return slots * wgs * WG_ROWS * H + ring + (L - 1) * H * 4 + warps_sums
+    bm = WG_ROWS * wgs
+    n = slots * bm * H * 2 + ring + bm * 4
     if kind == "fwd":
-        n += (L - 1) * H * 4 + bm // 16 * H * 4
+        n += (L - 1) * H * 4 + warps_sums
     else:
         n += 128  # one 8 x 8 core matrix of ones (the column sums' wgmma operand)
     return n
 
 
 def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H100_SMS) -> TilePlan:
-    """The tile plan of the forward (``kind="fwd"``) or backward kernel.
+    """The tile plan of the bf16 forward (``kind="fwd"``), backward
+    (``"bwd"``) or int8 forward (``"int8"``) kernel.
 
-    Two warpgroups (128 rows a block) up to H=256; one at H > 256, where the
-    activation tiles of 128 rows would not leave room for the ring, and in
-    the forward when 128-row tiles would not give every SM one (serving
-    buckets). The forward keeps two activation slots (ping-pong), the
-    backward max(3, L-1). The ring takes what shared memory is left, up to
-    MAX_STAGES. ValueError if the plan does not fit."""
-    if kind not in ("fwd", "bwd"):
-        raise ValueError(f"kind must be 'fwd' or 'bwd', got {kind!r}")
+    bf16: two warpgroups (128 rows a block) up to H=256; one at H > 256,
+    where the activation tiles of 128 rows would not leave room for the ring,
+    and in the forward when 128-row tiles would not give every SM one
+    (serving buckets). The forward keeps two activation slots (ping-pong),
+    the backward max(3, L-1). int8: two slots per warpgroup, and as many
+    warpgroups (up to INT8_MAX_WGS) as leave room for MIN_STAGES W chunks;
+    one when 128-row tiles would not give every SM one. The ring takes what
+    shared memory is left, up to MAX_STAGES. ValueError if the plan does not
+    fit."""
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if H % 128 != 0:
         raise ValueError(f"the pairwise kernels need H % 128 == 0, got H={H}")
-    wgs = 1 if H > 256 else 2
-    if kind == "fwd" and wgs == 2 and B * -(-ni * nj // (2 * WG_ROWS)) < sms:
-        wgs = 1
-    bm = WG_ROWS * wgs
-    slots = 2 if kind == "fwd" else max(3, L - 1)
-    stages = min(MAX_STAGES, (SMEM_LIMIT - smem_bytes(kind, bm, H, L, slots, 0)) // (CHUNK_BYTES + 16))
+    few_tiles = B * -(-ni * nj // (2 * WG_ROWS)) < sms
+    slots = 2 if kind in ("fwd", "int8") else max(3, L - 1)
+
+    def stages_for(wgs):
+        return min(MAX_STAGES, (SMEM_LIMIT - smem_bytes(kind, wgs, H, L, slots, 0)) // (CHUNK_BYTES + 16))
+
+    if kind == "int8":
+        wgs = next((w for w in range(INT8_MAX_WGS, 1, -1) if stages_for(w) >= MIN_STAGES), 1)
+        if few_tiles:
+            wgs = 1
+    else:
+        wgs = 1 if H > 256 or (kind == "fwd" and few_tiles) else 2
+    stages = stages_for(wgs)
     if stages < MIN_STAGES:
+        rows = WG_ROWS * wgs
         raise ValueError(
             f"pairwise_{kind} kernel at H={H}, L={L} does not fit {SMEM_LIMIT} B of shared memory "
-            f"({slots} activation tiles of {bm} x {H} bf16 and {MIN_STAGES} W stages)"
+            f"({slots} activation tiles of {rows} x {H} and {MIN_STAGES} W stages)"
         )
-    nblk = -(-ni * nj // bm)
-    grid = min(B * nblk if kind == "fwd" else B, sms)
-    return TilePlan(kind, B, ni, nj, H, L, wgs, stages, slots, grid, smem_bytes(kind, bm, H, L, slots, stages))
+    nblk = -(-ni * nj // (WG_ROWS if kind == "int8" else WG_ROWS * wgs))
+    if kind == "bwd":
+        grid = min(B, sms)
+    else:
+        grid = min(-(-B * nblk // (wgs if kind == "int8" else 1)), sms)
+    return TilePlan(kind, B, ni, nj, H, L, wgs, stages, slots, grid, smem_bytes(kind, wgs, H, L, slots, stages))
 
 
 def pack_weight_chunks(x: torch.Tensor) -> torch.Tensor:
     """x (L-1, N, K), row n holding B^T's row (the K-major B operand of
-    ``a . B``), packed as the kernels stream it: per layer, per tile of
-    nt = TILE_N rows, per depth chunk of kc = 4096 / nt columns, one 8 KB
-    chunk of 8 x 8 core matrices (8 rows of 8 contiguous bf16), the depth's
-    core matrices innermost. Returns a contiguous (L-1, N/nt, K/kc, nt/8,
-    kc/8, 8, 8)."""
+    ``a . B``), packed as the kernels stream it: per layer, per tile of nt =
+    TILE_N rows, per depth chunk of kc = 8192 / (nt * size) columns (64
+    bytes), one 8 KB chunk of core matrices (8 rows of 16 contiguous bytes:
+    ce = 16 / size elements), the depth's core matrices innermost, where size
+    is 1 byte for int8 and 2 for every other dtype (the bf16 operands'
+    layout). Returns a contiguous (L-1, N/nt, K/kc, nt/8, kc/ce, 8, ce)."""
     n_l, N, K = x.shape
     nt = TILE_N
-    kc = CHUNK_BYTES // 2 // nt
-    y = x.reshape(n_l, N // nt, nt // 8, 8, K // kc, kc // 8, 8)
+    size = 1 if x.dtype in (torch.int8, torch.uint8) else 2
+    kc = CHUNK_BYTES // size // nt
+    ce = 16 // size
+    y = x.reshape(n_l, N // nt, nt // 8, 8, K // kc, kc // ce, ce)
     return y.permute(0, 1, 4, 2, 5, 3, 6).contiguous()
 
 
@@ -641,15 +675,14 @@ def pairwise_core_int8_reference(u, v, s, qa, w8, m, bs, inject: int) -> torch.T
 
 
 def check_int8_inputs(u, v, s, qa, w8, m, bs) -> Tuple[int, int, int, int, int]:
-    """Validate what the int8 kernel takes; (B, ni, nj, H, L), or
-    NotImplementedError for fp32 u/v/s and ValueError for anything else."""
-    if any(t.dtype == torch.float32 for t in (u, v, s)):
-        raise NotImplementedError(
-            "the int8 kernel takes bfloat16 u, v, s: int8 with fp32 compute on the "
-            "card is not ported (ROADMAP.md)"
-        )
+    """Validate what the int8 kernel takes: u, v, s all bf16 or all fp32 (as
+    rnet's kernel reads either), qa, m, bs fp32, w8 int8; (B, ni, nj, H, L)
+    or ValueError."""
     f32, bf16 = torch.float32, torch.bfloat16
-    dtypes = {"u": bf16, "v": bf16, "s": bf16, "qa": f32, "w8": torch.int8, "m": f32, "bs": f32}
+    if u.dtype not in (f32, bf16):
+        raise ValueError(f"the int8 kernel: u must be {bf16} or {f32}, got {u.dtype}")
+    dt = u.dtype
+    dtypes = {"u": dt, "v": dt, "s": dt, "qa": f32, "w8": torch.int8, "m": f32, "bs": f32}
     ts = {"u": u, "v": v, "s": s, "qa": qa, "w8": w8, "m": m, "bs": bs}
     B, ni, nj, H, L = _check_core_inputs("the int8 kernel", ts, dtypes)
     if any(t.data_ptr() % 16 for t in (u, v, s)):
@@ -657,25 +690,26 @@ def check_int8_inputs(u, v, s, qa, w8, m, bs) -> Tuple[int, int, int, int, int]:
     return B, ni, nj, H, L
 
 
-def pairwise_fwd_int8_cuda(u, v, s, qa, w8, m, bs, *, inject: int) -> torch.Tensor:
+def pairwise_fwd_int8_cuda(u, v, s, qa, w8, m, bs, *, inject: int, phases=None) -> torch.Tensor:
     """Launch the int8 kernel on the current stream for folded inputs (those
     of ``quantize_int8``); (B, H) fp32. Raises on anything the kernel does
-    not take, on CPU tensors, and on a failed build or launch."""
+    not take, on CPU tensors, and on a failed build or launch. ``phases`` as
+    ``pairwise_fwd_cuda``'s, for the grid of ``tile_plan("int8", ...)`` and
+    the INT8_PHASES."""
     B, ni, nj, H, L = check_int8_inputs(u, v, s, qa, w8, m, bs)
     dev = _check_device(INT8_KERNEL, (u, v, s, qa, w8, m, bs))
-    lib = _kernel_lib(INT8_KERNEL)
-    smem = lib.rnet_pairwise_fwd_int8_smem_bytes(H)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"pairwise_fwd_int8 kernel at H={H} needs {smem} B of shared memory (> {SMEM_LIMIT})")
-    nblk = -(-ni * nj // lib.rnet_pairwise_fwd_int8_block_rows())
-    w8t = w8.transpose(1, 2).contiguous()  # row n = column n of W_l: the kernel's B-fragment layout
-    partial = torch.empty((B, nblk, H), dtype=torch.float32, device=dev)
+    plan = tile_plan("int8", B, ni, nj, H, L, _sms(dev))
+    phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
+    lib = _kernel_lib(INT8_KERNEL, defines)
+    chunks = pack_weight_chunks(w8.transpose(1, 2))  # row n = column n of W_l: the K-major B operand
+    partial = torch.empty((B, plan.nblk, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_fwd_int8(
-            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), w8t.data_ptr(), m.data_ptr(),
-            bs.data_ptr(), partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, int(inject), stream,
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), chunks.data_ptr(), m.data_ptr(),
+            bs.data_ptr(), partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, int(inject), plan.wgs,
+            plan.stages, plan.grid, plan.smem, int(u.dtype == torch.float32), phase_ptr, stream,
         )
     _raise_on_error(lib, err, INT8_KERNEL)
     launches[INT8_KERNEL] += 1

@@ -5,7 +5,9 @@
   kernel run in interpret mode, on the same seeded inputs — offsets 0 and
   16 on both axes (where the rolls wrap around the canvas), angles 0 and
   ±MAX_DEG, B = 6 and repeated indices; the shear radii; the draws; the
-  CPU dispatch of ``augment_impl="pallas"`` (the plain version, no launch).
+  CPU dispatch of ``augment_impl="pallas"`` (the plain version, no launch);
+  the CUDA kernel's two-tap shear, written in torch ops, bit for bit equal
+  to the 2K+1-tap ``_shear`` the plain version uses.
 * ``rnet_torch.data.augment`` (the model-side ``xla`` path): rotation, crop
   and centre crop against rnet's with the same explicit angles and offsets.
 
@@ -121,6 +123,58 @@ def test_draws_are_in_range_and_reproducible():
     assert o1.min().item() == 0 and o1.max().item() == 16  # both ends of [0, margin] drawn
     out = tker.gather_augment(cache, torch.zeros(5, dtype=torch.int32), torch.Generator().manual_seed(1), 128)
     assert out.shape == (5, 128, 128, 3) and out.dtype == torch.bfloat16
+
+
+def _two_tap_shear(images, shifts, axis, k_max):
+    """The CUDA kernel's shear (csrc/augment.cu) in torch ops and its order:
+    per line only the taps k0 = floor(shift) clamped to [-K, K-1] and k0 + 1,
+    each weighted hat(shift - k), tap k0 first."""
+    k0 = torch.floor(shifts).clamp(-k_max, k_max - 1)
+    w0 = torch.clamp(1.0 - (shifts - k0).abs(), min=0.0)
+    w1 = torch.clamp(1.0 - (shifts - (k0 + 1)).abs(), min=0.0)
+    n = images.shape[axis]
+    if axis == 2:  # per row: out[b, r, c] = img[b, r, (c - k) mod n]
+        shape, lead = (images.shape[0], shifts.shape[1], 1, 1), lambda t: t[:, :, None]
+    else:  # per column: out[b, r, c] = img[b, (r - k) mod n, c]
+        shape, lead = (images.shape[0], 1, shifts.shape[1], 1), lambda t: t[:, None, :]
+    pos = torch.arange(n).reshape([-1 if d == axis else 1 for d in range(3)])
+
+    def tap(k):
+        src = (pos - lead(k.long())) % n
+        return torch.gather(images, axis, src[..., None].expand(images.shape))
+
+    return w0.reshape(shape) * tap(k0) + w1.reshape(shape) * tap(k0 + 1)
+
+
+@pytest.mark.parametrize("axis, k_max", [(2, 2), (1, 4), (2, 1)])
+def test_two_tap_shear_is_bitwise_the_full_shear(axis, k_max):
+    """The kernel's two-tap shear equals ``_shear``'s 2K+1-tap sum bit for
+    bit on non-negative images: every other tap has weight exactly 0 and
+    adds +0. Shifts: random in [-K, K], integers, exactly +-K, past K on
+    both sides (the clamped pair keeps the one tap that can be non-zero),
+    beyond K+1 (all taps 0), +-0.0 and values just off an integer."""
+    rs = np.random.RandomState(10 * axis + k_max)
+    B, n = 3, 40
+    images = torch.from_numpy(rs.randint(0, 256, (B, n, n, 3)).astype(np.float32)) * (1.0 / 255.0)
+    special = [0.0, -0.0, 1.0, -1.0, float(k_max), -float(k_max), k_max + 0.25, -k_max - 0.25,
+               k_max + 0.999, -k_max - 0.999, k_max + 1.5, -k_max - 3.0, 1e-7, -1e-7, 1 - 1e-7,
+               k_max - 1e-6, -k_max + 1e-6, 0.5, -0.5]
+    shifts = rs.uniform(-k_max, k_max, (B, n)).astype(np.float32)
+    shifts[0, : len(special)] = special
+    shifts[1] = np.round(shifts[1])  # integer shifts
+    s = torch.from_numpy(shifts)
+    assert torch.signbit(s[0, 1]) and s[0, 1] == 0  # -0.0 kept
+    want = taug._shear(images, s, axis=axis, k_max=k_max)
+    got = _two_tap_shear(images, s, axis, k_max)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    # and the canvas-size case the kernel runs: (2, 4) radii on 144^2
+    kx, ky = tker._shear_radii(144, 128)
+    big = torch.from_numpy(rs.randint(0, 256, (2, 144, 144, 3)).astype(np.float32)) * (1.0 / 255.0)
+    t = torch.from_numpy(rs.uniform(-ky, ky, (2, 144)).astype(np.float32))
+    k = kx if axis == 2 else ky
+    t = t.clamp(-k - 0.5, k + 0.5)
+    assert torch.equal(_two_tap_shear(big, t, axis, k), taug._shear(big, t, axis=axis, k_max=k))
 
 
 def test_kernel_wrapper_refuses_what_it_does_not_take():

@@ -195,9 +195,15 @@ def test_int8_wrapper_refuses_what_the_kernel_does_not_take():
     folded = tpw.quantize_int8(*(torch.from_numpy(a).bfloat16() for a in _inputs(2, 16, 16, 128, 3, seed=0)), 0)
     with pytest.raises(ValueError, match="CUDA"):
         tpw.pairwise_fwd_int8_cuda(*folded, inject=0)  # CPU tensors
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # fp32 u, v, s pass the dtype check (the kernel reads them as rnet's
+    # does) and still need the card; mixed dtypes do not pass it
+    with pytest.raises(ValueError, match="CUDA"):
         tpw.pairwise_fwd_int8_cuda(*(t.float() if k < 3 else t for k, t in enumerate(folded)), inject=0)
     u, v, s, qa, w8, m, bs = folded
+    with pytest.raises(ValueError, match="v must be torch.float32"):
+        tpw.pairwise_fwd_int8_cuda(u.float(), v, s.float(), qa, w8, m, bs, inject=0)
+    with pytest.raises(ValueError, match="u must be"):
+        tpw.pairwise_fwd_int8_cuda(u.half(), v.half(), s.half(), qa, w8, m, bs, inject=0)
     with pytest.raises(ValueError, match="w8"):
         tpw.pairwise_fwd_int8_cuda(u, v, s, qa, w8.float(), m, bs, inject=0)
     with pytest.raises(ValueError, match="H % 128"):

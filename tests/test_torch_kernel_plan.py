@@ -1,8 +1,9 @@
-"""Tile plans and weight packing of the bf16 pairwise kernels, on the CPU.
+"""Tile plans and weight packing of the pairwise kernels, on the CPU.
 
 ``rnet_torch.kernels.pairwise.tile_plan`` decides how the CUDA kernels of
-``csrc/pairwise_fwd.cu`` and ``csrc/pairwise_bwd.cu`` cover a shape: rows
-per block, ring stages, shared memory and the persistent grid. The launchers
+``csrc/pairwise_fwd.cu``, ``csrc/pairwise_bwd.cu`` and
+``csrc/pairwise_fwd_int8.cu`` cover a shape: rows per block, warpgroups,
+ring stages, shared memory and the persistent grid. The launchers
 refuse a plan they cannot take; these tests hold every plan the repository
 can ask for (each g_theta width and object grid of ``config.json``, and every
 agreement case of ``chip_smoke.py``) to what the kernels rely on:
@@ -45,11 +46,13 @@ CONFIGS = _config_shapes()
 # (B, ni, nj, H, L): each config at the serving buckets, a batch above the SM
 # count and the training batch (the 32 x 32 grid, a million pair rows a
 # sample, at the buckets only: the row walk below enumerates every block);
-# every agreement case of chip_smoke.py
+# every agreement case of chip_smoke.py (bf16 and int8)
 SHAPES = sorted(
     {(B, n, n, H, L) for _, n, _, H, L in CONFIGS for B in ((1, 8, 64, 140, 512) if n <= 256 else (1, 8))}
     | {(B, ni, nj, H, L) for B, ni, nj, H, L, _ in chip_smoke.CASES}
+    | {case[:5] for case, _, _ in chip_smoke.INT8_CASES}
 )
+KINDS = ["fwd", "bwd", "int8"]
 
 
 def test_shapes_cover_the_configs_and_the_smoke_cases():
@@ -59,17 +62,20 @@ def test_shapes_cover_the_configs_and_the_smoke_cases():
     assert chip_smoke.TRAIN_CASE[:5] in SHAPES and any(B > SMS for B, *_ in SHAPES)
 
 
-@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
     B, ni, nj, H, L = shape
     plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS)
     assert plan.smem <= tpw.SMEM_LIMIT
-    assert plan.smem == tpw.smem_bytes(kind, plan.bm, H, L, plan.slots, plan.stages)
+    assert plan.smem == tpw.smem_bytes(kind, plan.wgs, H, L, plan.slots, plan.stages)
     assert tpw.MIN_STAGES <= plan.stages <= tpw.MAX_STAGES
-    assert plan.wgs in (1, 2) and plan.bm == 64 * plan.wgs
+    if kind == "int8":  # each warpgroup its own 64-row block
+        assert 1 <= plan.wgs <= tpw.INT8_MAX_WGS and plan.bm == 64
+    else:
+        assert plan.wgs in (1, 2) and plan.bm == 64 * plan.wgs
     assert H % tpw.TILE_N == 0
-    assert plan.slots == (2 if kind == "fwd" else max(3, L - 1))
+    assert plan.slots == (max(3, L - 1) if kind == "bwd" else 2)
     assert 1 <= plan.grid <= SMS
     # the fp32 dpre_0 tile of the backward's column pass fits the dead slots
     if kind == "bwd":
@@ -78,7 +84,7 @@ def test_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
         assert tile_bytes <= free
 
 
-@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_plan_tiles_every_row_exactly_once(kind, shape):
     B, ni, nj, H, L = shape
@@ -121,6 +127,21 @@ def test_forward_fills_the_card_at_small_batches():
     assert tpw.tile_plan("bwd", 512, 64, 64, 512, 4, SMS).wgs == 1  # H=512: one warpgroup
 
 
+def test_int8_plan_fills_the_card_and_takes_what_fits():
+    """The int8 forward: three warpgroups on their own 64-row tiles at
+    original-fp (one round of 3 * 132 tiles at a time), two at wide-fp's
+    H=512, one at serving bucket 1 (32 tiles of 128 rows < 132 SMs: 64
+    CTAs of one warpgroup); bucket 8 fills the card."""
+    small = tpw.tile_plan("int8", 1, 64, 64, 256, 4, SMS)
+    assert (small.wgs, small.bm, small.grid) == (1, 64, 64)
+    big = tpw.tile_plan("int8", 512, 64, 64, 256, 4, SMS)
+    assert (big.wgs, big.bm, big.grid, big.stages) == (3, 64, SMS, tpw.MAX_STAGES)
+    assert tpw.tile_plan("int8", 8, 64, 64, 256, 4, SMS).grid == SMS
+    wide = tpw.tile_plan("int8", 64, 64, 64, 512, 4, SMS)
+    assert (wide.wgs, wide.grid) == (2, SMS) and wide.smem <= tpw.SMEM_LIMIT
+    assert tpw.tile_plan("int8", 140, 64, 64, 1024, 4, SMS).wgs == 1  # one warpgroup's slots at H=1024
+
+
 @pytest.mark.parametrize("H, L, match", [(96, 4, "H % 128"), (1024, 4, "does not fit"), (512, 6, "does not fit")])
 def test_plan_refuses_what_the_kernels_cannot_take(H, L, match):
     with pytest.raises(ValueError, match=match):
@@ -145,6 +166,30 @@ def test_weight_chunks_hold_core_matrices_in_stream_order(H):
         q = (n // nt) * (H // kc) + k // kc
         off = (((n % nt) // 8) * (kc // 8) + (k % kc) // 8) * 64 + (n % 8) * 8 + k % 8
         assert flat[l, q * (tpw.CHUNK_BYTES // 2) + off].item() == x[l, n, k].item()
+
+
+@pytest.mark.parametrize("H", [128, 256, 512])
+def test_int8_weight_chunks_hold_core_matrices_in_stream_order(H):
+    """int8 chunks: the same 8 KB chunks of 128-byte core matrices, each 8
+    rows x 16 int8 (twice the bf16 depth), 64 columns of depth a chunk:
+    entry (n, k) of the packed matrix at element ((n % nt) // 8 * 4 + (k %
+    64) // 16) * 128 + (n % 8) * 16 + k % 16 of chunk (n // nt) * (H / 64)
+    + k // 64."""
+    nt, kc, ce = tpw.TILE_N, 64, 16
+    x = torch.from_numpy(np.random.RandomState(H).randint(-127, 128, (2, H, H)).astype(np.int8))
+    packed = tpw.pack_weight_chunks(x)
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    flat = packed.reshape(2, -1)
+    assert flat.shape[1] == H * H
+    rs = np.random.RandomState(H + 1)
+    for l, n, k in zip(rs.randint(0, 2, 300), rs.randint(0, H, 300), rs.randint(0, H, 300)):
+        q = (n // nt) * (H // kc) + k // kc
+        off = (((n % nt) // 8) * (kc // ce) + (k % kc) // ce) * 8 * ce + (n % 8) * ce + k % ce
+        assert flat[l, q * tpw.CHUNK_BYTES + off].item() == x[l, n, k].item()
+    # one byte layout for both element sizes: the int8 chunks are the 16-bit
+    # packing of the same bytes read two at a time
+    as16 = tpw.pack_weight_chunks(x.view(torch.int16)).view(torch.int8)
+    assert torch.equal(as16.reshape(-1), packed.reshape(-1))
 
 
 def test_weight_chunks_accept_a_transposed_view():
