@@ -5,8 +5,8 @@
 
 Phases, each fatal (exit 1, no result line) when it fails:
   1. CUDA present; print the card's name and power limit (nvidia-smi).
-  2. Build every CUDA kernel of the serving, training and int8 inference
-     paths from ``rnet_torch/csrc`` (one nvcc per source, started together),
+  2. Build every CUDA kernel of the serving, training, int8 inference and
+     fp32 paths from ``rnet_torch/csrc`` (one nvcc per source, started together),
      and beside them the phase-timing build of the three pairwise kernels
      (``-DRNET_PHASE_TIMES``); print ptxas' resource lines.
   3. Forward kernel vs plain version on the card at the paths' shapes
@@ -28,6 +28,14 @@ Phases, each fatal (exit 1, no result line) when it fails:
      and original-fp B=64 with fp32 u, v, s; each within 1e-5 of max|plain|
      and within 3e-2 of the fp32 ``pairwise_core_reference``; the B=512
      launch twice, bitwise.
+ 5c. The fp32 kernels (``csrc/pairwise_f32.cu``: ``pairwise_fwd_f32``,
+     ``pairwise_bwd_f32``, 3xTF32) vs their plain fp32 versions at
+     ``F32_CASES`` (original-fp B=512 and 64, ir-fp's injection 2, H=512 at
+     n=64 and at the SD grid of 12, a rectangular grid, stretch-fp-32's
+     1,024 objects at B=1, pair dropout at keep 0.9): the forward within
+     1e-4 of max|plain|, each gradient's max|d|/max|plain| printed and its
+     distance from the float64 chain held to 1e-4 + twice the plain fp32
+     version's; the B=512 backward twice, bitwise.
   6. Serving: an ``InferenceServer`` for original-fp at full width with
      seeded random weights, buckets 1/8/64. After ``warmup()`` the launch
      counters are zeroed, a burst of encoded requests goes through the
@@ -48,6 +56,10 @@ Phases, each fatal (exit 1, no result line) when it fails:
      bitwise; one step with pair dropout 0.25 draws the mask in both
      kernels; the kernel path's loss and gradients agree with the ``xla``
      path's.
+ 7b. One fp32 train step through the fp32 kernels (``compute_dtype``
+     float32, ``rl_impl`` pallas) against the fp32 ``xla`` path, same
+     weights and batch: one launch of each fp32 kernel, the loss within
+     1e-5 relative.
   8. Times with CUDA events: each kernel, its plain version, one PyTorch
      yardstick (``library_ms``) and the roofline bound; the phase breakdown
      of ``pairwise_fwd``, ``pairwise_bwd`` and ``pairwise_fwd_int8`` at B =
@@ -62,7 +74,8 @@ Phases, each fatal (exit 1, no result line) when it fails:
      profile of one int8 eval batch at B=512 beside the bf16 one (the
      calibration and folding ops around the kernel included), and serve
      latency per bucket and burst throughput of the bf16 and int8 servers,
-     taken in turns (bf16 int8 int8 bf16).
+     taken in turns (bf16 int8 int8 bf16). The fp32 kernels at B=512 beside
+     the cuBLAS fp32 chain (TF32 off) and its autograd.
   9. Augment kernel vs its plain version on the card: B = 1, 7 and 512, fp32
      and bf16 outputs, angles of ±2.8 degrees and 0, the four corner offsets
      (where the shears wrap around the canvas), repeated indices, a cache of
@@ -96,6 +109,16 @@ Phases, each fatal (exit 1, no result line) when it fails:
      the clip-fraction line printed), in the order bf16 int8 int8 bf16;
      finite accuracy and NLL and the report files from each, the share of
      equal predictions, and the eval questions/s of each run (host clock).
+ 11. fp32 and extraction: (a) ``python -m rnet_torch.train --precision
+     float32 --rl-impl pallas``, one epoch of 16 steps (one
+     ``pairwise_fwd_f32`` launch per train and eval batch, one
+     ``pairwise_bwd_f32`` per step, no bf16 kernel); (b) ``RN.extract`` of
+     ir-fp at full width, B=512, on the synthetic cache's canvases: bf16 vs
+     fp32 on the card within 2e-2 and fp32 on the card vs the CPU within
+     1e-5 of the largest feature, images/s of each; ``python -m
+     rnet_torch.extract`` end to end for ir-sd (the synthetic scenes) and,
+     where Pillow imports, ir-fp (PNGs written from the val canvases): one
+     row per image, in order, with a ragged last batch.
 Then one JSON line of kernel records and, last, the device line.
 
 Only torch, numpy and ``rnet_torch`` are imported (never JAX or ``rnet``).
@@ -118,6 +141,7 @@ TRAIN_STEPS = 5
 VOCAB = 90  # bench.py's vocabulary size
 LR = 1e-4  # bench.py's learning rate (clip 50)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor-core peak (NVIDIA data sheet)
 CANVAS, CROP = 144, 128  # padded CLEVR canvas, model input
 CLEVR_TRAIN_IMAGES = 70_000  # CLEVR v1.0 train split
 AUG_SMALL = 2_048  # the synthetic run's train images
@@ -156,8 +180,9 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def pair_inputs(torch, B, n, H, L, seed):
-    """Seeded numpy inputs of the pairwise core, as bf16 CUDA tensors."""
+def pair_inputs(torch, B, n, H, L, seed, dtype=None):
+    """Seeded numpy inputs of the pairwise core, as CUDA tensors in `dtype`
+    (bf16 if None)."""
     import numpy as np
 
     rs = np.random.RandomState(seed)
@@ -169,7 +194,7 @@ def pair_inputs(torch, B, n, H, L, seed):
         rs.randn(L - 1, H, H) / np.sqrt(H),
         rs.randn(L - 1, H) * 0.05,
     )
-    return [torch.from_numpy(a.astype(np.float32)).to("cuda", torch.bfloat16) for a in arrs]
+    return [torch.from_numpy(a.astype(np.float32)).to("cuda", dtype or torch.bfloat16) for a in arrs]
 
 
 def upstream(torch, B, H, seed):
@@ -230,6 +255,23 @@ def bwd_bound(B, ni, nj, H, L):
     return roofline(flops, nbytes)
 
 
+def f32_fwd_bound(B, ni, nj, H, L):
+    """(bound_ms, bound_by) of the fp32 forward: 3xTF32 runs three TF32
+    products per fp32 product (3 x the FLOPs at the dense TF32 peak); bytes
+    as fwd_bound's in 4-byte elements."""
+    flops = 3 * 2.0 * B * ni * nj * (L - 1) * H * H
+    nbytes = 4.0 * (B * ni * H + B * nj * H + 2 * B * H + (L - 1) * H * H + (L - 1) * H) + 4.0 * B * H
+    return roofline(flops, nbytes, peak_ops=PEAK_TF32_FLOPS)
+
+
+def f32_bwd_bound(B, ni, nj, H, L):
+    """The fp32 backward: recompute, d and dW products, each 3xTF32; the
+    fp32 inputs and g read once, the fp32 gradients written once."""
+    flops = 3 * 3 * 2.0 * B * ni * nj * (L - 1) * H * H
+    n_in = B * ni * H + B * nj * H + 2 * B * H + (L - 1) * H * H + (L - 1) * H
+    return roofline(flops, 4.0 * n_in + 4.0 * B * H + 4.0 * n_in, peak_ops=PEAK_TF32_FLOPS)
+
+
 def mask_bound(B, npairs):
     """Philox4x32-10 for one word: 10 rounds of 2 mulhi, 2 mullo, 2 xor-3,
     2 key adds (~12 int32 ops) plus the threshold test; one byte written."""
@@ -282,6 +324,17 @@ CASES = [
 ]
 KEEPS = (1.0, 0.75)
 GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
+# fp32 kernel agreement cases (B, ni, nj, H, L, inject, keep): original-fp
+# at the training batch and B=64, ir-fp's injection at layer 2, wide-fp's
+# H=512, the SD grid of 12 objects at H=512 (144 pair rows: a ragged last
+# block of the forward's 32-row blocks), a rectangular ni != nj,
+# stretch-fp-32's 1,024 objects, and pair dropout at keep 0.9.
+F32_TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0, 1.0)
+F32_CASES = [
+    F32_TRAIN_CASE, (64, 64, 64, 256, 4, 0, 1.0), (64, 64, 64, 256, 4, 2, 1.0), (64, 64, 64, 512, 4, 0, 1.0),
+    (64, 12, 12, 512, 4, 2, 1.0), (2, 16, 40, 256, 4, 1, 1.0), (1, 1024, 1024, 256, 4, 0, 1.0),
+    (64, 64, 64, 256, 4, 0, 0.9),
+]
 
 
 def check_forward(torch, pw, seed):
@@ -391,6 +444,95 @@ def check_backward(torch, pw, seed):
         del args, g, got, want
         torch.cuda.empty_cache()
     return max_err, at_shape
+
+
+def vjp64(torch, pw, args, g, inject, keep, seed):
+    """The pooled core and its VJP in float64 through autograd (the mask of
+    ``_pair_scale`` under pair dropout): the exact answer both fp32 versions
+    are measured against. Returns (out, [du, dv, ds, dqa, dws, dbs])."""
+    xs = [a.double().requires_grad_() for a in args]
+    u, v, s, qa, ws, bs = xs
+    B, ni, H = u.shape
+    nj = v.shape[1]
+    a = torch.relu(u[:, :, None, :] + v[:, None, :, :] + s[:, None, None, :]).reshape(B, ni * nj, H)
+    for l in range(1, ws.shape[0] + 1):
+        pre = a @ ws[l - 1] + bs[l - 1]
+        if l == inject:
+            pre = pre + qa[:, None, :]
+        a = torch.relu(pre)
+    if keep < 1.0:
+        a = a * pw._pair_scale(seed, B, ni, nj, keep).double()[..., None]
+    out = a.sum(dim=1)
+    grads = torch.autograd.grad(out, xs, g.double(), allow_unused=True)
+    return out.detach(), [torch.zeros_like(x) if d is None else d for d, x in zip(grads, xs)]
+
+
+def check_f32(torch, pw, seed):
+    """Phase 5c; returns (forward max |k - p| / max |p| at F32_TRAIN_CASE and
+    over all cases, the same of every gradient, the absolute errors at
+    F32_TRAIN_CASE)."""
+    # Tolerances. Forward: max |kernel - plain| <= 1e-4 max |plain| (both
+    # fp32, the sums in other orders). Backward: where two fp32 computations
+    # sum in different orders, the relu masks [a_l > 0] disagree at the few
+    # activations within an ulp of zero (tens in 512 x 4,096 rows), and each
+    # disagreement moves a whole dpre value, up to ~1e-2 of max |du| at one
+    # element; the fp32 plain version is itself that far from the exact
+    # gradients. So each gradient is held to the float64 chain (vjp64):
+    # ||kernel - exact|| <= 1e-4 ||exact|| + 2 ||plain - exact||, with the
+    # plain fp32 version's own distance printed beside it, and max |kernel -
+    # plain| / max |plain| is printed for every gradient.
+    def rel(a, z):  # relative distance in norm from the float64 value z
+        return ((a.double() - z).norm() / z.norm().clamp_min(1e-300)).item()
+
+    fwd_at = fwd_all = bwd_at = bwd_all = 0.0
+    abs_at = {}
+    for k, (B, ni, nj, H, L, inject, keep) in enumerate(F32_CASES):
+        args = pair_inputs(torch, B, nj, H, L, seed=500 + k, dtype=torch.float32)
+        args[0] = args[0][:, :ni].contiguous()
+        g = upstream(torch, B, H, seed=550 + k)
+        case = (B, ni, nj, H, L, inject, keep)
+        out = pw.pairwise_fwd_cuda(*args, inject=inject, pair_keep=keep, seed=seed)
+        ref = pw.pairwise_core_reference(*args, inject=inject, keep=keep, seed=seed)
+        exact, exact_grads = vjp64(torch, pw, args, g, inject, keep, seed)
+        got = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=keep, seed=seed)
+        want = pw.pairwise_core_bwd_reference(*args, g, inject, keep, seed)
+        torch.cuda.synchronize()
+        if out.shape != (B, H) or out.dtype != torch.float32 or not torch.isfinite(out).all():
+            fail(f"pairwise_fwd_f32 output at {case} is not a finite fp32 (B, H)")
+        err = ((out - ref).abs().max() / ref.abs().max()).item()
+        log(f"pairwise_fwd_f32 vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep}: "
+            f"max|d|/max|ref| {err!r} (tol 1e-4); rel. norm from float64: kernel {rel(out, exact)!r}, "
+            f"plain {rel(ref, exact)!r}")
+        if not err <= 1e-4:
+            fail(f"pairwise_fwd_f32 disagrees with its plain version at {case}")
+        fwd_all = max(fwd_all, err)
+        parts = []
+        for name, d, w, z in zip(GRAD_NAMES, got, want, exact_grads):
+            if d.shape != w.shape or d.dtype != torch.float32 or not torch.isfinite(d).all():
+                fail(f"pairwise_bwd_f32 {name} at {case} is not a finite fp32 {tuple(w.shape)}")
+            m = ((d - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            rk, rp = rel(d, z), rel(w, z)
+            parts.append(f"{name} {m:.3g} (from float64: kernel {rk:.3g}, plain {rp:.3g})")
+            if not rk <= 1e-4 + 2 * rp:
+                fail(f"pairwise_bwd_f32 {name} at {case}: {rk} from the float64 gradient, plain fp32 {rp} "
+                     f"(bound 1e-4 + 2 x plain)")
+            bwd_all = max(bwd_all, m)
+            if case == F32_TRAIN_CASE:
+                bwd_at = max(bwd_at, m)
+                abs_at[name] = (d - w).abs().max().item()
+        log(f"pairwise_bwd_f32 vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep}, "
+            "max|d|/max|ref|: " + " | ".join(parts))
+        if case == F32_TRAIN_CASE:
+            fwd_at = err
+            abs_at["out"] = (out - ref).abs().max().item()
+            again = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=keep, seed=seed)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail("pairwise_bwd_f32 is not bitwise repeatable")
+            log(f"pairwise_bwd_f32 at B={B}: the same launch twice gives bitwise-equal gradients")
+            del again
+        del args, g, out, ref, exact, exact_grads, got, want
+        torch.cuda.empty_cache()
+    return fwd_at, fwd_all, bwd_at, bwd_all, abs_at
 
 
 # Int8 agreement cases (B, ni, nj, H, L, inject, through the core?, input
@@ -541,7 +683,7 @@ def int8_serve_phase(torch, np, pw, cfg, dicts, server, burst):
     served_batches = 4
     log(f"int8 serve: {len(results)} answers, buckets {sorted({r['bucket'] for r in results})}, "
         f"launches {counts} for {served_batches} served batches")
-    if counts != {pw.KERNEL: 0, pw.BWD_KERNEL: 0, "pair_mask": 0, pw.INT8_KERNEL: served_batches}:
+    if counts != {**dict.fromkeys(counts, 0), pw.INT8_KERNEL: served_batches}:
         fail(f"expected one pairwise_fwd_int8 launch per served batch and nothing else, counted {counts}")
     bf16 = server.serve_samples(burst) + server.serve_samples(burst[:1]) + server.serve_samples(burst[:5])
     for r in results:
@@ -624,7 +766,7 @@ def train_phase(torch, np, pw, cfg):
     pd_counts = dict(pw.launches)
     log(f"train with pair_dropout 0.25: launches {pd_counts}, loss {float(m['loss'])!r}, "
         f"grad_norm {float(m['grad_norm'])!r}")
-    if pd_counts != {pw.KERNEL: 1, pw.BWD_KERNEL: 1, "pair_mask": 2, pw.INT8_KERNEL: 0}:
+    if pd_counts != {**dict.fromkeys(pd_counts, 0), pw.KERNEL: 1, pw.BWD_KERNEL: 1, "pair_mask": 2}:
         fail(f"a pair-dropout step should launch each kernel once, both drawing the mask; counted {pd_counts}")
     if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
         fail("the pair-dropout step is not finite")
@@ -727,6 +869,41 @@ def time_kernels(torch, pw, seed):
     mask = {"B": TRAIN_B, "n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     log(f"time pair_mask {json.dumps(mask)}")
     return fwd, bwd, mask
+
+
+def time_f32(torch, pw, seed):
+    """Phase 8, the fp32 kernels at original-fp B=512: each kernel, its plain
+    version, the cuBLAS fp32 chain (TF32 off, the yardstick) and its
+    autograd, and the 3xTF32 bound."""
+    B, n, H, L, inject = TRAIN_B, 64, 256, 4, 0
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("the fp32 yardstick needs TF32 off for matmuls")
+    args = pair_inputs(torch, B, n, H, L, seed=600, dtype=torch.float32)
+    g = upstream(torch, B, H, seed=601)
+    flops = 2.0 * B * n * n * (L - 1) * H * H
+    rows = {}
+    b_ms, b_by = f32_fwd_bound(B, n, n, H, L)
+    rows["fwd"] = {"B": B, "n": n, "H": H, "L": L, "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_cuda(*args, inject=0), 5),
+                   "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_reference(*args, inject=0), 3, warmup=1),
+                   "library_ms": cuda_ms(torch, lambda: library_chain(torch, *args, inject), 5, warmup=1),
+                   "bound_ms": b_ms, "bound_by": b_by}
+    rows["fwd"]["ms_keep_0.9"] = cuda_ms(
+        torch, lambda: pw.pairwise_fwd_cuda(*args, inject=0, pair_keep=0.9, seed=seed), 5, warmup=1)
+    b_ms, b_by = f32_bwd_bound(B, n, n, H, L)
+    rows["bwd"] = {"B": B, "n": n, "H": H, "L": L,
+                   "ms": cuda_ms(torch, lambda: pw.pairwise_bwd_cuda(*args, g, inject=0), 3, warmup=1),
+                   "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args, g, 0), 2, warmup=1),
+                   "library_ms": cuda_ms(torch, lambda: library_vjp(torch, args, g, inject), 3, warmup=1),
+                   "bound_ms": b_ms, "bound_by": b_by}
+    for kind, mult in (("fwd", 1), ("bwd", 3)):
+        r = rows[kind]
+        r["fp32_tflops"] = mult * flops / (r["ms"] * 1e-3) / 1e12
+        r["x_bound"] = r["ms"] / r["bound_ms"]
+        r["ms_over_library"] = r["ms"] / r["library_ms"]
+        log(f"time pairwise_{kind}_f32 {json.dumps(r)}")
+    del args, g
+    torch.cuda.empty_cache()
+    return rows
 
 
 def phase_breakdown(torch, pw):
@@ -832,6 +1009,45 @@ def profile_int8_eval(torch, np, cfg):
         del model
     log(f"eval batch profile {json.dumps(out)}")
     return out
+
+
+def f32_train_agreement(torch, np, pw, cfg, state, batch):
+    """Phase 7b: one fp32 train step's loss and gradients through the fp32
+    kernels (``--precision float32 --rl-impl pallas``) and through the fp32
+    ``xla`` path, dropout off, same weights and batch. Returns (the kernel
+    path's counts, loss relative difference)."""
+    from rnet_torch.train import steps
+
+    cfg32 = cfg.replace(dropout=0.0, compute_dtype="float32")
+    sd = state.model.state_dict()
+    out = {}
+    for impl in ("pallas", "xla"):
+        st = new_state(torch, cfg32.replace(rl_impl=impl), sd)
+        pw.reset_launches()
+        loss, _, grads = steps.loss_and_grads(st.model, batch)
+        torch.cuda.synchronize()
+        out[impl] = (float(loss), dict(pw.launches), {n: g.clone() for (n, _), g in zip(st.model.named_parameters(), grads)})
+        del st
+        torch.cuda.empty_cache()
+    (lk, counts, gk), (lx, _, gx) = out["pallas"], out["xla"]
+    # Tolerance: both paths are fp32 end to end (convolutions and matmuls
+    # with TF32 off); the pooled g sums differ by ~1e-7 relative (another
+    # order of fp32 adds), which moves the loss by about as much: 1e-5
+    # relative.
+    loss_rel = abs(lk - lx) / abs(lx)
+    # the conv biases are left out, as in xla_agreement: their exact gradient is 0
+    rel = {n: ((gk[n] - gx[n]).norm() / gx[n].norm().clamp_min(1e-30)).item() for n in gx
+           if not (n.startswith("conv.conv") and n.endswith(".bias"))}
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:6]
+    log(f"fp32 train step, kernels vs xla (dropout 0, B={TRAIN_B}): loss {lk!r} vs {lx!r}, relative difference "
+        f"{loss_rel!r} (tol 1e-5); launches {counts}; largest gradient relative differences "
+        + ", ".join(f"{n} {r:.3g}" for n, r in worst))
+    want = {**dict.fromkeys(pw.launches, 0), pw.F32_KERNEL: 1, pw.F32_BWD_KERNEL: 1}
+    if counts != want:
+        fail(f"the fp32 pallas step should launch pairwise_fwd_f32 and pairwise_bwd_f32 once each, counted {counts}")
+    if not (np.isfinite(lk) and loss_rel <= 1e-5):
+        fail("the fp32 kernel path's train loss disagrees with the fp32 xla path's")
+    return counts, loss_rel
 
 
 def time_training(torch, cfg, state, batch):
@@ -1028,9 +1244,11 @@ FAMILIES = [
 
 def write_synthetic_clevr(np, root, seed):
     """A CLEVR-schema directory without PNGs: seeded questions over the 28
-    answers and every question family, and the decoded uint8 caches
-    (rnet_cache/<split>_128p8.u8 + .json) of seeded noise canvases, which
-    CachedClevrDataset reads as they are."""
+    answers and every question family, a scene of 3-10 seeded objects for
+    every image (scenes/CLEVR_<split>_scenes.json, what state-description
+    models read), and the decoded uint8 caches (rnet_cache/<split>_128p8.u8
+    + .json) of seeded noise canvases, which CachedClevrDataset reads as
+    they are."""
     import os
 
     from rnet_torch.data.vocab import (
@@ -1040,8 +1258,10 @@ def write_synthetic_clevr(np, root, seed):
     answers = {"numbers": CLEVR_NUMBERS, "bools": CLEVR_BOOLS, "colors": CLEVR_COLORS,
                "shapes": CLEVR_SHAPES, "materials": CLEVR_MATERIALS, "sizes": CLEVR_SIZES}
     rs = np.random.RandomState(seed)
+    srs = np.random.RandomState(seed + 1)  # the scenes' own stream: the questions stay as they were
     gen = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "questions"))
+    os.makedirs(os.path.join(root, "scenes"))
     os.makedirs(os.path.join(root, "rnet_cache"))
     for split, n_img, n_q in (("train", AUG_SMALL, SYN_TRAIN_Q), ("val", SYN_VAL_IMAGES, SYN_VAL_Q)):
         files = [f"CLEVR_{split}_{i:06d}.png" for i in range(n_img)]
@@ -1061,6 +1281,14 @@ def write_synthetic_clevr(np, root, seed):
                        "program": [{"function": fn, "inputs": [], "value_inputs": []}]})
         with open(os.path.join(root, "questions", f"CLEVR_{split}_questions.json"), "w") as f:
             json.dump({"info": {"split": split, "synthetic": True}, "questions": qs}, f)
+        scenes = [{"split": split, "image_index": i, "image_filename": name,
+                   "objects": [{"3d_coords": [float(c) for c in srs.uniform(-3.0, 3.0, 3)],
+                                "color": CLEVR_COLORS[srs.randint(8)], "shape": CLEVR_SHAPES[srs.randint(3)],
+                                "material": CLEVR_MATERIALS[srs.randint(2)], "size": CLEVR_SIZES[srs.randint(2)]}
+                               for _ in range(srs.randint(3, 11))]}
+                  for i, name in enumerate(files)]
+        with open(os.path.join(root, "scenes", f"CLEVR_{split}_scenes.json"), "w") as f:
+            json.dump({"info": {"split": split, "synthetic": True}, "scenes": scenes}, f)
         base = os.path.join(root, "rnet_cache", f"{split}_{CROP}p8")
         mm = np.lib.format.open_memmap(base + ".u8", mode="w+", dtype=np.uint8, shape=(n_img, CANVAS, CANVAS, 3))
         for lo in range(0, n_img, 512):
@@ -1112,8 +1340,8 @@ def entry_point_phase(torch, np, pw, aug, root):
     n_steps = 2 * steps_per_epoch
     log(f"entry point (a) device pipeline, 2 epochs of {steps_per_epoch} steps at B={TRAIN_B}: "
         f"{sec:.1f} s, launches {counts}; history {json.dumps(hist_a)}")
-    want = {aug.KERNEL: n_steps, pw.BWD_KERNEL: n_steps, pw.KERNEL: n_steps + 2 * eval_batches, "pair_mask": 0,
-            pw.INT8_KERNEL: 0}
+    want = {**dict.fromkeys(counts, 0), aug.KERNEL: n_steps, pw.BWD_KERNEL: n_steps,
+            pw.KERNEL: n_steps + 2 * eval_batches}
     if counts != want:
         fail(f"(a) expected launches {want} (augment = train steps, eval never augments), counted {counts}")
     for h in hist_a:
@@ -1253,8 +1481,8 @@ def eval_entry_phase(torch, np, pw, aug, root):
         if m is None or q is None:
             fail(f"eval ({tag}) printed no accuracy or q/s line")
         acc, nll, qps = float(m.group(1)), float(m.group(2)), float(q.group(1))
-        want = {pw.KERNEL: 0 if tag == "int8" else n_batches, pw.INT8_KERNEL: n_batches if tag == "int8" else 0,
-                pw.BWD_KERNEL: 0, "pair_mask": 0, aug.KERNEL: 0}
+        want = {**dict.fromkeys(counts, 0), pw.KERNEL: 0 if tag == "int8" else n_batches,
+                pw.INT8_KERNEL: n_batches if tag == "int8" else 0}
         log(f"eval entry point ({tag}): {sec:.1f} s, {qps!r} q/s (eval epoch, host clock), accuracy {acc!r}, "
             f"NLL {nll!r}, {len(preds)} questions, launches {counts}")
         if counts != want:
@@ -1272,6 +1500,138 @@ def eval_entry_phase(torch, np, pw, aug, root):
     log(f"eval entry point, int8 vs bf16 on the same checkpoint: {same!r} of predictions equal; eval q/s in the "
         f"order bf16 int8 int8 bf16: {json.dumps(qps_runs)}")
     return n_batches, same, qps_runs
+
+
+def f32_entry_phase(torch, np, pw, aug, root):
+    """Phase 11a: ``python -m rnet_torch.train --precision float32 --rl-impl
+    pallas`` at original-fp, device pipeline, one epoch of 16 steps at B=512
+    on the synthetic directory; returns the launch counts."""
+    import os
+
+    steps_per_epoch = SYN_TRAIN_Q // TRAIN_B
+    eval_batches = -(-SYN_VAL_Q // TRAIN_B)
+    pw.reset_launches()
+    aug.reset_launches()
+    sec = run_cli(["--clevr-dir", root, "--model", "original-fp", "--batch-size", str(TRAIN_B), "--lr", str(LR),
+                   "--log-interval", "8", "--num-workers", "4", "--data-pipeline", "device", "--epochs", "1",
+                   "--precision", "float32", "--rl-impl", "pallas", "--checkpoint-dir", os.path.join(root, "ck_f32"),
+                   "--test-results-dir", os.path.join(root, "res_f32")])
+    torch.cuda.synchronize()
+    counts = {**pw.launches, **aug.launches}
+    (h,) = read_history(os.path.join(root, "res_f32"))
+    log(f"entry point, fp32 through the kernels (--precision float32 --rl-impl pallas), 1 epoch of "
+        f"{steps_per_epoch} steps at B={TRAIN_B}: {sec:.1f} s, launches {counts}; history {json.dumps(h)}")
+    want = {**dict.fromkeys(counts, 0), pw.F32_KERNEL: steps_per_epoch + eval_batches,
+            pw.F32_BWD_KERNEL: steps_per_epoch, aug.KERNEL: steps_per_epoch}
+    if counts != want:
+        fail(f"the fp32 train run expected launches {want}, counted {counts}")
+    if not (np.isfinite(h["train_loss"]) and np.isfinite(h["val_nll"])):
+        fail(f"the fp32 train run is not finite: {h}")
+    return counts
+
+
+def extract_phase(torch, np, pw, root):
+    """Phase 11b: extraction. ir-fp at full width (128^2 images, 4 x 256 g,
+    n=64, injection 2) at B=512 on 144^2 canvases of the synthetic cache
+    (``RN.extract`` centre-crops them), seeded weights: bf16 on the card
+    against fp32 on the card, fp32 on the card against fp32 on the CPU, and
+    images/s of each on the card; then ``python -m rnet_torch.extract`` end
+    to end on the card for ir-sd (the synthetic scenes) and, where Pillow
+    imports, for ir-fp (PNGs of the val canvases)."""
+    import os
+    import pickle
+
+    from rnet_torch.checkpoint import export_weights
+    from rnet_torch.config import load_config
+    from rnet_torch.data.vocab import build_dictionaries
+    from rnet_torch.extract import main as extract_main
+    from rnet_torch.models import RN
+
+    cache = np.load(os.path.join(root, "rnet_cache", f"train_{CROP}p8.u8"), mmap_mode="r")
+    x = torch.from_numpy(np.array(cache[:TRAIN_B]))
+    cfg32 = load_config("ir-fp", overrides={"compute_dtype": "float32"})
+    card32 = RN(cfg32, VOCAB, generator=torch.Generator().manual_seed(0)).eval()
+    cpu32 = RN(cfg32, VOCAB).eval()
+    cpu32.load_state_dict(card32.state_dict())
+    card16 = RN(load_config("ir-fp"), VOCAB).eval()
+    card16.load_state_dict(card32.state_dict())
+    card32.cuda()
+    card16.cuda()
+    xc = x.cuda()
+    pw.reset_launches()
+    f32, f16 = card32.extract(xc), card16.extract(xc)
+    torch.cuda.synchronize()
+    counts = dict(pw.launches)
+    fcpu = cpu32.extract(x)
+    H = cfg32.g_layers[cfg32.question_injection_position - 1]
+    for name, f in (("bf16", f16), ("fp32", f32), ("CPU fp32", fcpu)):
+        if f.shape != (TRAIN_B, H) or f.dtype != torch.float32 or not torch.isfinite(f).all():
+            fail(f"ir-fp extraction ({name}) is not a finite fp32 ({TRAIN_B}, {H})")
+    # Tolerances: bf16 rounds the conv stem and every prefix op to 8 bits
+    # (2^-9 relative), ~4.5e-3 of the largest feature measured: bound 2e-2.
+    # fp32 on the card and on the CPU: both fp32 (this script turns TF32 off
+    # for cuDNN's convolutions and for matmuls), sums in other orders, ~3e-7
+    # measured: bound 1e-5.
+    e16 = ((f16 - f32).abs().max() / f32.abs().max()).item()
+    ecpu = ((f32.cpu() - fcpu).abs().max() / fcpu.abs().max()).item()
+    log(f"extract ir-fp B={TRAIN_B} (TF32 for cuDNN convolutions: {torch.backends.cudnn.allow_tf32}, for matmuls: "
+        f"{torch.backends.cuda.matmul.allow_tf32}): bf16 vs fp32 on the card max|d|/max|ref| {e16!r} (tol 2e-2); "
+        f"fp32 card vs CPU {ecpu!r} (tol 1e-5); max|feature| {f32.abs().max().item()!r}; pairwise launches {counts}")
+    if not (e16 <= 2e-2 and ecpu <= 1e-5):
+        fail("ir-fp extraction disagrees between bf16 and fp32, or between the card and the CPU")
+    if any(counts.values()):
+        fail(f"extraction reached a pairwise kernel (it is plain torch): {counts}")
+    rates = {}
+    for name, m in (("bf16", card16), ("fp32", card32)):
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, lambda: m.extract(xc), 5, warmup=1)
+        rates[name] = {"B": TRAIN_B, "ms": ms, "images_per_s": TRAIN_B / ms * 1e3,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"extract ir-fp at B={TRAIN_B}, CUDA events: {json.dumps(rates)}")
+    del card32, card16, cpu32, xc, f32, f16, fcpu
+    torch.cuda.empty_cache()
+
+    # the CLI end to end: weights exported by the port, its dictionaries carried
+    dicts = build_dictionaries(root)
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    cli_models = ["ir-sd"] + (["ir-fp"] if Image is not None else [])
+    log("extraction CLI: " + ("Pillow imports: ir-sd (scenes) and ir-fp (PNGs) are run"
+                             if Image is not None else "Pillow does not import: ir-sd (scenes) is run, ir-fp "
+                                                       "(which reads PNGs through Pillow) is not"))
+    if Image is not None:
+        val = np.load(os.path.join(root, "rnet_cache", f"val_{CROP}p8.u8"), mmap_mode="r")
+        with open(os.path.join(root, "rnet_cache", f"val_{CROP}p8.json")) as f:
+            files = json.load(f)["files"]
+        os.makedirs(os.path.join(root, "images", "val"))
+        for name, canvas in zip(files, val):
+            Image.fromarray(np.asarray(canvas)).save(os.path.join(root, "images", "val", name))
+    with open(os.path.join(root, "scenes", "CLEVR_val_scenes.json")) as f:
+        scene_names = [sc["image_filename"] for sc in json.load(f)["scenes"]]
+    for name in cli_models:
+        cfg = load_config(name).replace(n_answers=dicts.n_answers)
+        pkl = os.path.join(root, f"{name}.pkl")
+        export_weights(RN(cfg, dicts.vocab_size, generator=torch.Generator().manual_seed(1)), pkl, dicts=dicts)
+        out = os.path.join(root, f"features_{name}")
+        batch = 100  # 256 images: the last batch is ragged (56)
+        t0 = time.perf_counter()
+        rc = extract_main(["--clevr-dir", root, "--model", name, "--checkpoint", pkl, "--features-dirs", out,
+                           "--split", "val", "--batch-size", str(batch), "--num-workers", "4"])
+        sec = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"python -m rnet_torch.extract --model {name} exited {rc}")
+        with open(os.path.join(out, f"{name}_val_gfeatures.pkl"), "rb") as f:
+            res = pickle.load(f)
+        want = scene_names if name == "ir-sd" else sorted(scene_names)
+        feats = res["features"]
+        H = cfg.g_layers[cfg.question_injection_position - 1]
+        log(f"python -m rnet_torch.extract --model {name} --batch-size {batch}: {sec:.1f} s, features "
+            f"{feats.shape} {feats.dtype}, {len(res['filenames'])} file names, h5 "
+            f"{os.path.exists(os.path.join(out, f'{name}_val_gfeatures.h5'))}")
+        if res["filenames"] != want or feats.shape != (len(want), H) or not np.isfinite(feats).all():
+            fail(f"the {name} extraction CLI gave the wrong rows or file names")
 
 
 def entry_step(torch, root, extra):
@@ -1377,7 +1737,7 @@ def main() -> int:
     # ---- 2. build (the kernels and the phase-timing build, all nvcc at once) ----
     from concurrent.futures import ThreadPoolExecutor
 
-    kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL, pw.INT8_KERNEL]
+    kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL, pw.INT8_KERNEL, pw.F32_LIB]
     timed = [pw.KERNEL, pw.BWD_KERNEL, pw.INT8_KERNEL]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
@@ -1396,7 +1756,8 @@ def main() -> int:
     mask_err = check_mask(torch, pw, seed)
     bwd_err, bwd_err_at_shape = check_backward(torch, pw, seed)
     int8_err, int8_err_all, int8_drift = check_int8(torch, pw)
-    log(f"phases 1-5b done at {time.perf_counter() - t_start:.1f} s")
+    f32_fwd_err, f32_fwd_err_all, f32_bwd_err, f32_bwd_err_all, f32_abs = check_f32(torch, pw, seed)
+    log(f"phases 1-5c done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 6. serving original-fp at full width ----
     answers = [*CLEVR_NUMBERS, *CLEVR_BOOLS, *CLEVR_COLORS, *CLEVR_SHAPES, *CLEVR_MATERIALS, *CLEVR_SIZES]
@@ -1415,11 +1776,15 @@ def main() -> int:
     # ---- 7. training original-fp at full width, B=512 ----
     state, batch, train_counts, pd_counts = train_phase(torch, np, pw, cfg)
     xla_agreement(torch, np, cfg, state, batch)
+    f32_step_counts, f32_loss_rel = f32_train_agreement(torch, np, pw, cfg, state, batch)
     torch.cuda.empty_cache()
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 8. times ----
     fwd, bwd, mask = time_kernels(torch, pw, seed)
+    f32_rows = time_f32(torch, pw, seed)
+    log(f"fp32 kernels / cuBLAS fp32 chain (TF32 off) at original-fp B={TRAIN_B}, same call: forward "
+        f"{f32_rows['fwd']['ms_over_library']!r}, backward (vs its autograd) {f32_rows['bwd']['ms_over_library']!r}")
     phases = phase_breakdown(torch, pw)
     train_times = time_training(torch, cfg, state, batch)
     qps_ratio = train_times["auto"]["qps"] / train_times["xla"]["qps"]
@@ -1491,6 +1856,8 @@ def main() -> int:
         a2, d2 = (sum(r[1] for r in abba[arm]) / len(abba[arm]) for arm in "ad")
         log(f"epoch-2 questions/s in the order a d d a, default cuDNN: (a) {a2!r}, (d) {d2!r}, (a) / (d) {a2 / d2!r}")
         profile_entry_step(torch, root)
+        f32_entry_counts = f32_entry_phase(torch, np, pw, aug, root)
+        extract_phase(torch, np, pw, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
@@ -1536,6 +1903,19 @@ def main() -> int:
                / fwd[TRAIN_B]["ms"], tops=int8_rows[TRAIN_B]["tops"],
                launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
                            "--split train --batch-size 512 (16 batches)"),
+        record(pw.F32_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:83",
+               f32_entry_counts[pw.F32_KERNEL], f32_abs["out"], f32_rows["fwd"], shape=shape,
+               max_rel_err=f32_fwd_err, max_rel_err_all_cases=f32_fwd_err_all, precision="3xTF32",
+               ms_over_library=f32_rows["fwd"]["ms_over_library"], step_launches=f32_step_counts[pw.F32_KERNEL],
+               launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
+                           "device, 1 epoch of 16 steps at B=512 (16 train + 2 eval batches)"),
+        record(pw.F32_BWD_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:120",
+               f32_entry_counts[pw.F32_BWD_KERNEL], max(v for k, v in f32_abs.items() if k != "out"),
+               f32_rows["bwd"], shape=shape, max_rel_err=f32_bwd_err, max_rel_err_all_cases=f32_bwd_err_all,
+               precision="3xTF32", ms_over_library=f32_rows["bwd"]["ms_over_library"],
+               train_loss_rel_diff_from_xla_fp32=f32_loss_rel,
+               launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
+                           "device, 1 epoch of 16 steps at B=512"),
     ]
     log(card)
     log(json.dumps({"kernels": records}))

@@ -7,6 +7,8 @@ Port of ``rnet/data/clevr.py``:
   * ``ClevrDataset`` — from-pixels: PNG decode per item;
   * ``ClevrDatasetStateDescription`` — objects from the scenes JSON as fixed
     vectors (``scene_to_objects``), pre-vectorized at init;
+  * ``ClevrImageDataset`` — the images of a split alone, eval transform
+    (the extraction CLI);
   * ``_QuestionCategoriesMixin`` — per-question family ids for the eval
     reports.
 PIL is imported inside the functions that decode, so the package imports
@@ -99,6 +101,25 @@ class ClevrDataset(_QuestionCategoriesMixin):
             "question": self.dicts.encode_question(q["question"], self.max_len),
             "answer": np.int32(self.dicts.encode_answer(str(q["answer"]).lower())),
         }
+
+
+class ClevrImageDataset:
+    """Images only, in sorted file-name order, with the eval transform and
+    each item's ``index`` (the extraction CLI)."""
+
+    def __init__(self, clevr_dir: str, split: str, image_size: int = 128):
+        self.img_dir = os.path.join(clevr_dir, "images", split)
+        self.files = sorted(f for f in os.listdir(self.img_dir) if f.endswith(".png"))
+        self.transform = ImageTransform(image_size, train=False)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, i: int, rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+        from PIL import Image
+
+        with Image.open(os.path.join(self.img_dir, self.files[i])) as im:
+            return {"image": self.transform(im), "index": np.int32(i)}
 
 
 def scene_to_objects(objects: List[Dict], max_objects: int, object_dim: int = 18) -> np.ndarray:

@@ -18,12 +18,14 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   values, a cast back to that dtype after every relu and, in the backward,
   of every dpre_l with l >= 1) and the mask's integer arithmetic exactly.
 * ``pairwise_fwd_cuda``, ``pairwise_bwd_cuda``, ``pair_mask_cuda`` — the
-  wrappers of ``csrc/pairwise_fwd.cu`` and ``csrc/pairwise_bwd.cu``, each with
-  its launch count in ``launches``. ``tile_plan`` decides how a kernel
-  covers a shape (rows per block, W ring stages, shared memory, grid) and
-  ``pack_weight_chunks`` lays W out as the kernels stream it; both are pure
-  and tested on the CPU. A ``phases`` buffer selects the phase-timing build
-  (``PHASE_DEFINES``).
+  wrappers of ``csrc/pairwise_fwd.cu`` and ``csrc/pairwise_bwd.cu`` (bf16
+  inputs) and of ``csrc/pairwise_f32.cu`` (fp32 inputs: the same function
+  in fp32, 3xTF32 products), each with its launch count in ``launches``.
+  ``tile_plan`` decides how a kernel covers a shape (rows per block, W ring
+  stages, shared memory, grid; ``esize=4`` for the fp32 kernels) and
+  ``pack_weight_chunks`` lays W out as the bf16 kernels stream it; both are
+  pure and tested on the CPU. A ``phases`` buffer selects the phase-timing
+  build of the bf16 kernels (``PHASE_DEFINES``).
 * ``pairwise_core`` — a ``torch.autograd.Function`` (as ``_make_core``'s
   custom VJP): CPU tensors take the plain versions, CUDA tensors the kernels
   or an exception. It saves only its inputs and the seed; the backward
@@ -60,6 +62,9 @@ from . import build
 KERNEL = "pairwise_fwd"
 BWD_KERNEL = "pairwise_bwd"
 INT8_KERNEL = "pairwise_fwd_int8"
+F32_KERNEL = "pairwise_fwd_f32"
+F32_BWD_KERNEL = "pairwise_bwd_f32"
+F32_LIB = "pairwise_f32"  # csrc/pairwise_f32.cu: both fp32 kernels
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 INT8_MARGIN = 1.2  # calibration margin over the subsample's activation maxima
 # Largest width at which the plain int8 version's fp32 matmul of int8 codes
@@ -69,7 +74,7 @@ INT8_EXACT_MAX_H = 1040
 # Kernel launches since the last reset_launches() (the main-path proof in
 # chip_smoke.py). "pair_mask" counts the launches that drew Philox pair-mask
 # bits: a forward or backward launch with pair_keep < 1, or the mask kernel.
-launches = {KERNEL: 0, BWD_KERNEL: 0, "pair_mask": 0, INT8_KERNEL: 0}
+launches = {KERNEL: 0, BWD_KERNEL: 0, "pair_mask": 0, INT8_KERNEL: 0, F32_KERNEL: 0, F32_BWD_KERNEL: 0}
 
 _libs = {}
 
@@ -80,7 +85,7 @@ def reset_launches() -> None:
 
 
 def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
-    """Declare the C interface of library `name` (KERNEL, BWD_KERNEL or INT8_KERNEL)."""
+    """Declare the C interface of library `name` (KERNEL, BWD_KERNEL, INT8_KERNEL or F32_LIB)."""
     vp, i32, u32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
     if name == KERNEL:
         lib.rnet_pairwise_fwd.argtypes = [vp] * 8 + [i32] * 9 + [i64, i32, vp, u32, f32, vp, vp]
@@ -90,6 +95,11 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     elif name == INT8_KERNEL:
         lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 9 + [i64, i32, vp, vp]
         lib.rnet_pairwise_fwd_int8.restype = i32
+    elif name == F32_LIB:
+        lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 8 + [i32] * 8 + [i64, i32, vp, u32, f32, vp]
+        lib.rnet_pairwise_fwd_f32.restype = i32
+        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 17 + [i32] * 8 + [i64, i32, vp, u32, f32, vp]
+        lib.rnet_pairwise_bwd_f32.restype = i32
     else:
         lib.rnet_pairwise_bwd.argtypes = [vp] * 16 + [i32] * 10 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd.restype = i32
@@ -246,6 +256,14 @@ WG_ROWS = 64  # pair rows of one consumer warpgroup (wgmma's M)
 TILE_N = 128  # output columns of one wgmma tile, the rows of a W chunk
 MIN_STAGES, MAX_STAGES = 3, 8  # depth of the W chunk ring
 INT8_MAX_WGS = 3  # consumer warpgroups of an int8 CTA, each on its own tile
+# The fp32 kernels (csrc/pairwise_f32.cu): 8 warps, each with at most two
+# 16 x 64 output tiles of a layer, the same 64 columns (so H / 64 divides 8);
+# W streams through two chunks of F32_CHUNK_FLOATS / H rows of H + 8 floats;
+# activation tiles are rows of H + 4 floats.
+F32_WIDTHS = (128, 256, 512)
+F32_ROWS = (64, 32, 16)  # the block rows a plan may take, the largest that fits first
+F32_MAX_TILE = 2 * 8 * 16 * 64  # bm * H: two 16 x 64 tiles for each of the 8 warps
+F32_CHUNK_FLOATS = 8192
 H100_SMS = 132
 KINDS = ("fwd", "bwd", "int8")
 # The phase-timing build: -DRNET_PHASE_TIMES makes the kernels sum clock64()
@@ -265,8 +283,10 @@ class TilePlan:
     ``smem`` bytes of shared memory each. The bf16 kernels' warpgroups share
     a block of ``bm`` = 64 * wgs rows; the int8 kernel's each take their own
     64-row block (``bm`` = 64), wgs consecutive blocks a round of the CTA's
-    contiguous range. The C launchers check the plan and refuse what they
-    cannot take."""
+    contiguous range. The fp32 kernels (``esize`` = 4) run two warpgroups'
+    worth of warps (``wgs`` = 2) on blocks of ``bm`` = 64, 32 or 16 rows,
+    with W streamed through ``stages`` = 2 chunks. The C launchers check the
+    plan and refuse what they cannot take."""
 
     kind: str  # one of KINDS
     B: int
@@ -279,11 +299,8 @@ class TilePlan:
     slots: int
     grid: int
     smem: int
-
-    @property
-    def bm(self) -> int:
-        """Pair rows of one block."""
-        return WG_ROWS if self.kind == "int8" else WG_ROWS * self.wgs
+    bm: int  # pair rows of one block
+    esize: int = 2  # bytes of an input element: 4 for the fp32 kernels
 
     @property
     def nblk(self) -> int:
@@ -309,14 +326,18 @@ class TilePlan:
                 for t in tiles]
 
 
-def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int) -> int:
+def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esize: int = 2, bm: int = 0) -> int:
     """Shared memory of a CTA with `wgs` consumer warpgroups: the activation
     slots, the W ring and its full and empty mbarriers (8 B each). The bf16
     kernels' slots are (64 * wgs) x H bf16 and they keep a per-row fp32
     scale; the forward adds the biases in fp32 and one row of H column sums
     per warp, the backward a core matrix of ones. The int8 kernel keeps
     `slots` tiles of 64 x H int8 per warpgroup, the biases in fp32 and one
-    row of H column sums per warp."""
+    row of H column sums per warp. The fp32 kernels (``esize`` = 4) keep
+    `slots` tiles of `bm` rows of H + 4 floats, `stages` W chunks of
+    F32_CHUNK_FLOATS / H rows of H + 8 floats and a per-row scale."""
+    if esize == 4:
+        return 4 * (slots * bm * (H + 4) + stages * (F32_CHUNK_FLOATS // H) * (H + 8) + bm)
     ring = stages * (CHUNK_BYTES + 16)
     warps_sums = 4 * wgs * H * 4
     if kind == "int8":
@@ -330,9 +351,10 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int) -> 
     return n
 
 
-def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H100_SMS) -> TilePlan:
+def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H100_SMS, esize: int = 2) -> TilePlan:
     """The tile plan of the bf16 forward (``kind="fwd"``), backward
-    (``"bwd"``) or int8 forward (``"int8"``) kernel.
+    (``"bwd"``) or int8 forward (``"int8"``) kernel; with ``esize=4`` that
+    of the fp32 forward or backward (``_tile_plan_f32``).
 
     bf16: two warpgroups (128 rows a block) up to H=256; one at H > 256,
     where the activation tiles of 128 rows would not leave room for the ring,
@@ -347,6 +369,8 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if H % 128 != 0:
         raise ValueError(f"the pairwise kernels need H % 128 == 0, got H={H}")
+    if esize == 4:
+        return _tile_plan_f32(kind, B, ni, nj, H, L, sms)
     few_tiles = B * -(-ni * nj // (2 * WG_ROWS)) < sms
     slots = 2 if kind in ("fwd", "int8") else max(3, L - 1)
 
@@ -371,7 +395,34 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
         grid = min(B, sms)
     else:
         grid = min(-(-B * nblk // (wgs if kind == "int8" else 1)), sms)
-    return TilePlan(kind, B, ni, nj, H, L, wgs, stages, slots, grid, smem_bytes(kind, wgs, H, L, slots, stages))
+    bm = WG_ROWS if kind == "int8" else WG_ROWS * wgs
+    return TilePlan(kind, B, ni, nj, H, L, wgs, stages, slots, grid, smem_bytes(kind, wgs, H, L, slots, stages), bm)
+
+
+def _tile_plan_f32(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int) -> TilePlan:
+    """The fp32 kernels' plan: the forward keeps two activation tiles
+    (ping-pong), the backward L (a_0 .. a_{L-2} and dpre_{L-1}); the block
+    takes the most rows of F32_ROWS that leave at most two 16 x 64 output
+    tiles a warp and fit shared memory beside the two W chunks. The forward
+    walks (sample, block) tiles over min(tiles, SMs) CTAs, the backward
+    gives each sample one owner CTA of min(B, SMs). ValueError if no plan
+    fits."""
+    if kind == "int8":
+        raise ValueError("the int8 kernel has no fp32 plan (esize=4)")
+    if H not in F32_WIDTHS:
+        raise ValueError(f"the fp32 pairwise kernels take H in {F32_WIDTHS}, got H={H}")
+    slots = 2 if kind == "fwd" else L
+    fits = [bm for bm in F32_ROWS
+            if bm * H <= F32_MAX_TILE and smem_bytes(kind, 2, H, L, slots, 2, 4, bm) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(
+            f"pairwise_{kind} fp32 kernel at H={H}, L={L} does not fit {SMEM_LIMIT} B of shared memory "
+            f"({slots} activation tiles of {F32_ROWS[-1]} x {H} fp32 and two W chunks)"
+        )
+    bm = fits[0]
+    nblk = -(-ni * nj // bm)
+    grid = min(B, sms) if kind == "bwd" else min(B * nblk, sms)
+    return TilePlan(kind, B, ni, nj, H, L, 2, 2, slots, grid, smem_bytes(kind, 2, H, L, slots, 2, 4, bm), bm, 4)
 
 
 def pack_weight_chunks(x: torch.Tensor) -> torch.Tensor:
@@ -427,9 +478,20 @@ def _check_core_inputs(what: str, ts: dict, dtypes: dict) -> Tuple[int, int, int
 
 
 def check_kernel_inputs(u, v, s, qa, ws, bs) -> Tuple[int, int, int, int, int]:
-    """Validate what the bf16 kernels take; (B, ni, nj, H, L) or ValueError."""
+    """Validate what the pairwise kernels take: u, v, s, qa, ws and bs all
+    bf16 (the bf16 kernels) or all fp32 (the fp32 kernels, which also read
+    u, v, s and ws in 16-byte vectors); (B, ni, nj, H, L) or ValueError."""
+    dt = u.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the pairwise kernels: u must be {torch.bfloat16} or {torch.float32}, got {dt}")
     ts = {"u": u, "v": v, "s": s, "qa": qa, "ws": ws, "bs": bs}
-    return _check_core_inputs("the pairwise kernels", ts, dict.fromkeys(ts, torch.bfloat16))
+    for name, t in ts.items():
+        if t.dtype != dt:
+            raise ValueError(f"the pairwise kernels take inputs all of one dtype: {name} is {t.dtype}, u is {dt}")
+    dims = _check_core_inputs("the pairwise kernels", ts, dict.fromkeys(ts, dt))
+    if dt == torch.float32 and any(t.data_ptr() % 16 for t in (u, v, s, ws)):
+        raise ValueError("the fp32 kernels read u, v, s, ws in 16-byte vectors: their storage must be 16-byte aligned")
+    return dims
 
 
 def _check_device(name: str, tensors) -> torch.device:
@@ -465,16 +527,25 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def _no_f32_phases(phases) -> None:
+    if phases is not None:
+        raise ValueError("the fp32 kernels have no phase-timing build: phases must be None")
+
+
 def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.0, seed=None,
                       phases=None) -> torch.Tensor:
-    """Launch the forward kernel on the current stream; (B, H) fp32. Raises on
+    """Launch the forward kernel for the inputs' dtype (bf16: pairwise_fwd.cu,
+    fp32: pairwise_f32.cu) on the current stream; (B, H) fp32. Raises on
     anything the kernel does not take, on CPU tensors, and on a failed build
     or launch. ``phases``, an int64 (grid, PHASE_SLOTS) tensor for the grid of
-    ``tile_plan("fwd", ...)``, selects the build with -DRNET_PHASE_TIMES,
+    ``tile_plan("fwd", ...)``, selects the bf16 build with -DRNET_PHASE_TIMES,
     which sums clock64() cycles per FWD_PHASES entry and CTA into it."""
     B, ni, nj, H, L = check_kernel_inputs(u, v, s, qa, ws, bs)
     dev = _check_device(KERNEL, (u, v, s, qa, ws, bs))
     drop, seed_ptr, thr, inv_keep = _drop_args(pair_keep, seed, dev)
+    if u.dtype == torch.float32:
+        _no_f32_phases(phases)
+        return _fwd_f32(u, v, s, qa, ws, bs, int(inject), B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep)
     plan = tile_plan("fwd", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(KERNEL, defines)
@@ -495,15 +566,19 @@ def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.
 
 
 def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float = 1.0, seed=None, phases=None):
-    """Launch the backward kernel on the current stream for the upstream
-    gradient g (B, H) fp32; (du, dv, ds, dqa, dws, dbs) in fp32. Raises as
-    ``pairwise_fwd_cuda`` does; ``phases`` as there, for the grid of
-    ``tile_plan("bwd", ...)`` and the BWD_PHASES."""
+    """Launch the backward kernel for the inputs' dtype (bf16:
+    pairwise_bwd.cu, fp32: pairwise_f32.cu) on the current stream for the
+    upstream gradient g (B, H) fp32; (du, dv, ds, dqa, dws, dbs) in fp32.
+    Raises as ``pairwise_fwd_cuda`` does; ``phases`` as there, for the grid
+    of ``tile_plan("bwd", ...)`` and the BWD_PHASES."""
     B, ni, nj, H, L = check_kernel_inputs(u, v, s, qa, ws, bs)
     if g.dtype != torch.float32 or tuple(g.shape) != (B, H) or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous fp32 ({B}, {H}) tensor; got {g.dtype} {tuple(g.shape)}")
     dev = _check_device(BWD_KERNEL, (u, v, s, qa, ws, bs, g))
     drop, seed_ptr, thr, inv_keep = _drop_args(pair_keep, seed, dev)
+    if u.dtype == torch.float32:
+        _no_f32_phases(phases)
+        return _bwd_f32(u, v, s, qa, ws, bs, g, int(inject), B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep)
     plan = tile_plan("bwd", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(BWD_KERNEL, defines)
@@ -526,6 +601,52 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
         )
     _raise_on_error(lib, err, BWD_KERNEL)
     launches[BWD_KERNEL] += 1
+    launches["pair_mask"] += drop
+    return du, dv, ds, dqa, dws, dbs
+
+
+def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep):
+    """The fp32 forward's launch (``pairwise_fwd_cuda`` for fp32 inputs)."""
+    plan = tile_plan("fwd", B, ni, nj, H, L, _sms(dev), esize=4)
+    lib = _kernel_lib(F32_LIB)
+    partial = torch.empty((B, plan.nblk, H), dtype=torch.float32, device=dev)
+    out = torch.empty((B, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rnet_pairwise_fwd_f32(
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, inject, plan.bm, plan.grid, plan.smem,
+            drop, seed_ptr, thr, inv_keep, stream,
+        )
+    _raise_on_error(lib, err, F32_KERNEL)
+    launches[F32_KERNEL] += 1
+    launches["pair_mask"] += drop
+    return out
+
+
+def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep):
+    """The fp32 backward's launch (``pairwise_bwd_cuda`` for fp32 inputs)."""
+    plan = tile_plan("bwd", B, ni, nj, H, L, _sms(dev), esize=4)
+    lib = _kernel_lib(F32_LIB)
+    wt = ws.transpose(1, 2).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    du, dv = torch.zeros((B, ni, H), **f32), torch.zeros((B, nj, H), **f32)
+    ds, dqa = torch.empty((B, H), **f32), torch.zeros((B, H), **f32)
+    dws, dbs = torch.empty((L - 1, H, H), **f32), torch.empty((L - 1, H), **f32)
+    dw_part = torch.zeros((plan.grid, L - 1, H, H), **f32)
+    # sums over a CTA's or a sample's blocks in fp64 (thousands of addends of one sign at n = 1024)
+    db_part = torch.zeros((plan.grid, L - 1, H), dtype=torch.float64, device=dev)
+    sums = torch.zeros((B, 2, H), dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rnet_pairwise_bwd_f32(
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), wt.data_ptr(), bs.data_ptr(),
+            g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(), dws.data_ptr(),
+            dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), sums.data_ptr(), B, ni, nj, H, L, inject,
+            plan.bm, plan.grid, plan.smem, drop, seed_ptr, thr, inv_keep, stream,
+        )
+    _raise_on_error(lib, err, F32_BWD_KERNEL)
+    launches[F32_BWD_KERNEL] += 1
     launches["pair_mask"] += drop
     return du, dv, ds, dqa, dws, dbs
 

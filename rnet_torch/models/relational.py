@@ -12,7 +12,9 @@ set (flax layout: ``g{l}_kernel`` (in, out), ``g{l}_bias``, ``f{l}_*``):
       activations (the name is kept from rnet for configs and flags).
   * ``pallas`` — ``rnet_torch.kernels.pairwise.fused_pairwise_g``: the
       hand-written CUDA kernels (forward and backward) on the card, their
-      plain versions on the CPU.
+      plain versions on the CPU. On the card they take the compute dtype
+      as it is: bf16 (``csrc/pairwise_fwd.cu``, ``pairwise_bwd.cu``) or fp32
+      (``csrc/pairwise_f32.cu``, 3xTF32 products).
   * ``pallas_int8`` — inference only: in eval mode the g-chain runs in int8
       (``fused_pairwise_g(int8=True)``: the int8 kernel on the card, its
       plain version on the CPU; a loud fp fallback on shapes it does not
@@ -20,14 +22,18 @@ set (flax layout: ``g{l}_kernel`` (in, out), ``g{l}_bias``, ``f{l}_*``):
 
 ``auto`` mirrors rnet's rule with "on CUDA in bf16" in place of "on TPU":
 the kernel for n >= 32 objects and uniform g widths that are multiples of
-128, else ``xla``.
+128, else ``xla`` (fp32 takes the kernels only when ``pallas`` is asked for).
 
 In train mode (``module.train()``) f_phi drops its last hidden layer's units
 with rate ``dropout`` (inverted, in fp32) and, with ``pair_dropout`` > 0,
 whole pairs before the pool: a Bernoulli (B, n^2) mask in the naive/xla
 impls, the kernels' own Philox mask (seeded per call) in the pallas impl.
 Every random draw comes from the ``generator`` passed to ``forward``, on
-the tensors' device. ``g_prefix_features`` comes with a later slice.
+the tensors' device.
+
+``g_prefix_features`` is the retrieval feature of ``ir`` models: the g
+layers before the question joins, summed over pairs (plain torch, as rnet's
+is plain JAX).
 """
 
 from __future__ import annotations
@@ -240,6 +246,27 @@ class RelationalLayer(nn.Module):
         last = self.n_f - 1
         y = y @ getattr(self, f"f{last}_kernel") + getattr(self, f"f{last}_bias")
         return torch.log_softmax(y, dim=-1)
+
+    def g_prefix_features(self, x: torch.Tensor) -> torch.Tensor:
+        """Question-independent g prefix, sum-pooled over pairs; (B,
+        g_layers[p-1]) fp32 for injection position p >= 1 (rnet's
+        ``g_prefix_features``): u = x W0[:c], v = x W0[c:2c], a_0 = relu(u_i +
+        v_j + b0), then layers 1 .. p-1, built as (B, n^2, H) in the compute
+        dtype (rounded after every op, as rnet's are) and summed there; the
+        sum is then cast to fp32. ValueError at p = 0."""
+        inject = self.inject
+        if inject < 1:
+            raise ValueError("extraction needs question_injection_position >= 1 (an 'ir' model)")
+        B, n, c = x.shape
+        dt = self.dtype
+        x = x.to(dt)
+        w0 = self.gw[0].to(dt)
+        u = x @ w0[:c]
+        v = x @ w0[c : 2 * c]
+        a = torch.relu(u[:, :, None, :] + v[:, None, :, :] + self.gb[0].to(dt)).reshape(B, n * n, self.g_layers[0])
+        for l in range(1, inject):
+            a = torch.relu(a @ self.gw[l].to(dt) + self.gb[l].to(dt))
+        return a.sum(dim=1).float()
 
     def int8_clip_report(self, x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         """(L-1,) per-layer int8 calibration clip fractions on this batch

@@ -1,7 +1,8 @@
 """RN: the composition root (from-pixels / state-description switch).
 
-Port of ``rnet/models/rn.py`` (``extract`` comes with a later slice;
-``int8_clip_report`` is the ``pallas_int8`` drift diagnostic):
+Port of ``rnet/models/rn.py`` (``extract`` gives the g-prefix retrieval
+features of ``ir`` models; ``int8_clip_report`` is the ``pallas_int8``
+drift diagnostic):
   * from-pixels: uint8 (B, S, S, 3) -> cast to the compute dtype, then /255
     (in that order, as rnet does) -> ConvInputModel -> (B, g, g, C) flattened
     row-major over (row, col) to (B, g^2, C), each object tagged with its
@@ -124,6 +125,19 @@ class RN(nn.Module):
     ) -> torch.Tensor:
         objects = self.objects(inputs, generator, augmented)
         return self.relational(objects, self.text(question), n_objects=n_objects, generator=generator)
+
+    @torch.no_grad()
+    def extract(self, inputs: torch.Tensor) -> torch.Tensor:
+        """g-prefix relational features for image retrieval (ir-* models;
+        ``RelationalLayer.g_prefix_features``), with the objects computed in
+        eval mode: BatchNorm running statistics, a larger canvas centre-
+        cropped, no augmentation; no question. (B, H) fp32."""
+        was_training = self.training
+        self.eval()
+        try:
+            return self.relational.g_prefix_features(self.objects(inputs))
+        finally:
+            self.train(was_training)
 
     @torch.no_grad()
     def int8_clip_report(self, inputs: torch.Tensor, question: torch.Tensor) -> torch.Tensor:

@@ -100,7 +100,7 @@ class CheckpointManager:
     def _resolve(self, path_or_epoch) -> str:
         return self._path(path_or_epoch) if isinstance(path_or_epoch, int) else os.path.abspath(path_or_epoch)
 
-    def _load(self, path_or_epoch, state: TrainState) -> dict:
+    def _load(self, path_or_epoch, model) -> dict:
         path = self._resolve(path_or_epoch)
         if os.path.isdir(path):
             raise NotImplementedError(
@@ -109,19 +109,19 @@ class CheckpointManager:
                 "weights with rnet/train/checkpoint.py::export_weights and pass the .pkl"
             )
         payload = torch.load(path, map_location="cpu", weights_only=True)
-        check_match(path, payload["model"], state.model.state_dict())
+        check_match(path, payload["model"], model.state_dict())
         return payload
 
     def restore(self, state: TrainState, path_or_epoch) -> TrainState:
         """Restore the full state in place from a path or an epoch number."""
-        payload = self._load(path_or_epoch, state)
+        payload = self._load(path_or_epoch, state.model)
         state.model.load_state_dict(payload["model"])
         state.adam.load_state_dict(payload["adam"])
         state.step = int(payload["step"])
         state.generator.set_state(payload["generator"])
         return state
 
-    def restore_weights(self, state: TrainState, path_or_epoch) -> TrainState:
-        """Restore parameters and BatchNorm buffers only (eval, inference)."""
-        state.model.load_state_dict(self._load(path_or_epoch, state)["model"])
-        return state
+    def restore_weights(self, model, path_or_epoch) -> None:
+        """Restore parameters and BatchNorm buffers only into ``model`` (eval,
+        inference, extraction)."""
+        model.load_state_dict(self._load(path_or_epoch, model)["model"])

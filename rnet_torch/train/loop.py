@@ -138,7 +138,7 @@ class Trainer:
 
     def restore_weights(self, path_or_epoch) -> int:
         """Parameters and BatchNorm buffers only (eval, inference)."""
-        self.ckpt.restore_weights(self.state, path_or_epoch)
+        self.ckpt.restore_weights(self.state.model, path_or_epoch)
         self.epoch = self._epoch_of(path_or_epoch)
         return self.epoch
 

@@ -1,12 +1,13 @@
 """Tile plans and weight packing of the pairwise kernels, on the CPU.
 
 ``rnet_torch.kernels.pairwise.tile_plan`` decides how the CUDA kernels of
-``csrc/pairwise_fwd.cu``, ``csrc/pairwise_bwd.cu`` and
-``csrc/pairwise_fwd_int8.cu`` cover a shape: rows per block, warpgroups,
-ring stages, shared memory and the persistent grid. The launchers
-refuse a plan they cannot take; these tests hold every plan the repository
-can ask for (each g_theta width and object grid of ``config.json``, and every
-agreement case of ``chip_smoke.py``) to what the kernels rely on:
+``csrc/pairwise_fwd.cu``, ``csrc/pairwise_bwd.cu``,
+``csrc/pairwise_fwd_int8.cu`` and (``esize=4``) ``csrc/pairwise_f32.cu``
+cover a shape: rows per block, warpgroups, ring stages, shared memory and
+the persistent grid. The launchers refuse a plan they cannot take; these
+tests hold every plan the repository can ask for (each g_theta width and
+object grid of ``config.json``, and every agreement case of
+``chip_smoke.py``, bf16, int8 and fp32) to what the kernels rely on:
 
 * shared memory within the 232,448 bytes a CTA may use on Hopper;
 * the pair rows of every sample tiled exactly once, only the last block of a
@@ -53,6 +54,10 @@ SHAPES = sorted(
     | {case[:5] for case, _, _ in chip_smoke.INT8_CASES}
 )
 KINDS = ["fwd", "bwd", "int8"]
+F32_SHAPES = sorted(
+    {(B, n, n, H, L) for _, n, _, H, L in CONFIGS for B in ((1, 8, 64, 140, 512) if n <= 256 else (1, 8))}
+    | {case[:5] for case in chip_smoke.F32_CASES}
+)
 
 
 def test_shapes_cover_the_configs_and_the_smoke_cases():
@@ -87,9 +92,11 @@ def test_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_plan_tiles_every_row_exactly_once(kind, shape):
-    B, ni, nj, H, L = shape
-    plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS)
-    npairs = ni * nj
+    _assert_tiles_every_row_once(tpw.tile_plan(kind, *shape, SMS))
+
+
+def _assert_tiles_every_row_once(plan):
+    B, npairs = plan.B, plan.ni * plan.nj
     covered = {}
     for cta in range(plan.grid):
         for b, p0, rows in plan.blocks(cta):
@@ -106,8 +113,11 @@ def test_plan_tiles_every_row_exactly_once(kind, shape):
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_backward_gives_each_sample_one_owner_cta(shape):
-    B, ni, nj, H, L = shape
-    plan = tpw.tile_plan("bwd", B, ni, nj, H, L, SMS)
+    _assert_one_owner_cta_per_sample(tpw.tile_plan("bwd", *shape, SMS))
+
+
+def _assert_one_owner_cta_per_sample(plan):
+    B = plan.B
     owners = {}
     for cta in range(plan.grid):
         for b, _, _ in plan.blocks(cta):
@@ -115,6 +125,52 @@ def test_backward_gives_each_sample_one_owner_cta(shape):
     assert sorted(owners) == list(range(B))
     assert all(len(c) == 1 for c in owners.values())
     assert plan.grid == min(B, SMS)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_f32_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
+    """The fp32 kernels: 8 warps with at most two 16 x 64 output tiles each,
+    on the same 64 columns (H / 64 divides 8), two W chunks, two activation
+    tiles in the forward and L in the backward, within shared memory."""
+    B, ni, nj, H, L = shape
+    plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS, esize=4)
+    assert plan.esize == 4 and plan.smem <= tpw.SMEM_LIMIT
+    assert plan.smem == tpw.smem_bytes(kind, plan.wgs, H, L, plan.slots, plan.stages, esize=4, bm=plan.bm)
+    assert plan.bm in tpw.F32_ROWS and plan.bm * H <= tpw.F32_MAX_TILE and 8 % (H // 64) == 0
+    assert (plan.wgs, plan.stages, plan.slots) == (2, 2, L if kind == "bwd" else 2)
+    assert 1 <= plan.grid <= SMS
+    bigger = [bm for bm in tpw.F32_ROWS if bm > plan.bm and bm * H <= tpw.F32_MAX_TILE]
+    assert all(tpw.smem_bytes(kind, 2, H, L, plan.slots, 2, esize=4, bm=bm) > tpw.SMEM_LIMIT for bm in bigger)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_f32_plan_tiles_every_row_exactly_once(kind, shape):
+    """Every pair row of every sample in exactly one block, only a sample's
+    last block ragged; in the backward each sample has one owner CTA."""
+    plan = tpw.tile_plan(kind, *shape, SMS, esize=4)
+    _assert_tiles_every_row_once(plan)
+    if kind == "bwd":
+        _assert_one_owner_cta_per_sample(plan)
+
+
+def test_f32_plan_takes_the_most_rows_that_fit():
+    """original-fp: 64-row forward blocks, 32-row backward blocks (four 64-row
+    fp32 tiles of H=256 would not fit); H=512: 32 and 16 rows."""
+    rows = {(kind, H): tpw.tile_plan(kind, 512, 64, 64, H, 4, SMS, esize=4).bm
+            for kind in ("fwd", "bwd") for H in (128, 256, 512)}
+    assert rows == {("fwd", 128): 64, ("fwd", 256): 64, ("fwd", 512): 32,
+                    ("bwd", 128): 64, ("bwd", 256): 32, ("bwd", 512): 16}
+    assert tpw.tile_plan("fwd", 1, 12, 12, 512, 4, SMS, esize=4).nblk == 5  # 144 rows: a ragged fifth block
+
+
+@pytest.mark.parametrize("kind, H, L, match", [("fwd", 384, 4, "take H in"), ("bwd", 1024, 4, "take H in"),
+                                               ("bwd", 512, 6, "does not fit"), ("int8", 256, 4, "no fp32 plan"),
+                                               ("fwd", 96, 4, "H % 128")])
+def test_f32_plan_refuses_what_the_kernels_cannot_take(kind, H, L, match):
+    with pytest.raises(ValueError, match=match):
+        tpw.tile_plan(kind, 4, 8, 8, H, L, SMS, esize=4)
 
 
 def test_forward_fills_the_card_at_small_batches():

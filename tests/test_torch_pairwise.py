@@ -132,8 +132,9 @@ def test_kernel_path_refuses_cpu_tensors():
     ],
 )
 def test_kernel_path_refuses_unsupported_inputs(case, match):
-    if case == "float32":
-        args = [torch.from_numpy(a) for a in _inputs(1, 8, 128, 3)]
+    if case == "float32":  # fp32 u among bf16 inputs: the kernels take one dtype for all six
+        args = _bf16(_inputs(1, 8, 128, 3))
+        args[0] = args[0].float()
     elif case == "width":
         args = _bf16(_inputs(1, 8, 96, 3))
     elif case == "one_layer":
@@ -146,6 +147,24 @@ def test_kernel_path_refuses_unsupported_inputs(case, match):
         args[2] = args[2][:, :64].contiguous()
     with pytest.raises(ValueError, match=match):
         tpw.pairwise_fwd_cuda(*args, inject=0)
+
+
+def test_kernel_path_takes_all_fp32_inputs():
+    """All six inputs in fp32 pass the kernels' checks (the fp32 kernels of
+    csrc/pairwise_f32.cu take them); the CPU tensors are what still raises,
+    as do fp16 inputs and storage that is not 16-byte aligned."""
+    args = [torch.from_numpy(a) for a in _inputs(2, 8, 128, 3)]
+    assert tpw.check_kernel_inputs(*args) == (2, 8, 8, 128, 3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tpw.pairwise_fwd_cuda(*args, inject=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tpw.pairwise_bwd_cuda(*args, torch.ones(2, 128), inject=0)
+    with pytest.raises(ValueError, match="bfloat16 or torch.float32"):
+        tpw.check_kernel_inputs(*(a.half() for a in args))
+    shifted = list(args)
+    shifted[0] = torch.empty(2 * 8 * 128 + 1)[1:].view(2, 8, 128).copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tpw.check_kernel_inputs(*shifted)
 
 
 def test_pair_dropout_not_ported_raises():
