@@ -7,8 +7,8 @@ Phases, each fatal (exit 1, no result line) when it fails:
   1. CUDA present; print the card's name and power limit (nvidia-smi).
   2. Build every CUDA kernel of the serving, training, int8 inference and
      fp32 paths from ``rnet_torch/csrc`` (one nvcc per source, started together),
-     and beside them the phase-timing build of the three pairwise kernels
-     (``-DRNET_PHASE_TIMES``); print ptxas' resource lines.
+     and beside them the phase-timing build of the pairwise kernels (bf16,
+     int8 and fp32; ``-DRNET_PHASE_TIMES``); print ptxas' resource lines.
   3. Forward kernel vs plain version on the card at the paths' shapes
      (original-fp B=1/64/512 with inject 0 and 2 as in ir-fp, wide-fp's
      H=512 at B=64 and at B=140 > the SM count, a ragged small shape, a
@@ -32,10 +32,11 @@ Phases, each fatal (exit 1, no result line) when it fails:
      ``pairwise_bwd_f32``, 3xTF32) vs their plain fp32 versions at
      ``F32_CASES`` (original-fp B=512 and 64, ir-fp's injection 2, H=512 at
      n=64 and at the SD grid of 12, a rectangular grid, stretch-fp-32's
-     1,024 objects at B=1, pair dropout at keep 0.9): the forward within
-     1e-4 of max|plain|, each gradient's max|d|/max|plain| printed and its
-     distance from the float64 chain held to 1e-4 + twice the plain fp32
-     version's; the B=512 backward twice, bitwise.
+     1,024 objects at B=1, pair dropout at keep 0.9; L = 3 and 2 at H=256,
+     and H=128): the forward within 1e-4 of max|plain|, each gradient's
+     max|d|/max|plain| printed and its distance from the float64 chain held
+     to 1e-4 + twice the plain fp32 version's; the B=512 backward twice,
+     bitwise.
   6. Serving: an ``InferenceServer`` for original-fp at full width with
      seeded random weights, buckets 1/8/64. After ``warmup()`` the launch
      counters are zeroed, a burst of encoded requests goes through the
@@ -62,8 +63,8 @@ Phases, each fatal (exit 1, no result line) when it fails:
      1e-5 relative.
   8. Times with CUDA events: each kernel, its plain version, one PyTorch
      yardstick (``library_ms``) and the roofline bound; the phase breakdown
-     of ``pairwise_fwd``, ``pairwise_bwd`` and ``pairwise_fwd_int8`` at B =
-     64 and 512 (the phase-timing build: clock64() cycles per phase summed
+     of ``pairwise_fwd``, ``pairwise_bwd``, ``pairwise_fwd_int8`` and the
+     fp32 ``pairwise_fwd_f32`` / ``pairwise_bwd_f32`` at B = 64 and 512 (the phase-timing build: clock64() cycles per phase summed
      over the CTAs' first consumer threads, as shares of their total), and
      the int8 kernel's time over ``pairwise_fwd``'s; serve latency per
      bucket and train questions/s on the host clock (kernel and xla paths in
@@ -74,8 +75,8 @@ Phases, each fatal (exit 1, no result line) when it fails:
      profile of one int8 eval batch at B=512 beside the bf16 one (the
      calibration and folding ops around the kernel included), and serve
      latency per bucket and burst throughput of the bf16 and int8 servers,
-     taken in turns (bf16 int8 int8 bf16). The fp32 kernels at B=512 beside
-     the cuBLAS fp32 chain (TF32 off) and its autograd.
+     taken in turns (bf16 int8 int8 bf16). The fp32 kernels at B = 64 and
+     512 beside the cuBLAS fp32 chain (TF32 off) and its autograd.
   9. Augment kernel vs its plain version on the card: B = 1, 7 and 512, fp32
      and bf16 outputs, angles of ±2.8 degrees and 0, the four corner offsets
      (where the shears wrap around the canvas), repeated indices, a cache of
@@ -328,12 +329,16 @@ GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
 # at the training batch and B=64, ir-fp's injection at layer 2, wide-fp's
 # H=512, the SD grid of 12 objects at H=512 (144 pair rows: a ragged last
 # block of the forward's 32-row blocks), a rectangular ni != nj,
-# stretch-fp-32's 1,024 objects, and pair dropout at keep 0.9.
+# stretch-fp-32's 1,024 objects, and pair dropout at keep 0.9; then the
+# other tile layouts of the backward at H=256 (L=3: dpre_2 in a_0's tile;
+# L=2: in its own), with the injection at the last layer, a ragged block
+# and dropout, and H=128 (the wide kernels).
 F32_TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0, 1.0)
 F32_CASES = [
     F32_TRAIN_CASE, (64, 64, 64, 256, 4, 0, 1.0), (64, 64, 64, 256, 4, 2, 1.0), (64, 64, 64, 512, 4, 0, 1.0),
     (64, 12, 12, 512, 4, 2, 1.0), (2, 16, 40, 256, 4, 1, 1.0), (1, 1024, 1024, 256, 4, 0, 1.0),
-    (64, 64, 64, 256, 4, 0, 0.9),
+    (64, 64, 64, 256, 4, 0, 0.9), (4, 24, 24, 256, 3, 2, 0.75), (3, 10, 10, 256, 2, 1, 1.0),
+    (4, 16, 16, 128, 3, 1, 1.0),
 ]
 
 
@@ -872,73 +877,82 @@ def time_kernels(torch, pw, seed):
 
 
 def time_f32(torch, pw, seed):
-    """Phase 8, the fp32 kernels at original-fp B=512: each kernel, its plain
-    version, the cuBLAS fp32 chain (TF32 off, the yardstick) and its
-    autograd, and the 3xTF32 bound."""
-    B, n, H, L, inject = TRAIN_B, 64, 256, 4, 0
+    """Phase 8, the fp32 kernels at original-fp B = 64 and 512: each kernel,
+    its plain version, the cuBLAS fp32 chain (TF32 off, the yardstick) and
+    its autograd, and the 3xTF32 bound; rows keyed (kind, B)."""
+    n, H, L, inject = 64, 256, 4, 0
     if torch.backends.cuda.matmul.allow_tf32:
         fail("the fp32 yardstick needs TF32 off for matmuls")
-    args = pair_inputs(torch, B, n, H, L, seed=600, dtype=torch.float32)
-    g = upstream(torch, B, H, seed=601)
-    flops = 2.0 * B * n * n * (L - 1) * H * H
     rows = {}
-    b_ms, b_by = f32_fwd_bound(B, n, n, H, L)
-    rows["fwd"] = {"B": B, "n": n, "H": H, "L": L, "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_cuda(*args, inject=0), 5),
-                   "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_reference(*args, inject=0), 3, warmup=1),
-                   "library_ms": cuda_ms(torch, lambda: library_chain(torch, *args, inject), 5, warmup=1),
-                   "bound_ms": b_ms, "bound_by": b_by}
-    rows["fwd"]["ms_keep_0.9"] = cuda_ms(
-        torch, lambda: pw.pairwise_fwd_cuda(*args, inject=0, pair_keep=0.9, seed=seed), 5, warmup=1)
-    b_ms, b_by = f32_bwd_bound(B, n, n, H, L)
-    rows["bwd"] = {"B": B, "n": n, "H": H, "L": L,
-                   "ms": cuda_ms(torch, lambda: pw.pairwise_bwd_cuda(*args, g, inject=0), 3, warmup=1),
-                   "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args, g, 0), 2, warmup=1),
-                   "library_ms": cuda_ms(torch, lambda: library_vjp(torch, args, g, inject), 3, warmup=1),
-                   "bound_ms": b_ms, "bound_by": b_by}
-    for kind, mult in (("fwd", 1), ("bwd", 3)):
-        r = rows[kind]
-        r["fp32_tflops"] = mult * flops / (r["ms"] * 1e-3) / 1e12
-        r["x_bound"] = r["ms"] / r["bound_ms"]
-        r["ms_over_library"] = r["ms"] / r["library_ms"]
-        log(f"time pairwise_{kind}_f32 {json.dumps(r)}")
-    del args, g
-    torch.cuda.empty_cache()
+    for B in (64, TRAIN_B):
+        args = pair_inputs(torch, B, n, H, L, seed=600 + B, dtype=torch.float32)
+        g = upstream(torch, B, H, seed=601 + B)
+        flops = 2.0 * B * n * n * (L - 1) * H * H
+        big = B == TRAIN_B
+        b_ms, b_by = f32_fwd_bound(B, n, n, H, L)
+        fwd = {"B": B, "n": n, "H": H, "L": L,
+               "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_cuda(*args, inject=0), 5 if big else 20),
+               "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_reference(*args, inject=0), 3, warmup=1),
+               "library_ms": cuda_ms(torch, lambda: library_chain(torch, *args, inject), 5, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by}
+        fwd["ms_keep_0.9"] = cuda_ms(
+            torch, lambda: pw.pairwise_fwd_cuda(*args, inject=0, pair_keep=0.9, seed=seed), 5, warmup=1)
+        b_ms, b_by = f32_bwd_bound(B, n, n, H, L)
+        bwd = {"B": B, "n": n, "H": H, "L": L,
+               "ms": cuda_ms(torch, lambda: pw.pairwise_bwd_cuda(*args, g, inject=0), 3 if big else 10, warmup=1),
+               "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args, g, 0), 2, warmup=1),
+               "library_ms": cuda_ms(torch, lambda: library_vjp(torch, args, g, inject), 3, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by}
+        for kind, r, mult in (("fwd", fwd, 1), ("bwd", bwd, 3)):
+            r["fp32_tflops"] = mult * flops / (r["ms"] * 1e-3) / 1e12
+            r["x_bound"] = r["ms"] / r["bound_ms"]
+            r["ms_over_library"] = r["ms"] / r["library_ms"]
+            rows[(kind, B)] = r
+            log(f"time pairwise_{kind}_f32 {json.dumps(r)}")
+        del args, g
+        torch.cuda.empty_cache()
     return rows
 
 
 def phase_breakdown(torch, pw):
     """Phase 8: one launch of each pairwise kernel's phase-timing build
-    (bf16 forward and backward, int8 forward) at original-fp B = 64 and 512:
-    the clock64() cycles of every phase, summed over the CTAs, as shares of
-    their total (and the total)."""
+    (bf16 forward and backward, int8 forward, fp32 forward and backward) at
+    original-fp B = 64 and 512: the clock64() cycles of every phase, summed
+    over the CTAs, as shares of their total (and the total); the timing
+    build must compute the kernel's values."""
     n, H, L, inject = 64, 256, 4, 0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
+    kinds = (("fwd", pw.FWD_PHASES, 2), ("bwd", pw.BWD_PHASES, 2), ("int8", pw.INT8_PHASES, 2),
+             ("fwd_f32", pw.FWD_PHASES, 4), ("bwd_f32", pw.BWD_PHASES, 4))
     for B in (64, TRAIN_B):
         args = pair_inputs(torch, B, n, H, L, seed=100 + B)
+        args32 = [a.float() for a in args]
         g = upstream(torch, B, H, seed=200 + B)
         folded = pw.quantize_int8(*args, inject)
-        for kind, names in (("fwd", pw.FWD_PHASES), ("bwd", pw.BWD_PHASES), ("int8", pw.INT8_PHASES)):
-            plan = pw.tile_plan(kind, B, n, n, H, L, sms)
+        for kind, names, esize in kinds:
+            plan = pw.tile_plan(kind[:3] if esize == 4 else kind, B, n, n, H, L, sms, esize=esize)
             cycles = torch.zeros((plan.grid, pw.PHASE_SLOTS), dtype=torch.int64, device="cuda")
-            if kind == "fwd":
-                got = pw.pairwise_fwd_cuda(*args, inject=inject, phases=cycles)
-                want = pw.pairwise_fwd_cuda(*args, inject=inject)
+            a = args32 if esize == 4 else args
+            if kind.startswith("fwd"):
+                got = pw.pairwise_fwd_cuda(*a, inject=inject, phases=cycles)
+                want = pw.pairwise_fwd_cuda(*a, inject=inject)
             elif kind == "int8":
                 got = pw.pairwise_fwd_int8_cuda(*folded, inject=inject, phases=cycles)
                 want = pw.pairwise_fwd_int8_cuda(*folded, inject=inject)
             else:
-                got = pw.pairwise_bwd_cuda(*args, g, inject=inject, phases=cycles)[4]
-                want = pw.pairwise_bwd_cuda(*args, g, inject=inject)[4]
+                got = pw.pairwise_bwd_cuda(*a, g, inject=inject, phases=cycles)[4]
+                want = pw.pairwise_bwd_cuda(*a, g, inject=inject)[4]
             torch.cuda.synchronize()
+            name = {"int8": "pairwise_fwd_int8"}.get(kind, "pairwise_" + kind)
             if not torch.equal(got, want):
-                fail(f"the phase-timing build of pairwise_{kind} computes other values than the kernel")
+                fail(f"the phase-timing build of {name} computes other values than the kernel")
             total = cycles.sum(dim=0).double()
             row = {"B": B, "total_cycles": int(total.sum().item()), "ctas": plan.grid, "warpgroups": plan.wgs,
-                   "shares": {name: (total[k] / total.sum()).item() for k, name in enumerate(names)}}
+                   "shares": {nm: (total[k] / total.sum()).item() for k, nm in enumerate(names)}}
             out[(kind, B)] = row
-            log(f"phases {'pairwise_fwd_int8' if kind == 'int8' else 'pairwise_' + kind} {json.dumps(row)}")
-        del args, g, folded
+            log(f"phases {name} {json.dumps(row)}")
+        del args, args32, g, folded
         torch.cuda.empty_cache()
     return out
 
@@ -1738,7 +1752,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL, pw.INT8_KERNEL, pw.F32_LIB]
-    timed = [pw.KERNEL, pw.BWD_KERNEL, pw.INT8_KERNEL]
+    timed = [pw.KERNEL, pw.BWD_KERNEL, pw.INT8_KERNEL, pw.F32_LIB]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
         for job in [ex.submit(build.build, kernels), ex.submit(build.build, timed, pw.PHASE_DEFINES)]:
@@ -1784,7 +1798,8 @@ def main() -> int:
     fwd, bwd, mask = time_kernels(torch, pw, seed)
     f32_rows = time_f32(torch, pw, seed)
     log(f"fp32 kernels / cuBLAS fp32 chain (TF32 off) at original-fp B={TRAIN_B}, same call: forward "
-        f"{f32_rows['fwd']['ms_over_library']!r}, backward (vs its autograd) {f32_rows['bwd']['ms_over_library']!r}")
+        f"{f32_rows[('fwd', TRAIN_B)]['ms_over_library']!r}, backward (vs its autograd) "
+        f"{f32_rows[('bwd', TRAIN_B)]['ms_over_library']!r}")
     phases = phase_breakdown(torch, pw)
     train_times = time_training(torch, cfg, state, batch)
     qps_ratio = train_times["auto"]["qps"] / train_times["xla"]["qps"]
@@ -1904,15 +1919,17 @@ def main() -> int:
                launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
                            "--split train --batch-size 512 (16 batches)"),
         record(pw.F32_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:83",
-               f32_entry_counts[pw.F32_KERNEL], f32_abs["out"], f32_rows["fwd"], shape=shape,
+               f32_entry_counts[pw.F32_KERNEL], f32_abs["out"], f32_rows[("fwd", TRAIN_B)], shape=shape,
                max_rel_err=f32_fwd_err, max_rel_err_all_cases=f32_fwd_err_all, precision="3xTF32",
-               ms_over_library=f32_rows["fwd"]["ms_over_library"], step_launches=f32_step_counts[pw.F32_KERNEL],
+               ms_over_library=f32_rows[("fwd", TRAIN_B)]["ms_over_library"], ms_b64=f32_rows[("fwd", 64)]["ms"],
+               phase_shares=phases[("fwd_f32", TRAIN_B)]["shares"], step_launches=f32_step_counts[pw.F32_KERNEL],
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512 (16 train + 2 eval batches)"),
         record(pw.F32_BWD_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:120",
                f32_entry_counts[pw.F32_BWD_KERNEL], max(v for k, v in f32_abs.items() if k != "out"),
-               f32_rows["bwd"], shape=shape, max_rel_err=f32_bwd_err, max_rel_err_all_cases=f32_bwd_err_all,
-               precision="3xTF32", ms_over_library=f32_rows["bwd"]["ms_over_library"],
+               f32_rows[("bwd", TRAIN_B)], shape=shape, max_rel_err=f32_bwd_err, max_rel_err_all_cases=f32_bwd_err_all,
+               precision="3xTF32", ms_over_library=f32_rows[("bwd", TRAIN_B)]["ms_over_library"],
+               ms_b64=f32_rows[("bwd", 64)]["ms"], phase_shares=phases[("bwd_f32", TRAIN_B)]["shares"],
                train_loss_rel_diff_from_xla_fp32=f32_loss_rel,
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512"),

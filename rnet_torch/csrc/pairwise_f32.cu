@@ -17,53 +17,111 @@
 //
 // Precision. "float32" means fp32, as in rnet's interpret run and the
 // port's fp32 xla path (cuBLAS with TF32 off). Every product runs as 3xTF32
-// on the tensor cores (mma.sync.m16n8k8.tf32): x = hi + lo with hi =
-// tf32(x), lo = tf32(x - hi), and a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi;
-// each k-step's three products sum from zero on the tensor cores and reach
-// the running sum by a rounded fp32 add (mma3). The dropped a_lo.b_lo term
-// and the rounding of lo are below 2^-21 of |a.b|, so a dot product is as
-// exact as an fp32 FFMA sum to within a few ulps. Single-pass TF32 (10-bit
-// mantissa) is not used.
+// on the tensor cores: x = hi + lo, and a.b = a_lo.b_hi + a_hi.b_lo +
+// a_hi.b_hi. W is split by the wrapper (hi = tf32(W) and lo = tf32(W - hi),
+// cvt.rna's rounding); activations in registers (split_tf32: hi rounded as
+// cvt.rna, lo = x - hi exact, of which the tensor cores read the tf32
+// bits). The dropped a_lo.b_lo term and the rounding of lo are below 2^-21
+// of |a.b|. The tensor cores' fp32 accumulation truncates, so no long sum
+// stays inside them: a chain or d product sums one ring stage of depth (KD
+// = 2048 / H = 8) from zero and adds it to its running sum in fp32; a dW
+// product sums one block of rows from zero and is added onto the fp32
+// partial; db, ds, dqa and the pool add in fp64. Single-pass TF32 is not
+// used.
 //
 // What bounds it: tensor-core operations, three TF32 products per fp32
 // product. At original-fp B=512 (n=64, H=256, L=4) the forward's 0.82
 // TFLOP are 2.47 TFLOP of TF32, 5.0 ms at 495 TFLOP/s (dense TF32); the
-// backward (recompute, d and dW products) three times that.
+// backward (recompute, d and dW products) three times that. Behind it, the
+// W feed: W_l as tf32 hi + lo is 512 KB at H=256, streamed from L2 once per
+// block of rows, 48 TF32 FLOPs a byte at 64 rows (at 495 TFLOP/s, 10 TB/s:
+// more than L2 gives); and the backward's dW partial, (L-1) H^2 fp32 read
+// and written once per block.
 //
-// Design: the simple kernel; no TMA and no wgmma (wgmma reads tf32 operands
-// K-major only, and the backward reads the activation tiles both ways;
-// mma.sync fragments loaded by plain ld.shared have no layout constraint).
-//   * 256 threads, 8 warps. A block of BM pair rows (64, 32 or 16: the plan
-//     of kernels/pairwise.py::tile_plan(..., esize=4)) keeps its activation
-//     tiles in shared memory as BM rows of H + 4 floats (conflict-free
-//     fragment reads).
-//   * W_l (W_l^T in the backward's d products) streams through two 32 KB
-//     chunks (8192 / H rows of H + 8 floats) by cp.async, the next chunk
-//     loading while the current one is used.
-//   * Each warp owns up to two 16 x 64 output tiles of a layer, with the
-//     same 64 columns (H / 64 divides 8), so the B fragments are shared; the
-//     accumulators stay in registers, and fragments are split into hi / lo
-//     as they are read.
-//   * Forward: a grid-stride walk over (sample, block) tiles; a block's
-//     column sums go to its own partial row, and pool_kernel adds a
-//     sample's partials in block order.
-//   * Backward: one owner CTA per sample (a persistent grid of min(B, SMs))
-//     walks the sample's blocks in order, keeping a_0 .. a_{L-2} and
-//     dpre_{L-1} (L tiles); dpre_{l-1} overwrites a_{l-1} in place once dW_l
-//     has read it. dW_l is added onto the CTA's own fp32 partial (each 16 x
-//     64 register tile of the block's rows added with fp32 adds), db_l onto
-//     its own fp64 row; one fixed thread per column adds a block's du / dv
-//     rows in row order, and its ds / dqa sums onto the sample's fp64
-//     running sums. sum_partials_kernel adds the dW and db partials over the
-//     CTAs in CTA order. Every output has one fixed writer and a fixed order
-//     of adds: the gradients are bitwise repeatable.
+// Design, for H = 256 (the "ring" kernels: every model of config.json but
+// the H=512 ones):
+//   * W is split once per call. The wrapper (kernels/pairwise.py::
+//     pack_f32_weights) packs each W_l^T (the chain's B operand) and W_l (the
+//     d products') as tf32 hi and lo, in 16 KB stages of KD rows of depth x
+//     all H output columns (hi, then lo), each in wgmma's K-major
+//     no-swizzle core-matrix order. One producer thread streams the stages
+//     by cp.async.bulk through an mbarrier ring (pairwise_chain.cuh's Ring
+//     and barriers) that runs ahead across layers and blocks.
+//   * CTA: two consumer warpgroups and a producer warpgroup, 384 threads;
+//     the producer gives up its registers (setmaxnreg: 40 a thread), the
+//     consumers take 232.
+//   * Chain and d products: tf32 wgmma m64n128k8, A from registers (loaded
+//     by ld.shared from the activation tile and split in registers), B = the
+//     ring stage's hi or lo (tf32 wgmma reads B K-major only, which the
+//     packed W is). A warpgroup keeps a 64-float fp32 running sum per 128
+//     output columns and one 64-float stage sum.
+//   * Activation tiles: BM x H fp32 in shared memory, core matrices of 8
+//     columns x 4 rows (16-byte rows of 4 consecutive pair rows; toff): 4
+//     rows of a column are one float4 for the column passes, the dW operands
+//     are ldmatrix rows, and the A fragments' M rows are taken in the order
+//     2g, 2g + 1 (g = lane / 4), so that each pair is one float2.
+//   * Forward: blocks of 128 rows, one tile (128 KB at H=256), each
+//     warpgroup on its own 64 rows and all H columns; a warp reads and writes
+//     only its own 16 rows, so every layer runs in place with no barrier. A
+//     block's column sums (scaled by the row's mask) go to its own partial
+//     row, and pool_kernel adds a sample's partials in block order in fp64.
+//     The 128-row block halves the W bytes per row of a 64-row one: the
+//     forward is bound by the W feed from L2 as much as by the tensor cores.
+//   * Backward: blocks of 64 rows, warpgroup w on output columns 128w ..
+//     128w + 127 of all 64 rows. One owner CTA per sample (a persistent grid of
+//     min(B, SMs)) walks the sample's blocks in order. Tiles hold a_0 ..
+//     a_{L-2}; dpre_{L-1} goes to tile 0 (a_0 is rebuilt from u, v, s for
+//     layer 1) or, at L = 2, to tile 1; dpre_{l-1} overwrites a_{l-1} in
+//     place once dW_l has read it.
+//   * dW = a^T dpre reads both activation tiles, and wgmma needs its smem
+//     operand as tf32 hi and lo, twice its fp32 size; the backward's three
+//     64 KB tiles and two W stages already fill 224 KB of the 227 KB. dW
+//     runs on wgmma m64n128k8 all the same: the hi part of B is the
+//     dpre tile itself (the tensor cores read the top 19 bits of an fp32
+//     value: trunc(x)), and lo = tf32(x - trunc(x)) of 128 dpre columns at a
+//     time is staged in the ring's 32 KB, which is free then: the producer
+//     waits on an mbarrier (dw_done) before it streams the d product's W.
+//     A = a^T from registers (ldmatrix, split in registers). The block's
+//     product is summed from zero on the tensor cores and
+//     added onto the CTA's fp32 partial, kept in accumulator order
+//     (coalesced 16-byte loads and stores, L2 evict-first), its loads
+//     issued before the products (the partials of all CTAs, 104 MB at
+//     H=256, exceed L2, so they come from device memory every block).
+//   * One fixed thread per column adds db_l onto the CTA's fp64 row and ds /
+//     dqa onto the sample's fp64 sums, and the block's du / dv contributions
+//     by fire-and-forget reductions in row order (one thread's reductions
+//     to one address apply in program order). sum_partials and
+//     reduce_dw_ring add the partials over the CTAs in CTA order. Every
+//     output has one fixed writer and a fixed order of adds: the gradients
+//     are bitwise repeatable.
+//   * Shared memory (bytes, L=4): forward 1 tile (131,072) + 6 ring stages
+//     of 16,400 + the row scales (512) = 229,984; backward 3 tiles (196,608)
+//     + 2 stages (32,800) + dw_done (8) + row scales (256) = 229,672; within
+//     the 232,448 a CTA may use.
+//   * Measured, not kept: CTA pairs (clusters of two) that multicast each W
+//     stage into both CTAs, halving the L2 reads, ran slower in both
+//     kernels: each stage then waits for the slower CTA of the pair.
+//   With -DRNET_PHASE_TIMES the first consumer thread of each CTA sums
+//   clock64() cycles per phase into `phases` (grid, 8): kernels/pairwise.py
+//   FWD_PHASES / BWD_PHASES.
+//
+// H = 128 and 512, and chains too deep for the ring backward's tiles (L > 4
+// at H = 256): the "wide" kernels, the first design, kept as they were. At
+// H = 512 one fp32 tile of 64 rows is 128 KB, so the backward's two or more
+// tiles do not fit beside any W stage at wgmma's 64 rows; no model runs H =
+// 128. These kernels run mma.sync on blocks of 64, 32 or 16 rows, W
+// streamed as fp32 through two cp.async chunks and split as it is read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pairwise_chain.cuh"
 #include "philox.cuh"
 
 namespace {
+
+// The wide kernels (H = 128, 512, and chains too deep for the ring backward), described at the top.
+namespace wide {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -519,38 +577,665 @@ __global__ void sum_partials_kernel(const T* __restrict__ part, float* __restric
   out[k] = (float)sum;
 }
 
-// ---------------------------------------------------------------------------
+}  // namespace wide
+
+// ===========================================================================
+// The ring kernels (H = 256)
+// ===========================================================================
+
+constexpr int STAGE_BYTES = 16384;  // one W stage: KD rows x H columns, hi then lo
+constexpr int RING_THREADS = 384;   // two consumer warpgroups and the producer warpgroup
+constexpr int CONSUMERS = 256;
+
+// The ring kernels run at H = 256. Rows of a block: the forward keeps one
+// tile, 64 rows per warpgroup over all H columns; the backward's max(2, L-1)
+// tiles fit 64 rows.
+constexpr int RING_H = 256, FWD_BM = 128, BWD_BM = 64;
+__host__ __device__ constexpr int ring_kd(int H) { return STAGE_BYTES / 2 / 4 / H; }
+
+// Shared memory of a ring kernel: the tiles, the ring and its barriers, the
+// backward's dW barrier, the row scales.
+size_t ring_smem_bytes(bool bwd, int bm, int H, int slots, int stages) {
+  return (size_t)slots * bm * H * 4 + (size_t)stages * (STAGE_BYTES + 16) + (bwd ? 8 : 0) + (size_t)bm * 4;
+}
+
+enum { FP_PRODUCTS, FP_EPILOGUES, FP_POOL, FP_FEED, FP_A0, FP_SYNC };
+enum { BP_RECOMPUTE, BP_DW, BP_FLUSH, BP_D, BP_COLUMNS, BP_FEED, BP_A0, BP_SYNC };
+
+// Offset of (r, c) in a tile of bm rows: core matrices of 8 columns x 4 rows
+// (16-byte rows of 4 consecutive pair rows), 4-row groups of a column group
+// contiguous.
+__device__ __forceinline__ int toff(int r, int c, int bm) {
+  return (c >> 3) * (bm * 8) + (r >> 2) * 32 + ((c & 7) << 2) + (r & 3);
+}
+
+// x = hi + lo: hi = x rounded to tf32 to nearest, ties away from zero
+// (cvt.rna.tf32.f32's rounding, done in integer ops: the conversion runs on
+// a quarter-rate pipe), lo = x - hi exactly in fp32, of which the tensor
+// cores read the tf32 part.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// Keeps a register's value live (and in place) up to this point: after a
+// wgmma wait, so that the compiler neither reuses an operand register nor
+// reads an accumulator before the asynchronous product is done.
+__device__ __forceinline__ void keep(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void keep(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+
+// Register budget of the warpgroups (65,536 a CTA): the producer gives its
+// registers up, the consumers take them (2 x 128 x 232 + 128 x 40).
+__device__ __forceinline__ void setmaxnreg_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n"); }
+__device__ __forceinline__ void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n"); }
+
+// Four 8 x 8 b16 matrices (8 rows of 16 bytes: 8 x 4 fp32) from shared
+// memory; lane L gives the address of row L % 8 of matrix L / 8.
+__device__ __forceinline__ void ldsm4(uint32_t (&x)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(rnet::smem_u32(p)));
+}
+
+// d (+)= A . B, m64n128k8 tf32: A (64 x 8) from four registers a thread, B
+// (8 x 128) K-major in shared memory. scale_d = 0 starts from zero.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// The producer (one thread): `n` consecutive STAGE_BYTES stages from src.
+__device__ __forceinline__ void produce_stages(rnet::Ring& r, const float* __restrict__ src, int n,
+                                               rnet::PhaseClock& pc, int wait_phase) {
+  const char* p = reinterpret_cast<const char*>(src);
+  for (int k = 0; k < n; ++k) {
+    const int was = pc.mark(wait_phase);
+    rnet::mbar_wait(r.empty + 8 * r.stage, r.parity ^ 1);
+    pc.mark(was);
+    rnet::mbar_expect_tx(r.full + 8 * r.stage, STAGE_BYTES);
+    rnet::bulk_g2s(r.buf + r.stage * STAGE_BYTES, p + (size_t)k * STAGE_BYTES, STAGE_BYTES, r.full + 8 * r.stage);
+    r.advance();
+  }
+}
+
+// total += A . W over all H of depth, for the warpgroup's 64 rows from `row`
+// (warp w: rows row + 16w + 2g + h) of the activation tile A, and NTW
+// output column tiles of 128, column tiles ct0 .. ct0 + NTW - 1 of every
+// ring stage. Each stage (KD of depth) is summed from zero on the tensor
+// cores, one column tile at a time, and added onto `total` in fp32; `lead`
+// releases each stage once the warpgroup's products have read it. A warp
+// reads only its own 16 rows of A.
+template <int H, int BM, int NTW>
+__device__ __forceinline__ void chain_product(float (&total)[NTW][64], const float* A, int row, int ct0,
+                                              rnet::Ring& r, bool lead, rnet::PhaseClock& pc, int wait_phase) {
+  constexpr int KD = ring_kd(H), KS = KD / 8;
+  constexpr uint32_t LO = (uint32_t)H * KD * 4, SBO = KD / 4 * 128;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = row + 16 * ((threadIdx.x >> 5) & 3) + 2 * g;
+  for (int k0 = 0; k0 < H; k0 += KD) {
+    uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float2 x = *reinterpret_cast<const float2*>(A + toff(r0, k0 + 8 * ks + t, BM));
+      const float2 y = *reinterpret_cast<const float2*>(A + toff(r0, k0 + 8 * ks + t + 4, BM));
+      split_tf32(x.x, ah[ks][0], al[ks][0]);
+      split_tf32(x.y, ah[ks][1], al[ks][1]);
+      split_tf32(y.x, ah[ks][2], al[ks][2]);
+      split_tf32(y.y, ah[ks][3], al[ks][3]);
+    }
+    const int was = pc.mark(wait_phase);
+    rnet::mbar_wait(r.full + 8 * r.stage, r.parity);
+    pc.mark(was);
+#pragma unroll
+    for (int ct = 0; ct < NTW; ++ct) {
+      const uint32_t bh = r.buf + r.stage * STAGE_BYTES + (ct0 + ct) * (128 * KD * 4);
+      float acc[64];
+      rnet::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        wgmma_tf32(acc, al[ks], rnet::desc(bh + ks * 256, 128, SBO), ks);
+        wgmma_tf32(acc, ah[ks], rnet::desc(bh + LO + ks * 256, 128, SBO), 1);
+        wgmma_tf32(acc, ah[ks], rnet::desc(bh + ks * 256, 128, SBO), 1);
+      }
+      rnet::wgmma_commit();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) keep(acc[i]);
+      rnet::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        keep(acc[i]);
+        total[ct][i] += acc[i];
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        keep(ah[ks][e]);
+        keep(al[ks][e]);
+      }
+    if (lead) rnet::mbar_arrive(r.empty + 8 * r.stage);
+    r.advance();
+  }
+}
+
+// a_0 of rows p0 .. p0 + bm - 1 of sample b into tile X (rows past `valid`
+// zero: finite, so that their products are exact zeros downstream). A
+// thread takes 4 rows x 4 columns: 16-byte loads of u, v and s, all in
+// flight together, and one float4 store per column (4 rows of a column are
+// contiguous in the tile).
+template <int H, int BM>
+__device__ __forceinline__ void ring_a0(float* X, const float* __restrict__ u, const float* __restrict__ v,
+                                        const float* __restrict__ s, int b, int ni, int nj, int p0, int valid,
+                                        int tid) {
+  constexpr int Q = H / 4;
+  for (int q = tid; q < BM / 4 * Q; q += CONSUMERS) {
+    const int c = 4 * (q % Q), r = 4 * (q / Q);
+    const float4 sv = *reinterpret_cast<const float4*>(s + (size_t)b * H + c);
+    int i = (p0 + r) / nj, j = p0 + r - i * nj;
+    float4 uu[4], vv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uu[e] = vv[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r + e < valid) {
+        uu[e] = *reinterpret_cast<const float4*>(u + ((size_t)b * ni + i) * H + c);
+        vv[e] = *reinterpret_cast<const float4*>(v + ((size_t)b * nj + j) * H + c);
+      }
+      if (++j == nj) {
+        j = 0;
+        ++i;
+      }
+    }
+    float o[4][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool on = r + e < valid;
+      o[0][e] = on ? fmaxf(uu[e].x + vv[e].x + sv.x, 0.0f) : 0.0f;
+      o[1][e] = on ? fmaxf(uu[e].y + vv[e].y + sv.y, 0.0f) : 0.0f;
+      o[2][e] = on ? fmaxf(uu[e].z + vv[e].z + sv.z, 0.0f) : 0.0f;
+      o[3][e] = on ? fmaxf(uu[e].w + vv[e].w + sv.w, 0.0f) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      *reinterpret_cast<float4*>(X + toff(r, c + k, BM)) = make_float4(o[k][0], o[k][1], o[k][2], o[k][3]);
+  }
+}
+
+template <int BM, bool DROP>
+__device__ __forceinline__ void ring_row_scales(float* rowscale, int valid, int p0, int b, uint64_t key,
+                                                uint32_t thr, float inv_keep, int tid) {
+  for (int r = tid; r < BM; r += CONSUMERS) {
+    float m = r < valid ? 1.0f : 0.0f;
+    if (DROP && r < valid) m = rnet::pair_kept(key, (uint32_t)(p0 + r), (uint32_t)b, thr) ? inv_keep : 0.0f;
+    rowscale[r] = m;
+  }
+}
+
+// Column c's sum over the tile's bm rows, each times scale[r] (or 1).
+template <int BM>
+__device__ __forceinline__ float column_sum(const float* T, int c, const float* scale) {
+  float sum = 0.0f;
+  for (int r = 0; r < BM; r += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(T + toff(r, c, BM));
+    if (scale)
+      sum += x.x * scale[r] + x.y * scale[r + 1] + x.z * scale[r + 2] + x.w * scale[r + 3];
+    else
+      sum += (x.x + x.y) + (x.z + x.w);
+  }
+  return sum;
+}
+
+// Stores the warpgroup's m64n128 accumulator fragment `x` (transformed by f)
+// into tile T at its rows wrow, wrow + 1 (registers 4j + 2h + e: row wrow +
+// h, column col0 + 8j + 2t + e): one float2 per column.
+template <int BM, typename F>
+__device__ __forceinline__ void store_fragment(float* T, int wrow, int col0, const float (&x)[64], F f) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = col0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float2* p = reinterpret_cast<float2*>(T + toff(wrow, c + e, BM));
+      *p = f(*p, c + e, x[4 * j + e], x[4 * j + 2 + e]);
+    }
+  }
+}
+
+// total = b_l (+ qa at the inject layer) at the thread's columns.
+__device__ __forceinline__ void init_bias(float (&total)[64], const float* __restrict__ bias,
+                                          const float* __restrict__ q, int col0) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = col0 + 8 * j + 2 * t + e;
+      const float x = bias[c] + (q ? q[c] : 0.0f);
+      total[4 * j + e] = total[4 * j + 2 + e] = x;
+    }
+}
+
+template <int H, bool DROP>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+    pairwise_fwd_f32_ring(const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ s,
+                          const float* __restrict__ qa, const float* __restrict__ chain,
+                          const float* __restrict__ bs, float* __restrict__ partial, int B, int ni, int nj, int L,
+                          int inject, int stages, const int64_t* __restrict__ seed, uint32_t thr, float inv_keep,
+                          long long* phases) {
+  constexpr int BM = FWD_BM, NTW = H / 128, PER_LAYER = H / ring_kd(H);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* X = reinterpret_cast<float*>(smem);
+  unsigned char* ring = smem + (size_t)BM * H * 4;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)stages * STAGE_BYTES);
+  float* rowscale = reinterpret_cast<float*>(bars + 2 * stages);
+  rnet::Ring r{rnet::smem_u32(ring), rnet::smem_u32(bars), rnet::smem_u32(bars + stages), stages, 0, 0};
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < stages; ++k) {
+      rnet::mbar_init(r.full + 8 * k, 1);
+      rnet::mbar_init(r.empty + 8 * k, 2);
+    }
+    rnet::mbar_fence_init();
+  }
+  __syncthreads();
+  const int npairs = ni * nj, nblk = (npairs + BM - 1) / BM;
+  const long long ntiles = (long long)B * nblk;
+  rnet::PhaseClock pc;
+  pc.start(FP_A0);
+  const int warp = threadIdx.x >> 5;
+  if (warp >= CONSUMERS / 32) {  // the producer warpgroup: one thread streams W
+    setmaxnreg_dec();
+    if (threadIdx.x == CONSUMERS)
+      for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
+        produce_stages(r, chain, (L - 1) * PER_LAYER, pc, FP_FEED);
+    return;
+  }
+  setmaxnreg_inc();
+  const int tid = threadIdx.x, wg = tid >> 7, g = (tid & 31) >> 2;
+  const int row = 64 * wg;  // the warpgroup's rows: all H columns of them
+  const int wrow = row + 16 * (warp & 3) + 2 * g;
+  const uint64_t key = DROP ? (uint64_t)*seed : 0;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int b = (int)(tile / nblk), blk = (int)(tile % nblk);
+    const int p0 = blk * BM, valid = min(BM, npairs - p0);
+    pc.mark(FP_SYNC);
+    rnet::bar_sync(1, CONSUMERS);  // the previous tile's pool is done with the tile
+    pc.mark(FP_A0);
+    ring_row_scales<BM, DROP>(rowscale, valid, p0, b, key, thr, inv_keep, tid);
+    ring_a0<H, BM>(X, u, v, s, b, ni, nj, p0, valid, tid);
+    pc.mark(FP_SYNC);
+    rnet::bar_sync(1, CONSUMERS);
+    // Layer by layer in place: a warp reads and writes only its own 16 rows,
+    // and its products have read them (the wgmma waits) before it writes.
+    for (int l = 1; l < L; ++l) {
+      float total[NTW][64];
+#pragma unroll
+      for (int ct = 0; ct < NTW; ++ct)
+        init_bias(total[ct], bs + (size_t)(l - 1) * H, l == inject ? qa + (size_t)b * H : nullptr, 128 * ct);
+      pc.mark(FP_PRODUCTS);
+      chain_product<H, BM, NTW>(total, X, row, 0, r, (tid & 127) == 0, pc, FP_FEED);
+      pc.mark(FP_EPILOGUES);
+#pragma unroll
+      for (int ct = 0; ct < NTW; ++ct)
+        store_fragment<BM>(X, wrow, 128 * ct, total[ct], [](float2, int, float x0, float x1) {
+          return make_float2(fmaxf(x0, 0.0f), fmaxf(x1, 0.0f));
+        });
+    }
+    pc.mark(FP_SYNC);
+    rnet::bar_sync(1, CONSUMERS);
+    pc.mark(FP_POOL);
+    for (int c = tid; c < H; c += CONSUMERS) partial[((size_t)b * nblk + blk) * H + c] = column_sum<BM>(X, c, rowscale);
+  }
+  pc.mark(FP_A0);
+  if (tid == 0 && phases) pc.store(phases + (size_t)blockIdx.x * rnet::NPHASE);
+}
+
+// lo = tf32(x - trunc(x)) of dpre's columns 128 sl .. 128 sl + 127 (a
+// contiguous 128 BM floats of the tile, core-matrix order) into `dst`, in
+// the same order: with the tile itself read as tf32 (its top bits: trunc),
+// the dW products' B operand in two parts, x = trunc(x) + lo up to 2^-21 |x|.
+template <int BM>
+__device__ __forceinline__ void stage_lo(float* dst, const float* D, int sl) {
+  const float4* src = reinterpret_cast<const float4*>(D + (size_t)sl * 128 * BM);
+  float4* out = reinterpret_cast<float4*>(dst);
+  auto lo = [](float x) {
+    const float d = x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+    return __uint_as_float((__float_as_uint(d) + 0x1000u) & 0xFFFFE000u);
+  };
+  for (int q = threadIdx.x; q < 32 * BM; q += CONSUMERS) {
+    const float4 x = src[q];
+    out[q] = make_float4(lo(x.x), lo(x.y), lo(x.z), lo(x.w));
+  }
+}
+
+// part (the CTA's dW_l partial) += P^T . D for dpre columns 128 sl .. 128 sl
+// + 127, on wgmma m64n128k8: warpgroup w takes the 64-row tiles mt = w, w +
+// 2, ... of dW (columns 64 mt .. of a_{l-1}); A = P^T from registers
+// (ldmatrix, split in registers), B = the tile D itself (its tf32 top bits)
+// and the staged lo at `lo_addr`, both K-major (K = the block's rows). The
+// block's product is summed from zero on the tensor cores and added onto
+// the partial in fp32; the partial tile, in accumulator order (16-byte
+// loads and stores, evict-first), loads before the fragments and while the
+// products run.
+template <int H, int BM>
+__device__ __forceinline__ void dw_wgmma(float* __restrict__ part, const float* P, const float* D, uint32_t lo_addr,
+                                         int sl, uint64_t pol, rnet::PhaseClock& pc) {
+  constexpr int KS = BM / 8;
+  constexpr uint32_t SBO = BM * 8 * 4;  // bytes between column groups of a tile
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int mat = lane >> 3, rr = lane & 7;
+  const uint32_t bh = rnet::smem_u32(D) + sl * 128 * BM * 4;
+  for (int mt = wg; mt < H / 64; mt += 2) {
+    float4* pt = reinterpret_cast<float4*>(part + (size_t)(mt * (H / 128) + sl) * 8192) + tid;
+    float4 old[16];
+    pc.mark(BP_FLUSH);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) old[q] = rnet::ld_stream(pt + 128 * q, pol);
+    pc.mark(BP_DW);
+    uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t x[4];
+      ldsm4(x, P + ((64 * mt + 16 * warp) / 8 + (mat & 1)) * (BM * 8) + (2 * ks + (mat >> 1)) * 32 + rr * 4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(x[e]), ah[ks][e], al[ks][e]);
+    }
+    float acc[64];
+    rnet::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      wgmma_tf32(acc, al[ks], rnet::desc(bh + ks * 256, 128, SBO), ks);
+      wgmma_tf32(acc, ah[ks], rnet::desc(lo_addr + ks * 256, 128, SBO), 1);
+      wgmma_tf32(acc, ah[ks], rnet::desc(bh + ks * 256, 128, SBO), 1);
+    }
+    rnet::wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) keep(acc[i]);
+    rnet::wgmma_wait<0>();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        keep(ah[ks][e]);
+        keep(al[ks][e]);
+      }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) keep(acc[i]);
+    pc.mark(BP_FLUSH);
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      rnet::st_stream(pt + 128 * q,
+                      make_float4(old[q].x + acc[4 * q], old[q].y + acc[4 * q + 1], old[q].z + acc[4 * q + 2],
+                                  old[q].w + acc[4 * q + 3]),
+                      pol);
+    pc.mark(BP_DW);
+  }
+}
+
+template <int H, bool DROP>
+__global__ void __launch_bounds__(RING_THREADS, 1)
+    pairwise_bwd_f32_ring(const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ s,
+                          const float* __restrict__ qa, const float* __restrict__ chain,
+                          const float* __restrict__ dstages, const float* __restrict__ bs,
+                          const float* __restrict__ gup, float* __restrict__ du, float* __restrict__ dv,
+                          float* __restrict__ ds, float* __restrict__ dqa, float* __restrict__ dw_part,
+                          double* __restrict__ db_part, double* __restrict__ sums, int B, int ni, int nj, int L,
+                          int inject, int nslots, int stages, const int64_t* __restrict__ seed, uint32_t thr,
+                          float inv_keep, long long* phases) {
+  constexpr int BM = BWD_BM, PER_LAYER = H / ring_kd(H), STAGE_FLOATS = STAGE_BYTES / 4;
+  static_assert(H / 128 == 2, "two warpgroups, each on 128 of the columns");
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto slot = [&](int k) { return reinterpret_cast<float*>(smem) + (size_t)k * BM * H; };
+  unsigned char* ring = smem + (size_t)nslots * BM * H * 4;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)stages * STAGE_BYTES);
+  const uint32_t dw_done = rnet::smem_u32(bars + 2 * stages);  // the dW products are done with the ring's memory
+  float* rowscale = reinterpret_cast<float*>(bars + 2 * stages + 1);
+  rnet::Ring r{rnet::smem_u32(ring), rnet::smem_u32(bars), rnet::smem_u32(bars + stages), stages, 0, 0};
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < stages; ++k) {
+      rnet::mbar_init(r.full + 8 * k, 1);
+      rnet::mbar_init(r.empty + 8 * k, 2);
+    }
+    rnet::mbar_init(dw_done, 1);
+    rnet::mbar_fence_init();
+  }
+  __syncthreads();
+  const int npairs = ni * nj, nblk = (npairs + BM - 1) / BM;
+  rnet::PhaseClock pc;
+  pc.start(BP_A0);
+  const int warp = threadIdx.x >> 5;
+  if (warp >= CONSUMERS / 32) {  // the producer warpgroup: the chain's W^T, then the d products' W, per block
+    setmaxnreg_dec();
+    if (threadIdx.x == CONSUMERS) {
+      uint32_t dw_parity = 0;
+      for (int b = blockIdx.x; b < B; b += gridDim.x)
+        for (int blk = 0; blk < nblk; ++blk) {
+          produce_stages(r, chain, (L - 1) * PER_LAYER, pc, BP_FEED);
+          for (int l = L - 1; l >= 1; --l) {
+            // the dW products stage their operand in the ring's memory
+            const int was = pc.mark(BP_FEED);
+            rnet::mbar_wait(dw_done, dw_parity);
+            pc.mark(was);
+            dw_parity ^= 1;
+            produce_stages(r, dstages + (size_t)(l - 1) * PER_LAYER * STAGE_FLOATS, PER_LAYER, pc, BP_FEED);
+          }
+        }
+    }
+    return;
+  }
+  setmaxnreg_inc();
+  const int tid = threadIdx.x, wg = tid >> 7, g = (tid & 31) >> 2;
+  const int row = 0, ct = wg, col0 = 128 * ct;  // all 64 rows, 128 of the columns
+  const int wrow = row + 16 * (warp & 3) + 2 * g;
+  const bool lead = (tid & 127) == 0;
+  const int dtop = (L - 1 < nslots) ? L - 1 : 0;  // the slot of dpre_{L-1}
+  float* dwp = dw_part + (size_t)blockIdx.x * (L - 1) * H * H;
+  double* dbp = db_part + (size_t)blockIdx.x * (L - 1) * H;
+  const uint64_t key = DROP ? (uint64_t)*seed : 0;
+  const uint64_t pol = rnet::l2_evict_first();
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const float* gb = gup + (size_t)b * H;
+    for (int blk = 0; blk < nblk; ++blk) {
+      const int p0 = blk * BM, valid = min(BM, npairs - p0);
+      const bool last = blk == nblk - 1;
+      pc.mark(BP_SYNC);
+      rnet::bar_sync(1, CONSUMERS);  // the previous block's column pass is done with slot 0
+      pc.mark(BP_A0);
+      ring_row_scales<BM, DROP>(rowscale, valid, p0, b, key, thr, inv_keep, tid);
+      ring_a0<H, BM>(slot(0), u, v, s, b, ni, nj, p0, valid, tid);
+      pc.mark(BP_SYNC);
+      rnet::bar_sync(1, CONSUMERS);
+      // recompute a_1 .. a_{L-2}; the last layer's epilogue forms dpre_{L-1}
+      for (int l = 1; l < L; ++l) {
+        float total[1][64];
+        init_bias(total[0], bs + (size_t)(l - 1) * H, l == inject ? qa + (size_t)b * H : nullptr, col0);
+        pc.mark(BP_RECOMPUTE);
+        chain_product<H, BM, 1>(total, slot(l - 1), row, ct, r, lead, pc, BP_FEED);
+        if (l < L - 1) {
+          store_fragment<BM>(slot(l), wrow, col0, total[0], [](float2, int, float x0, float x1) {
+            return make_float2(fmaxf(x0, 0.0f), fmaxf(x1, 0.0f));
+          });
+        } else {
+          const float sc0 = rowscale[wrow], sc1 = rowscale[wrow + 1];
+          store_fragment<BM>(slot(dtop), wrow, col0, total[0], [&](float2, int c, float x0, float x1) {
+            return make_float2(x0 > 0.0f ? gb[c] * sc0 : 0.0f, x1 > 0.0f ? gb[c] * sc1 : 0.0f);
+          });
+        }
+        pc.mark(BP_SYNC);
+        rnet::bar_sync(1, CONSUMERS);
+      }
+      // backprop: dpre_l in D, a_{l-1} in P
+      for (int l = L - 1; l >= 1; --l) {
+        const float* D = slot(l == L - 1 ? dtop : l);
+        float* P = slot(l - 1);
+        if (l == 1 && dtop == 0) {  // slot 0 held dpre_{L-1}, read for the last time at layer L-1: rebuild a_0
+          pc.mark(BP_A0);
+          ring_a0<H, BM>(slot(0), u, v, s, b, ni, nj, p0, valid, tid);
+          pc.mark(BP_SYNC);
+          rnet::bar_sync(1, CONSUMERS);
+        }
+        // the ring's memory is free: the producer waits on dw_done before the
+        // d product's stages, and every earlier stage has been read
+        for (int sl = 0; sl < H / 128; ++sl) {
+          pc.mark(BP_SYNC);
+          rnet::bar_sync(1, CONSUMERS);  // every product has read the ring's memory (and slice sl - 1's lo)
+          pc.mark(BP_DW);
+          stage_lo<BM>(reinterpret_cast<float*>(ring), D, sl);
+          rnet::fence_proxy_async();
+          pc.mark(BP_SYNC);
+          rnet::bar_sync(1, CONSUMERS);
+          pc.mark(BP_DW);
+          dw_wgmma<H, BM>(dwp + (size_t)(l - 1) * H * H, P, D, rnet::smem_u32(ring), sl, pol, pc);
+        }
+        pc.mark(BP_FLUSH);
+        for (int c = tid; c < H; c += CONSUMERS) {
+          const float sum = column_sum<BM>(D, c, nullptr);  // rows past `valid` are 0
+          dbp[(size_t)(l - 1) * H + c] += sum;
+          if (l == inject) {
+            const double q = sums[((size_t)b * 2 + 1) * H + c] += sum;
+            if (last) dqa[(size_t)b * H + c] = (float)q;
+          }
+        }
+        pc.mark(BP_SYNC);
+        rnet::bar_sync(1, CONSUMERS);  // dW_l has read a_{l-1}: dpre_{l-1} may replace it
+        if (tid == 0) rnet::mbar_arrive(dw_done);  // and the ring's memory: the d product's W may come
+        float total[1][64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) total[0][i] = 0.0f;
+        pc.mark(BP_D);
+        chain_product<H, BM, 1>(total, D, row, ct, r, lead, pc, BP_FEED);
+        store_fragment<BM>(P, wrow, col0, total[0], [](float2 a, int, float x0, float x1) {
+          return make_float2(a.x > 0.0f ? x0 : 0.0f, a.y > 0.0f ? x1 : 0.0f);
+        });
+        pc.mark(BP_SYNC);
+        rnet::bar_sync(1, CONSUMERS);
+      }
+      // dpre_0 (slot 0) into ds, du (over j) and dv (over i), one thread a column, row by row
+      pc.mark(BP_COLUMNS);
+      const float* d0 = slot(0);
+      for (int c = tid; c < H; c += CONSUMERS) {
+        float dsum = 0.0f, dui = 0.0f;
+        int i = p0 / nj, j = p0 - i * nj, i_cur = i;
+        for (int r0 = 0; r0 < valid; r0 += 4) {
+          const float4 x4 = *reinterpret_cast<const float4*>(d0 + toff(r0, c, BM));
+          const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (r0 + e >= valid) break;
+            if (i != i_cur) {
+              atomicAdd(du + ((size_t)b * ni + i_cur) * H + c, dui);
+              dui = 0.0f;
+              i_cur = i;
+            }
+            dui += xs[e];
+            dsum += xs[e];
+            atomicAdd(dv + ((size_t)b * nj + j) * H + c, xs[e]);
+            if (++j == nj) {
+              j = 0;
+              ++i;
+            }
+          }
+        }
+        atomicAdd(du + ((size_t)b * ni + i_cur) * H + c, dui);
+        const double sd = sums[(size_t)b * 2 * H + c] += dsum;
+        if (last) ds[(size_t)b * H + c] = (float)sd;
+      }
+    }
+  }
+  pc.mark(BP_A0);
+  if (tid == 0 && phases) pc.store(phases + (size_t)blockIdx.x * rnet::NPHASE);
+}
+
+// dws[l, m, n] = sum over CTAs c = 0 .. G-1 (in order) of the partial
+// element holding it (dw_wgmma's order): per layer, per 64 x 128 tile (mt,
+// nt), per register group q of 4, per thread t of the warpgroup, 4 floats;
+// register 4q + e of thread t holds row 64 mt + 16 (t / 32) + (t % 32) / 4 +
+// 8 (e / 2), column 128 nt + 8q + 2 (t % 4) + e % 2.
+__global__ void reduce_dw_ring(const float* __restrict__ part, float* __restrict__ out, int G, int H, long long n) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  float sum = 0.0f;
+  for (int c = 0; c < G; ++c) sum += part[(size_t)c * n + k];
+  const long long per = (long long)H * H;
+  const int l = (int)(k / per), kk = (int)(k % per);
+  const int tile = kk / 8192, w = kk % 8192, q = w / 512, t = (w / 4) % 128, e = w % 4;
+  const int row = 64 * (tile / (H / 128)) + 16 * (t / 32) + (t % 32) / 4 + 8 * (e / 2);
+  const int col = 128 * (tile % (H / 128)) + 8 * q + 2 * (t % 4) + e % 2;
+  out[l * per + (long long)row * H + col] = sum;
+}
+
+// ===========================================================================
 // Launchers
-// ---------------------------------------------------------------------------
+// ===========================================================================
 
 struct Args {
-  const float *u, *v, *s, *qa, *ws, *wt, *bs, *g;
+  const float *u, *v, *s, *qa, *ws, *wt, *chain, *dst, *bs, *g;
   float *partial, *du, *dv, *ds, *dqa, *dw_part;
   double *db_part, *sums;
-  int B, ni, nj, L, inject, bm;
+  int B, ni, nj, L, inject, bm, slots, stages;
+  bool ring;
   const int64_t* seed;
   uint32_t thr;
   float inv_keep;
+  long long* phases;
 };
+
+template <typename K>
+cudaError_t prepare(K kern, size_t smem) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 template <int H, bool DROP>
 cudaError_t launch_fwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
-  auto kern = pairwise_fwd_f32_kernel<H, DROP>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.bs, a.partial, a.B, a.ni, a.nj, a.L, a.inject,
-                                    a.bm, a.seed, a.thr, a.inv_keep);
+  if (!a.ring) {
+    auto kern = wide::pairwise_fwd_f32_kernel<H, DROP>;
+    cudaError_t err = prepare(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, wide::THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.bs, a.partial, a.B, a.ni, a.nj, a.L, a.inject,
+                                            a.bm, a.seed, a.thr, a.inv_keep);
+  } else if constexpr (H == RING_H) {
+    auto kern = pairwise_fwd_f32_ring<H, DROP>;
+    cudaError_t err = prepare(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, RING_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.chain, a.bs, a.partial, a.B, a.ni, a.nj, a.L,
+                                           a.inject, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
+  }
   return cudaGetLastError();
 }
 
 template <int H, bool DROP>
 cudaError_t launch_bwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
-  auto kern = pairwise_bwd_f32_kernel<H, DROP>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kern<<<grid, THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.wt, a.bs, a.g, a.du, a.dv, a.ds, a.dqa, a.dw_part,
-                                    a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.bm, a.seed, a.thr,
-                                    a.inv_keep);
+  if (!a.ring) {
+    auto kern = wide::pairwise_bwd_f32_kernel<H, DROP>;
+    cudaError_t err = prepare(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, wide::THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.wt, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
+                                            a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.bm,
+                                            a.seed, a.thr, a.inv_keep);
+  } else if constexpr (H == RING_H) {
+    auto kern = pairwise_bwd_f32_ring<H, DROP>;
+    cudaError_t err = prepare(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, RING_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.chain, a.dst, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
+                                           a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.slots,
+                                           a.stages, a.seed, a.thr, a.inv_keep, a.phases);
+  }
   return cudaGetLastError();
 }
 
@@ -570,88 +1255,100 @@ cudaError_t dispatch(const Args& a, int H, bool drop, int grid, size_t smem, cud
   }
 }
 
-// The plan checks both launchers share: H in {128, 256, 512} (H / 64
-// divides the 8 warps), bm in {16, 32, 64} with at most two 16 x 64 output
-// tiles a warp, and the plan's shared memory.
-bool plan_ok(int H, int L, int bm, int grid, long long smem, int slots) {
-  return (H == 128 || H == 256 || H == 512) && L >= 2 && (bm == 16 || bm == 32 || bm == 64) &&
-         bm * H <= 2 * WARPS * 16 * WN && grid >= 1 && smem == (long long)smem_bytes(bm, H, slots);
+// The plan checks both launchers share. The wide kernels: H in {128, 256,
+// 512}, bm in {16, 32, 64} with at most two 16 x 64 output tiles a warp,
+// `slots` tiles (2, or L in the backward) and two W chunks. The ring
+// kernels: H = 256, blocks of FWD_BM / BWD_BM rows, `slots` tiles (1 in the
+// forward, max(2, L-1) in the backward) and `stages` >= 2 ring stages.
+bool plan_ok(bool ring, bool bwd, int H, int L, int bm, int slots, int stages, int grid, long long smem) {
+  if (L < 2 || grid < 1) return false;
+  if (!ring)
+    return (H == 128 || H == 256 || H == 512) && (bm == 16 || bm == 32 || bm == 64) &&
+           bm * H <= 2 * wide::WARPS * 16 * wide::WN && stages == 2 &&
+           slots == (bwd ? L : 2) && smem == (long long)wide::smem_bytes(bm, H, slots);
+  return H == RING_H && bm == (bwd ? BWD_BM : FWD_BM) && stages >= 2 &&
+         slots == (bwd ? (L - 1 > 2 ? L - 1 : 2) : 1) && smem == (long long)ring_smem_bytes(bwd, bm, H, slots, stages);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the fp32 forward on `stream` for the plan (bm, grid, smem) of
-// kernels/pairwise.py::tile_plan("fwd", ..., esize=4), then the ordered
-// pool of the per-block partials; cudaErrorInvalidValue for a plan it
-// cannot take. Device pointers to contiguous fp32 tensors, u, v, s and ws
-// 16-byte aligned: u (B,ni,H), v (B,nj,H), s, qa (B,H), ws (L-1,H,H), bs
-// (L-1,H); partial (B, nblk, H) scratch; out (B,H). drop != 0 turns on the
-// pair mask of philox.cuh with the int64 seed at `seed` (device) and the
-// threshold thr, kept rows scaled by inv_keep. Returns cudaGetLastError().
+// Launches the fp32 forward on `stream` for the plan (ring, bm, slots,
+// stages, grid, smem) of kernels/pairwise.py::tile_plan("fwd", ...,
+// esize=4), then the ordered pool of the per-block partials;
+// cudaErrorInvalidValue for a plan it cannot take. Device pointers to
+// contiguous fp32 tensors, 16-byte aligned: u (B,ni,H), v (B,nj,H), s, qa
+// (B,H), ws (L-1,H,H) (read by the wide kernel), chain =
+// pack_f32_weights(W^T) (read by the ring kernel), bs (L-1,H); partial (B,
+// nblk, H) scratch; out (B,H). drop != 0 turns on the pair mask of
+// philox.cuh with the int64 seed at `seed` (device) and the threshold thr,
+// kept rows scaled by inv_keep. phases (grid, 8) int64 or null: the
+// phase-timing build of the ring kernel writes there. Returns
+// cudaGetLastError().
 int rnet_pairwise_fwd_f32(const void* u, const void* v, const void* s, const void* qa, const void* ws,
-                          const void* bs, void* partial, void* out, int B, int ni, int nj, int H, int L,
-                          int inject, int bm, int grid, long long smem, int drop, const void* seed,
-                          unsigned int thr, float inv_keep, void* stream) {
-  if (!plan_ok(H, L, bm, grid, smem, 2)) return (int)cudaErrorInvalidValue;
+                          const void* chain, const void* bs, void* partial, void* out, int B, int ni, int nj, int H,
+                          int L, int inject, int ring, int bm, int slots, int stages, int grid, long long smem,
+                          int drop, const void* seed, unsigned int thr, float inv_keep, void* phases, void* stream) {
+  if (!plan_ok(ring != 0, false, H, L, bm, slots, stages, grid, smem)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{};
-  a.u = static_cast<const float*>(u);
-  a.v = static_cast<const float*>(v);
-  a.s = static_cast<const float*>(s);
-  a.qa = static_cast<const float*>(qa);
-  a.ws = static_cast<const float*>(ws);
-  a.bs = static_cast<const float*>(bs);
+  a.u = static_cast<const float*>(u), a.v = static_cast<const float*>(v), a.s = static_cast<const float*>(s);
+  a.qa = static_cast<const float*>(qa), a.ws = static_cast<const float*>(ws);
+  a.chain = static_cast<const float*>(chain), a.bs = static_cast<const float*>(bs);
   a.partial = static_cast<float*>(partial);
-  a.B = B, a.ni = ni, a.nj = nj, a.L = L, a.inject = inject, a.bm = bm;
+  a.B = B, a.ni = ni, a.nj = nj, a.L = L, a.inject = inject, a.bm = bm, a.slots = slots, a.stages = stages;
+  a.ring = ring != 0;
   a.seed = static_cast<const int64_t*>(seed), a.thr = thr, a.inv_keep = inv_keep;
+  a.phases = static_cast<long long*>(phases);
   cudaError_t err = dispatch<false>(a, H, drop != 0, grid, (size_t)smem, st);
   if (err != cudaSuccess) return (int)err;
   const int nblk = (ni * nj + bm - 1) / bm, n = B * H;
-  pool_kernel<<<(n + 255) / 256, 256, 0, st>>>(a.partial, static_cast<float*>(out), nblk, H, n);
+  wide::pool_kernel<<<(n + 255) / 256, 256, 0, st>>>(a.partial, static_cast<float*>(out), nblk, H, n);
   return (int)cudaGetLastError();
 }
 
-// Launches the fp32 backward on `stream` for the plan (bm, grid, smem) of
-// tile_plan("bwd", ..., esize=4): the fused kernel, then the ordered sums of
-// the dW and db partials. Inputs as rnet_pairwise_fwd_f32's, plus wt (L-1,H,H)
-// = W_l^T of every layer (16-byte aligned) and g (B,H) the upstream
+// Launches the fp32 backward on `stream` for the plan of tile_plan("bwd",
+// ..., esize=4): the fused kernel, then the ordered sums of the dW and db
+// partials. Inputs as rnet_pairwise_fwd_f32's, plus, for the wide kernel, wt
+// (L-1,H,H) = W_l^T of every layer, for the ring kernel dstages =
+// pack_f32_weights(W) (the d products' B operand), and g (B,H) the upstream
 // gradient; outputs du (B,ni,H), dv (B,nj,H), ds, dqa (B,H), dws (L-1,H,H),
 // dbs (L-1,H) fp32, of which du, dv and dqa must be zero; scratch, zero:
 // dw_part (grid,L-1,H,H) fp32, and in fp64 (the sums over a sample's or a
 // CTA's blocks: thousands of addends of one sign at n = 1024) db_part
-// (grid,L-1,H) and sums (B,2,H), ds and dqa of each sample. Returns
-// cudaGetLastError().
+// (grid,L-1,H) and sums (B,2,H), ds and dqa of each sample. phases as the
+// forward's. Returns cudaGetLastError().
 int rnet_pairwise_bwd_f32(const void* u, const void* v, const void* s, const void* qa, const void* ws,
-                          const void* wt, const void* bs, const void* g, void* du, void* dv, void* ds, void* dqa,
-                          void* dws, void* dbs, void* dw_part, void* db_part, void* sums, int B, int ni, int nj,
-                          int H, int L,
-                          int inject, int bm, int grid, long long smem, int drop, const void* seed,
-                          unsigned int thr, float inv_keep, void* stream) {
-  if (!plan_ok(H, L, bm, grid, smem, L)) return (int)cudaErrorInvalidValue;
+                          const void* wt, const void* chain, const void* dstages, const void* bs, const void* g,
+                          void* du, void* dv, void* ds, void* dqa, void* dws, void* dbs, void* dw_part,
+                          void* db_part, void* sums, int B, int ni, int nj, int H, int L, int inject, int ring,
+                          int bm, int slots, int stages, int grid, long long smem, int drop, const void* seed,
+                          unsigned int thr, float inv_keep, void* phases, void* stream) {
+  if (!plan_ok(ring != 0, true, H, L, bm, slots, stages, grid, smem)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{};
-  a.u = static_cast<const float*>(u);
-  a.v = static_cast<const float*>(v);
-  a.s = static_cast<const float*>(s);
-  a.qa = static_cast<const float*>(qa);
-  a.ws = static_cast<const float*>(ws);
-  a.wt = static_cast<const float*>(wt);
-  a.bs = static_cast<const float*>(bs);
-  a.g = static_cast<const float*>(g);
+  a.u = static_cast<const float*>(u), a.v = static_cast<const float*>(v), a.s = static_cast<const float*>(s);
+  a.qa = static_cast<const float*>(qa), a.ws = static_cast<const float*>(ws), a.wt = static_cast<const float*>(wt);
+  a.chain = static_cast<const float*>(chain), a.dst = static_cast<const float*>(dstages);
+  a.bs = static_cast<const float*>(bs), a.g = static_cast<const float*>(g);
   a.du = static_cast<float*>(du), a.dv = static_cast<float*>(dv), a.ds = static_cast<float*>(ds);
   a.dqa = static_cast<float*>(dqa), a.dw_part = static_cast<float*>(dw_part);
   a.db_part = static_cast<double*>(db_part), a.sums = static_cast<double*>(sums);
-  a.B = B, a.ni = ni, a.nj = nj, a.L = L, a.inject = inject, a.bm = bm;
+  a.B = B, a.ni = ni, a.nj = nj, a.L = L, a.inject = inject, a.bm = bm, a.slots = slots, a.stages = stages;
+  a.ring = ring != 0;
   a.seed = static_cast<const int64_t*>(seed), a.thr = thr, a.inv_keep = inv_keep;
+  a.phases = static_cast<long long*>(phases);
   cudaError_t err = dispatch<true>(a, H, drop != 0, grid, (size_t)smem, st);
   if (err != cudaSuccess) return (int)err;
   const long long nw = (long long)(L - 1) * H * H, nb = (long long)(L - 1) * H;
-  sum_partials_kernel<float><<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid,
-                                                                           nw);
-  sum_partials_kernel<double><<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(a.db_part, static_cast<float*>(dbs),
-                                                                            grid, nb);
+  if (!ring)
+    wide::sum_partials_kernel<float><<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws),
+                                                                                  grid, nw);
+  else
+    reduce_dw_ring<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid, H, nw);
+  wide::sum_partials_kernel<double><<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(a.db_part, static_cast<float*>(dbs),
+                                                                                 grid, nb);
   return (int)cudaGetLastError();
 }
 

@@ -22,10 +22,12 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   inputs) and of ``csrc/pairwise_f32.cu`` (fp32 inputs: the same function
   in fp32, 3xTF32 products), each with its launch count in ``launches``.
   ``tile_plan`` decides how a kernel covers a shape (rows per block, W ring
-  stages, shared memory, grid; ``esize=4`` for the fp32 kernels) and
-  ``pack_weight_chunks`` lays W out as the bf16 kernels stream it; both are
-  pure and tested on the CPU. A ``phases`` buffer selects the phase-timing
-  build of the bf16 kernels (``PHASE_DEFINES``).
+  stages, shared memory, grid; ``esize=4`` for the fp32 kernels),
+  ``pack_weight_chunks`` lays W out as the bf16 and int8 kernels stream it
+  and ``pack_f32_weights`` splits W into tf32 hi / lo stages for the fp32
+  ring kernels; all are pure and tested on the CPU. A ``phases`` buffer
+  selects the phase-timing build (``PHASE_DEFINES``) of the bf16, int8 and
+  fp32 ring kernels.
 * ``pairwise_core`` — a ``torch.autograd.Function`` (as ``_make_core``'s
   custom VJP): CPU tensors take the plain versions, CUDA tensors the kernels
   or an exception. It saves only its inputs and the seed; the backward
@@ -96,9 +98,9 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 9 + [i64, i32, vp, vp]
         lib.rnet_pairwise_fwd_int8.restype = i32
     elif name == F32_LIB:
-        lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 8 + [i32] * 8 + [i64, i32, vp, u32, f32, vp]
+        lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 9 + [i32] * 11 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_fwd_f32.restype = i32
-        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 17 + [i32] * 8 + [i64, i32, vp, u32, f32, vp]
+        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 19 + [i32] * 11 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd_f32.restype = i32
     else:
         lib.rnet_pairwise_bwd.argtypes = [vp] * 16 + [i32] * 10 + [i64, i32, vp, u32, f32, vp, vp]
@@ -256,12 +258,23 @@ WG_ROWS = 64  # pair rows of one consumer warpgroup (wgmma's M)
 TILE_N = 128  # output columns of one wgmma tile, the rows of a W chunk
 MIN_STAGES, MAX_STAGES = 3, 8  # depth of the W chunk ring
 INT8_MAX_WGS = 3  # consumer warpgroups of an int8 CTA, each on its own tile
-# The fp32 kernels (csrc/pairwise_f32.cu): 8 warps, each with at most two
-# 16 x 64 output tiles of a layer, the same 64 columns (so H / 64 divides 8);
-# W streams through two chunks of F32_CHUNK_FLOATS / H rows of H + 8 floats;
-# activation tiles are rows of H + 4 floats.
+# The fp32 kernels (csrc/pairwise_f32.cu). At H = F32_RING_WIDTH the ring
+# kernels: blocks of F32_RING_ROWS[kind] pair rows, two consumer warpgroups
+# on tf32 wgmma, W split into tf32 hi / lo once per call (pack_f32_weights)
+# and streamed in F32_STAGE_BYTES stages through a ring of >= 2 stages. At H
+# = 128, 512, or where the ring kernels' tiles do not fit, the wide kernels: 8
+# warps, each with at most two 16 x 64 output tiles of a layer (H / 64
+# divides 8), W streamed as fp32 through two chunks of F32_CHUNK_FLOATS / H
+# rows of H + 8 floats, activation tiles of rows of H + 4 floats.
 F32_WIDTHS = (128, 256, 512)
-F32_ROWS = (64, 32, 16)  # the block rows a plan may take, the largest that fits first
+# The ring kernels' blocks: the forward keeps one tile of 64 rows per
+# warpgroup over all H columns, the backward max(2, L-1) tiles of 64 rows
+# (each warpgroup on 128 of the columns).
+F32_RING_WIDTH = 256
+F32_RING_ROWS = {"fwd": 128, "bwd": 64}
+F32_STAGE_BYTES = 16384  # one ring stage: KD = F32_STAGE_BYTES / 8 / H rows of depth, hi and lo
+F32_MAX_STAGES = 8
+F32_ROWS = (64, 32, 16)  # the wide kernels' block rows, the largest that fits first
 F32_MAX_TILE = 2 * 8 * 16 * 64  # bm * H: two 16 x 64 tiles for each of the 8 warps
 F32_CHUNK_FLOATS = 8192
 H100_SMS = 132
@@ -283,10 +296,12 @@ class TilePlan:
     ``smem`` bytes of shared memory each. The bf16 kernels' warpgroups share
     a block of ``bm`` = 64 * wgs rows; the int8 kernel's each take their own
     64-row block (``bm`` = 64), wgs consecutive blocks a round of the CTA's
-    contiguous range. The fp32 kernels (``esize`` = 4) run two warpgroups'
-    worth of warps (``wgs`` = 2) on blocks of ``bm`` = 64, 32 or 16 rows,
-    with W streamed through ``stages`` = 2 chunks. The C launchers check the
-    plan and refuse what they cannot take."""
+    contiguous range. The fp32 kernels (``esize`` = 4) run two warpgroups
+    (``wgs`` = 2): the ring kernels (``ring``) on blocks of ``bm`` =
+    F32_RING_ROWS[kind] rows with ``stages`` ring stages of F32_STAGE_BYTES,
+    the wide kernels on blocks of ``bm`` = 64, 32 or 16 rows with W streamed
+    through ``stages`` = 2 chunks. The C launchers check the plan and refuse
+    what they cannot take."""
 
     kind: str  # one of KINDS
     B: int
@@ -301,6 +316,7 @@ class TilePlan:
     smem: int
     bm: int  # pair rows of one block
     esize: int = 2  # bytes of an input element: 4 for the fp32 kernels
+    ring: bool = False  # the fp32 ring kernels (H = F32_RING_WIDTH); else the wide ones
 
     @property
     def nblk(self) -> int:
@@ -326,7 +342,8 @@ class TilePlan:
                 for t in tiles]
 
 
-def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esize: int = 2, bm: int = 0) -> int:
+def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esize: int = 2, bm: int = 0,
+               ring: bool = False) -> int:
     """Shared memory of a CTA with `wgs` consumer warpgroups: the activation
     slots, the W ring and its full and empty mbarriers (8 B each). The bf16
     kernels' slots are (64 * wgs) x H bf16 and they keep a per-row fp32
@@ -334,8 +351,12 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esi
     per warp, the backward a core matrix of ones. The int8 kernel keeps
     `slots` tiles of 64 x H int8 per warpgroup, the biases in fp32 and one
     row of H column sums per warp. The fp32 kernels (``esize`` = 4) keep
-    `slots` tiles of `bm` rows of H + 4 floats, `stages` W chunks of
-    F32_CHUNK_FLOATS / H rows of H + 8 floats and a per-row scale."""
+    `slots` tiles of `bm` x H floats (the ring kernels, ``ring``; H + 4
+    floats a row in the wide ones), `stages` ring stages of F32_STAGE_BYTES
+    with their mbarriers and, in the backward, one more (wide: W chunks of
+    F32_CHUNK_FLOATS / H rows of H + 8 floats) and a per-row scale."""
+    if esize == 4 and ring:  # the backward adds the mbarrier of its dW products
+        return slots * bm * H * 4 + stages * (F32_STAGE_BYTES + 16) + (8 if kind == "bwd" else 0) + bm * 4
     if esize == 4:
         return 4 * (slots * bm * (H + 4) + stages * (F32_CHUNK_FLOATS // H) * (H + 8) + bm)
     ring = stages * (CHUNK_BYTES + 16)
@@ -400,29 +421,66 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
 
 
 def _tile_plan_f32(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int) -> TilePlan:
-    """The fp32 kernels' plan: the forward keeps two activation tiles
-    (ping-pong), the backward L (a_0 .. a_{L-2} and dpre_{L-1}); the block
-    takes the most rows of F32_ROWS that leave at most two 16 x 64 output
-    tiles a warp and fit shared memory beside the two W chunks. The forward
-    walks (sample, block) tiles over min(tiles, SMs) CTAs, the backward
-    gives each sample one owner CTA of min(B, SMs). ValueError if no plan
-    fits."""
+    """The fp32 kernels' plan. At H = F32_RING_WIDTH the ring kernels, where
+    they fit: blocks of F32_RING_ROWS[kind] rows, one activation tile in the
+    forward (each layer in place) and max(2, L-1) in the backward (a_0 ..
+    a_{L-2}, dpre_{L-1} in a_0's tile, a_0 rebuilt), and as many ring
+    stages (at least 2, at most F32_MAX_STAGES) as shared memory leaves.
+    Else the wide kernels: two tiles in the forward, L in the backward, and
+    the most rows of F32_ROWS that leave at most two 16 x 64 output tiles a
+    warp and fit beside the two W chunks. The forward walks (sample, block)
+    tiles over min(tiles, SMs) CTAs, the backward gives each sample one
+    owner CTA of min(B, SMs). ValueError if no plan fits."""
     if kind == "int8":
         raise ValueError("the int8 kernel has no fp32 plan (esize=4)")
     if H not in F32_WIDTHS:
         raise ValueError(f"the fp32 pairwise kernels take H in {F32_WIDTHS}, got H={H}")
-    slots = 2 if kind == "fwd" else L
-    fits = [bm for bm in F32_ROWS
-            if bm * H <= F32_MAX_TILE and smem_bytes(kind, 2, H, L, slots, 2, 4, bm) <= SMEM_LIMIT]
-    if not fits:
-        raise ValueError(
-            f"pairwise_{kind} fp32 kernel at H={H}, L={L} does not fit {SMEM_LIMIT} B of shared memory "
-            f"({slots} activation tiles of {F32_ROWS[-1]} x {H} fp32 and two W chunks)"
-        )
-    bm = fits[0]
+    stages, ring = 0, H == F32_RING_WIDTH
+    if ring:
+        bm = F32_RING_ROWS[kind]
+        slots = 1 if kind == "fwd" else max(2, L - 1)
+        free = SMEM_LIMIT - smem_bytes(kind, 2, H, L, slots, 0, 4, bm, ring=True)
+        stages = min(F32_MAX_STAGES, free // (F32_STAGE_BYTES + 16))
+        ring = stages >= 2
+    if not ring:
+        slots, stages = (2 if kind == "fwd" else L), 2
+        fits = [bm for bm in F32_ROWS
+                if bm * H <= F32_MAX_TILE and smem_bytes(kind, 2, H, L, slots, 2, 4, bm) <= SMEM_LIMIT]
+        if not fits:
+            raise ValueError(
+                f"pairwise_{kind} fp32 kernel at H={H}, L={L} does not fit {SMEM_LIMIT} B of shared memory "
+                f"({slots} activation tiles of {F32_ROWS[-1]} x {H} fp32 and two W chunks)"
+            )
+        bm = fits[0]
     nblk = -(-ni * nj // bm)
     grid = min(B, sms) if kind == "bwd" else min(B * nblk, sms)
-    return TilePlan(kind, B, ni, nj, H, L, 2, 2, slots, grid, smem_bytes(kind, 2, H, L, slots, 2, 4, bm), bm, 4)
+    return TilePlan(kind, B, ni, nj, H, L, 2, stages, slots, grid,
+                    smem_bytes(kind, 2, H, L, slots, stages, 4, bm, ring=ring), bm, 4, ring)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: the kept bits of the fp32 pattern, the
+    13 low bits zero (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_f32_weights(x: torch.Tensor) -> torch.Tensor:
+    """x (L-1, N, K) fp32 with N = K = H a multiple of 128, row n holding B^T's
+    row (the K-major B operand of ``a . B``), split into tf32 hi =
+    tf32_round(x) and lo = tf32_round(x - hi) and packed as the fp32 ring
+    kernels stream it: per layer, per depth slice of KD = F32_STAGE_BYTES /
+    8 / N columns, one F32_STAGE_BYTES stage holding hi, then lo, each as
+    N / 128 column tiles of 128 rows, each of core matrices (8 rows of 4
+    contiguous fp32 of depth), the depth's core matrices innermost. Returns
+    a contiguous (L-1, K/KD, 2, N/128, 16, KD/4, 8, 4)."""
+    n_l, N, K = x.shape
+    kd = F32_STAGE_BYTES // 8 // N
+    hi = tf32_round(x)
+    lo = tf32_round(x.float() - hi)
+    y = torch.stack([hi, lo], dim=1).reshape(n_l, 2, N // 128, 16, 8, K // kd, kd // 4, 4)
+    return y.permute(0, 5, 1, 2, 3, 6, 4, 7).contiguous()
 
 
 def pack_weight_chunks(x: torch.Tensor) -> torch.Tensor:
@@ -527,25 +585,21 @@ def _sms(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _no_f32_phases(phases) -> None:
-    if phases is not None:
-        raise ValueError("the fp32 kernels have no phase-timing build: phases must be None")
-
-
 def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.0, seed=None,
                       phases=None) -> torch.Tensor:
     """Launch the forward kernel for the inputs' dtype (bf16: pairwise_fwd.cu,
     fp32: pairwise_f32.cu) on the current stream; (B, H) fp32. Raises on
     anything the kernel does not take, on CPU tensors, and on a failed build
     or launch. ``phases``, an int64 (grid, PHASE_SLOTS) tensor for the grid of
-    ``tile_plan("fwd", ...)``, selects the bf16 build with -DRNET_PHASE_TIMES,
-    which sums clock64() cycles per FWD_PHASES entry and CTA into it."""
+    ``tile_plan("fwd", ...)`` (``esize=4`` for fp32), selects the build with
+    -DRNET_PHASE_TIMES, which sums clock64() cycles per FWD_PHASES entry and
+    CTA into it (bf16, and the fp32 ring kernels)."""
     B, ni, nj, H, L = check_kernel_inputs(u, v, s, qa, ws, bs)
     dev = _check_device(KERNEL, (u, v, s, qa, ws, bs))
     drop, seed_ptr, thr, inv_keep = _drop_args(pair_keep, seed, dev)
     if u.dtype == torch.float32:
-        _no_f32_phases(phases)
-        return _fwd_f32(u, v, s, qa, ws, bs, int(inject), B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep)
+        return _fwd_f32(u, v, s, qa, ws, bs, int(inject), B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep,
+                        phases)
     plan = tile_plan("fwd", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(KERNEL, defines)
@@ -577,8 +631,8 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
     dev = _check_device(BWD_KERNEL, (u, v, s, qa, ws, bs, g))
     drop, seed_ptr, thr, inv_keep = _drop_args(pair_keep, seed, dev)
     if u.dtype == torch.float32:
-        _no_f32_phases(phases)
-        return _bwd_f32(u, v, s, qa, ws, bs, g, int(inject), B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep)
+        return _bwd_f32(u, v, s, qa, ws, bs, g, int(inject), B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep,
+                        phases)
     plan = tile_plan("bwd", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(BWD_KERNEL, defines)
@@ -605,18 +659,35 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
     return du, dv, ds, dqa, dws, dbs
 
 
-def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep):
-    """The fp32 forward's launch (``pairwise_fwd_cuda`` for fp32 inputs)."""
-    plan = tile_plan("fwd", B, ni, nj, H, L, _sms(dev), esize=4)
-    lib = _kernel_lib(F32_LIB)
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _f32_plan(kind, B, ni, nj, H, L, dev, phases):
+    """The fp32 plan, the phase buffer's pointer and the library (the
+    phase-timing build when ``phases`` is given; the ring kernels only)."""
+    plan = tile_plan(kind, B, ni, nj, H, L, _sms(dev), esize=4)
+    phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
+    if phases is not None and not plan.ring:
+        raise ValueError(f"the wide fp32 kernels (H={H}, L={L}) have no phase-timing build: phases must be None")
+    return plan, phase_ptr, _kernel_lib(F32_LIB, defines)
+
+
+def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep, phases):
+    """The fp32 forward's launch (``pairwise_fwd_cuda`` for fp32 inputs): the
+    ring kernel reads W^T split and packed by pack_f32_weights, the wide one
+    W itself."""
+    plan, phase_ptr, lib = _f32_plan("fwd", B, ni, nj, H, L, dev, phases)
+    chain = pack_f32_weights(ws.transpose(1, 2)) if plan.ring else None
     partial = torch.empty((B, plan.nblk, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_fwd_f32(
-            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, inject, plan.bm, plan.grid, plan.smem,
-            drop, seed_ptr, thr, inv_keep, stream,
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), _ptr(chain),
+            bs.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            B, ni, nj, H, L, inject, int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.smem,
+            drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, F32_KERNEL)
     launches[F32_KERNEL] += 1
@@ -624,11 +695,15 @@ def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, 
     return out
 
 
-def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep):
-    """The fp32 backward's launch (``pairwise_bwd_cuda`` for fp32 inputs)."""
-    plan = tile_plan("bwd", B, ni, nj, H, L, _sms(dev), esize=4)
-    lib = _kernel_lib(F32_LIB)
-    wt = ws.transpose(1, 2).contiguous()
+def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep, phases):
+    """The fp32 backward's launch (``pairwise_bwd_cuda`` for fp32 inputs):
+    the ring kernel reads W^T (the chain) and W (the d products) split and
+    packed by pack_f32_weights, the wide one W and W^T."""
+    plan, phase_ptr, lib = _f32_plan("bwd", B, ni, nj, H, L, dev, phases)
+    if plan.ring:
+        wt, chain, dstages = None, pack_f32_weights(ws.transpose(1, 2)), pack_f32_weights(ws)
+    else:
+        wt, chain, dstages = ws.transpose(1, 2).contiguous(), None, None
     f32 = dict(dtype=torch.float32, device=dev)
     du, dv = torch.zeros((B, ni, H), **f32), torch.zeros((B, nj, H), **f32)
     ds, dqa = torch.empty((B, H), **f32), torch.zeros((B, H), **f32)
@@ -640,10 +715,11 @@ def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_pt
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_bwd_f32(
-            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), wt.data_ptr(), bs.data_ptr(),
-            g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(), dws.data_ptr(),
-            dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), sums.data_ptr(), B, ni, nj, H, L, inject,
-            plan.bm, plan.grid, plan.smem, drop, seed_ptr, thr, inv_keep, stream,
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), _ptr(wt), _ptr(chain),
+            _ptr(dstages), bs.data_ptr(), g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(),
+            dws.data_ptr(), dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), sums.data_ptr(), B, ni, nj, H,
+            L, inject, int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.smem, drop, seed_ptr,
+            thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, F32_BWD_KERNEL)
     launches[F32_BWD_KERNEL] += 1

@@ -130,18 +130,32 @@ def _assert_one_owner_cta_per_sample(plan):
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
 @pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_f32_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
-    """The fp32 kernels: 8 warps with at most two 16 x 64 output tiles each,
-    on the same 64 columns (H / 64 divides 8), two W chunks, two activation
-    tiles in the forward and L in the backward, within shared memory."""
+    """The fp32 kernels. At H = 256 the ring kernels: blocks of
+    F32_RING_ROWS[kind] rows (64 per consumer warpgroup), one activation
+    tile in the forward and max(2, L-1) in the backward, and as many 16 KB ring
+    stages (2 .. F32_MAX_STAGES) as shared memory leaves. At H = 128, 512 the
+    wide kernels: 8 warps with at most two 16 x 64 output tiles each, on the same
+    64 columns (H / 64 divides 8), two W chunks, two tiles in the forward and
+    L in the backward. Within shared memory either way."""
     B, ni, nj, H, L = shape
     plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS, esize=4)
-    assert plan.esize == 4 and plan.smem <= tpw.SMEM_LIMIT
-    assert plan.smem == tpw.smem_bytes(kind, plan.wgs, H, L, plan.slots, plan.stages, esize=4, bm=plan.bm)
-    assert plan.bm in tpw.F32_ROWS and plan.bm * H <= tpw.F32_MAX_TILE and 8 % (H // 64) == 0
-    assert (plan.wgs, plan.stages, plan.slots) == (2, 2, L if kind == "bwd" else 2)
+    assert plan.esize == 4 and plan.smem <= tpw.SMEM_LIMIT and plan.wgs == 2
+    assert plan.smem == tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages, esize=4, bm=plan.bm, ring=plan.ring)
     assert 1 <= plan.grid <= SMS
-    bigger = [bm for bm in tpw.F32_ROWS if bm > plan.bm and bm * H <= tpw.F32_MAX_TILE]
-    assert all(tpw.smem_bytes(kind, 2, H, L, plan.slots, 2, esize=4, bm=bm) > tpw.SMEM_LIMIT for bm in bigger)
+    assert plan.ring == (H == tpw.F32_RING_WIDTH)  # every config's L = 4 fits the ring at H = 256
+    if plan.ring:
+        # two warpgroups: on their own 64 rows each (all H columns), or on 128 columns each of 64 rows
+        assert plan.bm == tpw.F32_RING_ROWS[kind] == (128 if kind == "fwd" else 64)
+        assert plan.slots == (max(2, L - 1) if kind == "bwd" else 1)
+        assert 2 <= plan.stages <= tpw.F32_MAX_STAGES
+        more = tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages + 1, esize=4, bm=plan.bm, ring=True)
+        assert plan.stages == tpw.F32_MAX_STAGES or more > tpw.SMEM_LIMIT
+        assert H % (tpw.F32_STAGE_BYTES // 8 // H) == 0  # whole stages a layer
+    else:
+        assert plan.bm in tpw.F32_ROWS and plan.bm * H <= tpw.F32_MAX_TILE and 8 % (H // 64) == 0
+        assert (plan.stages, plan.slots) == (2, L if kind == "bwd" else 2)
+        bigger = [bm for bm in tpw.F32_ROWS if bm > plan.bm and bm * H <= tpw.F32_MAX_TILE]
+        assert all(tpw.smem_bytes(kind, 2, H, L, plan.slots, 2, esize=4, bm=bm) > tpw.SMEM_LIMIT for bm in bigger)
 
 
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
@@ -156,13 +170,31 @@ def test_f32_plan_tiles_every_row_exactly_once(kind, shape):
 
 
 def test_f32_plan_takes_the_most_rows_that_fit():
-    """original-fp: 64-row forward blocks, 32-row backward blocks (four 64-row
-    fp32 tiles of H=256 would not fit); H=512: 32 and 16 rows."""
-    rows = {(kind, H): tpw.tile_plan(kind, 512, 64, 64, H, 4, SMS, esize=4).bm
-            for kind in ("fwd", "bwd") for H in (128, 256, 512)}
-    assert rows == {("fwd", 128): 64, ("fwd", 256): 64, ("fwd", 512): 32,
-                    ("bwd", 128): 64, ("bwd", 256): 32, ("bwd", 512): 16}
+    """original-fp: the ring forward's 128-row blocks (a warpgroup on 64 rows
+    of all 256 columns, one 128 KB tile, 6 stages), the ring backward's
+    64-row blocks (two warpgroups on 128 columns each, 2 stages beside three
+    64 KB tiles); H=128 and 512: the wide kernels' 64 and 64, 32 and 16
+    rows."""
+    plans = {(kind, H): tpw.tile_plan(kind, 512, 64, 64, H, 4, SMS, esize=4)
+             for kind in ("fwd", "bwd") for H in (128, 256, 512)}
+    assert {k: (p.bm, p.ring) for k, p in plans.items()} == {
+        ("fwd", 128): (64, False), ("fwd", 256): (128, True), ("fwd", 512): (32, False),
+        ("bwd", 128): (64, False), ("bwd", 256): (64, True), ("bwd", 512): (16, False)}
+    assert (plans[("fwd", 256)].stages, plans[("bwd", 256)].stages, plans[("bwd", 256)].slots) == (6, 2, 3)
     assert tpw.tile_plan("fwd", 1, 12, 12, 512, 4, SMS, esize=4).nblk == 5  # 144 rows: a ragged fifth block
+    assert tpw.tile_plan("bwd", 1, 12, 12, 256, 4, SMS, esize=4).nblk == 3  # 144 rows in blocks of 64
+
+
+@pytest.mark.parametrize("H, L, ring", [(256, 4, True), (256, 5, False), (128, 4, False), (512, 4, False),
+                                        (256, 2, True), (256, 3, True)])
+def test_f32_backward_takes_the_wide_kernel_where_the_ring_does_not_fit(H, L, ring):
+    """The ring backward (H = 256) keeps max(2, L-1) tiles of 64 x 256 fp32
+    (64 KB): up to L = 4 beside two stages; deeper chains and the other
+    widths take the wide kernel, so every shape the wrappers took still
+    runs."""
+    plan = tpw.tile_plan("bwd", 140, 64, 64, H, L, SMS, esize=4)
+    assert plan.ring == ring and plan.smem <= tpw.SMEM_LIMIT
+    assert plan.slots == (max(2, L - 1) if ring else L)
 
 
 @pytest.mark.parametrize("kind, H, L, match", [("fwd", 384, 4, "take H in"), ("bwd", 1024, 4, "take H in"),
@@ -171,6 +203,57 @@ def test_f32_plan_takes_the_most_rows_that_fit():
 def test_f32_plan_refuses_what_the_kernels_cannot_take(kind, H, L, match):
     with pytest.raises(ValueError, match=match):
         tpw.tile_plan(kind, 4, 8, 8, H, L, SMS, esize=4)
+
+
+def _tf32_reference(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 computed from the value (not its bits): the
+    significand rounded to 11 bits, half away from zero, in float64."""
+    m, e = np.frexp(x.astype(np.float64))
+    r = np.sign(m) * np.floor(np.abs(m) * 2.0**11 + 0.5)
+    return np.ldexp(r, e - 11).astype(np.float32)
+
+
+def test_tf32_round_is_cvt_rna():
+    """tf32_round keeps 10 mantissa bits, to nearest with ties away from
+    zero, as cvt.rna.tf32.f32: against the rounding of the value, on random
+    values, exact ties of both signs, and values that carry into the
+    exponent."""
+    rs = np.random.RandomState(0)
+    x = (rs.randn(4096) * np.exp(rs.uniform(-20, 20, 4096))).astype(np.float32)
+    ties = np.array([1 + 2.0**-11, -(1 + 2.0**-11), 1 + 3 * 2.0**-11, 2 - 2.0**-12, -(2 - 2.0**-12), 0.0],
+                    dtype=np.float32)
+    for arr in (x, ties):
+        got = tpw.tf32_round(torch.from_numpy(arr)).numpy()
+        assert np.array_equal(got, _tf32_reference(arr))
+        assert not (got.view(np.int32) & 0x1FFF).any()
+    assert tpw.tf32_round(torch.tensor([1 + 2.0**-11])).item() == 1 + 2.0**-10  # the tie goes away from zero
+
+
+@pytest.mark.parametrize("H", [128, 256])  # the ring kernels read H = 256; the packing is defined for any H % 128 == 0
+def test_f32_weights_split_into_hi_lo_in_stream_order(H):
+    """pack_f32_weights: hi = tf32(x) and lo = tf32(x - hi), so hi + lo is x
+    within 2^-21 |x|; stage q = l * (H / KD) + k // KD of the stream holds
+    hi, then lo, of depth rows k0 .. k0 + KD - 1, each as column tiles of 128
+    rows of 8 x 4 core matrices, the depth's innermost: entry (n, k) at
+    (n // 128) * 128 KD + (n % 128) // 8 * 8 KD + (k % KD) // 4 * 32 + (n % 8)
+    * 4 + k % 4 of its half."""
+    kd = tpw.F32_STAGE_BYTES // 8 // H
+    rs = np.random.RandomState(H)
+    x = (rs.randn(3, H, H) / np.sqrt(H)).astype(np.float32)
+    packed = tpw.pack_f32_weights(torch.from_numpy(x))
+    assert packed.dtype == torch.float32 and packed.is_contiguous() and packed.numel() == 2 * x.size
+    flat = packed.reshape(-1).numpy()
+    stage = tpw.F32_STAGE_BYTES // 4
+    hi_ref = _tf32_reference(x)
+    lo_ref = _tf32_reference((x.astype(np.float64) - hi_ref).astype(np.float32))
+    assert np.all(np.abs(x.astype(np.float64) - hi_ref - lo_ref) <= 2.0**-21 * np.abs(x))
+    for l, n, k in zip(rs.randint(0, 3, 400), rs.randint(0, H, 400), rs.randint(0, H, 400)):
+        q = l * (H // kd) + k // kd
+        off = (n // 128) * 128 * kd + (n % 128) // 8 * 8 * kd + (k % kd) // 4 * 32 + (n % 8) * 4 + k % 4
+        assert flat[q * stage + off] == hi_ref[l, n, k]
+        assert flat[q * stage + stage // 2 + off] == lo_ref[l, n, k]
+    w = torch.from_numpy(x)  # the wrappers pack W^T as a view
+    assert torch.equal(tpw.pack_f32_weights(w.transpose(1, 2)), tpw.pack_f32_weights(w.transpose(1, 2).contiguous()))
 
 
 def test_forward_fills_the_card_at_small_batches():

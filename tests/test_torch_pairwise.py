@@ -194,6 +194,56 @@ def _upstream(B, H, seed):
     return (np.random.RandomState(seed).randn(B, H)).astype(np.float32)
 
 
+def _ring_forward_emulation(args, inject):
+    """The fp32 ring forward of csrc/pairwise_f32.cu, emulated in torch on
+    the CPU through the data it reads: W^T split and packed by
+    ``pack_f32_weights`` and read back by the wgmma descriptor arithmetic
+    (K-major core matrices of 8 rows x 16 bytes, LBO 128 B, SBO KD / 4 x 128
+    B, column tile ct at 128 KD floats, lo half a stage on), A split into
+    tf32 hi / lo, each stage's a_lo.b_hi + a_hi.b_lo + a_hi.b_hi summed from
+    zero (in float64, then one fp32 rounding) and added onto the fp32
+    running sum, blocks of F32_RING_ROWS["fwd"] rows pooled in fp32 and the
+    block partials added in fp64."""
+    u, v, s, qa, ws, bs = (torch.from_numpy(a) for a in args)
+    B, n, H = u.shape
+    L = ws.shape[0] + 1
+    kd = tpw.F32_STAGE_BYTES // 8 // H
+    stage = tpw.F32_STAGE_BYTES // 4
+    chain = tpw.pack_f32_weights(ws.transpose(1, 2)).reshape(-1)
+    nn = torch.arange(H)[None, :]
+    kk = torch.arange(kd)[:, None]
+    idx = (nn // 128) * 128 * kd + (nn % 128) // 8 * (kd // 4 * 32) + (kk // 4) * 32 + (nn % 8) * 4 + kk % 4
+    bm = tpw.F32_RING_ROWS["fwd"]
+    a = torch.relu(u[:, :, None, :] + v[:, None, :, :] + s[:, None, None, :]).reshape(B, n * n, H)
+    for l in range(1, L):
+        total = (bs[l - 1] + (qa if l == inject else torch.zeros_like(qa))[:, None, :]).expand(B, n * n, H).clone()
+        for q in range(H // kd):
+            st = chain[((l - 1) * (H // kd) + q) * stage:][:stage]
+            bh, bl = st[idx].double(), st[stage // 2 + idx].double()
+            x = a[..., q * kd:(q + 1) * kd]
+            ah = tpw.tf32_round(x)
+            al = ((x - ah).view(torch.int32) & -0x2000).view(torch.float32)  # the tf32 bits the tensor cores read
+            part = al.double() @ bh + ah.double() @ bl + ah.double() @ bh
+            total = total + part.float()
+        a = torch.relu(total)
+    blocks = a.reshape(B, -1, bm, H) if (n * n) % bm == 0 else None
+    assert blocks is not None
+    return blocks.sum(dim=2).double().sum(dim=1).float().numpy()
+
+
+@pytest.mark.parametrize("L, inject", [(3, 0), (4, 2), (4, 0), (3, 1)])
+def test_ring_kernel_arithmetic_matches_jax_fp32(L, inject):
+    """The fp32 ring kernels' 3xTF32 arithmetic on the packed W stages (an
+    emulation of what csrc/pairwise_f32.cu reads and adds) vs rnet's fp32
+    jnp reference: within 1e-5 of max |ref|, the error of fp32 sums in
+    another order (single-pass TF32 would be ~1e-3 off)."""
+    H = tpw.F32_RING_WIDTH
+    args = _inputs(2, 16, H, L, seed=H + L + inject)
+    want = np.asarray(jpw.pairwise_core_reference(*[jnp.asarray(a) for a in args], inject))
+    got = _ring_forward_emulation(args, inject)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def _jax_vjp(args, g, inject, dtype):
     core = lambda *a: jpw.pairwise_core(*a, inject=inject, interpret=True)  # noqa: E731
     _, vjp = jax.vjp(core, *[jnp.asarray(a, dtype) for a in args])
