@@ -38,11 +38,12 @@ Phases, each fatal (exit 1, no result line) when it fails:
      to 1e-4 + twice the plain fp32 version's; the B=512 backward twice,
      bitwise.
   6. Serving: an ``InferenceServer`` for original-fp at full width with
-     seeded random weights, buckets 1/8/64. After ``warmup()`` the launch
-     counters are zeroed, a burst of encoded requests goes through the
-     server's own chunk/bucket/pad code (``serve_samples``), and the
+     seeded random weights, buckets 1/8/64. After ``warmup()`` (which
+     captures each bucket's CUDA graph) the launch counters are zeroed, a
+     burst of encoded requests goes through the server's own
+     chunk/bucket/pad code (``serve_samples``, one replay a batch), and the
      counters are read: every served batch must have launched the forward
-     kernel. Answers must decode with log_prob <= 0, and the log-probs must
+     kernel once. Answers must decode with log_prob <= 0, and the log-probs must
      match the same server forced to ``rl_impl="xla"``.
  6b. Int8 serving: the same server with ``rl_impl="pallas_int8"`` (same
      weights) and the same burst, with warnings as errors (a "NOT int8"
@@ -76,7 +77,9 @@ Phases, each fatal (exit 1, no result line) when it fails:
      calibration and folding ops around the kernel included), and serve
      latency per bucket and burst throughput of the bf16 and int8 servers,
      taken in turns (bf16 int8 int8 bf16). The fp32 kernels at B = 64 and
-     512 beside the cuBLAS fp32 chain (TF32 off) and its autograd.
+     512 beside the cuBLAS fp32 chain (TF32 off) and its autograd. wide-fp's
+     H=512 at B=512 (n=64): the bf16 forward and backward, int8 and the
+     fp32 (wide) kernels, each with its plain version, yardstick and bound.
   9. Augment kernel vs its plain version on the card: B = 1, 7 and 512, fp32
      and bf16 outputs, angles of ±2.8 degrees and 0, the four corner offsets
      (where the shears wrap around the canvas), repeated indices, a cache of
@@ -110,6 +113,26 @@ Phases, each fatal (exit 1, no result line) when it fails:
      the clip-fraction line printed), in the order bf16 int8 int8 bf16;
      finite accuracy and NLL and the report files from each, the share of
      equal predictions, and the eval questions/s of each run (host clock).
+ 12. Compiled dispatch (after phase 9; its Trainer epochs after 11):
+     train steps of original-fp at full width, B=512, through
+     ``make_chunked_steps`` on device-resident data (a 2,048-canvas cache,
+     device augment on, f_phi dropout 0.5, cuDNN deterministic): from one
+     saved state, 8 eager steps against 8 calls of the CUDA graph captured
+     at the first (the LR tripled before step 5 in both), bitwise equal in
+     per-step metrics, parameters, BatchNorm buffers and Adam state, with
+     8 launches of pairwise_fwd, pairwise_bwd and augment counted; the same
+     with pair_dropout 0.25 (16 mask draws) and in fp32 through the fp32
+     kernels; a probe that two replays draw fresh augment angles and
+     offsets, dropout masks and pair seeds, each equal to an eager draw;
+     the eval batch at B=512 replayed against eager; the bf16 and int8
+     servers' replayed log-probs and answers at buckets 1/8/64 against
+     eager servers (``cuda_graphs=False``), one launch per served batch;
+     then times in the order eager replay replay eager: the train step
+     and the eval batch (host clock, profiler busy time, idle share, q/s),
+     serve latency per bucket and the 700-request burst, bf16 and int8,
+     each graph's capture time and pool; last, one Trainer epoch of run
+     (a)'s setup with ``cuda_graphs=False`` and True (F T T F), loss, val
+     NLL and parameters bitwise equal.
  11. fp32 and extraction: (a) ``python -m rnet_torch.train --precision
      float32 --rl-impl pallas``, one epoch of 16 steps (one
      ``pairwise_fwd_f32`` launch per train and eval batch, one
@@ -1427,26 +1450,28 @@ def entry_point_phase(torch, np, pw, aug, root):
 
 def run_eval_cli(argv, int8):
     """``rnet_torch.evaluate.main(argv)`` with its standard output captured
-    (and logged) and each eval step's predictions recorded; int8 runs under
-    warnings as errors, so a "NOT int8" fallback fails the run. Returns
-    (output, predictions by question index, seconds)."""
+    (and logged) and the epoch's predictions recorded where the Trainer hands
+    them to its ``EvalAccumulator``; int8 runs under warnings as errors, so a
+    "NOT int8" fallback fails the run. Returns (output, predictions by
+    question index, seconds)."""
     import contextlib
     import io
     import warnings
 
+    import numpy as np
+
+    from rnet_torch.eval.metrics import EvalAccumulator
     from rnet_torch.evaluate import main as eval_main
-    from rnet_torch.train import steps
 
     preds = []
-    real = steps.eval_step
+    real = EvalAccumulator.update
 
-    def recording(*a, **kw):
-        out = real(*a, **kw)
-        preds.append((out["index"], out["pred"], out["valid"]))
-        return out
+    def recording(self, pred, labels, valid, nll_sum=0.0, qidx=None):
+        preds.append((np.asarray(qidx), np.asarray(pred), np.asarray(valid)))
+        return real(self, pred, labels, valid, nll_sum, qidx=qidx)
 
     buf = io.StringIO()
-    steps.eval_step = recording
+    EvalAccumulator.update = recording
     try:
         with contextlib.redirect_stdout(buf), warnings.catch_warnings():
             if int8:
@@ -1455,7 +1480,7 @@ def run_eval_cli(argv, int8):
             rc = eval_main(argv)
             sec = time.perf_counter() - t0
     finally:
-        steps.eval_step = real
+        EvalAccumulator.update = real
     text = buf.getvalue()
     log("\n".join(f"  | {line}" for line in text.splitlines()))
     if rc != 0:
@@ -1721,6 +1746,381 @@ def profile_entry_step(torch, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. Compiled dispatch: captured CUDA graphs against eager steps
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 8  # K eager steps against K replays
+GRAPH_WINDOW = 8  # steps or batches in a timed window
+
+
+def device_data(torch, cfg, n_canvas, n_questions, seed):
+    """A uint8 canvas cache (n_canvas, 144, 144, 3) and per-question device
+    tensors (image_idx, question, answer), seeded, made on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache = torch.randint(0, 256, (n_canvas, CANVAS, CANVAS, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    data = {
+        "image_idx": torch.randint(0, n_canvas, (n_questions,), generator=gen, device="cuda", dtype=torch.int32),
+        "question": torch.randint(1, VOCAB, (n_questions, cfg.question_max_len), generator=gen, device="cuda",
+                                  dtype=torch.int32),
+        "answer": torch.randint(0, cfg.n_answers, (n_questions,), generator=gen, device="cuda", dtype=torch.int32),
+    }
+    return cache, data
+
+
+def state_tensors(state):
+    """Copies of every tensor a train step changes: parameters, BatchNorm
+    buffers, Adam moments and step counts."""
+    out = {f"model.{k}": v.clone() for k, v in state.model.state_dict().items()}
+    for name, p in state.model.named_parameters():
+        for k, v in state.adam.state[p].items():
+            out[f"adam.{name}.{k}"] = v.clone()
+    return out
+
+
+def graph_memory(graphs):
+    return {str(k[0]): {"capture_s": c.capture_s, "pool_mb": c.pool_bytes / 2**20} for k, c in graphs.captured.items()}
+
+
+def replay_vs_eager(torch, pw, aug, cfg, data, cache, tag, lr_change_at=None):
+    """GRAPH_STEPS steps of (1, B) chunks through ``make_chunked_steps``
+    eagerly, then from the same saved state (parameters, BN stats, Adam,
+    generator) as GRAPH_STEPS calls of the captured chunk (the first call
+    captures, then replays); the LR is changed before step ``lr_change_at``
+    in both. Per-step metrics, every state tensor and the launch counts
+    must be bitwise equal / as expected. Returns (state, eager and graph
+    chunk fns, idx block, counts, capture record, peak GB of eager and of
+    the capturing run)."""
+    from rnet_torch.train import steps
+
+    state = new_state(torch, cfg)
+    rb = steps.StateRollback(state)
+    snap = rb.snapshot()
+    n_q = data["answer"].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    order = torch.randperm(n_q, generator=gen, device="cuda")[: GRAPH_STEPS * TRAIN_B]
+    order = order.to(torch.int32).view(GRAPH_STEPS, 1, TRAIN_B)
+    graphs = steps.step_graphs(state)
+    runs, fns = {}, {}
+    for mode in ("eager", "replay"):
+        rb.restore(snap)
+        steps.set_learning_rate(state, LR)
+        fns[mode] = steps.make_chunked_steps(state, graphs if mode == "replay" else None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pw.reset_launches()
+        aug.reset_launches()
+        ms = []
+        for k in range(GRAPH_STEPS):
+            if k == lr_change_at:
+                steps.set_learning_rate(state, 3 * LR)
+            ms.append(fns[mode][0](order[k], data, cache))
+        torch.cuda.synchronize()
+        runs[mode] = (torch.cat(ms), state_tensors(state), {**pw.launches, **aug.launches},
+                      torch.cuda.max_memory_allocated() / 1e9)
+    steps.set_learning_rate(state, LR)
+    (me, te, ce, peak_e), (mr, tr, cr, peak_r) = runs["eager"], runs["replay"]
+    differ = [k for k in te if not torch.equal(te[k], tr[k])]
+    log(f"graphs {tag}: {GRAPH_STEPS} eager steps vs {GRAPH_STEPS} replays (LR x3 from step {lr_change_at}): "
+        f"metrics bitwise equal {torch.equal(me, mr)}, {len(te) - len(differ)} of {len(te)} state tensors bitwise "
+        f"equal; loss {me[:, 0].tolist()}; launches eager {ce}, replay {cr}; capture {graph_memory(graphs)}; "
+        f"peak GB eager {peak_e!r}, capturing run {peak_r!r}")
+    if not torch.equal(me, mr) or differ:
+        fail(f"graphs {tag}: replayed steps differ from eager ones: metrics equal {torch.equal(me, mr)}, {differ[:8]}")
+    if not torch.isfinite(me).all():
+        fail(f"graphs {tag}: non-finite metrics {me.tolist()}")
+    if ce != cr:
+        fail(f"graphs {tag}: the replays counted other launches than the eager steps: {cr} vs {ce}")
+    return state, fns, order, cr, graphs, (peak_e, peak_r)
+
+
+def draw_probe(torch):
+    """Every random draw of a train step from a generator registered with a
+    graph: the augment angles and offsets, the f_phi dropout mask and the
+    pair-dropout seed, each as the step draws it. Two replays must draw
+    different numbers, and each the numbers an eager call from the same
+    generator state draws."""
+    from rnet_torch.kernels.augment import draw_augment_params
+    from rnet_torch.models.relational import dropout
+    from rnet_torch.train.graphs import StepGraphs
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def draws(_):
+        angles, offs = draw_augment_params(TRAIN_B, CANVAS, CROP, gen, "cuda")
+        mask = dropout(torch.ones((TRAIN_B, 256), device="cuda"), 0.5, gen) > 0
+        seed = torch.randint(0, 2**62, (1,), generator=gen, device="cuda")
+        return {"angles": angles, "offs": offs, "mask": mask, "seed": seed}
+
+    g = StepGraphs("cuda", generators=(gen,))
+    g.run("draws", draws, {})
+    start = gen.get_state()
+    replays = [g.run("draws", draws, {}) for _ in range(2)]
+    gen.set_state(start)
+    eager = [draws(None) for _ in range(2)]
+    same_as_eager = all(torch.equal(r[k], e[k]) for r, e in zip(replays, eager) for k in r)
+    fresh = {k: not torch.equal(replays[0][k], replays[1][k]) for k in replays[0]}
+    log(f"graphs draws: two replays draw fresh numbers {fresh}; equal to eager draws {same_as_eager}")
+    if not (same_as_eager and all(fresh.values())):
+        fail("a replay does not draw fresh numbers, or draws other numbers than eager calls")
+
+
+def timed_windows(torch, fns, order=("eager", "replay", "replay", "eager"), n=GRAPH_WINDOW):
+    """Host-clock ms per call of each fn over windows of n calls, each
+    ending in a synchronize, in `order`."""
+    out = {k: [] for k in fns}
+    for k in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fns[k]()
+        torch.cuda.synchronize()
+        out[k].append((time.perf_counter() - t0) * 1e3 / n)
+    return out
+
+
+def busy_of(torch, what, fn, host_ms):
+    """(device busy ms per call, kernels per call) from the profiler, and the
+    idle share against the host clock. Where the profiler sees no kernel
+    (a graph replay it cannot trace), CUDA events over back-to-back calls
+    stand in for the busy time, and the line says so."""
+    busy, n_kernels, rows = profile_device(torch, fn)
+    source = "profiler"
+    if n_kernels == 0:
+        busy, source = cuda_ms(torch, fn, 5, warmup=1), "CUDA events (the profiler saw no kernel)"
+    log(f"profile {what}: host {host_ms!r} ms, device busy {busy!r} ms ({source}) in {n_kernels!r} kernels, "
+        f"idle share {1.0 - busy / host_ms!r}")
+    for ms_k, count, name in rows[:5]:
+        log(f"  {ms_k!r} ms x{count!r} {name[:100]}")
+    return busy, n_kernels
+
+
+def graph_phase(torch, np, pw, aug, cfg, dicts, burst):
+    """Phase 12: replayed CUDA graphs against eager execution; returns the
+    numbers for the result line."""
+    from rnet_torch.serve import InferenceServer
+    from rnet_torch.train import steps
+    from rnet_torch.train.graphs import StepGraphs
+
+    torch.backends.cudnn.deterministic = True  # eager and replay bitwise
+    out = {}
+    draw_probe(torch)
+    cfg_dev = cfg.replace(device_augment=True)
+    cache, data = device_data(torch, cfg_dev, AUG_SMALL, 4 * GRAPH_STEPS * TRAIN_B, seed=12)
+
+    # 1. bf16 train steps, device augment and f_phi dropout 0.5; LR changed after 4 steps
+    state, fns, order, counts, graphs, peaks = replay_vs_eager(
+        torch, pw, aug, cfg_dev, data, cache, "bf16 train B=512", lr_change_at=GRAPH_STEPS // 2)
+    want = {**dict.fromkeys(counts, 0), pw.KERNEL: GRAPH_STEPS, pw.BWD_KERNEL: GRAPH_STEPS, aug.KERNEL: GRAPH_STEPS}
+    if counts != want:
+        fail(f"graphs: {GRAPH_STEPS} replays should count {want}, counted {counts}")
+    out["train_counts"], out["train_capture"] = counts, graph_memory(graphs)
+    out["train_peak_gb"] = {"eager": peaks[0], "capturing_run": peaks[1]}
+    # with pair dropout: both kernels draw the Philox mask in every replay
+    _, _, _, pd_counts, pd_graphs, _ = replay_vs_eager(
+        torch, pw, aug, cfg_dev.replace(pair_dropout=0.25), data, cache, "bf16 train, pair_dropout 0.25")
+    if pd_counts[pw.KERNEL] != GRAPH_STEPS or pd_counts["pair_mask"] != 2 * GRAPH_STEPS:
+        fail(f"graphs with pair dropout: expected {GRAPH_STEPS} forward launches and {2 * GRAPH_STEPS} mask "
+             f"draws, counted {pd_counts}")
+    del pd_graphs
+    # fp32 through the fp32 kernels
+    f32_state, _, _, f32_counts, f32_graphs, _ = replay_vs_eager(
+        torch, pw, aug, cfg_dev.replace(compute_dtype="float32", rl_impl="pallas"), data, cache,
+        "fp32 train (pallas) B=512")
+    if f32_counts[pw.F32_KERNEL] != GRAPH_STEPS or f32_counts[pw.F32_BWD_KERNEL] != GRAPH_STEPS:
+        fail(f"graphs fp32: expected {GRAPH_STEPS} launches of each fp32 kernel, counted {f32_counts}")
+    del f32_state, f32_graphs
+    torch.cuda.empty_cache()
+
+    # 2. the eval batch, B=512, eager against replay
+    (train_e, eval_e), (train_r, eval_r) = fns["eager"], fns["replay"]
+    valid = torch.ones((1, TRAIN_B), dtype=torch.bool, device="cuda")
+    valid[0, -7:] = False
+    pw.reset_launches()
+    er = eval_r(order[0], valid, data, cache)
+    torch.cuda.synchronize()
+    ev_counts = dict(pw.launches)
+    ee = eval_e(order[0], valid, data, cache)
+    same = {k: torch.equal(ee[k], er[k]) for k in ee}
+    log(f"graphs eval batch B={TRAIN_B}: replay vs eager bitwise {same}; replay launches {ev_counts}")
+    if not all(same.values()) or ev_counts[pw.KERNEL] != 1:
+        fail(f"graphs: the replayed eval batch differs from the eager one ({same}) or counted {ev_counts}")
+
+    # 3. serving buckets 1/8/64, bf16 and int8: log-probs and served answers
+    servers = {}
+    for impl, tag in (("auto", "bf16"), ("pallas_int8", "int8")):
+        for mode in ("eager", "replay"):
+            srv = InferenceServer(cfg.replace(rl_impl=impl), dicts, max_batch=64, device="cuda",
+                                  cuda_graphs=mode == "replay")
+            srv.init_weights(seed=0)
+            srv.warmup()
+            servers[(tag, mode)] = srv
+    for tag in ("bf16", "int8"):
+        se, sr = servers[(tag, "eager")], servers[(tag, "replay")]
+        lp_graphs = StepGraphs("cuda")
+        for bucket in sr.buckets:
+            inputs, q = sr.batch_arrays(burst[:bucket], bucket)
+            b = {"inputs": torch.from_numpy(inputs), "question": torch.from_numpy(q)}
+            with torch.no_grad():
+                lp_r = lp_graphs.run(bucket, lambda x: sr.model(x["inputs"], x["question"]), b)
+            lp_e = se.log_probs(inputs, q)
+            (pe, ve), (pr, vr) = se._predict(inputs, q), sr._predict(inputs, q)
+            ok = torch.equal(lp_e, lp_r) and np.array_equal(pe, pr) and np.array_equal(ve, vr)
+            log(f"graphs serve {tag} bucket {bucket}: replayed log-probs and served answers bitwise equal to "
+                f"eager: {ok}")
+            if not ok:
+                fail(f"graphs: the {tag} server's replay at bucket {bucket} differs from eager")
+        pw.reset_launches()
+        sr.serve_samples(burst)
+        sr.serve_samples(burst[:1])
+        sr.serve_samples(burst[:5])
+        kernel = pw.KERNEL if tag == "bf16" else pw.INT8_KERNEL
+        if pw.launches[kernel] != 4:
+            fail(f"graphs: 4 served {tag} batches counted {dict(pw.launches)}")
+        out[f"serve_{tag}_capture"] = graph_memory(sr.graphs)
+
+    # 5. times, eager against replayed (eager replay replay eager)
+    k0 = order[0]
+    train_fns = {"eager": lambda: train_e(k0, data, cache), "replay": lambda: train_r(k0, data, cache)}
+    eval_fns = {"eager": lambda: eval_e(k0, valid, data, cache), "replay": lambda: eval_r(k0, valid, data, cache)}
+    for what, fns_, n in (("train step", train_fns, TRAIN_B), ("eval batch", eval_fns, TRAIN_B)):
+        win = timed_windows(torch, fns_)
+        row = {}
+        for mode in ("eager", "replay"):
+            host = sum(win[mode]) / len(win[mode])
+            busy, kern = busy_of(torch, f"{what} B={TRAIN_B}, {mode}", fns_[mode], host)
+            row[mode] = {"host_ms": host, "host_ms_windows": win[mode], "busy_ms": busy, "kernels": kern,
+                         "idle_share": 1.0 - busy / host, "qps": n / host * 1e3}
+        log(f"graphs times {what} B={TRAIN_B} (host clock, {GRAPH_WINDOW} a window, order eager replay replay "
+            f"eager): {json.dumps(row)}; replay / eager host {row['replay']['host_ms'] / row['eager']['host_ms']!r}")
+        out[what.replace(" ", "_")] = row
+    for tag in ("bf16", "int8"):
+        se, sr = servers[(tag, "eager")], servers[(tag, "replay")]
+        pair = {"eager": se, "replay": sr}
+        for bucket in se.buckets:
+            sub = burst[:bucket]
+            lat = {m: [] for m in pair}
+            for m in ("eager", "replay", "replay", "eager") * 5:
+                lat[m].append(pair[m].serve_samples(sub)[0]["latency_ms"])
+            row = {m: {"median_ms": sorted(v)[len(v) // 2], "min_ms": min(v), "max_ms": max(v)} for m, v in lat.items()}
+            inputs, q = se.batch_arrays(sub, bucket)
+            for m, srv in pair.items():
+                busy, kern = busy_of(torch, f"served {tag} bucket {bucket}, {m}", lambda: srv._predict(inputs, q),
+                                     row[m]["median_ms"])
+                row[m].update(busy_ms=busy, kernels=kern, idle_share=1.0 - busy / row[m]["median_ms"])
+            log(f"graphs serve latency {tag} bucket {bucket}, 10 calls each in turns: {json.dumps(row)}")
+            out[f"serve_{tag}_{bucket}"] = row
+        big = burst * 7
+        rates = {m: [] for m in pair}
+        for m in ("eager", "replay", "replay", "eager"):
+            t0 = time.perf_counter()
+            pair[m].serve_samples(big)
+            rates[m].append(len(big) / (time.perf_counter() - t0))
+        log(f"graphs serve burst {tag}, {len(big)} requests (questions/s): {json.dumps(rates)}")
+        out[f"serve_{tag}_burst_qps"] = rates
+    del servers, state, fns, graphs, cache, data
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def trainer_epochs(torch, root):
+    """Phase 12, last part: Trainer epochs of run (a)'s setup (device
+    pipeline with augmentation, B=512, 16 steps, then eval) with
+    cuda_graphs=False and True in the order F T T F, two epochs each (the
+    first with graphs captures them), cuDNN deterministic: the train loss,
+    val NLL and every parameter bitwise equal after each epoch; seconds and
+    questions/s of each epoch, and the graphs' capture times and pools."""
+    from rnet_torch.cli import build_datasets, config_from_args, load_dicts
+    from rnet_torch.train.__main__ import parse_args
+    from rnet_torch.train.loop import Trainer
+    from rnet_torch.train.schedules import DoublingSchedule
+
+    torch.backends.cudnn.deterministic = True
+    args = parse_args(["--clevr-dir", root, "--model", "original-fp", "--data-pipeline", "device",
+                       "--batch-size", str(TRAIN_B)])
+    dicts = load_dicts(args)
+    cfg = config_from_args(args, dicts)
+    ds = build_datasets(args, cfg, dicts)
+    runs = {False: [], True: []}
+    first = {}
+    for k, graphs in enumerate((False, True, True, False)):
+        tr = Trainer(cfg, dicts.vocab_size, ds["train"], ds["val"], dicts, lr=DoublingSchedule(LR),
+                     bs=DoublingSchedule(TRAIN_B), checkpoint_dir=f"{root}/ck_graphs{k}", device_data=True,
+                     log_interval=8, log_fn=lambda *a: None, cuda_graphs=graphs)
+        epochs = []
+        for epoch in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = tr.train_epoch(epoch)
+            ev = tr.eval_epoch(epoch)
+            torch.cuda.synchronize()
+            epochs.append({"sec": time.perf_counter() - t0, "train_qps": st["qps"], "val_qps": ev["val_qps"],
+                           "loss": st["train_loss"], "val_nll": ev["val_nll"],
+                           "params": {n: v.detach().clone() for n, v in tr.state.model.state_dict().items()}})
+        if graphs and k == 1:
+            runs["capture"] = graph_memory(tr.graphs)
+        first.setdefault(graphs, epochs)
+        runs[graphs].append([{k_: v for k_, v in e.items() if k_ != "params"} for e in epochs])
+        del tr
+        torch.cuda.empty_cache()
+    differ = []
+    for e, (a, b) in enumerate(zip(first[False], first[True]), 1):
+        differ += [f"epoch {e} {n}" for n in a["params"] if not torch.equal(a["params"][n], b["params"][n])]
+        differ += [f"epoch {e} {m}" for m in ("loss", "val_nll") if a[m] != b[m]]
+    log(f"graphs Trainer epochs 1, 2 (device pipeline, augmentation, B={TRAIN_B}, 16 steps + eval each), order "
+        f"F T T F: {json.dumps({str(k): v for k, v in runs.items()})}; with graphs vs without: "
+        f"{'bitwise equal' if not differ else differ[:8]} (loss, val_nll and {len(first[False][0]['params'])} "
+        f"tensors after each epoch)")
+    if differ:
+        fail(f"graphs: the Trainer epochs with graphs differ from the eager ones: {differ[:8]}")
+    torch.backends.cudnn.deterministic = False
+    return runs
+
+
+def time_wide(torch, pw, seed):
+    """Phase 8, wide-fp's H=512 at B=512 (n=64, L=4): the bf16 forward and
+    backward, int8 and the fp32 (wide) kernels, each beside its plain
+    version, its PyTorch yardstick and its bound."""
+    B, n, H, L, inject = TRAIN_B, 64, 512, 4, 0
+    rows = {}
+    args = pair_inputs(torch, B, n, H, L, seed=700)
+    g = upstream(torch, B, H, seed=701)
+    for dt, args_ in (("bf16", args), ("fp32", [a.float() for a in args])):
+        fb, bb = (fwd_bound, bwd_bound) if dt == "bf16" else (f32_fwd_bound, f32_bwd_bound)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plans = {k: pw.tile_plan(k, B, n, n, H, L, sms, esize=2 if dt == "bf16" else 4) for k in ("fwd", "bwd")}
+        rows[f"fwd_{dt}"] = {
+            "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_cuda(*args_, inject=inject), 5, warmup=1),
+            "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_reference(*args_, inject=inject), 2, warmup=1),
+            "library_ms": cuda_ms(torch, lambda: library_chain(torch, *args_, inject), 3, warmup=1),
+            "plan": {"wgs": plans["fwd"].wgs, "bm": plans["fwd"].bm, "ring": plans["fwd"].ring},
+        }
+        rows[f"fwd_{dt}"].update(zip(("bound_ms", "bound_by"), fb(B, n, n, H, L)))
+        rows[f"bwd_{dt}"] = {
+            "ms": cuda_ms(torch, lambda: pw.pairwise_bwd_cuda(*args_, g, inject=inject), 3, warmup=1),
+            "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args_, g, inject), 2, warmup=1),
+            "library_ms": cuda_ms(torch, lambda: library_vjp(torch, args_, g, inject), 2, warmup=1),
+            "plan": {"wgs": plans["bwd"].wgs, "bm": plans["bwd"].bm, "ring": plans["bwd"].ring},
+        }
+        rows[f"bwd_{dt}"].update(zip(("bound_ms", "bound_by"), bb(B, n, n, H, L)))
+        del args_
+        torch.cuda.empty_cache()
+    folded = pw.quantize_int8(*args, inject)
+    rows["int8"] = {
+        "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_int8_cuda(*folded, inject=inject), 10, warmup=2),
+        "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_int8_reference(*folded, inject=inject), 2, warmup=1),
+        "library_ms": cuda_ms(torch, lambda: library_chain_int8(torch, *folded, inject), 3, warmup=1),
+    }
+    rows["int8"].update(zip(("bound_ms", "bound_by"), int8_bound(B, n, n, H, L)))
+    for name, r in rows.items():
+        r.update(B=B, n=n, H=H, L=L, x_bound=r["ms"] / r["bound_ms"], ms_over_library=r["ms"] / r["library_ms"])
+        log(f"time H=512 {name} {json.dumps(r)}")
+    del args, g, folded
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1800,6 +2200,7 @@ def main() -> int:
     log(f"fp32 kernels / cuBLAS fp32 chain (TF32 off) at original-fp B={TRAIN_B}, same call: forward "
         f"{f32_rows[('fwd', TRAIN_B)]['ms_over_library']!r}, backward (vs its autograd) "
         f"{f32_rows[('bwd', TRAIN_B)]['ms_over_library']!r}")
+    wide = time_wide(torch, pw, seed)
     phases = phase_breakdown(torch, pw)
     train_times = time_training(torch, cfg, state, batch)
     qps_ratio = train_times["auto"]["qps"] / train_times["xla"]["qps"]
@@ -1835,7 +2236,8 @@ def main() -> int:
     for bucket in (1, 64):
         inputs, q = server.batch_arrays(burst[:bucket], bucket)
         wall = cuda_ms(torch, lambda: server.log_probs(inputs, q), 20)
-        log_profile(torch, f"served forward, bucket {bucket}", lambda: server.log_probs(inputs, q), wall)
+        log_profile(torch, f"served forward (eager log_probs), bucket {bucket}", lambda: server.log_probs(inputs, q),
+                    wall)
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     del server, s8, state, batch
     torch.cuda.empty_cache()
@@ -1855,6 +2257,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 12. compiled dispatch: replayed CUDA graphs against eager steps ----
+    graph_out = graph_phase(torch, np, pw, aug, cfg, dicts, burst)
+    log(f"phase 12 (graphs) done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- 10. training through the entry point ----
     import shutil
     import tempfile
@@ -1873,6 +2279,7 @@ def main() -> int:
         profile_entry_step(torch, root)
         f32_entry_counts = f32_entry_phase(torch, np, pw, aug, root)
         extract_phase(torch, np, pw, root)
+        graph_out["trainer_epochs"] = trainer_epochs(torch, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
@@ -1892,11 +2299,13 @@ def main() -> int:
                train_counts[pw.KERNEL], fwd_err_at_shape, fwd[TRAIN_B], shape=shape,
                max_abs_err_all_cases=fwd_err, serve_launches=serve_launches,
                phase_shares=phases[("fwd", TRAIN_B)]["shares"],
-               entry_point_launches=entry_counts[pw.KERNEL]),
+               entry_point_launches=entry_counts[pw.KERNEL], replay_launches=graph_out["train_counts"][pw.KERNEL],
+               h512=wide["fwd_bf16"]),
         record(pw.BWD_KERNEL, "rnet_torch/csrc/pairwise_bwd.cu", "rnet/kernels/pairwise.py:120",
                train_counts[pw.BWD_KERNEL], bwd_err_at_shape, bwd[TRAIN_B], shape=shape,
                max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL],
-               phase_shares=phases[("bwd", TRAIN_B)]["shares"]),
+               phase_shares=phases[("bwd", TRAIN_B)]["shares"],
+               replay_launches=graph_out["train_counts"][pw.BWD_KERNEL], h512=wide["bwd_bf16"]),
         record("pair_mask", "rnet_torch/csrc/philox.cuh", "rnet/kernels/pairwise.py:69",
                pd_counts["pair_mask"], float(mask_err), mask,
                shape={"B": TRAIN_B, "n": 64}, launches_of="one train step with pair_dropout 0.25"),
@@ -1906,6 +2315,7 @@ def main() -> int:
                       "out": "bfloat16"},
                max_abs_err_fp32=aug_err32, max_abs_err_all_cases=aug_err_all,
                ms_cache_2048=aug_times[str(AUG_SMALL)]["ms"],
+               replay_launches=graph_out["train_counts"][aug.KERNEL],
                launches_of="run (a): python -m rnet_torch.train --data-pipeline device, 2 epochs of 16 steps"),
         record(pw.INT8_KERNEL, "rnet_torch/csrc/pairwise_fwd_int8.cu", "rnet/kernels/pairwise.py:190",
                int8_eval_launches, int8_err, int8_rows[TRAIN_B], shape=shape,
@@ -1915,7 +2325,7 @@ def main() -> int:
                eval_qps=eval_runs,
                ms_b64=int8_rows[64]["ms"], ms_with_calibration=int8_rows[TRAIN_B]["ms_with_calibration"],
                phase_shares=phases[("int8", TRAIN_B)]["shares"], ms_over_pairwise_fwd=int8_rows[TRAIN_B]["ms"]
-               / fwd[TRAIN_B]["ms"], tops=int8_rows[TRAIN_B]["tops"],
+               / fwd[TRAIN_B]["ms"], tops=int8_rows[TRAIN_B]["tops"], h512=wide["int8"],
                launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
                            "--split train --batch-size 512 (16 batches)"),
         record(pw.F32_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:83",
@@ -1923,6 +2333,7 @@ def main() -> int:
                max_rel_err=f32_fwd_err, max_rel_err_all_cases=f32_fwd_err_all, precision="3xTF32",
                ms_over_library=f32_rows[("fwd", TRAIN_B)]["ms_over_library"], ms_b64=f32_rows[("fwd", 64)]["ms"],
                phase_shares=phases[("fwd_f32", TRAIN_B)]["shares"], step_launches=f32_step_counts[pw.F32_KERNEL],
+               h512=wide["fwd_fp32"],
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512 (16 train + 2 eval batches)"),
         record(pw.F32_BWD_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:120",
@@ -1930,10 +2341,11 @@ def main() -> int:
                f32_rows[("bwd", TRAIN_B)], shape=shape, max_rel_err=f32_bwd_err, max_rel_err_all_cases=f32_bwd_err_all,
                precision="3xTF32", ms_over_library=f32_rows[("bwd", TRAIN_B)]["ms_over_library"],
                ms_b64=f32_rows[("bwd", 64)]["ms"], phase_shares=phases[("bwd_f32", TRAIN_B)]["shares"],
-               train_loss_rel_diff_from_xla_fp32=f32_loss_rel,
+               train_loss_rel_diff_from_xla_fp32=f32_loss_rel, h512=wide["bwd_fp32"],
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512"),
     ]
+    log(f"graphs summary {json.dumps(graph_out)}")
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -104,13 +104,16 @@ def adam_state_to_flax(model: torch.nn.Module, adam: torch.optim.Adam) -> Dict[s
 
 def flax_to_adam_state(model: torch.nn.Module, adam: torch.optim.Adam, state: Mapping[str, Any]) -> None:
     """Load {"mu", "nu", "count"} in the layout of ``adam_state_to_flax``
-    into ``adam``'s state for ``model``'s parameters, in place."""
+    into ``adam``'s state for ``model``'s parameters, in place; the step is
+    an fp32 scalar, on the parameter's device for a capturable Adam (the
+    port's on CUDA), on the CPU otherwise."""
     mu = flax_to_state_dict({"params": state["mu"]})
     nu = flax_to_state_dict({"params": state["nu"]})
     step = float(np.asarray(state["count"]))
+    capturable = any(g.get("capturable", False) for g in adam.param_groups)
     for name, p in model.named_parameters():
         adam.state[p] = {
-            "step": torch.tensor(step, dtype=torch.float32),
+            "step": torch.tensor(step, dtype=torch.float32, device=p.device if capturable else "cpu"),
             "exp_avg": mu[name].to(device=p.device, dtype=p.dtype).clone(),
             "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype).clone(),
         }

@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int RB = 32;         // output rows per block
@@ -240,8 +242,8 @@ cudaError_t launch(const void* cache, long long N, int S, const void* idx, const
                    const void* offs, void* out, int B, int OUT, int KX, int KY, cudaStream_t stream) {
   if (KX < 1 || KY < 1 || 2 * KX > S) return cudaErrorInvalidValue;
   const size_t smem = smem_layout(S, OUT, KX, KY).total;
-  cudaError_t err = cudaFuncSetAttribute(augment_kernel<OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed = 0;
+  cudaError_t err = raise_smem_limit(augment_kernel<OutT>, smem, allowed);
   if (err != cudaSuccess) return err;
   dim3 grid((OUT + RB - 1) / RB, B);
   augment_kernel<OutT><<<grid, THREADS, smem, stream>>>(
@@ -259,7 +261,7 @@ extern "C" {
 // 16; idx (B,) int32, angles (B,) fp32 radians, offs (B, 2) int32 (row,
 // col), out (B, OUT, OUT, C) fp32 (out_bf16 = 0) or bf16 (out_bf16 = 1); all
 // contiguous on one device. Launches on `stream` and returns the error of
-// cudaFuncSetAttribute (a band that needs more shared memory than a block
+// raise_smem_limit (a band that needs more shared memory than a block
 // may have) or cudaGetLastError().
 int rnet_augment(const void* cache, long long N, int S, const void* idx, const void* angles,
                  const void* offs, void* out, int B, int OUT, int KX, int KY, int out_bf16,

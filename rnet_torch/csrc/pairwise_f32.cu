@@ -116,6 +116,7 @@
 #include <stdint.h>
 
 #include "pairwise_chain.cuh"
+#include "smem_limit.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -1196,22 +1197,19 @@ struct Args {
   long long* phases;
 };
 
-template <typename K>
-cudaError_t prepare(K kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int H, bool DROP>
 cudaError_t launch_fwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
   if (!a.ring) {
     auto kern = wide::pairwise_fwd_f32_kernel<H, DROP>;
-    cudaError_t err = prepare(kern, smem);
+    static size_t allowed = 0;
+    cudaError_t err = raise_smem_limit(kern, smem, allowed);
     if (err != cudaSuccess) return err;
     kern<<<grid, wide::THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.bs, a.partial, a.B, a.ni, a.nj, a.L, a.inject,
                                             a.bm, a.seed, a.thr, a.inv_keep);
   } else if constexpr (H == RING_H) {
     auto kern = pairwise_fwd_f32_ring<H, DROP>;
-    cudaError_t err = prepare(kern, smem);
+    static size_t allowed = 0;
+    cudaError_t err = raise_smem_limit(kern, smem, allowed);
     if (err != cudaSuccess) return err;
     kern<<<grid, RING_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.chain, a.bs, a.partial, a.B, a.ni, a.nj, a.L,
                                            a.inject, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
@@ -1223,14 +1221,16 @@ template <int H, bool DROP>
 cudaError_t launch_bwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
   if (!a.ring) {
     auto kern = wide::pairwise_bwd_f32_kernel<H, DROP>;
-    cudaError_t err = prepare(kern, smem);
+    static size_t allowed = 0;
+    cudaError_t err = raise_smem_limit(kern, smem, allowed);
     if (err != cudaSuccess) return err;
     kern<<<grid, wide::THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.wt, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
                                             a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.bm,
                                             a.seed, a.thr, a.inv_keep);
   } else if constexpr (H == RING_H) {
     auto kern = pairwise_bwd_f32_ring<H, DROP>;
-    cudaError_t err = prepare(kern, smem);
+    static size_t allowed = 0;
+    cudaError_t err = raise_smem_limit(kern, smem, allowed);
     if (err != cudaSuccess) return err;
     kern<<<grid, RING_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.chain, a.dst, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
                                            a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.slots,

@@ -49,6 +49,7 @@
 #include <stdint.h>
 
 #include "pairwise_chain.cuh"
+#include "smem_limit.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -253,7 +254,8 @@ struct Args {
 template <int WGS, bool DROP>
 cudaError_t launch(const Args& a, int grid, size_t smem, cudaStream_t st) {
   auto kern = pairwise_fwd_kernel<WGS, DROP>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed = 0;
+  cudaError_t err = raise_smem_limit(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   kern<<<grid, (WGS + 1) * WG_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.chunks, a.bs, a.partial, a.B, a.ni, a.nj,
                                                    a.H, a.L, a.inject, a.stages, a.seed, a.thr, a.inv_keep,

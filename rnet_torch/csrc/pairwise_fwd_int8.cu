@@ -71,6 +71,7 @@
 #include <stdint.h>
 
 #include "pairwise_chain.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -344,7 +345,8 @@ struct Args {
 template <int WGS, typename T>
 cudaError_t launch(const Args& a, int grid, size_t smem, cudaStream_t st) {
   auto kern = pairwise_fwd_int8_kernel<WGS, T>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static size_t allowed = 0;
+  cudaError_t err = raise_smem_limit(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   kern<<<grid, WGS * WG_THREADS + PRODUCER_THREADS, smem, st>>>(
       static_cast<const T*>(a.u), static_cast<const T*>(a.v), static_cast<const T*>(a.s), a.qa, a.chunks, a.m, a.bs,

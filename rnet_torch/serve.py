@@ -21,9 +21,14 @@ stderr)::
     echo '{"image": "img.png", "question": "what color is the cube?"}' \\
         | python -m rnet_torch.serve --model original-fp --checkpoint w.pkl
 
-Runs on CUDA unless ``--platform cpu`` (``device="cpu"``) is given.
-``--rl-impl pallas_int8`` serves through the int8 kernel (the model runs in
-eval mode), calibrating the int8 scales on each served batch.
+Runs on CUDA unless ``--platform cpu`` (``device="cpu"``) is given. On CUDA
+each bucket's forward, argmax and gather is one CUDA graph (rnet jits them
+as one program per bucket): ``warmup()`` captures every bucket, and a
+served batch is copied into its bucket's buffers, replayed and fetched
+once (``rnet_torch/train/graphs.py``; ``cuda_graphs=False`` runs the same
+function eagerly, for comparing the two). ``--rl-impl pallas_int8`` serves
+through the int8 kernel (the model runs in eval mode), calibrating the int8
+scales on each served batch, inside the graph.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from .config import ModelConfig
 from .data.clevr import ImageTransform, scene_to_objects
 from .data.vocab import Dictionaries, invert_questions
 from .models import RN
+from .train.graphs import StepGraphs, shape_key
 
 
 class ServeError(ValueError):
@@ -83,8 +89,10 @@ class InferenceServer:
         max_batch: int = 64,
         buckets: Optional[Sequence[int]] = None,
         device="cuda",
+        cuda_graphs: bool = True,
     ):
         self.device = resolve_device(device)
+        self.graphs = StepGraphs(self.device) if cuda_graphs and self.device.type == "cuda" else None
         self.cfg = cfg
         self.dicts = dicts
         self.invert = invert
@@ -110,11 +118,16 @@ class InferenceServer:
     def load(self, checkpoint: str) -> None:
         """Load a weights-only pkl, validated against this config's skeleton."""
         load_weights(self.model, checkpoint)
-        self.ready = True
+        self._new_weights()
 
     def init_weights(self, seed: int) -> None:
         """Serve torch-default random weights drawn from ``seed``."""
         self.model = self._build_model(seed)
+        self._new_weights()
+
+    def _new_weights(self) -> None:
+        if self.graphs is not None:
+            self.graphs.clear()  # captured against the old weights
         self.ready = True
 
     def _require_weights(self) -> None:
@@ -188,14 +201,31 @@ class InferenceServer:
         q = torch.from_numpy(np.ascontiguousarray(question)).to(self.device)
         return self.model(x, q)
 
-    def _predict(self, inputs: np.ndarray, question: np.ndarray):
-        logp = self.log_probs(inputs, question)
+    @torch.no_grad()
+    def _predict_body(self, b: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Forward, argmax and the argmax's log-prob, as one (B, 2) float64
+        tensor (exact for both), so that one fetch brings both."""
+        logp = self.model(b["inputs"], b["question"])
         best = logp.argmax(dim=-1)
-        return best.cpu().numpy(), logp.gather(1, best[:, None])[:, 0].cpu().numpy()
+        return torch.stack([best.double(), logp.gather(1, best[:, None])[:, 0].double()], dim=1)
+
+    def _predict(self, inputs: np.ndarray, question: np.ndarray):
+        """(answer indices, their log-probs) of one bucket-shaped batch: the
+        bucket's graph replayed (captured at its first batch), or the same
+        function eagerly without graphs."""
+        b = {"inputs": torch.from_numpy(np.ascontiguousarray(inputs)),
+             "question": torch.from_numpy(np.ascontiguousarray(question))}
+        if self.graphs is None:
+            out = self._predict_body({k: v.to(self.device) for k, v in b.items()})
+        else:
+            out = self.graphs.run(("predict", shape_key(b)), self._predict_body, b)
+        out = out.cpu().numpy()
+        return out[:, 0].astype(np.int64), out[:, 1].astype(np.float32)
 
     def warmup(self) -> None:
-        """Run every bucket shape once (first-use kernel build, allocator
-        and library warm-up), so the first real request pays none of it."""
+        """Serve every bucket shape once: on CUDA this captures each bucket's
+        graph (and builds the kernels), as rnet's warm-up compiles each
+        bucket, so the first real request pays none of it."""
         self._require_weights()
         for bucket in self.buckets:
             b = self._dummy_batch(bucket)

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from ..checkpoint import check_match, load_run_dicts, run_dicts_path
-from .steps import TrainState
+from .steps import TrainState, load_adam_state
 
 
 def _dicts_payload(dicts) -> dict:
@@ -113,10 +113,11 @@ class CheckpointManager:
         return payload
 
     def restore(self, state: TrainState, path_or_epoch) -> TrainState:
-        """Restore the full state in place from a path or an epoch number."""
+        """Restore the full state in place from a path or an epoch number
+        (the parameters, buffers and LR tensors keep their storage)."""
         payload = self._load(path_or_epoch, state.model)
         state.model.load_state_dict(payload["model"])
-        state.adam.load_state_dict(payload["adam"])
+        load_adam_state(state.adam, payload["adam"])
         state.step = int(payload["step"])
         state.generator.set_state(payload["generator"])
         return state

@@ -1,18 +1,29 @@
 """Epoch loop: train -> eval -> checkpoint, with LR and batch-size doubling.
 
 Port of ``rnet/train/loop.py::Trainer`` on one device (CUDA, or the CPU when
-asked for):
+asked for). Steps dispatch as rnet's jit does (``steps.make_jitted_steps``,
+``steps.make_chunked_steps``): on CUDA each is captured in a CUDA graph at
+its first call for a shape and replayed after, all of a Trainer's graphs in
+one memory pool (``rnet_torch/train/graphs.py``); a batch-size change frees
+them. ``cuda_graphs=False`` runs the same functions eagerly (for comparing
+the two; no CLI flag sets it); on the CPU nothing is captured.
   * host batches (``pil`` and ``cached`` pipelines): ``BatchIterator`` ->
-    pinned, prefetched device copies -> ``train_step``; a ``cached`` batch
-    of padded canvases goes through the fused augment kernel batch-locally;
+    pinned, prefetched device copies (the copy stream's event orders them
+    before the step) -> one replay of the train step per batch, which first
+    copies the batch into the graph's buffers; a ``cached`` batch of padded
+    canvases goes through the fused augment kernel batch-locally;
   * device-resident data (``device`` pipeline, ``device_data=True``): the
     padded uint8 image cache of each split is uploaded to the card once
     (4.35 GB for CLEVR train at 144^2), with the per-question tokens,
-    answers and image indices; each step gathers its batch on the device
-    from a (steps, B) index block uploaded once per epoch, with rnet's
+    answers and image indices; the epoch's (steps, B) index block, rnet's
     permutation ``np.random.RandomState((seed * 1_000_003 + epoch) % 2**31)``,
-    so the host sends no pixels. Eval keeps predictions, labels, the valid
-    mask and the NLL sum on the device and fetches them once per epoch;
+    is uploaded once, and each chunk of ``log_interval`` steps is one
+    replay: its rows are copied into the graph's index buffer and every
+    step gathers its batch on the device, so the host sends no pixels. The
+    chunk's (K, 3) metrics are fetched after the next chunk is dispatched
+    (rnet's one-chunk lag). Eval runs chunks of ``log_interval`` batches
+    the same way and keeps predictions, labels, the valid mask and the NLL
+    sum on the device until one fetch per epoch;
   * every epoch: LR and batch size from their ``DoublingSchedule``s, eval
     with the per-answer and per-family reports, a full-state checkpoint;
   * ``int8_clip_report``: the ``pallas_int8`` calibration-drift receipt on
@@ -69,6 +80,7 @@ class Trainer:
         device_data: bool = False,
         watchdog=None,
         device="cuda",
+        cuda_graphs: bool = True,
     ):
         self.cfg = cfg
         self.dicts = dicts
@@ -87,6 +99,9 @@ class Trainer:
 
         model = RN(cfg, vocab_size, generator=torch.Generator().manual_seed(seed)).to(self.device)
         self.state = steps.create_train_state(model, steps.make_optimizer(lr.base, clip_norm, weight_decay), seed=seed)
+        self.graphs = steps.step_graphs(self.state) if cuda_graphs and self.device.type == "cuda" else None
+        self.train_step, self.eval_step = steps.make_jitted_steps(self.state, self.graphs)
+        self.train_chunk, self.eval_chunk = steps.make_chunked_steps(self.state, self.graphs)
         self.ckpt = CheckpointManager(checkpoint_dir, cfg.name, keep=keep_checkpoints, dicts=dicts)
 
         self.train_cache = self._device_cache(train_ds)
@@ -144,6 +159,8 @@ class Trainer:
 
     def resume(self, path_or_epoch) -> int:
         self.ckpt.restore(self.state, path_or_epoch)
+        if self.graphs is not None:
+            self.graphs.clear()  # the restored Adam state is in new tensors
         self.epoch = self._epoch_of(path_or_epoch)
         return self.epoch
 
@@ -166,18 +183,19 @@ class Trainer:
         fn = getattr(self.val_ds, "question_categories", None)
         return fn() if fn is not None else None
 
-    def _log_step(self, epoch: int, done: int, nb: int, m: torch.Tensor, lr: float, bs: int) -> None:
-        """Log one step's (loss, accuracy, grad_norm); the fetch waits for it."""
-        loss, acc, gnorm = (float(x) for x in m.tolist())
+    def _log_step(self, epoch: int, done: int, nb: int, m, lr: float, bs: int, step: int) -> None:
+        """Log one step's fetched (loss, accuracy, grad_norm) at train step ``step``."""
+        loss, acc, gnorm = (float(x) for x in m)
         self.log(f"Train Epoch: {epoch} [{done}/{nb}] Loss: {loss:.4f} Acc: {acc:.3f} LR: {lr:.2e} BS: {bs}")
         self.scalars.write(
-            self.state.step,
+            step,
             {"train/loss": loss, "train/accuracy": acc, "train/grad_norm": gnorm, "train/lr": lr},
         )
         self._beat()
 
-    def _device_batches(self, epoch: int, bs: int):
-        """The epoch's batches gathered on the device, in rnet's order."""
+    def _train_steps_device(self, epoch: int, bs: int, lr: float) -> np.ndarray:
+        """The epoch over device-resident data, one dispatch per chunk of
+        ``log_interval`` steps; (steps, 3) loss, accuracy, grad_norm."""
         n = len(self.train_ds)
         nb = n // bs
         order = (
@@ -187,25 +205,38 @@ class Trainer:
             .reshape(nb, bs)
         )
         order = torch.from_numpy(order).to(self.device)  # one upload per epoch
-        for k in range(nb):
-            yield {key: v[order[k]] for key, v in self.train_data.items()}
+        out, pending = [], None
+        for c0 in range(0, nb, self.log_interval):
+            ms = self.train_chunk(order[c0 : c0 + self.log_interval], self.train_data, self.train_cache)
+            # fetch the previous chunk's metrics once this one is dispatched
+            if pending is not None:
+                out.append(self._drain(epoch, nb, pending, lr, bs))
+            pending = (ms, min(c0 + self.log_interval, nb), self.state.step)
+        if pending is not None:
+            out.append(self._drain(epoch, nb, pending, lr, bs))
+        return np.concatenate(out) if out else np.zeros((0, 3), np.float32)
+
+    def _drain(self, epoch: int, nb: int, pending, lr: float, bs: int) -> np.ndarray:
+        ms, done, step = pending
+        ms = ms.cpu().numpy()
+        self._log_step(epoch, done, nb, ms[-1], lr, bs, step)
+        return ms
 
     def _train_steps(self, epoch: int, bs: int, lr: float) -> np.ndarray:
         """Run the epoch's steps; (steps, 3) loss, accuracy, grad_norm."""
         if self.train_data is not None:
-            batches, nb = self._device_batches(epoch, bs), len(self.train_ds) // bs
-        else:
-            it = BatchIterator(
-                self.train_ds, bs, shuffle=True, seed=self.seed, epoch=epoch, drop_last=True,
-                invert=self.invert, num_threads=self.num_threads,
-            )
-            batches, nb = prefetch_to_device(iter(it), self.device), len(it)
+            return self._train_steps_device(epoch, bs, lr)
+        it = BatchIterator(
+            self.train_ds, bs, shuffle=True, seed=self.seed, epoch=epoch, drop_last=True,
+            invert=self.invert, num_threads=self.num_threads,
+        )
+        nb = len(it)
         ms = []
-        for k, batch in enumerate(batches):
-            m = steps.train_step(self.state, batch, self.train_cache)
+        for k, batch in enumerate(prefetch_to_device(iter(it), self.device)):
+            m = self.train_step(batch, self.train_cache)
             ms.append(torch.stack([m["loss"], m["accuracy"], m["grad_norm"]]))
             if (k + 1) % self.log_interval == 0 or k + 1 == nb:
-                self._log_step(epoch, k + 1, nb, ms[-1], lr, bs)
+                self._log_step(epoch, k + 1, nb, ms[-1].tolist(), lr, bs, self.state.step)
         # one fetch per epoch: the per-step metrics stayed on the device
         return torch.stack(ms).cpu().numpy() if ms else np.zeros((0, 3), np.float32)
 
@@ -214,6 +245,8 @@ class Trainer:
         bs = max(1, self.bs_sched.int_value(epoch))
         if self._last_bs is not None and bs != self._last_bs:
             self.log(f"BS schedule: {self._last_bs} -> {bs} at epoch {epoch}")
+            if self.graphs is not None:
+                self.graphs.clear()  # the old batch's graphs are not replayed again
         self._last_bs = bs
         steps.set_learning_rate(self.state, lr)
         prof_dir = self.profile_dir if epoch == self.profile_epoch else None
@@ -232,41 +265,39 @@ class Trainer:
             "qps": len(ms) * bs / dt if dt > 0 else 0.0,
         }
 
-    def _eval_batches_device(self, bs: int):
-        """Device batches of the val split with valid/index, in order."""
+    def _eval_device(self, bs: int):
+        """The val split's outputs over device-resident data, in order, in
+        chunks of ``log_interval`` batches."""
         n = len(self.val_ds)
         nb = -(-n // bs)
         idx = np.zeros((nb * bs,), np.int32)
         idx[:n] = np.arange(n, dtype=np.int32)
         valid = np.zeros((nb * bs,), bool)
         valid[:n] = True
-        idx_d = torch.from_numpy(idx).to(self.device)
-        valid_d = torch.from_numpy(valid).to(self.device)
-        for k in range(nb):
-            sl = slice(k * bs, (k + 1) * bs)
-            batch = {key: v[idx_d[sl]] for key, v in self.val_data.items()}
-            batch["valid"] = valid_d[sl]
-            batch["index"] = idx_d[sl]
-            yield batch
+        idx_d = torch.from_numpy(idx.reshape(nb, bs)).to(self.device)
+        valid_d = torch.from_numpy(valid.reshape(nb, bs)).to(self.device)
+        for c0 in range(0, nb, self.log_interval):
+            c = slice(c0, c0 + self.log_interval)
+            out = self.eval_chunk(idx_d[c], valid_d[c], self.val_data, self.val_cache)
+            yield {k: v.reshape(-1) for k, v in out.items()}
 
     def eval_epoch(self, epoch: int, batch_size: Optional[int] = None) -> Dict[str, Any]:
         bs = max(1, batch_size or self.bs_sched.int_value(max(epoch, 1)))
         acc = EvalAccumulator(self.dicts, categories=self._val_categories())
         t0 = time.time()
         if self.val_data is not None:
-            batches = self._eval_batches_device(bs)
+            results = self._eval_device(bs)
         else:
             it = BatchIterator(
                 self.val_ds, bs, shuffle=False, drop_last=False, invert=self.invert, num_threads=self.num_threads
             )
-            batches = prefetch_to_device(iter(it), self.device)
+            results = (self.eval_step(batch, self.val_cache) for batch in prefetch_to_device(iter(it), self.device))
         outs = {"pred": [], "label": [], "valid": [], "index": []}
         nll = torch.zeros((), dtype=torch.float32, device=self.device)
-        for batch in batches:
-            out = steps.eval_step(self.state, batch, self.val_cache)
+        for out in results:
             for k in outs:
                 outs[k].append(out[k])
-            nll = nll + out["nll_sum"]
+            nll = nll + out["nll_sum"].sum()
         # one fetch per epoch: everything stayed on the device until here
         host = {k: torch.cat(v).cpu().numpy() for k, v in outs.items() if v}
         if host:

@@ -2,10 +2,18 @@
 
 Port of ``rnet/train/steps.py`` (``make_optimizer``, ``create_train_state``,
 ``_inputs_of``, ``_fused_augment_ok``, ``_train_inputs``, ``train_step``,
-``eval_step``) and ``rnet/train/loop.py::set_learning_rate``. The
-device-resident counterpart of ``make_chunked_steps`` (a per-step index
-gather from per-question device tensors) is ``Trainer``'s epoch loop in
-``rnet_torch/train/loop.py``; ``unpack_eval_chunk``'s packing has none.
+``eval_step``, ``make_jitted_steps``, ``make_chunked_steps``) and
+``rnet/train/loop.py::set_learning_rate``; ``unpack_eval_chunk``'s packing
+has no counterpart.
+
+Dispatch, as rnet's jit: ``make_jitted_steps`` gives a train and an eval
+step over one batch, ``make_chunked_steps`` a train and an eval chunk over
+a (K, B) block of sample indices into per-question device tensors (K steps
+in one dispatch, as rnet's ``lax.scan``). Given a ``StepGraphs`` (made by
+``step_graphs``; ``rnet_torch/train/graphs.py``) each is captured in a CUDA
+graph at its first call for a shape and replayed after; without one (the
+CPU, or ``cuda_graphs=False``) the same function runs eagerly. So the CPU
+tests hold the very code that the card captures.
 
 The optimizer is rnet's optax chain, step for step:
 
@@ -18,7 +26,12 @@ below ``clip_norm`` and are otherwise replaced by g / norm * clip_norm
 and Adam are ``torch.optim.Adam(weight_decay=...)``, which adds wd * p to the
 gradient before the moments, as ``add_decayed_weights`` placed before adam
 does, and whose update is optax's algebraically. ``clip_norm`` or
-``weight_decay`` of 0 leaves that link out, as in rnet.
+``weight_decay`` of 0 leaves that link out, as in rnet. On CUDA the Adam is
+``capturable``: its step count and the LR are device tensors, so that a
+captured step reads them at every replay, and ``set_learning_rate`` fills
+the LR in place (rnet injects it into the optimizer state; neither
+rebuilds anything). The eager CUDA step uses the same Adam, so eager and
+replayed steps run the same arithmetic; the CPU keeps a float LR.
 
 Parameters and Adam moments stay fp32; the forward runs in the config's
 compute dtype (the model casts). A batch is a dict of numpy arrays or
@@ -47,6 +60,7 @@ import torch
 from ..kernels.augment import gather_augment
 from ..models import RN
 from ..models.rn import compute_dtype
+from .graphs import StepGraphs, shape_key, tensor_key
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -82,20 +96,75 @@ class TrainState:
 
 
 def create_train_state(model: RN, optimizer: OptimizerConfig, seed: int = 0) -> TrainState:
+    """On CUDA a capturable Adam with the LR as a device tensor; on the CPU
+    a float LR."""
     dev = next(model.parameters()).device
+    cuda = dev.type == "cuda"
+    lr = torch.tensor(optimizer.lr, dtype=torch.float32, device=dev) if cuda else optimizer.lr
     adam = torch.optim.Adam(
-        model.parameters(), lr=optimizer.lr, betas=ADAM_BETAS, eps=ADAM_EPS,
-        weight_decay=optimizer.weight_decay,
+        model.parameters(), lr=lr, betas=ADAM_BETAS, eps=ADAM_EPS,
+        weight_decay=optimizer.weight_decay, capturable=cuda,
     )
     gen = torch.Generator(device=dev).manual_seed(seed)
     return TrainState(model=model, adam=adam, clip_norm=optimizer.clip_norm, generator=gen)
 
 
 def set_learning_rate(state: TrainState, lr: float) -> TrainState:
-    """Change the LR of the next steps; nothing is rebuilt."""
+    """Change the LR of the next steps; nothing is rebuilt (a device LR is
+    filled in place, where captured steps read it)."""
     for group in state.adam.param_groups:
-        group["lr"] = float(lr)
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)
     return state
+
+
+def load_adam_state(adam: torch.optim.Adam, state_dict: Mapping[str, Any]) -> None:
+    """``adam.load_state_dict`` that keeps each group's LR tensor (filled with
+    the saved value): ``load_state_dict`` would put the saved object in its
+    place, which a captured step does not read."""
+    lrs = [g["lr"] for g in adam.param_groups]
+    adam.load_state_dict(state_dict)
+    for group, lr in zip(adam.param_groups, lrs):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
+
+
+class StateRollback:
+    """Snapshot and in-place restore of everything a train step changes: the
+    parameters and BatchNorm buffers, the Adam state (moments and step; a
+    parameter without state gets zeros, what Adam's first step starts
+    from), the generator and the step count. In place, because captured
+    steps read these tensors where they lie."""
+
+    def __init__(self, state: TrainState):
+        self.state = state
+
+    @torch.no_grad()
+    def snapshot(self):
+        st = self.state
+        model = {k: v.clone() for k, v in st.model.state_dict().items()}
+        adam = {p: {k: v.clone() for k, v in s.items()} for p, s in st.adam.state.items()}
+        return model, adam, st.generator.get_state(), st.step
+
+    @torch.no_grad()
+    def restore(self, snap) -> None:
+        model, adam, gen, step = snap
+        st = self.state
+        live = st.model.state_dict()
+        for k, v in model.items():
+            live[k].copy_(v)
+        for p, s in st.adam.state.items():
+            saved = adam.get(p)
+            for k, v in s.items():
+                if saved is None:
+                    v.zero_()
+                else:
+                    v.copy_(saved[k])
+        st.generator.set_state(gen)
+        st.step = step
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
@@ -181,19 +250,31 @@ def loss_and_grads(
     return loss.detach(), accuracy, [p.grad for p in params]
 
 
-def train_step(
-    state: TrainState, batch: Mapping[str, Any], image_cache: Optional[torch.Tensor] = None
-) -> Dict[str, torch.Tensor]:
-    """One optimizer step in place; metrics ``loss`` (mean NLL), ``accuracy``
-    and ``grad_norm`` (the global norm before clipping) as 0-d tensors."""
+def _update(state: TrainState, batch: Mapping[str, Any], image_cache: Optional[torch.Tensor]) -> torch.Tensor:
+    """A train step's device work (forward, backward, clip, Adam); its
+    (loss, accuracy, grad_norm) as one (3,) tensor. The step count is the
+    caller's: a replay runs no Python."""
     loss, accuracy, grads = loss_and_grads(state.model, batch, state.generator, image_cache)
     with torch.no_grad():
         norm = global_norm(grads)
         if state.clip_norm > 0:
             clip_by_global_norm_(grads, norm, state.clip_norm)
         state.adam.step()
+    return torch.stack([loss, accuracy, norm])
+
+
+def _metrics(m: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {"loss": m[0], "accuracy": m[1], "grad_norm": m[2]}
+
+
+def train_step(
+    state: TrainState, batch: Mapping[str, Any], image_cache: Optional[torch.Tensor] = None
+) -> Dict[str, torch.Tensor]:
+    """One optimizer step in place; metrics ``loss`` (mean NLL), ``accuracy``
+    and ``grad_norm`` (the global norm before clipping) as 0-d tensors."""
+    m = _update(state, batch, image_cache)
     state.step += 1
-    return {"loss": loss, "accuracy": accuracy, "grad_norm": norm}
+    return _metrics(m)
 
 
 @torch.no_grad()
@@ -221,3 +302,84 @@ def eval_step(
     if "index" in b:
         out["index"] = b["index"]
     return out
+
+
+EVAL_KEYS = ("pred", "label", "valid", "index", "nll_sum")
+
+
+def step_graphs(state: TrainState):
+    """The ``StepGraphs`` of one train state: its generator registered, its
+    rollback around every capture."""
+    return StepGraphs(state.device, generators=(state.generator,), rollback=StateRollback(state))
+
+
+def _dispatch(graphs, key, fn, inputs: Dict[str, torch.Tensor]):
+    """``fn(inputs)``, replayed from ``graphs`` under ``key`` or run eagerly."""
+    return fn(inputs) if graphs is None else graphs.run(key, fn, inputs)
+
+
+def make_jitted_steps(state: TrainState, graphs=None):
+    """(train_step, eval_step) over one batch (rnet's ``make_jitted_steps``):
+    ``train_step(batch, image_cache=None)`` -> metrics as ``train_step``'s,
+    ``eval_step(batch, image_cache=None)`` -> ``eval_step``'s outputs. The
+    batch's tensors are copied into the graph's buffers (on its device);
+    with ``graphs`` None they run eagerly."""
+
+    def jitted_train(batch: Mapping[str, Any], image_cache: Optional[torch.Tensor] = None):
+        b = _batch_tensors(batch, state.device)
+        key = ("train", shape_key(b), tensor_key(image_cache))
+        m = _dispatch(graphs, key, lambda x: _update(state, x, image_cache), b)
+        state.step += 1
+        return _metrics(m)
+
+    def jitted_eval(batch: Mapping[str, Any], image_cache: Optional[torch.Tensor] = None):
+        b = _batch_tensors(batch, state.device)
+        key = ("eval", shape_key(b), tensor_key(image_cache))
+        return _dispatch(graphs, key, lambda x: eval_step(state, x, image_cache), b)
+
+    return jitted_train, jitted_eval
+
+
+def _gather(data: Mapping[str, torch.Tensor], idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {k: v[idx] for k, v in data.items()}
+
+
+def make_chunked_steps(state: TrainState, graphs=None):
+    """(train_chunk, eval_chunk) over device-resident data (rnet's
+    ``make_chunked_steps``): K steps in one dispatch, step k's batch gathered
+    on the device by the (B,) sample indices ``idx_chunk[k]`` from the
+    per-question tensors ``data`` (read in place, as ``image_cache``).
+
+    * ``train_chunk(idx_chunk, data, image_cache)`` -> (K, 3) loss,
+      accuracy, grad_norm per step;
+    * ``eval_chunk(idx_chunk, valid_chunk, data, image_cache)`` -> ``pred``,
+      ``label``, ``valid``, ``index`` (K, B) and ``nll_sum`` (K,).
+
+    The (K, B) blocks are copied into the graph's buffers; with ``graphs``
+    None the chunks run eagerly."""
+
+    def ext_key(data, image_cache):
+        return tuple(sorted((k, tensor_key(v)) for k, v in data.items())), tensor_key(image_cache)
+
+    def train_chunk(idx_chunk: torch.Tensor, data: Mapping[str, torch.Tensor], image_cache=None) -> torch.Tensor:
+        def body(x):
+            return torch.stack([_update(state, _gather(data, idx), image_cache) for idx in x["idx"]])
+
+        inputs = {"idx": idx_chunk}
+        ms = _dispatch(graphs, ("train_chunk", shape_key(inputs), ext_key(data, image_cache)), body, inputs)
+        state.step += idx_chunk.shape[0]
+        return ms
+
+    def eval_chunk(idx_chunk, valid_chunk, data: Mapping[str, torch.Tensor], image_cache=None):
+        def body(x):
+            outs = []
+            for idx, valid in zip(x["idx"], x["valid"]):
+                batch = _gather(data, idx)
+                batch["valid"], batch["index"] = valid, idx
+                outs.append(eval_step(state, batch, image_cache))
+            return {k: torch.stack([o[k] for o in outs]) for k in EVAL_KEYS}
+
+        inputs = {"idx": idx_chunk, "valid": valid_chunk}
+        return _dispatch(graphs, ("eval_chunk", shape_key(inputs), ext_key(data, image_cache)), body, inputs)
+
+    return train_chunk, eval_chunk
