@@ -20,7 +20,9 @@ Phases, each fatal (exit 1, no result line) when it fails:
      same launch twice gives bitwise-equal gradients. The shapes with B above
      the SM count (the training shape B=512, and B=140 at H=512) are the
      ones where a CTA of the backward's persistent grid owns several
-     samples.
+     samples; at H=512 the backward runs on clusters of two CTAs, also at
+     B=3 (odd: one sample a cluster) and at the SD grid of 12 (a ragged
+     block); at H=384 (B=8) the one-CTA backward on one warpgroup.
  5b. The int8 kernel (``pairwise_fwd_int8``) vs its plain version on the
      same folded inputs (``quantize_int8``): original-fp B = 1, 64, 512 and
      ir-fp (inject 2) B=64 through ``pairwise_core_int8``, wide-fp's H=512
@@ -79,7 +81,9 @@ Phases, each fatal (exit 1, no result line) when it fails:
      taken in turns (bf16 int8 int8 bf16). The fp32 kernels at B = 64 and
      512 beside the cuBLAS fp32 chain (TF32 off) and its autograd. wide-fp's
      H=512 at B=512 (n=64): the bf16 forward and backward, int8 and the
-     fp32 (wide) kernels, each with its plain version, yardstick and bound.
+     fp32 kernels, each with its plain version, yardstick and bound; the
+     phase breakdown of the H=512 backwards (bf16 and fp32, on clusters of
+     two CTAs).
   9. Augment kernel vs its plain version on the card: B = 1, 7 and 512, fp32
      and bf16 outputs, angles of ±2.8 degrees and 0, the four corner offsets
      (where the shears wrap around the canvas), repeated indices, a cache of
@@ -133,6 +137,13 @@ Phases, each fatal (exit 1, no result line) when it fails:
      each graph's capture time and pool; last, one Trainer epoch of run
      (a)'s setup with ``cuda_graphs=False`` and True (F T T F), loss, val
      NLL and parameters bitwise equal.
+12b. wide-fp (g_theta 4 x 512) train steps at B=512 on device-resident
+     data, replayed: bf16 through ``rl_impl="auto"`` (the kernels) against
+     ``"xla"``, fp32 through ``"pallas"`` against ``"xla"``, each pair in the
+     order kernel xla xla kernel: host ms, q/s and the launches of every
+     kernel per step; busy ms and idle share from one profiled window
+     (host clock and profiler over the same replays); the first step's loss
+     of the kernel arm against the ``xla`` arm's (same weights and draws).
  11. fp32 and extraction: (a) ``python -m rnet_torch.train --precision
      float32 --rl-impl pallas``, one epoch of 16 steps (one
      ``pairwise_fwd_f32`` launch per train and eval batch, one
@@ -302,18 +313,22 @@ def mask_bound(B, npairs):
     return roofline(B * npairs * 121.0, B * npairs * 1.0, peak_ops=PEAK_INT32_OPS)
 
 
-def profile_device(torch, fn, reps: int = 3):
+def profile_device(torch, fn, reps: int = 3, host=None):
     """Device time by kernel name for one call of fn (torch.profiler):
-    (busy_ms per call, kernel launches per call, top rows)."""
+    (busy_ms per call, kernel launches per call, top rows). With a list
+    ``host``, appends the host-clock ms per call of the same profiled reps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        if host is not None:
+            host.append((time.perf_counter() - t0) * 1e3 / reps)
     rows = [
         (e.self_device_time_total / 1e3 / reps, e.count / reps, e.key)
         for e in prof.key_averages()
@@ -339,12 +354,18 @@ def log_profile(torch, what, fn, wall_ms, top=8):
 # B above the SM count (132 on an H100 SXM), where each CTA of the
 # backward's persistent grid of min(B, SMs) takes several samples into one
 # dW/db partial: original-fp at the training shape B=512 (3-4 samples a
-# CTA, 128-row blocks) and H=512 with inject 2 at B=140 (64-row blocks).
+# CTA, 128-row blocks) and H=512 with inject 2 at B=140 (a cluster of two
+# CTAs owning 2-3 samples). At H=512 the backward runs on clusters of two
+# CTAs: B=64, and B=3 (odd, one sample a cluster, a grid of 3 clusters with
+# L=3), and the SD grid of 12 objects at B=5 (144 pair rows: a ragged
+# second block of 128). H=384 (B=8): the one-CTA backward on one consumer
+# warpgroup, the only plan of the bf16 backward above H=256 but H=512.
 TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0)
 CASES = [
     (1, 64, 64, 256, 4, 0), (64, 64, 64, 256, 4, 0), (1, 64, 64, 256, 4, 2),
     (64, 64, 64, 256, 4, 2), (64, 64, 64, 512, 4, 0), (3, 12, 12, 128, 3, 1),
     (2, 16, 64, 256, 4, 1), (1, 1024, 1024, 256, 4, 1), TRAIN_CASE, (140, 64, 64, 512, 4, 2),
+    (3, 64, 64, 512, 3, 1), (5, 12, 12, 512, 4, 2), (8, 64, 64, 384, 4, 1),
 ]
 KEEPS = (1.0, 0.75)
 GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
@@ -355,13 +376,15 @@ GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
 # stretch-fp-32's 1,024 objects, and pair dropout at keep 0.9; then the
 # other tile layouts of the backward at H=256 (L=3: dpre_2 in a_0's tile;
 # L=2: in its own), with the injection at the last layer, a ragged block
-# and dropout, and H=128 (the wide kernels).
+# and dropout, and H=128 (the wide kernels); at H=512 (the backward on
+# clusters of two CTAs) B=3 (odd, one sample a cluster) with dropout and
+# the SD grid at B=5 with L=3.
 F32_TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0, 1.0)
 F32_CASES = [
     F32_TRAIN_CASE, (64, 64, 64, 256, 4, 0, 1.0), (64, 64, 64, 256, 4, 2, 1.0), (64, 64, 64, 512, 4, 0, 1.0),
     (64, 12, 12, 512, 4, 2, 1.0), (2, 16, 40, 256, 4, 1, 1.0), (1, 1024, 1024, 256, 4, 0, 1.0),
     (64, 64, 64, 256, 4, 0, 0.9), (4, 24, 24, 256, 3, 2, 0.75), (3, 10, 10, 256, 2, 1, 1.0),
-    (4, 16, 16, 128, 3, 1, 1.0),
+    (4, 16, 16, 128, 3, 1, 1.0), (3, 64, 64, 512, 4, 1, 0.75), (5, 12, 12, 512, 3, 2, 1.0),
 ]
 
 
@@ -461,8 +484,10 @@ def check_backward(torch, pw, seed):
                 max_err = max(max_err, err)
                 if CASES[k] == TRAIN_CASE:
                     at_shape = max(at_shape, err)
+            plan = pw.tile_plan("bwd", B, ni, nj, H, L, sms)
             log(f"pairwise_bwd vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep} "
-                f"({-(-B // min(B, sms))} samples per CTA at most): " + " | ".join(parts))
+                f"({-(-B // (plan.grid // plan.cluster))} samples per {'cluster of 2' if plan.cluster > 1 else 'CTA'} "
+                f"at most): " + " | ".join(parts))
         if CASES[k] == TRAIN_CASE:  # the same launch twice, bitwise
             again = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=0.75, seed=seed)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
@@ -940,9 +965,10 @@ def time_f32(torch, pw, seed):
 def phase_breakdown(torch, pw):
     """Phase 8: one launch of each pairwise kernel's phase-timing build
     (bf16 forward and backward, int8 forward, fp32 forward and backward) at
-    original-fp B = 64 and 512: the clock64() cycles of every phase, summed
-    over the CTAs, as shares of their total (and the total); the timing
-    build must compute the kernel's values."""
+    original-fp B = 64 and 512, and of the backward at wide-fp's H=512, B=512
+    (bf16 and fp32, on clusters of two CTAs): the clock64() cycles of every
+    phase, summed over the CTAs, as shares of their total (and the total);
+    the timing build must compute the kernel's values."""
     n, H, L, inject = 64, 256, 4, 0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
@@ -977,6 +1003,27 @@ def phase_breakdown(torch, pw):
             log(f"phases {name} {json.dumps(row)}")
         del args, args32, g, folded
         torch.cuda.empty_cache()
+    B, H = TRAIN_B, 512
+    args = pair_inputs(torch, B, n, H, L, seed=700)
+    g = upstream(torch, B, H, seed=701)
+    for kind, esize in (("bwd", 2), ("bwd_f32", 4)):
+        plan = pw.tile_plan("bwd", B, n, n, H, L, sms, esize=esize)
+        a = [x.float() for x in args] if esize == 4 else args
+        cycles = torch.zeros((plan.grid, pw.PHASE_SLOTS), dtype=torch.int64, device="cuda")
+        got = pw.pairwise_bwd_cuda(*a, g, inject=inject, phases=cycles)[4]
+        want = pw.pairwise_bwd_cuda(*a, g, inject=inject)[4]
+        torch.cuda.synchronize()
+        name = "pairwise_" + kind
+        if not torch.equal(got, want):
+            fail(f"the phase-timing build of {name} at H={H} computes other values than the kernel")
+        total = cycles.sum(dim=0).double()
+        row = {"B": B, "H": H, "cluster": plan.cluster, "total_cycles": int(total.sum().item()), "ctas": plan.grid,
+               "warpgroups": plan.wgs, "bm": plan.bm,
+               "shares": {nm: (total[k] / total.sum()).item() for k, nm in enumerate(pw.BWD_PHASES)}}
+        out[(kind, "H512")] = row
+        log(f"phases {name} H=512 {json.dumps(row)}")
+    del args, g
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2024,6 +2071,87 @@ def graph_phase(torch, np, pw, aug, cfg, dicts, burst):
     return out
 
 
+WIDE_WINDOW = 4  # wide-fp train steps in a timed window
+
+
+def wide_fp_steps(torch, pw, aug, n_answers):
+    """Phase 12b: replayed train steps of wide-fp (g_theta 4 x 512, n = 64)
+    at B=512 on device-resident data (a 2,048-canvas cache, device augment,
+    as phase 12 builds it), in bf16 through rl_impl "auto" (the kernels)
+    against "xla", and in fp32 through "pallas" against "xla", each pair in
+    the order kernel xla xla kernel: host ms, device busy ms, idle share,
+    questions/s and every kernel's launches per replayed step. The busy
+    time and the idle share come from one profiled window of WIDE_WINDOW
+    replays, host clock and profiler on the same replays. Both arms start
+    from the same weights and draw the same augmentation and dropout, so the
+    first replayed step's loss of the kernel arm must match the xla arm's:
+    within 1e-2 relative in bf16 (phase 7's bound) and 1e-5 in fp32 (phase
+    7b's)."""
+    from rnet_torch.config import load_config
+    from rnet_torch.train import steps
+
+    torch.backends.cudnn.deterministic = True
+    cfg = load_config("wide-fp").replace(n_answers=n_answers, device_augment=True)
+    cache, data = device_data(torch, cfg, AUG_SMALL, 2 * TRAIN_B, seed=13)
+    idx = torch.arange(TRAIN_B, dtype=torch.int32, device="cuda").view(1, TRAIN_B)
+    out = {}
+    for dtype, kernel_impl in (("bfloat16", "auto"), ("float32", "pallas")):
+        arms = {}
+        for impl in (kernel_impl, "xla"):
+            state = new_state(torch, cfg.replace(rl_impl=impl, compute_dtype=dtype))
+            graphs = steps.step_graphs(state)
+            train = steps.make_chunked_steps(state, graphs)[0]
+            first = train(idx, data, cache)  # captures, then replays the first step
+            torch.cuda.synchronize()
+            loss0 = float(first[0, 0])
+            pw.reset_launches()
+            aug.reset_launches()
+            metrics = train(idx, data, cache)
+            torch.cuda.synchronize()
+            if not torch.isfinite(metrics).all():
+                fail(f"wide-fp {dtype} {impl}: non-finite step metrics {metrics.tolist()}")
+            counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
+            arms[impl] = (state, graphs, lambda t=train: t(idx, data, cache), counts, loss0)
+        resolved = arms[kernel_impl][0].model.relational.resolve_impl(64, torch.device("cuda"))
+        bwd = pw.BWD_KERNEL if dtype == "bfloat16" else pw.F32_BWD_KERNEL
+        if resolved != "pallas" or arms[kernel_impl][3].get(bwd) != 1 or bwd in arms["xla"][3]:
+            fail(f"wide-fp {dtype}: {kernel_impl} should run the kernels ({resolved}, launches "
+                 f"{arms[kernel_impl][3]}) and xla none ({arms['xla'][3]})")
+        lk, lx = arms[kernel_impl][4], arms["xla"][4]
+        loss_rel, loss_tol = abs(lk - lx) / abs(lx), (1e-2 if dtype == "bfloat16" else 1e-5)
+        log(f"wide-fp {dtype} first replayed step: loss {kernel_impl} {lk!r} vs xla {lx!r}, relative difference "
+            f"{loss_rel!r} (tol {loss_tol!r})")
+        if not loss_rel <= loss_tol:
+            fail(f"wide-fp {dtype}: the kernel path's train loss disagrees with the xla path's")
+        win = timed_windows(torch, {k: a[2] for k, a in arms.items()}, order=(kernel_impl, "xla", "xla", kernel_impl),
+                            n=WIDE_WINDOW)
+        row = {"first_step_loss": {kernel_impl: lk, "xla": lx}, "first_step_loss_rel_diff": loss_rel}
+        for impl, (_, graphs, fn, counts, _) in arms.items():
+            host = sum(win[impl]) / len(win[impl])
+            prof_host = []
+            busy, kern, top = profile_device(torch, fn, reps=WIDE_WINDOW, host=prof_host)
+            if kern == 0:
+                fail(f"wide-fp {dtype} {impl}: the profiler saw no kernel in the replayed steps")
+            idle = 1.0 - busy / prof_host[0]
+            log(f"profile wide-fp train step B={TRAIN_B} {dtype} {impl} (replayed): host {prof_host[0]!r} ms, device "
+                f"busy {busy!r} ms in {kern!r} kernels over the same {WIDE_WINDOW} replays, idle share {idle!r}")
+            for ms_k, count, name in top[:5]:
+                log(f"  {ms_k!r} ms x{count!r} {name[:100]}")
+            row[impl] = {"host_ms": host, "host_ms_windows": win[impl], "busy_ms": busy, "kernels": kern,
+                         "profiled_host_ms": prof_host[0], "idle_share": idle, "qps": TRAIN_B / host * 1e3,
+                         "launches_per_step": counts, "capture": graph_memory(graphs)}
+        row["kernel_over_xla_host"] = row[kernel_impl]["host_ms"] / row["xla"]["host_ms"]
+        log(f"wide-fp train step B={TRAIN_B} {dtype}, replayed, {WIDE_WINDOW} a window in the order {kernel_impl} "
+            f"xla xla {kernel_impl}: {json.dumps(row)}")
+        out[dtype] = row
+        del arms
+        torch.cuda.empty_cache()
+    del cache, data
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
 def trainer_epochs(torch, root):
     """Phase 12, last part: Trainer epochs of run (a)'s setup (device
     pipeline with augmentation, B=512, 16 steps, then eval) with
@@ -2080,8 +2208,10 @@ def trainer_epochs(torch, root):
 
 def time_wide(torch, pw, seed):
     """Phase 8, wide-fp's H=512 at B=512 (n=64, L=4): the bf16 forward and
-    backward, int8 and the fp32 (wide) kernels, each beside its plain
-    version, its PyTorch yardstick and its bound."""
+    backward, int8 and the fp32 forward and backward, each beside its plain
+    version, its PyTorch yardstick and its bound; each backward twice,
+    bitwise, and (bf16) the device ms of the kernels of one launch
+    (profiler)."""
     B, n, H, L, inject = TRAIN_B, 64, 512, 4, 0
     rows = {}
     args = pair_inputs(torch, B, n, H, L, seed=700)
@@ -2101,10 +2231,23 @@ def time_wide(torch, pw, seed):
             "ms": cuda_ms(torch, lambda: pw.pairwise_bwd_cuda(*args_, g, inject=inject), 3, warmup=1),
             "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args_, g, inject), 2, warmup=1),
             "library_ms": cuda_ms(torch, lambda: library_vjp(torch, args_, g, inject), 2, warmup=1),
-            "plan": {"wgs": plans["bwd"].wgs, "bm": plans["bwd"].bm, "ring": plans["bwd"].ring},
+            "plan": {"wgs": plans["bwd"].wgs, "bm": plans["bwd"].bm, "ring": plans["bwd"].ring,
+                     "cluster": plans["bwd"].cluster},
         }
         rows[f"bwd_{dt}"].update(zip(("bound_ms", "bound_by"), bb(B, n, n, H, L)))
-        del args_
+        if dt == "bf16":  # device ms of each kernel of one launch: the fused kernel and dw_gemm_kernel
+            _, _, top = profile_device(torch, lambda: pw.pairwise_bwd_cuda(*args_, g, inject=inject), reps=2)
+            kernels_ms = {}
+            for ms, _, name in top:
+                short = name.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+                kernels_ms[short] = kernels_ms.get(short, 0.0) + ms
+            rows[f"bwd_{dt}"]["kernels_ms"] = kernels_ms
+        first, again = (pw.pairwise_bwd_cuda(*args_, g, inject=inject) for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"pairwise_bwd {dt} at wide-fp B={B} is not bitwise repeatable")
+        log(f"pairwise_bwd {dt} at wide-fp B={B} (plan cluster {plans['bwd'].cluster}): the same launch twice gives "
+            "bitwise-equal gradients")
+        del args_, first, again
         torch.cuda.empty_cache()
     folded = pw.quantize_int8(*args, inject)
     rows["int8"] = {
@@ -2116,6 +2259,10 @@ def time_wide(torch, pw, seed):
     for name, r in rows.items():
         r.update(B=B, n=n, H=H, L=L, x_bound=r["ms"] / r["bound_ms"], ms_over_library=r["ms"] / r["library_ms"])
         log(f"time H=512 {name} {json.dumps(r)}")
+    for dt in ("bf16", "fp32"):
+        r = rows[f"bwd_{dt}"]
+        log(f"pairwise_bwd {dt} at wide-fp B={B}, same call: kernel {r['ms']!r} ms, autograd through cuBLAS "
+            f"{r['library_ms']!r} ms: ms_over_library {r['ms_over_library']!r}")
     del args, g, folded
     torch.cuda.empty_cache()
     return rows
@@ -2260,6 +2407,8 @@ def main() -> int:
     # ---- 12. compiled dispatch: replayed CUDA graphs against eager steps ----
     graph_out = graph_phase(torch, np, pw, aug, cfg, dicts, burst)
     log(f"phase 12 (graphs) done at {time.perf_counter() - t_start:.1f} s")
+    graph_out["wide_fp_steps"] = wide_fp_steps(torch, pw, aug, dicts.n_answers)
+    log(f"phase 12b (wide-fp steps) done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 10. training through the entry point ----
     import shutil
@@ -2305,7 +2454,9 @@ def main() -> int:
                train_counts[pw.BWD_KERNEL], bwd_err_at_shape, bwd[TRAIN_B], shape=shape,
                max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL],
                phase_shares=phases[("bwd", TRAIN_B)]["shares"],
-               replay_launches=graph_out["train_counts"][pw.BWD_KERNEL], h512=wide["bwd_bf16"]),
+               replay_launches=graph_out["train_counts"][pw.BWD_KERNEL], h512=wide["bwd_bf16"],
+               h512_phase_shares=phases[("bwd", "H512")]["shares"],
+               wide_fp_step_launches=graph_out["wide_fp_steps"]["bfloat16"]["auto"]["launches_per_step"]),
         record("pair_mask", "rnet_torch/csrc/philox.cuh", "rnet/kernels/pairwise.py:69",
                pd_counts["pair_mask"], float(mask_err), mask,
                shape={"B": TRAIN_B, "n": 64}, launches_of="one train step with pair_dropout 0.25"),
@@ -2342,6 +2493,8 @@ def main() -> int:
                precision="3xTF32", ms_over_library=f32_rows[("bwd", TRAIN_B)]["ms_over_library"],
                ms_b64=f32_rows[("bwd", 64)]["ms"], phase_shares=phases[("bwd_f32", TRAIN_B)]["shares"],
                train_loss_rel_diff_from_xla_fp32=f32_loss_rel, h512=wide["bwd_fp32"],
+               h512_phase_shares=phases[("bwd_f32", "H512")]["shares"],
+               wide_fp_step_launches=graph_out["wide_fp_steps"]["float32"]["pallas"]["launches_per_step"],
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512"),
     ]

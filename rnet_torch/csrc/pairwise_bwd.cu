@@ -14,22 +14,26 @@
 //     d      = dpre_l W_l^T                   (fp32)
 //     dpre_0 = d * [a_0 > 0]                  (fp32)
 //     ds += sum_rows dpre_0,  du[i] += sum_j dpre_0,  dv[j] += sum_i dpre_0
-// The n^2 pair rows never reach device memory.
+// The n^2 pair rows never reach device memory (at H=512 in bf16 they do,
+// once, for dW: below).
 //
 // What bounds it: tensor-core operations. The recompute, d and dW products
 // are each 2*B*ni*nj*(L-1)*H^2 FLOPs, 3x the forward: at original-fp B=512
-// (n=64, H=256, L=4) 2.47 TFLOP, 2.50 ms at 989 TFLOP/s bf16, against ~20 MB
-// of inputs and outputs. Behind them: the W feed (every 128-row block reads
-// all of W twice) and the dW partial, (L-1)*H^2 fp32 (786 KB at H=256)
-// added once per block by each of up to 132 CTAs, 104 MB in all, twice L2.
+// (n=64, H=256, L=4) 2.47 TFLOP, 2.50 ms at 989 TFLOP/s bf16 (the H100 SXM
+// data sheet's peak at 700 W), against ~20 MB of inputs and outputs; at
+// wide-fp's H=512, 9.9 TFLOP, 10.0 ms. Behind them: the W feed (every
+// block of rows reads all of W twice) and the dW partial, (L-1)*H^2 fp32
+// (786 KB at H=256, 3 MB at H=512) added once per block by each of up to
+// 132 CTAs (104 MB in all at H=256, twice L2; 415 MB at H=512).
 //
 // Design (pairwise_chain.cuh has the layout, the W feed and the products).
 // CTAs run in no order, so every output has one fixed writer, and the
 // gradients are bitwise the same from run to run:
 //   * a persistent grid of min(B, #SMs) CTAs; CTA k owns the samples
 //     b = k, k+G, ... and walks all their blocks of BM = 64*WGS pair rows in
-//     order (WGS = 2 up to H=256, 1 at H=512); dW / db go to the CTA's own
-//     fp32 partial, which a second kernel adds over the CTAs in CTA order;
+//     order (WGS = 2 up to H=256, 1 at H=384; H=512 runs on clusters of
+//     two, below); dW / db go to the CTA's own fp32 partial,
+//     which a second kernel adds over the CTAs in CTA order;
 //   * warpgroup WGS is the producer (one thread of it): per block it streams the packed W_l^T
 //     chunks of the recompute and the packed W_l chunks of the L-1 d
 //     products through the ring, running ahead into the next block;
@@ -61,9 +65,48 @@
 //     dv / ds entry by one fixed thread in row order (one thread's
 //     reductions to one address apply in program order), so no thread waits
 //     on a load from device memory.
+//
+// H = 512 (wide-fp, the SD models): clusters of two CTAs (CL = 2) and a
+// GEMM for dW. rnet's TPU kernel keeps all of dW (3 MB at L=4) in VMEM
+// across its sequential grid (rnet/kernels/pairwise.py:424-450, the
+// backward of :120). One CTA holding that partial would flush 6 MB per
+// 64-row block (197 GB in all at wide-fp B=512, 59 ms at 3.35 TB/s, the
+// H100 SXM data sheet's rate at 700 W), so dW leaves the fused kernel:
+//   * The two CTAs of a cluster, on neighbouring SMs, share each block of
+//     BM = 128 rows and split the output columns: rank c computes the
+//     columns c*256 .. c*256 + 255 of every product and keeps only those of
+//     every activation tile, the layout of the H=256 kernel (3 slots of
+//     128 x 256 bf16 = 196,608 B, a 4-stage ring of 32,832 B, row scales
+//     512 B, the ones 128 B, two pair mbarriers 16 B: 230,096 B of the
+//     232,448).
+//   * The depth of every product is all 512: the CTA's own 256 columns of
+//     A come from its tile by descriptor, the peer's 256 from the peer's
+//     tile through distributed shared memory (mapa + ld.shared::cluster)
+//     into registers as wgmma A fragments, two chunks ahead (pair_product).
+//     Each CTA streams only its 256 rows of W_l^T and W_l, its own depth
+//     first (kernels/pairwise.py::pair_halves).
+//   * dW. Per block and layer, one thread stores a_{l-1} and dpre_l, the
+//     CTA's 128 x 256 of each, to device memory as they lie in shared
+//     memory (two 64 KB bulk stores, cp.async.bulk) while the column sums
+//     run; the consumers wait only for the stores to have read a_{l-1}
+//     before the d product overwrites it. That is 12.9 GB at wide-fp B=512
+//     (the buffer `act`, 2 x (L-1) x B x 32 blocks x 2 ranks x 64 KB),
+//     written once and read back once by dw_gemm_kernel, against the 98 GB
+//     a (L-1) x 512 x 256 fp32 partial per CTA would move through its
+//     flushes. dw_gemm_kernel (below) sums a_{l-1}^T dpre_l over all rows
+//     in 128 x 256 output tiles, the rows split over dw_splits(...) CTAs
+//     per tile, and reduce_partials_kernel adds the splits in order.
+//   * The pair meets (PairSync: mbarriers the peer arrives on remotely)
+//     after a_0, after each recompute layer and before each backward layer
+//     that reads what the peer just wrote; the producer warpgroup hands its
+//     registers to the consumers (setmaxnreg 40 / 232).
+//   * db, du, dv, ds, dqa keep one writer each (the CTA that owns the
+//     column); every dW element is the ordered sum of its splits' products.
+//     Bitwise repeatable as the one-CTA kernel.
 // With -DRNET_PHASE_TIMES the first consumer thread of each CTA sums
 // clock64() per phase (recompute, dW products, dW flush, d products,
-// column pass, W feed waits, a_0, barriers) into `phases` (grid, NPHASE).
+// column pass, W feed waits, a_0, barriers, the pair's waits) into `phases`
+// (grid, NPHASE).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,13 +120,14 @@ namespace {
 
 using namespace rnet;
 
-enum { PH_RECOMPUTE, PH_DW, PH_FLUSH, PH_D, PH_COLUMNS, PH_FEED, PH_A0, PH_SYNC };
+enum { PH_RECOMPUTE, PH_DW, PH_FLUSH, PH_D, PH_COLUMNS, PH_FEED, PH_A0, PH_SYNC, PH_PAIR };
 
-// Shared memory: the activation slots, the W ring and its mbarriers, the
-// per-row scale and one core matrix of ones.
-size_t smem_bytes(int bm, int H, int slots, int stages) {
-  return (size_t)slots * bm * H * sizeof(bf16) + (size_t)stages * (CHUNK_BYTES + 16) + (size_t)bm * sizeof(float) +
-         128;
+// Shared memory: the activation slots (bm rows x the CTA's W columns), the W
+// ring and its mbarriers, the per-row scale, one core matrix of ones and, in
+// a cluster, the two mbarriers of the pair barrier (PairSync).
+size_t smem_bytes(int bm, int W, int slots, int stages, int cl) {
+  return (size_t)slots * bm * W * sizeof(bf16) + (size_t)stages * (CHUNK_BYTES + 16) + (size_t)bm * sizeof(float) +
+         128 + (cl > 1 ? 16 : 0);
 }
 
 // Element offset of (r, c) in the fp32 dpre_0 tile of width NT: rows of NT
@@ -91,37 +135,147 @@ size_t smem_bytes(int bm, int H, int slots, int stages) {
 // stores spread over the banks.
 __device__ __forceinline__ int f32_off(int r, int c) { return r * NT + (c ^ ((r & 7) << 3)); }
 
-// The consumer warpgroups' part of pairwise_bwd_kernel (below).
-template <int WGS, bool DROP>
+// acc (+)= A . B for one NT-column output tile of a cluster CTA, over the
+// depth 2W: the first W from the CTA's own core-matrix tile (its columns of
+// A, the warpgroup's 64 rows at a_addr, rows of W), the last W from the
+// peer's tile at the shared::cluster address `peer` (the same rows), read
+// into registers as wgmma A fragments. B streams through the ring as 2W /
+// KC chunks in that order (pair_halves). The peer's fragments of two chunks
+// load while the previous two chunks' products run; the first two during
+// the CTA's own half.
+__device__ __forceinline__ void pair_product(float (&acc)[NT / 2], uint32_t a_addr, uint32_t peer, int W, int tid,
+                                             Ring& r, bool lead, PhaseClock& pc, int wait_phase) {
+  const int nk = W / KC;  // chunks of each half
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  const uint32_t fr = peer + 2u * core_off(16 * warp + g, 2 * t, W);  // (row g, depth 2t) of the warp's 16 rows
+  const uint32_t row8 = 16u * W;                                      // bytes: 8 rows down
+  uint32_t fa[4][4], fb[4][4];                                        // [k-step of two chunks][register]
+  auto load = [&](uint32_t (&f)[4][4], int q) {                       // chunks 2q, 2q + 1 of the peer's depth
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint32_t a = fr + (uint32_t)(q * 4 + ks) * 256;  // 16 of depth: two core matrices of 128 bytes
+      f[ks][0] = ld_cluster_u32(a);
+      f[ks][1] = ld_cluster_u32(a + row8);
+      f[ks][2] = ld_cluster_u32(a + 128);
+      f[ks][3] = ld_cluster_u32(a + row8 + 128);
+    }
+  };
+  load(fa, 0);
+  int prev = 0;
+  wgmma_fence();
+  for (int kc = 0; kc < nk; ++kc) {  // the own half: A from shared memory
+    const int was = pc.mark(wait_phase);
+    mbar_wait(r.full + 8 * r.stage, r.parity);
+    pc.mark(was);
+    const uint32_t b = r.buf + r.stage * CHUNK_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      wgmma_step(acc, desc(a_addr + (kc * (DEPTH_BYTES / 16) + 2 * ks) * 128, 128, 16 * W),
+                 desc(b + ks * 256, 128, 8 * DEPTH_BYTES), 1);
+    wgmma_commit();
+    if (kc > 0) {
+      wgmma_wait<1>();
+      if (lead) mbar_arrive(r.empty + 8 * prev);
+    }
+    prev = r.stage;
+    r.advance();
+  }
+  // the peer's half: group q of two chunks reads `cur`; once chunk 2q's
+  // product is issued and the previous one done, group q + 1 loads into `nxt`
+  auto group = [&](uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4], int q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int was = pc.mark(wait_phase);
+      mbar_wait(r.full + 8 * r.stage, r.parity);
+      pc.mark(was);
+      const uint32_t b = r.buf + r.stage * CHUNK_BYTES;
+      wgmma_fence();
+      wgmma_m64n128_ra<0>(acc, cur[2 * h], desc(b, 128, 8 * DEPTH_BYTES), 1);
+      wgmma_m64n128_ra<0>(acc, cur[2 * h + 1], desc(b + 256, 128, 8 * DEPTH_BYTES), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (lead) mbar_arrive(r.empty + 8 * prev);
+      prev = r.stage;
+      r.advance();
+      if (h == 0) {  // the products that read `nxt` (group q - 1) are done
+#pragma unroll
+        for (int i = 0; i < 16; ++i) keep(nxt[i / 4][i % 4]);
+        if (2 * (q + 1) < nk) load(nxt, q + 1);
+      }
+    }
+  };
+  for (int q = 0; 2 * q < nk; q += 2) {
+    group(fa, fb, q);
+    if (2 * (q + 1) < nk) group(fb, fa, q + 1);
+  }
+  wgmma_wait<0>();
+  if (lead) mbar_arrive(r.empty + 8 * prev);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    keep(fa[i / 4][i % 4]);
+    keep(fb[i / 4][i % 4]);
+  }
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) keep(acc[i]);
+}
+
+// The consumer warpgroups' part of pairwise_bwd_kernel (below). CL = 1: the
+// CTA owns its samples and every column; CL = 2: a cluster CTA of rank c
+// keeps the columns c W .. c W + W - 1 (W = H / 2) of every tile, reads the
+// peer's other half through distributed shared memory, and meets its peer
+// at `ps` wherever one CTA is about to read what the other wrote, or to
+// overwrite what the other reads.
+template <int WGS, int CL, bool DROP>
 __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16* __restrict__ v,
                                          const bf16* __restrict__ s, const bf16* __restrict__ qa,
                                          const bf16* __restrict__ bs, const float* __restrict__ g,
                                          float* __restrict__ du, float* __restrict__ dv, float* __restrict__ ds,
                                          float* __restrict__ dqa, float* __restrict__ dw_part,
-                                         float* __restrict__ db_part, int B, int ni, int nj, int H, int L,
-                                         int inject, int nslots, bf16* slots, float* rowscale, const bf16* ones,
-                                         Ring& r, PhaseClock& pc, const int64_t* __restrict__ seed, uint32_t thr,
-                                         float inv_keep, long long* phases) {
+                                         float* __restrict__ db_part, bf16* __restrict__ act, int B, int ni, int nj,
+                                         int H, int L, int inject, int nslots, bf16* slots, float* rowscale,
+                                         const bf16* ones,
+                                         Ring& r, PairSync& ps, PhaseClock& pc, const int64_t* __restrict__ seed,
+                                         uint32_t thr, float inv_keep, long long* phases) {
   constexpr int BM = 64 * WGS;
   constexpr int NC = WGS * WG_THREADS;  // consumer threads
+  const int W = H / CL;                 // the CTA's columns
+  const int rank = CL == 1 ? 0 : (int)cluster_rank();
+  const int c0 = rank * W;
   const int npairs = ni * nj;
   const int nblk = (npairs + BM - 1) / BM;
   const int wg = threadIdx.x / WG_THREADS;
   const int tid = threadIdx.x - wg * WG_THREADS;  // thread in the warpgroup
   const int ctid = threadIdx.x;                   // thread among the consumers
   const int r0 = 64 * wg;                         // this warpgroup's rows of a block
-  const int fbase = frag_base(tid, r0, H);
+  const int fbase = frag_base(tid, r0, W);
   const int frow = r0 + 16 * (tid / 32) + (tid & 31) / 4;  // the thread's first fragment row
   const int dtop = (L - 1 < nslots) ? L - 1 : 0;  // the slot of dpre_{L-1}
-  auto slot = [&](int k) { return slots + (size_t)k * BM * H; };
-  const int dw_tiles = (H / 64) * (H / NT);
-  float* dwp = dw_part + (size_t)blockIdx.x * (L - 1) * H * H;
+  auto slot = [&](int k) { return slots + (size_t)k * BM * W; };
+  const uint32_t peer_slots = CL == 1 ? 0u : mapa(smem_u32(slots), rank ^ 1);
+  auto peer_slot = [&](int k) { return peer_slots + (uint32_t)(k * BM * W * 2); };
+  const int dw_tiles = (H / 64) * (W / NT);
+  float* dwp = dw_part + (size_t)blockIdx.x * (L - 1) * H * W;
   float* dbp = db_part + (size_t)blockIdx.x * (L - 1) * H;
   const uint64_t key = DROP ? (uint64_t)*seed : 0;
   const uint64_t pol = l2_evict_first();
+  // all consumers of both CTAs (CL = 2), or `id` over `n` threads of this CTA
+  auto sync = [&](int id, int n) {
+    pc.mark(PH_SYNC);
+    fence_proxy_async();
+    if constexpr (CL == 1)
+      bar_sync(id, n);
+    else
+      ps.sync(NC, ctid == 0, pc, PH_PAIR);
+  };
+  auto product = [&](float (&acc)[NT / 2], const bf16* A, int k) {  // A = slot(k)
+    if constexpr (CL == 1)
+      streamed_product(acc, smem_u32(A + r0 * W), 2 * W, r, tid == 0, pc, PH_FEED);
+    else
+      pair_product(acc, smem_u32(A + r0 * W), peer_slot(k) + 2u * r0 * W, W, tid, r, tid == 0, pc, PH_FEED);
+  };
 
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
-    const float* gb = g + (size_t)b * H;
+  for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL) {
+    const float* gb = g + (size_t)b * H + c0;
     for (int blk = 0; blk < nblk; ++blk) {
       const int p0 = blk * BM;
       const int valid = min(BM, npairs - p0);
@@ -133,18 +287,16 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
         if (DROP && rr < valid) sc = pair_kept(key, p0 + rr, b, thr) ? inv_keep : 0.0f;
         rowscale[rr] = sc;
       }
-      make_a0(u, v, s, slot(0), b, p0, r0, 64, valid, ni, nj, H, tid, WG_THREADS);
-      pc.mark(PH_SYNC);
-      fence_proxy_async();
-      bar_sync(1, NC);
+      make_a0(u, v, s, slot(0), b, p0, r0, 64, valid, ni, nj, H, tid, WG_THREADS, W, c0);
+      sync(1, NC);
 
       // ---- recompute a_1 .. a_{L-2}; the last layer's epilogue forms dpre_{L-1} ----
       for (int l = 1; l < L; ++l) {
         const bf16* A = slot(l - 1);
         bf16* out = slot(l < L - 1 ? l : dtop);
-        const bf16* bias = bs + (size_t)(l - 1) * H;
-        const bf16* qrow = (l == inject) ? qa + (size_t)b * H : nullptr;
-        for (int nt = 0; nt < H / NT; ++nt) {
+        const bf16* bias = bs + (size_t)(l - 1) * H + c0;
+        const bf16* qrow = (l == inject) ? qa + (size_t)b * H + c0 : nullptr;
+        for (int nt = 0; nt < W / NT; ++nt) {
           // register 4j + 2h + e: row frow + 8h, column nt*NT + 8j + 2q + e;
           // the accumulator starts as b_l (+ qa) in fp32
           float acc[NT / 2];
@@ -162,9 +314,9 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
             acc[4 * j + 1] = acc[4 * j + 3] = bb.y;
           }
           pc.mark(PH_RECOMPUTE);
-          streamed_product(acc, smem_u32(A + r0 * H), 2 * H, r, tid == 0, pc, PH_FEED);
+          product(acc, A, l - 1);
           bf16* o0 = out + fbase + nt * (NT / 8) * 64;
-          bf16* o1 = o0 + 8 * H;
+          bf16* o1 = o0 + 8 * W;
           if (l < L - 1) {
 #pragma unroll
             for (int j = 0; j < NT / 8; ++j) {
@@ -190,28 +342,59 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
             }
           }
         }
-        pc.mark(PH_SYNC);
-        fence_proxy_async();
-        bar_sync(2 + wg, WG_THREADS);  // this warpgroup's rows of the layer's output are complete
+        sync(2 + wg, WG_THREADS);  // this warpgroup's rows of the layer's output are complete (CL = 2: all rows of both)
       }
 
       // ---- layers L-1 .. 1 ----
       for (int l = L - 1; l >= 1; --l) {
-        bf16* D = slot(l == L - 1 ? dtop : l);  // dpre_l
-        bf16* P = slot(l - 1);                  // a_{l-1}
+        const int dk = l == L - 1 ? dtop : l;
+        bf16* D = slot(dk);     // dpre_l
+        bf16* P = slot(l - 1);  // a_{l-1}
         pc.mark(PH_A0);
-        if (l == 1 && dtop == 0)  // slot 0 held dpre_{L-1}, dead since layer L-2's barriers: rebuild a_0
-          make_a0(u, v, s, slot(0), b, p0, r0, 64, valid, ni, nj, H, tid, WG_THREADS);
-        pc.mark(PH_SYNC);
-        fence_proxy_async();
-        bar_sync(1, NC);  // dpre_l (and a_0) complete in every row
+        const bool rebuild = l == 1 && dtop == 0;  // slot 0 held dpre_{L-1}, dead since layer L-2's barriers
+        if (rebuild) make_a0(u, v, s, slot(0), b, p0, r0, 64, valid, ni, nj, H, tid, WG_THREADS, W, c0);
+        if (CL == 1 || l < L - 1 || rebuild) sync(1, NC);  // dpre_l (and a_0) complete in every row
 
-        // dW_l tiles (the warpgroup's tiles wg, wg + WGS, ...): the partial
-        // tile, in fragment order, is the accumulator that wgmma adds the
-        // block's rows onto; the next tile's partial loads while this one's
-        // product runs. Then one tile per NT columns of 1^T dpre_l: every
-        // row of it is the column sums db_l (and dqa at the inject layer).
-        {
+        // One tile per NT columns of 1^T dpre_l: every row of it is the
+        // column sums db_l (and dqa at the inject layer).
+        auto column_sums = [&](int nt) {
+          float acc[NT / 2];
+          pc.mark(PH_DW);
+          colsum_product(acc, smem_u32(ones), smem_u32(D), nt, W, BM);
+          pc.mark(PH_FLUSH);
+          if (tid < 4) {  // row 0 of the tile: registers i with (i / 2) even
+#pragma unroll
+            for (int i = 0; i < NT / 2; ++i) {
+              if ((i >> 1) & 1) continue;
+              const int c = c0 + nt * NT + frag_col(tid, i);
+              atomicAdd(dbp + (size_t)(l - 1) * H + c, acc[i]);  // one writer: in order
+              if (l == inject) atomicAdd(dqa + (size_t)b * H + c, acc[i]);
+            }
+          }
+        };
+        if constexpr (CL == 2) {
+          // a_{l-1} and dpre_l of the block (the CTA's columns) leave for
+          // dw_gemm_kernel as two bulk stores while the column sums run; the
+          // peer reads neither of them again in this layer, so only this
+          // CTA's consumers wait for the stores to have read a_{l-1}
+          pc.mark(PH_FLUSH);
+          if (ctid == 0) {
+            const size_t tile = (size_t)BM * W, nb = (size_t)B * nblk;
+            bf16* dst = act + (((size_t)(l - 1) * nb + (size_t)b * nblk + blk) * CL + rank) * tile;
+            bulk_s2g(dst, smem_u32(P), (uint32_t)(tile * sizeof(bf16)));
+            bulk_s2g(dst + (size_t)(L - 1) * nb * CL * tile, smem_u32(D), (uint32_t)(tile * sizeof(bf16)));
+            bulk_commit();
+          }
+          column_sums(wg);
+          pc.mark(PH_FLUSH);
+          if (ctid == 0) bulk_wait_read();
+          pc.mark(PH_SYNC);
+          bar_sync(1, NC);  // the stores have read a_{l-1} before it is overwritten
+        } else {
+          // dW_l tiles (the warpgroup's tiles wg, wg + WGS, ...): the partial
+          // tile, in fragment order, is the accumulator that wgmma adds the
+          // block's rows onto; the next tile's partial loads while this
+          // one's product runs. Then the column sums.
           float4* part = reinterpret_cast<float4*>(dwp + (size_t)(l - 1) * dw_tiles * 64 * NT) + tid;
           float nxt[NT / 2];
           pc.mark(PH_FLUSH);
@@ -240,41 +423,26 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
               }
             }
             pc.mark(PH_DW);
-            dw_product(acc, smem_u32(P), smem_u32(D), tile / (H / NT), tile % (H / NT), H, BM);
+            dw_product(acc, smem_u32(P), smem_u32(D), tile / (W / NT), tile % (W / NT), W, BM);
             pc.mark(PH_FLUSH);
 #pragma unroll
             for (int j = 0; j < NT / 8; ++j)
               st_stream(part + (size_t)tile * 16 * NT + j * WG_THREADS,
                         make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]), pol);
           }
+          for (int nt = wg; nt < W / NT; nt += WGS) column_sums(nt);
+          sync(1, NC);  // every dW_l product has read a_{l-1} before it is overwritten
         }
-        for (int nt = wg; nt < H / NT; nt += WGS) {
-          float acc[NT / 2];
-          pc.mark(PH_DW);
-          colsum_product(acc, smem_u32(ones), smem_u32(D), nt, H, BM);
-          pc.mark(PH_FLUSH);
-          if (tid < 4) {  // row 0 of the tile: registers i with (i / 2) even
-#pragma unroll
-            for (int i = 0; i < NT / 2; ++i) {
-              if ((i >> 1) & 1) continue;
-              const int c = nt * NT + frag_col(tid, i);
-              atomicAdd(dbp + (size_t)(l - 1) * H + c, acc[i]);  // one writer: in order
-              if (l == inject) atomicAdd(dqa + (size_t)b * H + c, acc[i]);
-            }
-          }
-        }
-        pc.mark(PH_SYNC);
-        bar_sync(1, NC);  // every dW_l product has read a_{l-1} before it is overwritten
 
         // ---- d = dpre_l W_l^T: dpre_{l-1} in place over a_{l-1}, or dpre_0 ----
-        for (int nt = 0; nt < H / NT; ++nt) {
+        for (int nt = 0; nt < W / NT; ++nt) {
           float acc[NT / 2];
 #pragma unroll
           for (int i = 0; i < NT / 2; ++i) acc[i] = 0.0f;
           pc.mark(PH_D);
-          streamed_product(acc, smem_u32(D + r0 * H), 2 * H, r, tid == 0, pc, PH_FEED);
+          product(acc, D, dk);
           bf16* p0p = P + fbase + nt * (NT / 8) * 64;  // a_{l-1} at the fragment's rows
-          bf16* p1p = p0p + 8 * H;
+          bf16* p1p = p0p + 8 * W;
           if (l >= 2) {
 #pragma unroll
             for (int j = 0; j < NT / 8; ++j) {
@@ -287,8 +455,8 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
             continue;
           }
           // l == 1: dpre_0 = d * [a_0 > 0] in fp32, into the dead slots (slot 1 and 2
-          // when one tile spans H; else slot 2), then the column pass of these NT columns
-          float* F = reinterpret_cast<float*>(slot(H / NT == 1 ? 1 : 2));
+          // when one tile spans W; else slot 2), then the column pass of these NT columns
+          float* F = reinterpret_cast<float*>(slot(W / NT == 1 ? 1 : 2));
           pc.mark(PH_SYNC);
           bar_sync(1, NC);  // every warpgroup's product has read dpre_1 (slot 1)
           pc.mark(PH_D);
@@ -322,7 +490,7 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
           const int pend = p0 + valid;
           for (int cp0 = 0; cp0 < NT / 2; cp0 += NC / 4) {
             const int cc = 2 * (cp0 + (ctid >> 5) * 8 + (lane & 7));
-            const int c = nt * NT + cc;
+            const int c = c0 + nt * NT + cc;
             const int jlo = h * jq, jhi = min(nj, jlo + jq);
             float2 ssum = make_float2(0.0f, 0.0f);
             for (int i = p0 / nj; i * nj < pend; ++i) {
@@ -348,7 +516,7 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
             ssum.y += __shfl_xor_sync(0xffffffffu, ssum.y, 16);
             if (h == 0) atomicAdd(reinterpret_cast<float2*>(ds + (size_t)b * H + c), ssum);
           }
-          if (nt + 1 < H / NT) {
+          if (nt + 1 < W / NT) {
             pc.mark(PH_SYNC);
             bar_sync(1, NC);  // the column pass is done with F before the next tile's dpre_0
           }
@@ -356,27 +524,35 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
       }
     }
   }
+  if constexpr (CL == 2) {
+    if (ctid == 0) bulk_wait_all();  // the stored tiles are in device memory for dw_gemm_kernel
+    sync(1, NC);                     // the peer has read the last of this CTA's tiles: it may exit
+  }
   pc.mark(PH_A0);
   if (ctid == 0 && phases) pc.store(phases + (size_t)blockIdx.x * NPHASE);
 }
 
-template <int WGS, bool DROP>
+template <int WGS, int CL, bool DROP>
 __global__ void __launch_bounds__((WGS + 1) * WG_THREADS, 1)
 pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, const bf16* __restrict__ s,
                     const bf16* __restrict__ qa, const bf16* __restrict__ wt_chunks,
                     const bf16* __restrict__ w_chunks, const bf16* __restrict__ bs, const float* __restrict__ g,
                     float* __restrict__ du, float* __restrict__ dv, float* __restrict__ ds,
-                    float* __restrict__ dqa, float* __restrict__ dw_part, float* __restrict__ db_part, int B,
-                    int ni, int nj, int H, int L, int inject, int nslots, int stages,
+                    float* __restrict__ dqa, float* __restrict__ dw_part, float* __restrict__ db_part,
+                    bf16* __restrict__ act, int B, int ni, int nj, int H, int L, int inject, int nslots, int stages,
                     const int64_t* __restrict__ seed, uint32_t thr, float inv_keep, long long* phases) {
   constexpr int BM = 64 * WGS;
+  const int W = H / CL;
   extern __shared__ __align__(1024) unsigned char smem[];
   bf16* slots = reinterpret_cast<bf16*>(smem);
-  unsigned char* ring = smem + (size_t)nslots * BM * H * sizeof(bf16);
+  unsigned char* ring = smem + (size_t)nslots * BM * W * sizeof(bf16);
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)stages * CHUNK_BYTES);
   float* rowscale = reinterpret_cast<float*>(bars + 2 * stages);
   bf16* ones = reinterpret_cast<bf16*>(rowscale + BM);  // one 8 x 8 core matrix of 1.0
+  uint64_t* pair_bars = reinterpret_cast<uint64_t*>(ones + 64);
   Ring r{smem_u32(ring), smem_u32(bars), smem_u32(bars + stages), stages, 0, 0};
+  const uint32_t rank = CL == 1 ? 0u : cluster_rank();
+  PairSync ps{smem_u32(pair_bars), CL == 1 ? 0u : mapa(smem_u32(pair_bars), rank ^ 1u), 0};
   if (threadIdx.x < 64) {
     ones[threadIdx.x] = __float2bfloat16(1.0f);
     fence_proxy_async();
@@ -386,36 +562,49 @@ pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, cons
       mbar_init(r.full + 8 * k, 1);
       mbar_init(r.empty + 8 * k, WGS);
     }
+    if (CL == 2) {
+      mbar_init(ps.bar, 1);
+      mbar_init(ps.bar + 8, 1);
+    }
     mbar_fence_init();
   }
-  __syncthreads();
+  if constexpr (CL == 2)
+    cluster_sync_all();  // both CTAs' mbarriers are initialised before either arrives on the other's
+  else
+    __syncthreads();
 
   const int npairs = ni * nj;
   const int nblk = (npairs + BM - 1) / BM;
-  const int per_layer = (H / NT) * (H / KC);  // W chunks of one layer
+  const int per_layer = (W / NT) * (H / KC);  // W chunks of one layer
   const int role = __shfl_sync(0xffffffffu, (int)threadIdx.x / WG_THREADS, 0);  // warp-uniform
   PhaseClock pc;
   pc.start(PH_A0);
   if (role == WGS) {  // the producer warpgroup: one thread streams W
+    // in a cluster the producer gives its registers to the consumers (40 and 232 a thread)
+    if constexpr (CL == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == WGS * WG_THREADS) {
-      for (int b = blockIdx.x; b < B; b += gridDim.x)
+      // a cluster CTA streams its own pair_halves slice
+      const size_t own = (size_t)rank * (L - 1) * per_layer * (CHUNK_BYTES / 2);
+      for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL)
         for (int blk = 0; blk < nblk; ++blk) {
-          produce(r, wt_chunks, (L - 1) * per_layer, pc, PH_FEED);
+          produce(r, wt_chunks + own, (L - 1) * per_layer, pc, PH_FEED);
           for (int l = L - 1; l >= 1; --l)
-            produce(r, w_chunks + (size_t)(l - 1) * per_layer * (CHUNK_BYTES / 2), per_layer, pc, PH_FEED);
+            produce(r, w_chunks + own + (size_t)(l - 1) * per_layer * (CHUNK_BYTES / 2), per_layer, pc, PH_FEED);
         }
     }
   } else {
-    consumer<WGS, DROP>(u, v, s, qa, bs, g, du, dv, ds, dqa, dw_part, db_part, B, ni, nj, H, L, inject,
-                            nslots, slots, rowscale, ones, r, pc, seed, thr, inv_keep, phases);
+    if constexpr (CL == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consumer<WGS, CL, DROP>(u, v, s, qa, bs, g, du, dv, ds, dqa, dw_part, db_part, act, B, ni, nj, H, L, inject,
+                            nslots, slots, rowscale, ones, r, ps, pc, seed, thr, inv_keep, phases);
   }
 }
 
-// dws[l, m, n] = sum over CTAs c = 0..G-1 (in order) of the partial element
-// k holding it. A partial is laid out as the consumers' accumulators: per
-// layer, per 64 x NT tile (mt, nt), per group j of 4 registers, per thread t
-// of the warpgroup, 4 floats; register 4j + e of thread t holds row
-// 16*(t/32) + (t%32)/4 + 8*(e/2) and column 8j + 2*(t%4) + e%2 of the tile.
+// dws[l, m, n] = sum over the CTAs c = 0..G-1 (in order) of the partial
+// element k holding it. A partial is laid out as the consumers'
+// accumulators: per layer, per 64 x NT tile (mt, nt), per group j of 4
+// registers, per thread t of the warpgroup, 4 floats; register 4j + e of
+// thread t holds row 16*(t/32) + (t%32)/4 + 8*(e/2) and column 8j +
+// 2*(t%4) + e%2 of the tile.
 __global__ void reduce_dw_kernel(const float* __restrict__ part, float* __restrict__ out, int G, int H, long long n) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
@@ -443,10 +632,119 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, float* __
   out[k] = sum;
 }
 
+// dW of the cluster backward, a GEMM over the tiles it stored: act[0][l-1]
+// [block][rank] holds a_{l-1} and act[1][l-1][block][rank] dpre_l, the 128
+// rows of a block by the W = H / 2 columns of a rank, in core-matrix order.
+// CTA (split s, tile t) computes the G_M x G_N output tile t of one layer,
+// dW_l[m0.., n0..] = sum over the 64-row chunks of split s (the splits
+// cover all rows, in order) of a_{l-1}[:, m0..]^T dpre_l[:, n0..], into
+// part[s] (row-major, L-1 x H x H): two consumer warpgroups of 64 x 256
+// (two m64n128 accumulators each, both operands read MN-major as in
+// dw_product), one producer thread streaming a ring of G_STAGES chunks, A
+// by one 2 KB copy per row group, D by one 32 KB copy. The splits are then
+// added in order (reduce_partials_kernel): every dW element has one writer
+// per split and a fixed order of adds.
+constexpr int G_ROWS = 64, G_M = 128, G_N = 256, G_STAGES = 4;
+constexpr int G_A_BYTES = G_ROWS * G_M * 2, G_D_BYTES = G_ROWS * G_N * 2;
+constexpr int G_STAGE_BYTES = G_A_BYTES + G_D_BYTES;
+constexpr size_t G_SMEM = (size_t)G_STAGES * (G_STAGE_BYTES + 16);
+
+__global__ void __launch_bounds__(2 * WG_THREADS + 32, 1)
+dw_gemm_kernel(const bf16* __restrict__ act, float* __restrict__ part, int H, int L, long long nb, int splits) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int W = H / 2;
+  const size_t tile_el = (size_t)2 * G_ROWS * W;  // a stored tile: 128 rows x W
+  const int per_layer = (H / G_M) * (H / G_N);
+  const int ntiles = (L - 1) * per_layer;
+  const int sp = blockIdx.x / ntiles, t = blockIdx.x % ntiles;
+  const int li = t / per_layer, m0 = (t % per_layer) / (H / G_N) * G_M, n0 = t % (H / G_N) * G_N;
+  const long long nq = 2 * nb;  // 64-row chunks
+  const long long q0 = nq * sp / splits, q1 = nq * (sp + 1) / splits;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)G_STAGES * G_STAGE_BYTES);
+  uint64_t* empty = full + G_STAGES;
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < G_STAGES; ++k) {
+      mbar_init(smem_u32(full + k), 1);
+      mbar_init(smem_u32(empty + k), 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int role = threadIdx.x / WG_THREADS;
+  if (role == 2) {  // the producer
+    if (threadIdx.x != 2 * WG_THREADS) return;
+    // A: a_{l-1}, stored by rank m0 / W, columns m0 % W ..; D: dpre_l, stored by rank n0 / W
+    const bf16* A = act + ((size_t)li * nb * 2 + m0 / W) * tile_el + (m0 % W) / 8 * 64;
+    const bf16* D = act + (((size_t)(L - 1) + li) * nb * 2 + n0 / W) * tile_el;
+    int stage = 0;
+    uint32_t parity = 0;
+    for (long long q = q0; q < q1; ++q) {
+      mbar_wait(smem_u32(empty + stage), parity ^ 1);
+      const uint32_t bar = smem_u32(full + stage);
+      mbar_expect_tx(bar, G_STAGE_BYTES);
+      const uint32_t dst = smem_u32(smem + (size_t)stage * G_STAGE_BYTES);
+      const size_t off = (size_t)(q >> 1) * 2 * tile_el + (size_t)(q & 1) * G_ROWS * W;  // block, then half
+      for (int rg = 0; rg < G_ROWS / 8; ++rg)
+        bulk_g2s(dst + rg * (G_M / 8) * 128, A + off + (size_t)rg * 8 * W, (G_M / 8) * 128, bar);
+      bulk_g2s(dst + G_A_BYTES, D + off, G_D_BYTES, bar);
+      if (++stage == G_STAGES) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    return;
+  }
+  const int tid = threadIdx.x - role * WG_THREADS;
+  float acc0[NT / 2], acc1[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc0[i] = acc1[i] = 0.0f;
+  int stage = 0, prev = 0;
+  uint32_t parity = 0;
+  for (long long q = q0; q < q1; ++q) {
+    mbar_wait(smem_u32(full + stage), parity);
+    const uint32_t a = smem_u32(smem + (size_t)stage * G_STAGE_BYTES) + role * 8 * 128;  // the warpgroup's 64 m
+    const uint32_t d = smem_u32(smem + (size_t)stage * G_STAGE_BYTES + G_A_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < G_ROWS / 16; ++ks) {
+      const uint64_t da = desc(a + ks * 32 * G_M, 16 * G_M, 128);
+      wgmma_m64n128<1, 1>(acc0, da, desc(d + ks * 32 * G_N, 16 * G_N, 128), 1);
+      wgmma_m64n128<1, 1>(acc1, da, desc(d + (NT / 8) * 128 + ks * 32 * G_N, 16 * G_N, 128), 1);
+    }
+    wgmma_commit();
+    if (q > q0) {
+      wgmma_wait<1>();
+      if (tid == 0) mbar_arrive(smem_u32(empty + prev));
+    }
+    prev = stage;
+    if (++stage == G_STAGES) {
+      stage = 0;
+      parity ^= 1;
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) {
+    keep(acc0[i]);
+    keep(acc1[i]);
+  }
+  float* out = part + (((size_t)sp * (L - 1) + li) * H + m0 + 64 * role + 16 * (tid >> 5) + ((tid & 31) >> 2)) * H +
+               n0 + 2 * (tid & 3);
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* o = out + (size_t)8 * h * H + 8 * j;
+      *reinterpret_cast<float2*>(o) = make_float2(acc0[4 * j + 2 * h], acc0[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(o + NT) = make_float2(acc1[4 * j + 2 * h], acc1[4 * j + 2 * h + 1]);
+    }
+}
+
 struct Args {
   const bf16 *u, *v, *s, *qa, *wt, *w, *bs;
   const float* g;
   float *du, *dv, *ds, *dqa, *dw_part, *db_part;
+  bf16* act;
   int B, ni, nj, H, L, inject, slots, stages;
   const int64_t* seed;
   uint32_t thr;
@@ -454,21 +752,37 @@ struct Args {
   long long* phases;
 };
 
-template <int WGS, bool DROP>
+// A cluster kernel (CL = 2) is launched with its cluster dimension through
+// cudaLaunchKernelEx, which a CUDA graph captures like any launch.
+template <int WGS, int CL, bool DROP>
 cudaError_t launch(const Args& a, int grid, size_t smem, cudaStream_t st) {
-  auto kern = pairwise_bwd_kernel<WGS, DROP>;
+  auto kern = pairwise_bwd_kernel<WGS, CL, DROP>;
   static size_t allowed = 0;
   cudaError_t err = raise_smem_limit(kern, smem, allowed);
   if (err != cudaSuccess) return err;
-  kern<<<grid, (WGS + 1) * WG_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.wt, a.w, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
-                                                   a.dw_part, a.db_part, a.B, a.ni, a.nj, a.H, a.L, a.inject,
-                                                   a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3((WGS + 1) * WG_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, a.u, a.v, a.s, a.qa, a.wt, a.w, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
+                           a.dw_part, a.db_part, a.act, a.B, a.ni, a.nj, a.H, a.L, a.inject, a.slots, a.stages,
+                           a.seed, a.thr, a.inv_keep, a.phases);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <bool DROP>
-cudaError_t dispatch(const Args& a, int wgs, int grid, size_t smem, cudaStream_t st) {
-  return wgs == 2 ? launch<2, DROP>(a, grid, smem, st) : launch<1, DROP>(a, grid, smem, st);
+cudaError_t dispatch(const Args& a, int wgs, int cl, int grid, size_t smem, cudaStream_t st) {
+  if (cl == 2) return launch<2, 2, DROP>(a, grid, smem, st);
+  return wgs == 2 ? launch<2, 1, DROP>(a, grid, smem, st) : launch<1, 1, DROP>(a, grid, smem, st);
 }
 
 }  // namespace
@@ -476,38 +790,59 @@ cudaError_t dispatch(const Args& a, int wgs, int grid, size_t smem, cudaStream_t
 extern "C" {
 
 // Launches the backward on `stream` for the tile plan (wgs, slots,
-// stages, grid, smem) of kernels/pairwise.py::tile_plan: the fused kernel,
-// then the ordered sums of the dW and db partials; returns
+// stages, grid, cluster, smem) of kernels/pairwise.py::tile_plan: the
+// fused kernel, then (cluster 2) dw_gemm_kernel over `splits` splits of
+// the rows, then the ordered sums of the dW and db partials; returns
 // cudaErrorInvalidValue for a plan it cannot take. Device pointers to
 // contiguous tensors: u (B,ni,H), v (B,nj,H), s, qa (B,H), bs (L-1,H) in
 // bf16; wt_chunks = pack_weight_chunks(W^T), w_chunks =
-// pack_weight_chunks(W); g (B,H) fp32; outputs du (B,ni,H), dv (B,nj,H),
-// ds, dqa (B,H), dws (L-1,H,H), dbs (L-1,H) fp32, of which du, dv, ds and
-// dqa must be zero; dw_part (grid,L-1,H,H) and db_part (grid,L-1,H) fp32
-// zero; phases (grid, 8) int64 or null. Pair dropout as in
-// rnet_pairwise_fwd. Returns cudaGetLastError().
+// pack_weight_chunks(W) (cluster 2: of each CTA's pair_halves slice, rank
+// after rank); g (B,H) fp32; outputs du (B,ni,H), dv (B,nj,H), ds, dqa
+// (B,H), dws (L-1,H,H), dbs (L-1,H) fp32, of which du, dv, ds and dqa must
+// be zero; db_part (grid,L-1,H) fp32 zero; dw_part (grid,L-1,H,H) fp32
+// zero (cluster 1) or (splits,L-1,H,H) fp32 (cluster 2); act (2,L-1,B*nblk,
+// 2,128*H/2) bf16 for the stored tiles (cluster 2; null otherwise); phases
+// (grid, 9) int64 or null. Pair dropout as in rnet_pairwise_fwd. Returns
+// cudaGetLastError().
 int rnet_pairwise_bwd(const void* u, const void* v, const void* s, const void* qa, const void* wt_chunks,
                       const void* w_chunks, const void* bs, const void* g, void* du, void* dv, void* ds, void* dqa,
-                      void* dws, void* dbs, void* dw_part, void* db_part, int B, int ni, int nj, int H, int L,
-                      int inject, int wgs, int slots, int stages, int grid, long long smem, int drop,
-                      const void* seed, unsigned int thr, float inv_keep, void* phases, void* stream) {
-  if ((wgs != 1 && wgs != 2) || H % NT != 0 || L < 2 ||
+                      void* dws, void* dbs, void* dw_part, void* db_part, void* act, int B, int ni, int nj, int H,
+                      int L, int inject, int wgs, int slots, int stages, int grid, int cluster, int splits,
+                      long long smem, int drop, const void* seed, unsigned int thr, float inv_keep, void* phases,
+                      void* stream) {
+  // a cluster of 2: two warpgroups on the NT columns each of a CTA's H / 2
+  const bool pair_ok =
+      cluster == 2 && wgs == 2 && H == 2 * NT * 2 && grid % 2 == 0 && act != nullptr && splits >= 1;
+  if ((wgs != 1 && wgs != 2) || H % NT != 0 || L < 2 || (cluster != 1 && !pair_ok) ||
       slots < (L - 1 > 3 ? L - 1 : 3) || stages < 3 || grid < 1 ||
-      smem != (long long)smem_bytes(64 * wgs, H, slots, stages))
+      smem != (long long)smem_bytes(64 * wgs, H / cluster, slots, stages, cluster))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{static_cast<const bf16*>(u), static_cast<const bf16*>(v), static_cast<const bf16*>(s),
          static_cast<const bf16*>(qa), static_cast<const bf16*>(wt_chunks), static_cast<const bf16*>(w_chunks),
          static_cast<const bf16*>(bs), static_cast<const float*>(g), static_cast<float*>(du),
          static_cast<float*>(dv), static_cast<float*>(ds), static_cast<float*>(dqa), static_cast<float*>(dw_part),
-         static_cast<float*>(db_part), B, ni, nj, H, L, inject, slots, stages, static_cast<const int64_t*>(seed),
-         thr, inv_keep, static_cast<long long*>(phases)};
-  cudaError_t err = drop ? dispatch<true>(a, wgs, grid, (size_t)smem, st)
-                         : dispatch<false>(a, wgs, grid, (size_t)smem, st);
+         static_cast<float*>(db_part), static_cast<bf16*>(act), B, ni, nj, H, L, inject, slots, stages,
+         static_cast<const int64_t*>(seed), thr, inv_keep, static_cast<long long*>(phases)};
+  cudaError_t err = drop ? dispatch<true>(a, wgs, cluster, grid, (size_t)smem, st)
+                         : dispatch<false>(a, wgs, cluster, grid, (size_t)smem, st);
   if (err != cudaSuccess) return (int)err;
   const long long nw = (long long)(L - 1) * H * H;
   const long long nb = (long long)(L - 1) * H;
-  reduce_dw_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid, H, nw);
+  if (cluster == 2) {
+    static size_t allowed = 0;
+    err = raise_smem_limit(dw_gemm_kernel, G_SMEM, allowed);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (long long)B * ((ni * nj + 127) / 128);
+    const int ntiles = (L - 1) * (H / G_M) * (H / G_N);
+    dw_gemm_kernel<<<(unsigned)(splits * ntiles), 2 * WG_THREADS + 32, G_SMEM, st>>>(a.act, a.dw_part, H, L, blocks,
+                                                                                      splits);
+    reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws),
+                                                                          splits, nw);
+  } else {
+    reduce_dw_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid, H,
+                                                                    nw);
+  }
   reduce_partials_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(a.db_part, static_cast<float*>(dbs), grid,
                                                                         nb);
   return (int)cudaGetLastError();

@@ -40,6 +40,10 @@
 // * Epilogues run on the accumulator fragment (frag_base, frag_col) at the
 //   reference's rounding points and write bf16 pairs straight into the
 //   core-matrix tile, two row pointers and immediate offsets a thread.
+// * Clusters (the backward at H = 512, bf16 and fp32): the two CTAs of a
+//   cluster read each other's activation tiles through distributed shared
+//   memory (mapa + ld.shared::cluster) and order their phases with PairSync,
+//   mbarriers on which the peer arrives remotely.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,7 +65,7 @@ constexpr int KC = CHUNK_BYTES / 2 / NT;  // depth of a W chunk
 // Phase clock: with -DRNET_PHASE_TIMES, a thread sums clock64() cycles per
 // phase (mark(k) closes the current phase and opens k); otherwise nothing.
 // ---------------------------------------------------------------------------
-constexpr int NPHASE = 8;
+constexpr int NPHASE = 9;
 
 struct PhaseClock {
 #ifdef RNET_PHASE_TIMES
@@ -140,6 +144,17 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
       : "memory");
 }
 
+// 1-D bulk copy shared -> global, in the issuing thread's current bulk
+// group (bulk_commit closes it; bulk_wait_read waits until every committed
+// group has read its shared memory, bulk_wait_all until it is written).
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
 // An L2 policy that evicts the lines it touches first: for data streamed
 // once per pass (the dW partials), so that it does not push out what is
 // reused (the packed W chunks, du / dv of the sample in hand).
@@ -180,6 +195,82 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// Clusters of two CTAs: distributed shared memory and the pair barrier
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of the cluster (all threads of both CTAs) meets here.
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of shared address `addr` in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.b32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_cluster_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// Spins until phase `parity` of the local mbarrier has completed, acquiring
+// at cluster scope what the remote arrivals released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The pair barrier of a cluster of two CTAs. Each CTA keeps two mbarriers
+// (count 1) that its peer arrives on; sync() lets no consumer thread of
+// either CTA past until every consumer thread of both has reached it, so
+// that what one CTA wrote to its shared memory before sync() is complete
+// for the peer's ld.shared::cluster after it, and what the peer read before
+// it may be overwritten after it. The two mbarriers alternate, so a peer
+// running ahead cannot complete a phase twice before a slow thread sees it.
+struct PairSync {
+  uint32_t bar;       // this CTA's two mbarriers
+  uint32_t peer_bar;  // the peer's (shared::cluster address)
+  uint32_t k;         // syncs so far
+  // every consumer thread of both CTAs (`nthreads` of each, named barrier 1); `lead`: one of them
+  __device__ __forceinline__ void sync(int nthreads, bool lead, PhaseClock& pc, int wait_phase) {
+    bar_sync(1, nthreads);
+    if (lead) {
+      asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+      asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(peer_bar + 8 * (k & 1))
+                   : "memory");
+    }
+    const int was = pc.mark(wait_phase);
+    mbar_wait_cluster(bar + 8 * (k & 1), (k >> 1) & 1);
+    pc.mark(was);
+    ++k;
+  }
+};
+
 // Shared-memory matrix descriptor, no swizzle: start address, the byte
 // stride between core matrices along K (lbo) and along M/N (sbo).
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
@@ -210,6 +301,39 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// wgmma_m64n128_ra<TB>(d, a, db, scale_d): d (+)= A . B on a 64 x 128 x 16
+// step with A from registers: the warp's 16 rows of the warpgroup's 64, a
+// thread (g = lane / 4, t = lane % 4) holding the bf16 pairs at (row, depth)
+// (g, 2t), (g + 8, 2t), (g, 2t + 8), (g + 8, 2t + 8); B from shared memory,
+// MN-major when TB = 1.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128_ra(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// Keeps a register's value live (and in place) up to this point: after a
+// wgmma wait, so that the compiler neither reuses an operand register nor
+// reads an accumulator before the asynchronous product is done.
+__device__ __forceinline__ void keep(float& x) { asm volatile("" : "+f"(x)::"memory"); }
+__device__ __forceinline__ void keep(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+
 // ---------------------------------------------------------------------------
 // Layout
 // ---------------------------------------------------------------------------
@@ -235,7 +359,8 @@ __device__ __forceinline__ int frag_base(int t, int r0, int H) {
 
 // a_0 = bf16(relu(u_i + v_j + s)) in fp32 for `nrows` rows from pair p0 of
 // sample b (rows past `valid` zero), into core-matrix tile rows r0.. of
-// `tile`, by `nthr` threads numbered `tid`. A thread keeps one 16-byte
+// `tile`, by `nthr` threads numbered `tid`; the tile holds the W columns
+// c0 .. c0 + W - 1 of the H (all of them when W = 0). A thread keeps one 16-byte
 // column chunk (s loaded once) and walks rows `step` apart, stepping (i, j)
 // without a division; it starts the u and v loads of A0_BATCH rows before
 // it computes any of them, since each is an L2 round trip.
@@ -243,12 +368,16 @@ constexpr int A0_BATCH = 4;
 
 __device__ __forceinline__ void make_a0(const bf16* __restrict__ u, const bf16* __restrict__ v,
                                         const bf16* __restrict__ s, bf16* tile, int b, int p0, int r0,
-                                        int nrows, int valid, int ni, int nj, int H, int tid, int nthr) {
-  const int vec = H / 8;
+                                        int nrows, int valid, int ni, int nj, int H, int tid, int nthr, int W = 0,
+                                        int c0 = 0) {
+  if (W == 0) W = H;
+  const int vec = W / 8;
   const int step = nthr / vec;
   if (tid >= step * vec) return;
   const int c8 = (tid % vec) * 8;
-  const uint4 ss = *reinterpret_cast<const uint4*>(s + (size_t)b * H + c8);
+  u += c0;
+  v += c0;
+  const uint4 ss = *reinterpret_cast<const uint4*>(s + (size_t)b * H + c0 + c8);
   const bf16* ps = reinterpret_cast<const bf16*>(&ss);
   int r = r0 + tid / vec;
   int i = (p0 + r) / nj;
@@ -279,7 +408,7 @@ __device__ __forceinline__ void make_a0(const bf16* __restrict__ u, const bf16* 
           po[e] = __float2bfloat16(fmaxf(x, 0.0f));
         }
       }
-      *reinterpret_cast<uint4*>(tile + core_off(rk, c8, H)) = packed;
+      *reinterpret_cast<uint4*>(tile + core_off(rk, c8, W)) = packed;
     }
   }
 }

@@ -102,15 +102,38 @@
 //     stage into both CTAs, halving the L2 reads, ran slower in both
 //     kernels: each stage then waits for the slower CTA of the pair.
 //   With -DRNET_PHASE_TIMES the first consumer thread of each CTA sums
-//   clock64() cycles per phase into `phases` (grid, 8): kernels/pairwise.py
+//   clock64() cycles per phase into `phases` (grid, 9): kernels/pairwise.py
 //   FWD_PHASES / BWD_PHASES.
 //
-// H = 128 and 512, and chains too deep for the ring backward's tiles (L > 4
-// at H = 256): the "wide" kernels, the first design, kept as they were. At
-// H = 512 one fp32 tile of 64 rows is 128 KB, so the backward's two or more
-// tiles do not fit beside any W stage at wgmma's 64 rows; no model runs H =
-// 128. These kernels run mma.sync on blocks of 64, 32 or 16 rows, W
-// streamed as fp32 through two cp.async chunks and split as it is read.
+// The backward at H = 512 (wide-fp, the SD models): the ring backward on
+// clusters of two CTAs. One fp32 tile of 64 rows x 512 columns is 128 KB,
+// so a CTA holding all columns fits neither the ring's tiles nor its dW
+// partial flush: the wide kernel below took 16-row blocks and flushed 6 MB
+// of partial per 16 rows (786 GB at wide-fp B=512, where rnet's TPU kernel,
+// rnet/kernels/pairwise.py:120, keeps all of dW in VMEM). The two CTAs of
+// a cluster share each block of 64 rows and split the columns: rank c
+// computes columns c*256 .. c*256 + 255 and keeps those of every tile, the
+// H = 256 layout above (3 tiles of 64 x 256 fp32 = 196,608 B, 2 stages of
+// 16,400, dw_done 8, two pair mbarriers 16, row scales 256: 229,688 B).
+// Every product's depth is all 512: its own 256 columns of A from its tile
+// (ld.shared), the peer's 256 from the peer's tile through distributed
+// shared memory (ld.shared::cluster), one ring stage ahead
+// (chain_product_pair); each CTA streams only its 256 columns of W^T and W,
+// split into tf32 hi / lo once per call, its own depth first
+// (pack_f32_weights of pair_halves). dW_l[:, own columns] takes the rows
+// of dW from the peer's a_{l-1} with the words ldmatrix would give
+// (dw_wgmma). Its partial, (L-1) x 512 x 256 fp32, is flushed once per 64
+// rows: 197 GB at wide-fp B=512, a quarter of the wide kernel's bytes. The
+// pair meets (PairSync) where one CTA reads what the other wrote or
+// overwrites what it reads; the sums over the clusters run in cluster
+// order (reduce_dw_ring), db / ds / dqa stay in fp64 with one writer.
+//
+// H = 128, the forward at H = 512, and chains too deep for the ring
+// backward's tiles (L > 4 at H = 256; L > 4 at H = 512, where the cluster's
+// tiles do not fit either): the "wide" kernels, the first design, kept as
+// they were; no model runs H = 128. These kernels run mma.sync on blocks of
+// 64, 32 or 16 rows, W streamed as fp32 through two cp.async chunks and
+// split as it is read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -601,7 +624,7 @@ size_t ring_smem_bytes(bool bwd, int bm, int H, int slots, int stages) {
 }
 
 enum { FP_PRODUCTS, FP_EPILOGUES, FP_POOL, FP_FEED, FP_A0, FP_SYNC };
-enum { BP_RECOMPUTE, BP_DW, BP_FLUSH, BP_D, BP_COLUMNS, BP_FEED, BP_A0, BP_SYNC };
+enum { BP_RECOMPUTE, BP_DW, BP_FLUSH, BP_D, BP_COLUMNS, BP_FEED, BP_A0, BP_SYNC, BP_PAIR };
 
 // Offset of (r, c) in a tile of bm rows: core matrices of 8 columns x 4 rows
 // (16-byte rows of 4 consecutive pair rows), 4-row groups of a column group
@@ -619,11 +642,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// Keeps a register's value live (and in place) up to this point: after a
-// wgmma wait, so that the compiler neither reuses an operand register nor
-// reads an accumulator before the asynchronous product is done.
-__device__ __forceinline__ void keep(float& x) { asm volatile("" : "+f"(x)::"memory"); }
-__device__ __forceinline__ void keep(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+using rnet::keep;  // pairwise_chain.cuh: a register live until a wgmma wait
 
 // Register budget of the warpgroups (65,536 a CTA): the producer gives its
 // registers up, the consumers take them (2 x 128 x 232 + 128 x 40).
@@ -736,16 +755,97 @@ __device__ __forceinline__ void chain_product(float (&total)[NTW][64], const flo
   }
 }
 
+// chain_product for a cluster CTA (one column tile `ct` of 128 of the
+// stage's W): total += A . W over the depth 2W, the first W from the CTA's
+// own tile A, the last W from the peer's tile at the shared::cluster address
+// peerA (the same rows); the ring's stages come in that order (pair_halves).
+// Each stage's fragments load (from shared or distributed shared memory)
+// while the previous stage's products run.
+template <int W, int BM>
+__device__ __forceinline__ void chain_product_pair(float (&total)[64], const float* A, uint32_t peerA, int row, int ct,
+                                                   rnet::Ring& r, bool lead, rnet::PhaseClock& pc, int wait_phase) {
+  constexpr int KD = ring_kd(W), KS = KD / 8, NS = W / KD;  // NS stages of each half
+  constexpr uint32_t LO = (uint32_t)W * KD * 4, SBO = KD / 4 * 128;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = row + 16 * ((threadIdx.x >> 5) & 3) + 2 * g;
+  auto load = [&](float2 (&x)[KS][2], int q) {
+    const int k0 = (q % NS) * KD;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int o0 = toff(r0, k0 + 8 * ks + t, BM), o1 = toff(r0, k0 + 8 * ks + t + 4, BM);
+      if (q < NS) {
+        x[ks][0] = *reinterpret_cast<const float2*>(A + o0);
+        x[ks][1] = *reinterpret_cast<const float2*>(A + o1);
+      } else {
+        x[ks][0] = rnet::ld_cluster_f2(peerA + 4u * o0);
+        x[ks][1] = rnet::ld_cluster_f2(peerA + 4u * o1);
+      }
+    }
+  };
+  float2 cur[KS][2], nxt[KS][2];
+  load(cur, 0);
+  for (int q = 0; q < 2 * NS; ++q) {
+    uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      split_tf32(cur[ks][0].x, ah[ks][0], al[ks][0]);
+      split_tf32(cur[ks][0].y, ah[ks][1], al[ks][1]);
+      split_tf32(cur[ks][1].x, ah[ks][2], al[ks][2]);
+      split_tf32(cur[ks][1].y, ah[ks][3], al[ks][3]);
+    }
+    if (q + 1 < 2 * NS) load(nxt, q + 1);
+    const int was = pc.mark(wait_phase);
+    rnet::mbar_wait(r.full + 8 * r.stage, r.parity);
+    pc.mark(was);
+    const uint32_t bh = r.buf + r.stage * STAGE_BYTES + ct * (128 * KD * 4);
+    float acc[64];
+    rnet::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      wgmma_tf32(acc, al[ks], rnet::desc(bh + ks * 256, 128, SBO), ks);
+      wgmma_tf32(acc, ah[ks], rnet::desc(bh + LO + ks * 256, 128, SBO), 1);
+      wgmma_tf32(acc, ah[ks], rnet::desc(bh + ks * 256, 128, SBO), 1);
+    }
+    rnet::wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) keep(acc[i]);
+    rnet::wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      keep(acc[i]);
+      total[i] += acc[i];
+    }
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        keep(ah[ks][e]);
+        keep(al[ks][e]);
+      }
+    if (lead) rnet::mbar_arrive(r.empty + 8 * r.stage);
+    r.advance();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      cur[ks][0] = nxt[ks][0];
+      cur[ks][1] = nxt[ks][1];
+    }
+  }
+}
+
 // a_0 of rows p0 .. p0 + bm - 1 of sample b into tile X (rows past `valid`
 // zero: finite, so that their products are exact zeros downstream). A
 // thread takes 4 rows x 4 columns: 16-byte loads of u, v and s, all in
 // flight together, and one float4 store per column (4 rows of a column are
-// contiguous in the tile).
-template <int H, int BM>
+// contiguous in the tile). The tile holds the W columns c0 .. c0 + W - 1
+// of u, v and s (rows of H).
+template <int W, int BM>
 __device__ __forceinline__ void ring_a0(float* X, const float* __restrict__ u, const float* __restrict__ v,
                                         const float* __restrict__ s, int b, int ni, int nj, int p0, int valid,
-                                        int tid) {
-  constexpr int Q = H / 4;
+                                        int tid, int H = W, int c0 = 0) {
+  constexpr int Q = W / 4;
+  u += c0;
+  v += c0;
+  s += c0;
   for (int q = tid; q < BM / 4 * Q; q += CONSUMERS) {
     const int c = 4 * (q % Q), r = 4 * (q / Q);
     const float4 sv = *reinterpret_cast<const float4*>(s + (size_t)b * H + c);
@@ -933,27 +1033,40 @@ __device__ __forceinline__ void stage_lo(float* dst, const float* D, int sl) {
 // block's product is summed from zero on the tensor cores and added onto
 // the partial in fp32; the partial tile, in accumulator order (16-byte
 // loads and stores, evict-first), loads before the fragments and while the
-// products run.
-template <int H, int BM>
-__device__ __forceinline__ void dw_wgmma(float* __restrict__ part, const float* P, const float* D, uint32_t lo_addr,
-                                         int sl, uint64_t pol, rnet::PhaseClock& pc) {
+// products run. A CTA of a cluster (CL = 2) keeps W = H / 2 columns of each
+// tile: its dW rows 64 mt .. come from its own tile P where mt falls in its
+// rank's half, else from the peer's at the shared::cluster address peerP,
+// each lane loading the word ldmatrix would give it; its partial is H x W.
+template <int H, int W, int BM>
+__device__ __forceinline__ void dw_wgmma(float* __restrict__ part, const float* P, uint32_t peerP, int rank,
+                                         const float* D, uint32_t lo_addr, int sl, uint64_t pol,
+                                         rnet::PhaseClock& pc) {
   constexpr int KS = BM / 8;
   constexpr uint32_t SBO = BM * 8 * 4;  // bytes between column groups of a tile
   const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int mat = lane >> 3, rr = lane & 7;
   const uint32_t bh = rnet::smem_u32(D) + sl * 128 * BM * 4;
   for (int mt = wg; mt < H / 64; mt += 2) {
-    float4* pt = reinterpret_cast<float4*>(part + (size_t)(mt * (H / 128) + sl) * 8192) + tid;
+    float4* pt = reinterpret_cast<float4*>(part + (size_t)(mt * (W / 128) + sl) * 8192) + tid;
     float4 old[16];
     pc.mark(BP_FLUSH);
 #pragma unroll
     for (int q = 0; q < 16; ++q) old[q] = rnet::ld_stream(pt + 128 * q, pol);
     pc.mark(BP_DW);
+    const int mc = 64 * (mt % (W / 64));  // the 64 columns in the tile that holds them
+    const bool own = H == W || mt / (W / 64) == rank;
     uint32_t ah[KS][4], al[KS][4];
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       uint32_t x[4];
-      ldsm4(x, P + ((64 * mt + 16 * warp) / 8 + (mat & 1)) * (BM * 8) + (2 * ks + (mat >> 1)) * 32 + rr * 4);
+      if (own) {
+        ldsm4(x, P + ((mc + 16 * warp) / 8 + (mat & 1)) * (BM * 8) + (2 * ks + (mat >> 1)) * 32 + rr * 4);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          x[i] = rnet::ld_cluster_u32(peerP + 4u * (((mc + 16 * warp) / 8 + (i & 1)) * (BM * 8) +
+                                                    (2 * ks + (i >> 1)) * 32 + lane));
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(x[e]), ah[ks][e], al[ks][e]);
     }
@@ -989,7 +1102,7 @@ __device__ __forceinline__ void dw_wgmma(float* __restrict__ part, const float* 
   }
 }
 
-template <int H, bool DROP>
+template <int H, int CL, bool DROP>
 __global__ void __launch_bounds__(RING_THREADS, 1)
     pairwise_bwd_f32_ring(const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ s,
                           const float* __restrict__ qa, const float* __restrict__ chain,
@@ -999,24 +1112,36 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
                           double* __restrict__ db_part, double* __restrict__ sums, int B, int ni, int nj, int L,
                           int inject, int nslots, int stages, const int64_t* __restrict__ seed, uint32_t thr,
                           float inv_keep, long long* phases) {
-  constexpr int BM = BWD_BM, PER_LAYER = H / ring_kd(H), STAGE_FLOATS = STAGE_BYTES / 4;
-  static_assert(H / 128 == 2, "two warpgroups, each on 128 of the columns");
+  // A cluster CTA (CL = 2) keeps W = H / 2 of the columns; the depth of every
+  // product is all H, the peer's half read through distributed shared memory.
+  constexpr int W = H / CL, BM = BWD_BM, PER_LAYER = H / ring_kd(W), STAGE_FLOATS = STAGE_BYTES / 4;
+  static_assert(W / 128 == 2, "two warpgroups, each on 128 of the columns");
   extern __shared__ __align__(128) unsigned char smem[];
-  auto slot = [&](int k) { return reinterpret_cast<float*>(smem) + (size_t)k * BM * H; };
-  unsigned char* ring = smem + (size_t)nslots * BM * H * 4;
+  auto slot = [&](int k) { return reinterpret_cast<float*>(smem) + (size_t)k * BM * W; };
+  unsigned char* ring = smem + (size_t)nslots * BM * W * 4;
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)stages * STAGE_BYTES);
   const uint32_t dw_done = rnet::smem_u32(bars + 2 * stages);  // the dW products are done with the ring's memory
-  float* rowscale = reinterpret_cast<float*>(bars + 2 * stages + 1);
+  uint64_t* pair_bars = bars + 2 * stages + 1;
+  float* rowscale = reinterpret_cast<float*>(pair_bars + (CL > 1 ? 2 : 0));
   rnet::Ring r{rnet::smem_u32(ring), rnet::smem_u32(bars), rnet::smem_u32(bars + stages), stages, 0, 0};
+  const uint32_t rank = CL == 1 ? 0u : rnet::cluster_rank();
+  rnet::PairSync ps{rnet::smem_u32(pair_bars), CL == 1 ? 0u : rnet::mapa(rnet::smem_u32(pair_bars), rank ^ 1u), 0};
   if (threadIdx.x == 0) {
     for (int k = 0; k < stages; ++k) {
       rnet::mbar_init(r.full + 8 * k, 1);
       rnet::mbar_init(r.empty + 8 * k, 2);
     }
     rnet::mbar_init(dw_done, 1);
+    if (CL == 2) {
+      rnet::mbar_init(ps.bar, 1);
+      rnet::mbar_init(ps.bar + 8, 1);
+    }
     rnet::mbar_fence_init();
   }
-  __syncthreads();
+  if constexpr (CL == 2)
+    rnet::cluster_sync_all();  // both CTAs' mbarriers are initialised before either arrives on the other's
+  else
+    __syncthreads();
   const int npairs = ni * nj, nblk = (npairs + BM - 1) / BM;
   rnet::PhaseClock pc;
   pc.start(BP_A0);
@@ -1024,17 +1149,18 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
   if (warp >= CONSUMERS / 32) {  // the producer warpgroup: the chain's W^T, then the d products' W, per block
     setmaxnreg_dec();
     if (threadIdx.x == CONSUMERS) {
+      const size_t own = (size_t)rank * (L - 1) * PER_LAYER * STAGE_FLOATS;  // a cluster CTA's pair_halves slice
       uint32_t dw_parity = 0;
-      for (int b = blockIdx.x; b < B; b += gridDim.x)
+      for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL)
         for (int blk = 0; blk < nblk; ++blk) {
-          produce_stages(r, chain, (L - 1) * PER_LAYER, pc, BP_FEED);
+          produce_stages(r, chain + own, (L - 1) * PER_LAYER, pc, BP_FEED);
           for (int l = L - 1; l >= 1; --l) {
             // the dW products stage their operand in the ring's memory
             const int was = pc.mark(BP_FEED);
             rnet::mbar_wait(dw_done, dw_parity);
             pc.mark(was);
             dw_parity ^= 1;
-            produce_stages(r, dstages + (size_t)(l - 1) * PER_LAYER * STAGE_FLOATS, PER_LAYER, pc, BP_FEED);
+            produce_stages(r, dstages + own + (size_t)(l - 1) * PER_LAYER * STAGE_FLOATS, PER_LAYER, pc, BP_FEED);
           }
         }
     }
@@ -1046,28 +1172,43 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
   const int wrow = row + 16 * (warp & 3) + 2 * g;
   const bool lead = (tid & 127) == 0;
   const int dtop = (L - 1 < nslots) ? L - 1 : 0;  // the slot of dpre_{L-1}
-  float* dwp = dw_part + (size_t)blockIdx.x * (L - 1) * H * H;
+  const int c0 = (int)rank * W;
+  const uint32_t peer_slots = CL == 1 ? 0u : rnet::mapa(rnet::smem_u32(smem), rank ^ 1u);
+  auto peer_slot = [&](int k) { return peer_slots + (uint32_t)(k * BM * W * 4); };
+  float* dwp = dw_part + (size_t)blockIdx.x * (L - 1) * H * W;
   double* dbp = db_part + (size_t)blockIdx.x * (L - 1) * H;
   const uint64_t key = DROP ? (uint64_t)*seed : 0;
   const uint64_t pol = rnet::l2_evict_first();
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
-    const float* gb = gup + (size_t)b * H;
+  // all consumers of this CTA, and in a cluster of both CTAs
+  auto sync = [&](bool pair) {
+    pc.mark(BP_SYNC);
+    if (CL == 2 && pair)
+      ps.sync(CONSUMERS, tid == 0, pc, BP_PAIR);
+    else
+      rnet::bar_sync(1, CONSUMERS);
+  };
+  auto product = [&](float (&total)[1][64], const float* A, int k) {  // A = slot(k)
+    if constexpr (CL == 1)
+      chain_product<H, BM, 1>(total, A, row, ct, r, lead, pc, BP_FEED);
+    else
+      chain_product_pair<W, BM>(total[0], A, peer_slot(k), row, ct, r, lead, pc, BP_FEED);
+  };
+  for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL) {
+    const float* gb = gup + (size_t)b * H + c0;
     for (int blk = 0; blk < nblk; ++blk) {
       const int p0 = blk * BM, valid = min(BM, npairs - p0);
       const bool last = blk == nblk - 1;
-      pc.mark(BP_SYNC);
-      rnet::bar_sync(1, CONSUMERS);  // the previous block's column pass is done with slot 0
+      sync(false);  // the previous block's column pass is done with slot 0
       pc.mark(BP_A0);
       ring_row_scales<BM, DROP>(rowscale, valid, p0, b, key, thr, inv_keep, tid);
-      ring_a0<H, BM>(slot(0), u, v, s, b, ni, nj, p0, valid, tid);
-      pc.mark(BP_SYNC);
-      rnet::bar_sync(1, CONSUMERS);
+      ring_a0<W, BM>(slot(0), u, v, s, b, ni, nj, p0, valid, tid, H, c0);
+      sync(true);
       // recompute a_1 .. a_{L-2}; the last layer's epilogue forms dpre_{L-1}
       for (int l = 1; l < L; ++l) {
         float total[1][64];
-        init_bias(total[0], bs + (size_t)(l - 1) * H, l == inject ? qa + (size_t)b * H : nullptr, col0);
+        init_bias(total[0], bs + (size_t)(l - 1) * H + c0, l == inject ? qa + (size_t)b * H + c0 : nullptr, col0);
         pc.mark(BP_RECOMPUTE);
-        chain_product<H, BM, 1>(total, slot(l - 1), row, ct, r, lead, pc, BP_FEED);
+        product(total, slot(l - 1), l - 1);
         if (l < L - 1) {
           store_fragment<BM>(slot(l), wrow, col0, total[0], [](float2, int, float x0, float x1) {
             return make_float2(fmaxf(x0, 0.0f), fmaxf(x1, 0.0f));
@@ -1078,22 +1219,21 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
             return make_float2(x0 > 0.0f ? gb[c] * sc0 : 0.0f, x1 > 0.0f ? gb[c] * sc1 : 0.0f);
           });
         }
-        pc.mark(BP_SYNC);
-        rnet::bar_sync(1, CONSUMERS);
+        sync(true);
       }
       // backprop: dpre_l in D, a_{l-1} in P
       for (int l = L - 1; l >= 1; --l) {
-        const float* D = slot(l == L - 1 ? dtop : l);
+        const int dk = l == L - 1 ? dtop : l;
+        const float* D = slot(dk);
         float* P = slot(l - 1);
         if (l == 1 && dtop == 0) {  // slot 0 held dpre_{L-1}, read for the last time at layer L-1: rebuild a_0
           pc.mark(BP_A0);
-          ring_a0<H, BM>(slot(0), u, v, s, b, ni, nj, p0, valid, tid);
-          pc.mark(BP_SYNC);
-          rnet::bar_sync(1, CONSUMERS);
+          ring_a0<W, BM>(slot(0), u, v, s, b, ni, nj, p0, valid, tid, H, c0);
+          sync(true);
         }
         // the ring's memory is free: the producer waits on dw_done before the
         // d product's stages, and every earlier stage has been read
-        for (int sl = 0; sl < H / 128; ++sl) {
+        for (int sl = 0; sl < W / 128; ++sl) {
           pc.mark(BP_SYNC);
           rnet::bar_sync(1, CONSUMERS);  // every product has read the ring's memory (and slice sl - 1's lo)
           pc.mark(BP_DW);
@@ -1102,35 +1242,35 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
           pc.mark(BP_SYNC);
           rnet::bar_sync(1, CONSUMERS);
           pc.mark(BP_DW);
-          dw_wgmma<H, BM>(dwp + (size_t)(l - 1) * H * H, P, D, rnet::smem_u32(ring), sl, pol, pc);
+          dw_wgmma<H, W, BM>(dwp + (size_t)(l - 1) * H * W, P, peer_slot(l - 1), (int)rank, D, rnet::smem_u32(ring),
+                             sl, pol, pc);
         }
         pc.mark(BP_FLUSH);
-        for (int c = tid; c < H; c += CONSUMERS) {
+        for (int c = tid; c < W; c += CONSUMERS) {
           const float sum = column_sum<BM>(D, c, nullptr);  // rows past `valid` are 0
-          dbp[(size_t)(l - 1) * H + c] += sum;
+          dbp[(size_t)(l - 1) * H + c0 + c] += sum;
           if (l == inject) {
-            const double q = sums[((size_t)b * 2 + 1) * H + c] += sum;
-            if (last) dqa[(size_t)b * H + c] = (float)q;
+            const double q = sums[((size_t)b * 2 + 1) * H + c0 + c] += sum;
+            if (last) dqa[(size_t)b * H + c0 + c] = (float)q;
           }
         }
-        pc.mark(BP_SYNC);
-        rnet::bar_sync(1, CONSUMERS);  // dW_l has read a_{l-1}: dpre_{l-1} may replace it
+        sync(true);  // dW_l (both CTAs') has read a_{l-1}: dpre_{l-1} may replace it
         if (tid == 0) rnet::mbar_arrive(dw_done);  // and the ring's memory: the d product's W may come
         float total[1][64];
 #pragma unroll
         for (int i = 0; i < 64; ++i) total[0][i] = 0.0f;
         pc.mark(BP_D);
-        chain_product<H, BM, 1>(total, D, row, ct, r, lead, pc, BP_FEED);
+        product(total, D, dk);
         store_fragment<BM>(P, wrow, col0, total[0], [](float2 a, int, float x0, float x1) {
           return make_float2(a.x > 0.0f ? x0 : 0.0f, a.y > 0.0f ? x1 : 0.0f);
         });
-        pc.mark(BP_SYNC);
-        rnet::bar_sync(1, CONSUMERS);
+        sync(l > 1);  // dpre_{l-1} complete (for the peer's next d product)
       }
       // dpre_0 (slot 0) into ds, du (over j) and dv (over i), one thread a column, row by row
       pc.mark(BP_COLUMNS);
       const float* d0 = slot(0);
-      for (int c = tid; c < H; c += CONSUMERS) {
+      for (int c = tid; c < W; c += CONSUMERS) {
+        const int cg = c0 + c;  // the column of du, dv, ds
         float dsum = 0.0f, dui = 0.0f;
         int i = p0 / nj, j = p0 - i * nj, i_cur = i;
         for (int r0 = 0; r0 < valid; r0 += 4) {
@@ -1140,45 +1280,52 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
           for (int e = 0; e < 4; ++e) {
             if (r0 + e >= valid) break;
             if (i != i_cur) {
-              atomicAdd(du + ((size_t)b * ni + i_cur) * H + c, dui);
+              atomicAdd(du + ((size_t)b * ni + i_cur) * H + cg, dui);
               dui = 0.0f;
               i_cur = i;
             }
             dui += xs[e];
             dsum += xs[e];
-            atomicAdd(dv + ((size_t)b * nj + j) * H + c, xs[e]);
+            atomicAdd(dv + ((size_t)b * nj + j) * H + cg, xs[e]);
             if (++j == nj) {
               j = 0;
               ++i;
             }
           }
         }
-        atomicAdd(du + ((size_t)b * ni + i_cur) * H + c, dui);
-        const double sd = sums[(size_t)b * 2 * H + c] += dsum;
-        if (last) ds[(size_t)b * H + c] = (float)sd;
+        atomicAdd(du + ((size_t)b * ni + i_cur) * H + cg, dui);
+        const double sd = sums[(size_t)b * 2 * H + cg] += dsum;
+        if (last) ds[(size_t)b * H + cg] = (float)sd;
       }
     }
   }
+  if constexpr (CL == 2) sync(true);  // the peer has read the last of this CTA's tiles: it may exit
   pc.mark(BP_A0);
   if (tid == 0 && phases) pc.store(phases + (size_t)blockIdx.x * rnet::NPHASE);
 }
-
-// dws[l, m, n] = sum over CTAs c = 0 .. G-1 (in order) of the partial
-// element holding it (dw_wgmma's order): per layer, per 64 x 128 tile (mt,
-// nt), per register group q of 4, per thread t of the warpgroup, 4 floats;
-// register 4q + e of thread t holds row 64 mt + 16 (t / 32) + (t % 32) / 4 +
-// 8 (e / 2), column 128 nt + 8q + 2 (t % 4) + e % 2.
-__global__ void reduce_dw_ring(const float* __restrict__ part, float* __restrict__ out, int G, int H, long long n) {
+// dws[l, m, n] = sum over the clusters q = 0 .. G/CL - 1 (in order) of the
+// partial element holding it in CTA q CL + c, c = n / W its rank (W = H /
+// CL; dw_wgmma's order): per layer, per 64 x 128 tile (mt, nt) of the CTA's
+// H x W, per register group q of 4, per thread t of the warpgroup, 4
+// floats; register 4q + e of thread t holds row 64 mt + 16 (t / 32) + (t %
+// 32) / 4 + 8 (e / 2), column 128 nt + 8q + 2 (t % 4) + e % 2 of its W. n
+// counts the elements of all CL ranks.
+__global__ void reduce_dw_ring(const float* __restrict__ part, float* __restrict__ out, int G, int CL, int H,
+                               long long n) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
+  const long long nc = n / CL;
+  const int c = (int)(k / nc);
+  const long long kc = k % nc;
   float sum = 0.0f;
-  for (int c = 0; c < G; ++c) sum += part[(size_t)c * n + k];
-  const long long per = (long long)H * H;
-  const int l = (int)(k / per), kk = (int)(k % per);
+  for (int p = 0; p < G / CL; ++p) sum += part[((size_t)p * CL + c) * nc + kc];
+  const int W = H / CL;
+  const long long per = (long long)H * W;
+  const int l = (int)(kc / per), kk = (int)(kc % per);
   const int tile = kk / 8192, w = kk % 8192, q = w / 512, t = (w / 4) % 128, e = w % 4;
-  const int row = 64 * (tile / (H / 128)) + 16 * (t / 32) + (t % 32) / 4 + 8 * (e / 2);
-  const int col = 128 * (tile % (H / 128)) + 8 * q + 2 * (t % 4) + e % 2;
-  out[l * per + (long long)row * H + col] = sum;
+  const int row = 64 * (tile / (W / 128)) + 16 * (t / 32) + (t % 32) / 4 + 8 * (e / 2);
+  const int col = c * W + 128 * (tile % (W / 128)) + 8 * q + 2 * (t % 4) + e % 2;
+  out[l * (long long)H * H + (long long)row * H + col] = sum;
 }
 
 // ===========================================================================
@@ -1189,7 +1336,7 @@ struct Args {
   const float *u, *v, *s, *qa, *ws, *wt, *chain, *dst, *bs, *g;
   float *partial, *du, *dv, *ds, *dqa, *dw_part;
   double *db_part, *sums;
-  int B, ni, nj, L, inject, bm, slots, stages;
+  int B, ni, nj, L, inject, bm, slots, stages, cluster;
   bool ring;
   const int64_t* seed;
   uint32_t thr;
@@ -1227,14 +1374,30 @@ cudaError_t launch_bwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
     kern<<<grid, wide::THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.wt, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
                                             a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.bm,
                                             a.seed, a.thr, a.inv_keep);
-  } else if constexpr (H == RING_H) {
-    auto kern = pairwise_bwd_f32_ring<H, DROP>;
+  } else if constexpr (H == RING_H || H == 2 * RING_H) {
+    // H = 2 RING_H: a cluster of two CTAs, launched with its cluster
+    // dimension through cudaLaunchKernelEx (a CUDA graph captures it)
+    constexpr int CL = H / RING_H;
+    auto kern = pairwise_bwd_f32_ring<H, CL, DROP>;
     static size_t allowed = 0;
     cudaError_t err = raise_smem_limit(kern, smem, allowed);
     if (err != cudaSuccess) return err;
-    kern<<<grid, RING_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.chain, a.dst, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
-                                           a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.slots,
-                                           a.stages, a.seed, a.thr, a.inv_keep, a.phases);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(RING_THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = CL > 1 ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, kern, a.u, a.v, a.s, a.qa, a.chain, a.dst, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
+                             a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.slots, a.stages, a.seed,
+                             a.thr, a.inv_keep, a.phases);
+    if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
 }
@@ -1259,15 +1422,20 @@ cudaError_t dispatch(const Args& a, int H, bool drop, int grid, size_t smem, cud
 // 512}, bm in {16, 32, 64} with at most two 16 x 64 output tiles a warp,
 // `slots` tiles (2, or L in the backward) and two W chunks. The ring
 // kernels: H = 256, blocks of FWD_BM / BWD_BM rows, `slots` tiles (1 in the
-// forward, max(2, L-1) in the backward) and `stages` >= 2 ring stages.
-bool plan_ok(bool ring, bool bwd, int H, int L, int bm, int slots, int stages, int grid, long long smem) {
+// forward, max(2, L-1) in the backward) and `stages` >= 2 ring stages; the
+// backward also at H = 512 on clusters of two CTAs (grid even), each with
+// the tiles of H = 256 and two more mbarriers.
+bool plan_ok(bool ring, bool bwd, int H, int L, int bm, int slots, int stages, int grid, int cluster,
+             long long smem) {
   if (L < 2 || grid < 1) return false;
   if (!ring)
-    return (H == 128 || H == 256 || H == 512) && (bm == 16 || bm == 32 || bm == 64) &&
+    return cluster == 1 && (H == 128 || H == 256 || H == 512) && (bm == 16 || bm == 32 || bm == 64) &&
            bm * H <= 2 * wide::WARPS * 16 * wide::WN && stages == 2 &&
            slots == (bwd ? L : 2) && smem == (long long)wide::smem_bytes(bm, H, slots);
-  return H == RING_H && bm == (bwd ? BWD_BM : FWD_BM) && stages >= 2 &&
-         slots == (bwd ? (L - 1 > 2 ? L - 1 : 2) : 1) && smem == (long long)ring_smem_bytes(bwd, bm, H, slots, stages);
+  const bool pair = bwd && cluster == 2 && H == 2 * RING_H && grid % 2 == 0;
+  return (pair || (cluster == 1 && H == RING_H)) && bm == (bwd ? BWD_BM : FWD_BM) && stages >= 2 &&
+         slots == (bwd ? (L - 1 > 2 ? L - 1 : 2) : 1) &&
+         smem == (long long)ring_smem_bytes(bwd, bm, RING_H, slots, stages) + (pair ? 16 : 0);
 }
 
 }  // namespace
@@ -1290,7 +1458,7 @@ int rnet_pairwise_fwd_f32(const void* u, const void* v, const void* s, const voi
                           const void* chain, const void* bs, void* partial, void* out, int B, int ni, int nj, int H,
                           int L, int inject, int ring, int bm, int slots, int stages, int grid, long long smem,
                           int drop, const void* seed, unsigned int thr, float inv_keep, void* phases, void* stream) {
-  if (!plan_ok(ring != 0, false, H, L, bm, slots, stages, grid, smem)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(ring != 0, false, H, L, bm, slots, stages, grid, 1, smem)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{};
   a.u = static_cast<const float*>(u), a.v = static_cast<const float*>(v), a.s = static_cast<const float*>(s);
@@ -1312,10 +1480,11 @@ int rnet_pairwise_fwd_f32(const void* u, const void* v, const void* s, const voi
 // ..., esize=4): the fused kernel, then the ordered sums of the dW and db
 // partials. Inputs as rnet_pairwise_fwd_f32's, plus, for the wide kernel, wt
 // (L-1,H,H) = W_l^T of every layer, for the ring kernel dstages =
-// pack_f32_weights(W) (the d products' B operand), and g (B,H) the upstream
-// gradient; outputs du (B,ni,H), dv (B,nj,H), ds, dqa (B,H), dws (L-1,H,H),
-// dbs (L-1,H) fp32, of which du, dv and dqa must be zero; scratch, zero:
-// dw_part (grid,L-1,H,H) fp32, and in fp64 (the sums over a sample's or a
+// pack_f32_weights(W) (the d products' B operand; with cluster 2, chain and
+// dstages pack each CTA's pair_halves slice, rank after rank), and g (B,H)
+// the upstream gradient; outputs du (B,ni,H), dv (B,nj,H), ds, dqa (B,H),
+// dws (L-1,H,H), dbs (L-1,H) fp32, of which du, dv and dqa must be zero;
+// scratch, zero: dw_part (grid,L-1,H,H/cluster) fp32, and in fp64 (the sums over a sample's or a
 // CTA's blocks: thousands of addends of one sign at n = 1024) db_part
 // (grid,L-1,H) and sums (B,2,H), ds and dqa of each sample. phases as the
 // forward's. Returns cudaGetLastError().
@@ -1323,9 +1492,9 @@ int rnet_pairwise_bwd_f32(const void* u, const void* v, const void* s, const voi
                           const void* wt, const void* chain, const void* dstages, const void* bs, const void* g,
                           void* du, void* dv, void* ds, void* dqa, void* dws, void* dbs, void* dw_part,
                           void* db_part, void* sums, int B, int ni, int nj, int H, int L, int inject, int ring,
-                          int bm, int slots, int stages, int grid, long long smem, int drop, const void* seed,
-                          unsigned int thr, float inv_keep, void* phases, void* stream) {
-  if (!plan_ok(ring != 0, true, H, L, bm, slots, stages, grid, smem)) return (int)cudaErrorInvalidValue;
+                          int bm, int slots, int stages, int grid, int cluster, long long smem, int drop,
+                          const void* seed, unsigned int thr, float inv_keep, void* phases, void* stream) {
+  if (!plan_ok(ring != 0, true, H, L, bm, slots, stages, grid, cluster, smem)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{};
   a.u = static_cast<const float*>(u), a.v = static_cast<const float*>(v), a.s = static_cast<const float*>(s);
@@ -1336,7 +1505,7 @@ int rnet_pairwise_bwd_f32(const void* u, const void* v, const void* s, const voi
   a.dqa = static_cast<float*>(dqa), a.dw_part = static_cast<float*>(dw_part);
   a.db_part = static_cast<double*>(db_part), a.sums = static_cast<double*>(sums);
   a.B = B, a.ni = ni, a.nj = nj, a.L = L, a.inject = inject, a.bm = bm, a.slots = slots, a.stages = stages;
-  a.ring = ring != 0;
+  a.ring = ring != 0, a.cluster = cluster;
   a.seed = static_cast<const int64_t*>(seed), a.thr = thr, a.inv_keep = inv_keep;
   a.phases = static_cast<long long*>(phases);
   cudaError_t err = dispatch<true>(a, H, drop != 0, grid, (size_t)smem, st);
@@ -1346,7 +1515,8 @@ int rnet_pairwise_bwd_f32(const void* u, const void* v, const void* s, const voi
     wide::sum_partials_kernel<float><<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws),
                                                                                   grid, nw);
   else
-    reduce_dw_ring<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid, H, nw);
+    reduce_dw_ring<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid, cluster,
+                                                                 H, nw);
   wide::sum_partials_kernel<double><<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(a.db_part, static_cast<float*>(dbs),
                                                                                  grid, nb);
   return (int)cudaGetLastError();

@@ -25,7 +25,9 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   stages, shared memory, grid; ``esize=4`` for the fp32 kernels),
   ``pack_weight_chunks`` lays W out as the bf16 and int8 kernels stream it
   and ``pack_f32_weights`` splits W into tf32 hi / lo stages for the fp32
-  ring kernels; all are pure and tested on the CPU. A ``phases`` buffer
+  ring kernels (``pair_halves`` first cuts W for each CTA of the H=512
+  backward's clusters of two; ``dw_splits`` splits the rows of that
+  backward's dW GEMM in bf16); all are pure and tested on the CPU. A ``phases`` buffer
   selects the phase-timing build (``PHASE_DEFINES``) of the bf16, int8 and
   fp32 ring kernels.
 * ``pairwise_core`` — a ``torch.autograd.Function`` (as ``_make_core``'s
@@ -100,10 +102,10 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     elif name == F32_LIB:
         lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 9 + [i32] * 11 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_fwd_f32.restype = i32
-        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 19 + [i32] * 11 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 19 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd_f32.restype = i32
     else:
-        lib.rnet_pairwise_bwd.argtypes = [vp] * 16 + [i32] * 10 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_bwd.argtypes = [vp] * 17 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd.restype = i32
     lib.rnet_cuda_error_string.argtypes = [i32]
     lib.rnet_cuda_error_string.restype = ctypes.c_char_p
@@ -278,13 +280,29 @@ F32_ROWS = (64, 32, 16)  # the wide kernels' block rows, the largest that fits f
 F32_MAX_TILE = 2 * 8 * 16 * 64  # bm * H: two 16 x 64 tiles for each of the 8 warps
 F32_CHUNK_FLOATS = 8192
 H100_SMS = 132
+# The backward at H = PAIR_WIDTH (bf16 and fp32): a cluster of PAIR CTAs on
+# neighbouring SMs shares each block of rows, CTA c on the output columns
+# c * H / PAIR .. of every product, with H / PAIR = 256 columns of every
+# activation tile in its shared memory (the layout of the H=256 kernels) and
+# the peer's half read through distributed shared memory. bf16: each CTA
+# stores a_{l-1} and dpre_l of its columns for every block (bf16, the tiles
+# as they are) and a GEMM kernel sums dW over all rows afterwards
+# (``dw_splits``). fp32: its dW partial is (L-1) x H x H / PAIR, so a block
+# of rows costs half the flush of one CTA holding all of dW, over four
+# times the rows.
+PAIR_WIDTH = 512
+PAIR = 2
 KINDS = ("fwd", "bwd", "int8")
 # The phase-timing build: -DRNET_PHASE_TIMES makes the kernels sum clock64()
 # cycles per phase and CTA into a (grid, PHASE_SLOTS) int64 buffer.
 PHASE_DEFINES = ("RNET_PHASE_TIMES",)
-PHASE_SLOTS = 8
+PHASE_SLOTS = 9
 FWD_PHASES = ("products", "epilogues", "pool", "feed_wait", "a0", "barriers")
-BWD_PHASES = ("recompute", "dW_products", "dW_flush", "d_products", "column_pass", "feed_wait", "a0", "barriers")
+# "pair_wait": the cluster-pair backward's waits for its peer CTA (0 elsewhere).
+# In the bf16 cluster backward "dW_products" holds the column sums' products
+# and "dW_flush" the stores of a_{l-1} and dpre_l (their dW is a second kernel).
+BWD_PHASES = ("recompute", "dW_products", "dW_flush", "d_products", "column_pass", "feed_wait", "a0", "barriers",
+              "pair_wait")
 INT8_PHASES = FWD_PHASES
 
 
@@ -317,6 +335,17 @@ class TilePlan:
     bm: int  # pair rows of one block
     esize: int = 2  # bytes of an input element: 4 for the fp32 kernels
     ring: bool = False  # the fp32 ring kernels (H = F32_RING_WIDTH); else the wide ones
+    cluster: int = 1  # CTAs of a cluster that share a block of rows, each on H / cluster columns
+
+    @property
+    def width(self) -> int:
+        """Output columns of one CTA: its share of every product and activation tile."""
+        return self.H // self.cluster
+
+    def columns(self, cta: int) -> range:
+        """The output columns CTA `cta` computes (its rank in the cluster's share)."""
+        c0 = cta % self.cluster * self.width
+        return range(c0, c0 + self.width)
 
     @property
     def nblk(self) -> int:
@@ -328,12 +357,15 @@ class TilePlan:
         its order: the forward walks tiles t = cta, cta + grid, ... (t = b *
         nblk + block); the int8 forward the contiguous range [cta * tiles //
         grid, (cta + 1) * tiles // grid), wgs tiles a round; the backward
-        owns samples b = cta, cta + grid, ... and walks all their blocks."""
+        owns samples b = cta, cta + grid, ... and walks all their blocks (with a
+        cluster, both CTAs of cluster q = cta // cluster own the samples q, q +
+        grid / cluster, ... and walk the same blocks, each on its columns)."""
         npairs = self.ni * self.nj
         ntiles = self.B * self.nblk
         if self.kind == "bwd":
+            owner, owners = cta // self.cluster, self.grid // self.cluster
             return [(b, k * self.bm, min(self.bm, npairs - k * self.bm))
-                    for b in range(cta, self.B, self.grid) for k in range(self.nblk)]
+                    for b in range(owner, self.B, owners) for k in range(self.nblk)]
         if self.kind == "fwd":
             tiles = range(cta, ntiles, self.grid)
         else:
@@ -343,7 +375,7 @@ class TilePlan:
 
 
 def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esize: int = 2, bm: int = 0,
-               ring: bool = False) -> int:
+               ring: bool = False, cluster: int = 1) -> int:
     """Shared memory of a CTA with `wgs` consumer warpgroups: the activation
     slots, the W ring and its full and empty mbarriers (8 B each). The bf16
     kernels' slots are (64 * wgs) x H bf16 and they keep a per-row fp32
@@ -354,9 +386,13 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esi
     `slots` tiles of `bm` x H floats (the ring kernels, ``ring``; H + 4
     floats a row in the wide ones), `stages` ring stages of F32_STAGE_BYTES
     with their mbarriers and, in the backward, one more (wide: W chunks of
-    F32_CHUNK_FLOATS / H rows of H + 8 floats) and a per-row scale."""
+    F32_CHUNK_FLOATS / H rows of H + 8 floats) and a per-row scale. A CTA of
+    a ``cluster`` of PAIR (the backward at H = PAIR_WIDTH) keeps H / cluster
+    columns of each tile and two more mbarriers, for its peer's arrivals."""
+    pair = 16 if cluster > 1 else 0
+    H //= cluster
     if esize == 4 and ring:  # the backward adds the mbarrier of its dW products
-        return slots * bm * H * 4 + stages * (F32_STAGE_BYTES + 16) + (8 if kind == "bwd" else 0) + bm * 4
+        return slots * bm * H * 4 + stages * (F32_STAGE_BYTES + 16) + (8 if kind == "bwd" else 0) + bm * 4 + pair
     if esize == 4:
         return 4 * (slots * bm * (H + 4) + stages * (F32_CHUNK_FLOATS // H) * (H + 8) + bm)
     ring = stages * (CHUNK_BYTES + 16)
@@ -368,7 +404,7 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esi
     if kind == "fwd":
         n += (L - 1) * H * 4 + warps_sums
     else:
-        n += 128  # one 8 x 8 core matrix of ones (the column sums' wgmma operand)
+        n += 128 + pair  # one 8 x 8 core matrix of ones (the column sums' wgmma operand)
     return n
 
 
@@ -384,12 +420,18 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
     the backward max(3, L-1). int8: two slots per warpgroup, and as many
     warpgroups (up to INT8_MAX_WGS) as leave room for MIN_STAGES W chunks;
     one when 128-row tiles would not give every SM one. The ring takes what
-    shared memory is left, up to MAX_STAGES. ValueError if the plan does not
-    fit."""
+    shared memory is left, up to MAX_STAGES. The backward at H = PAIR_WIDTH
+    runs on clusters of PAIR CTAs where their tiles fit (``_pair_plan``), and
+    on one CTA where they do not (deeper chains). ValueError if the plan does
+    not fit."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if H % 128 != 0:
         raise ValueError(f"the pairwise kernels need H % 128 == 0, got H={H}")
+    if kind == "bwd" and H == PAIR_WIDTH:
+        plan = _pair_plan(B, ni, nj, H, L, sms, esize)
+        if plan is not None:
+            return plan
     if esize == 4:
         return _tile_plan_f32(kind, B, ni, nj, H, L, sms)
     few_tiles = B * -(-ni * nj // (2 * WG_ROWS)) < sms
@@ -418,6 +460,39 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
         grid = min(-(-B * nblk // (wgs if kind == "int8" else 1)), sms)
     bm = WG_ROWS if kind == "int8" else WG_ROWS * wgs
     return TilePlan(kind, B, ni, nj, H, L, wgs, stages, slots, grid, smem_bytes(kind, wgs, H, L, slots, stages), bm)
+
+
+DW_TILE = (128, 256)  # the output tile of the bf16 cluster backward's dW GEMM (dw_gemm_kernel)
+
+
+def dw_splits(plan: TilePlan, sms: int = H100_SMS) -> int:
+    """Splits of the pair rows in the bf16 cluster backward's dW GEMM: as
+    many as give every SM two of its (L-1) x (H / 128) x (H / 256) output
+    tiles, at most one per 64-row chunk."""
+    tiles = (plan.L - 1) * (plan.H // DW_TILE[0]) * (plan.H // DW_TILE[1])
+    return max(1, min(2 * plan.B * plan.nblk, 2 * sms // tiles))
+
+
+def _pair_plan(B: int, ni: int, nj: int, H: int, L: int, sms: int, esize: int) -> Optional[TilePlan]:
+    """The backward on clusters of PAIR CTAs at H = PAIR_WIDTH, or None where
+    its tiles do not fit. Each CTA keeps the tiles of the H=256 kernels on
+    its H / PAIR columns: bf16 (``esize`` 2) two consumer warpgroups on
+    blocks of 128 rows, max(3, L-1) slots and >= MIN_STAGES W chunks; fp32
+    the ring backward's 64-row blocks, max(2, L-1) tiles and >= 2 stages.
+    Grid: PAIR * min(B, sms // PAIR) CTAs, one owner cluster per sample."""
+    if esize == 4:
+        bm, slots, unit, lo, hi = F32_RING_ROWS["bwd"], max(2, L - 1), F32_STAGE_BYTES + 16, 2, F32_MAX_STAGES
+    else:
+        bm, slots, unit, lo, hi = 2 * WG_ROWS, max(3, L - 1), CHUNK_BYTES + 16, MIN_STAGES, MAX_STAGES
+
+    def smem(stages):
+        return smem_bytes("bwd", 2, H, L, slots, stages, esize, bm, ring=esize == 4, cluster=PAIR)
+
+    stages = min(hi, (SMEM_LIMIT - smem(0)) // unit)
+    if stages < lo:
+        return None
+    grid = PAIR * min(B, sms // PAIR)
+    return TilePlan("bwd", B, ni, nj, H, L, 2, stages, slots, grid, smem(stages), bm, esize, esize == 4, PAIR)
 
 
 def _tile_plan_f32(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int) -> TilePlan:
@@ -467,7 +542,8 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def pack_f32_weights(x: torch.Tensor) -> torch.Tensor:
-    """x (L-1, N, K) fp32 with N = K = H a multiple of 128, row n holding B^T's
+    """x (L-1, N, K) fp32, N and K multiples of 128 (N = K = H, or N = H / 2
+    for a CTA of a cluster), row n holding B^T's
     row (the K-major B operand of ``a . B``), split into tf32 hi =
     tf32_round(x) and lo = tf32_round(x - hi) and packed as the fp32 ring
     kernels stream it: per layer, per depth slice of KD = F32_STAGE_BYTES /
@@ -481,6 +557,23 @@ def pack_f32_weights(x: torch.Tensor) -> torch.Tensor:
     lo = tf32_round(x.float() - hi)
     y = torch.stack([hi, lo], dim=1).reshape(n_l, 2, N // 128, 16, 8, K // kd, kd // 4, 4)
     return y.permute(0, 5, 1, 2, 3, 6, 4, 7).contiguous()
+
+
+def pair_halves(x: torch.Tensor, cluster: int = PAIR) -> torch.Tensor:
+    """x (L-1, N, K) as the CTAs of a cluster stream it: CTA c's share of the
+    rows (its output columns c * N / cluster ..), the depth reordered to its
+    own share of K first (the operand in its shared memory), then the
+    others' in rank order from c + 1 (read from their shared memory).
+    Returns a contiguous (cluster, L-1, N / cluster, K); each CTA's slice is
+    packed by ``pack_weight_chunks`` or ``pack_f32_weights``."""
+    n_l, N, K = x.shape
+    rn, rk = N // cluster, K // cluster
+    out = []
+    for c in range(cluster):
+        rows = x[:, c * rn:(c + 1) * rn]
+        order = [(c + q) % cluster for q in range(cluster)]
+        out.append(torch.cat([rows[:, :, k * rk:(k + 1) * rk] for k in order], dim=2))
+    return torch.stack(out).contiguous()
 
 
 def pack_weight_chunks(x: torch.Tensor) -> torch.Tensor:
@@ -636,22 +729,28 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
     plan = tile_plan("bwd", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(BWD_KERNEL, defines)
-    wt_chunks = pack_weight_chunks(ws.transpose(1, 2))
-    w_chunks = pack_weight_chunks(ws)
+    wt_chunks, w_chunks = (_pack_for(x, plan, pack_weight_chunks) for x in (ws.transpose(1, 2), ws))
     f32 = dict(dtype=torch.float32, device=dev)
     du, dv = torch.zeros((B, ni, H), **f32), torch.zeros((B, nj, H), **f32)
     ds, dqa = torch.zeros((B, H), **f32), torch.zeros((B, H), **f32)
     dws, dbs = torch.empty((L - 1, H, H), **f32), torch.empty((L - 1, H), **f32)
-    dw_part = torch.zeros((plan.grid, L - 1, H, H), **f32)
+    splits, act = 0, None
+    if plan.cluster > 1:  # the stored a_{l-1}, dpre_l tiles and the GEMM's split partials of dW
+        splits = dw_splits(plan, _sms(dev))
+        act = torch.empty((2, L - 1, B * plan.nblk, plan.cluster, plan.bm * plan.width), dtype=torch.bfloat16,
+                          device=dev)
+        dw_part = torch.empty((splits, L - 1, H, H), **f32)
+    else:
+        dw_part = torch.zeros((plan.grid, L - 1, H, H), **f32)
     db_part = torch.zeros((plan.grid, L - 1, H), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_bwd(
             u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), wt_chunks.data_ptr(), w_chunks.data_ptr(),
             bs.data_ptr(), g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(),
-            dws.data_ptr(), dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), B, ni, nj, H, L, int(inject),
-            plan.wgs, plan.slots, plan.stages, plan.grid, plan.smem, drop, seed_ptr, thr, inv_keep,
-            phase_ptr, stream,
+            dws.data_ptr(), dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), _ptr(act), B, ni, nj, H, L,
+            int(inject), plan.wgs, plan.slots, plan.stages, plan.grid, plan.cluster, splits, plan.smem, drop,
+            seed_ptr, thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, BWD_KERNEL)
     launches[BWD_KERNEL] += 1
@@ -661,6 +760,15 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _pack_for(x: torch.Tensor, plan: TilePlan, pack) -> torch.Tensor:
+    """x (L-1, N, K) packed by `pack` for the plan's kernel: as it is for one
+    CTA, or each cluster CTA's ``pair_halves`` slice, rank after rank."""
+    if plan.cluster == 1:
+        return pack(x)
+    halves = pair_halves(x, plan.cluster)
+    return pack(halves.reshape(-1, *halves.shape[2:]))
 
 
 def _f32_plan(kind, B, ni, nj, H, L, dev, phases):
@@ -697,18 +805,20 @@ def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, 
 
 def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep, phases):
     """The fp32 backward's launch (``pairwise_bwd_cuda`` for fp32 inputs):
-    the ring kernel reads W^T (the chain) and W (the d products) split and
-    packed by pack_f32_weights, the wide one W and W^T."""
+    the ring kernels read W^T (the chain) and W (the d products) split and
+    packed by pack_f32_weights (each cluster CTA its ``pair_halves`` slice),
+    the wide one W and W^T."""
     plan, phase_ptr, lib = _f32_plan("bwd", B, ni, nj, H, L, dev, phases)
     if plan.ring:
-        wt, chain, dstages = None, pack_f32_weights(ws.transpose(1, 2)), pack_f32_weights(ws)
+        wt = None
+        chain, dstages = (_pack_for(x, plan, pack_f32_weights) for x in (ws.transpose(1, 2), ws))
     else:
         wt, chain, dstages = ws.transpose(1, 2).contiguous(), None, None
     f32 = dict(dtype=torch.float32, device=dev)
     du, dv = torch.zeros((B, ni, H), **f32), torch.zeros((B, nj, H), **f32)
     ds, dqa = torch.empty((B, H), **f32), torch.zeros((B, H), **f32)
     dws, dbs = torch.empty((L - 1, H, H), **f32), torch.empty((L - 1, H), **f32)
-    dw_part = torch.zeros((plan.grid, L - 1, H, H), **f32)
+    dw_part = torch.zeros((plan.grid, L - 1, H, plan.width), **f32)
     # sums over a CTA's or a sample's blocks in fp64 (thousands of addends of one sign at n = 1024)
     db_part = torch.zeros((plan.grid, L - 1, H), dtype=torch.float64, device=dev)
     sums = torch.zeros((B, 2, H), dtype=torch.float64, device=dev)
@@ -718,8 +828,8 @@ def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_pt
             u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), _ptr(wt), _ptr(chain),
             _ptr(dstages), bs.data_ptr(), g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(),
             dws.data_ptr(), dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), sums.data_ptr(), B, ni, nj, H,
-            L, inject, int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.smem, drop, seed_ptr,
-            thr, inv_keep, phase_ptr, stream,
+            L, inject, int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.cluster, plan.smem, drop,
+            seed_ptr, thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, F32_BWD_KERNEL)
     launches[F32_BWD_KERNEL] += 1

@@ -12,7 +12,9 @@ object grid of ``config.json``, and every agreement case of
 * shared memory within the 232,448 bytes a CTA may use on Hopper;
 * the pair rows of every sample tiled exactly once, only the last block of a
   sample ragged (its surplus rows masked);
-* in the backward, one owner CTA per sample (du, dv, ds, dqa have one writer).
+* in the backward, one owner CTA per sample (du, dv, ds, dqa have one writer);
+  at H = 512 one owner cluster of two CTAs, each on its half of the output
+  columns, so that every (row, column) still has one writer.
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ def test_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
     B, ni, nj, H, L = shape
     plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS)
     assert plan.smem <= tpw.SMEM_LIMIT
-    assert plan.smem == tpw.smem_bytes(kind, plan.wgs, H, L, plan.slots, plan.stages)
+    assert plan.cluster == (tpw.PAIR if kind == "bwd" and H == tpw.PAIR_WIDTH else 1)
+    assert plan.smem == tpw.smem_bytes(kind, plan.wgs, H, L, plan.slots, plan.stages, cluster=plan.cluster)
     assert tpw.MIN_STAGES <= plan.stages <= tpw.MAX_STAGES
     if kind == "int8":  # each warpgroup its own 64-row block
         assert 1 <= plan.wgs <= tpw.INT8_MAX_WGS and plan.bm == 64
@@ -85,7 +88,7 @@ def test_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
     # the fp32 dpre_0 tile of the backward's column pass fits the dead slots
     if kind == "bwd":
         tile_bytes = plan.bm * tpw.TILE_N * 4
-        free = (2 if H == tpw.TILE_N else 1) * plan.bm * H * 2
+        free = (2 if plan.width == tpw.TILE_N else 1) * plan.bm * plan.width * 2
         assert tile_bytes <= free
 
 
@@ -96,18 +99,26 @@ def test_plan_tiles_every_row_exactly_once(kind, shape):
 
 
 def _assert_tiles_every_row_once(plan):
+    """Every (pair row, output column) of every sample in exactly one block
+    of one CTA: the CTAs of a cluster walk the same rows, each on its own
+    columns, and together cover all H."""
     B, npairs = plan.B, plan.ni * plan.nj
     covered = {}
     for cta in range(plan.grid):
+        cols = plan.columns(cta)
+        assert len(cols) == plan.width == plan.H // plan.cluster
         for b, p0, rows in plan.blocks(cta):
             assert 0 < rows <= plan.bm and p0 % plan.bm == 0
             assert rows == plan.bm or p0 + rows == npairs  # only a sample's last block is ragged
-            covered.setdefault(b, []).append((p0, rows))
-    assert sorted(covered) == list(range(B))
-    for b, blocks in covered.items():
+            covered.setdefault((b, cols.start), []).append((p0, rows))
+    assert sorted(covered) == [(b, c) for b in range(B) for c in range(0, plan.H, plan.width)]
+    for blocks in covered.values():
         blocks.sort()
         assert [p0 for p0, _ in blocks] == list(range(0, npairs, plan.bm))
         assert sum(rows for _, rows in blocks) == npairs
+    for q in range(0, plan.grid, plan.cluster):  # a cluster's CTAs: every column once
+        cols = sorted(c for cta in range(q, q + plan.cluster) for c in plan.columns(cta))
+        assert cols == list(range(plan.H))
     assert plan.nblk == -(-npairs // plan.bm)
 
 
@@ -117,14 +128,18 @@ def test_backward_gives_each_sample_one_owner_cta(shape):
 
 
 def _assert_one_owner_cta_per_sample(plan):
+    """One owner CTA per sample, or one owner cluster, whose CTAs own the
+    sample's columns one share each."""
     B = plan.B
     owners = {}
     for cta in range(plan.grid):
         for b, _, _ in plan.blocks(cta):
             owners.setdefault(b, set()).add(cta)
     assert sorted(owners) == list(range(B))
-    assert all(len(c) == 1 for c in owners.values())
-    assert plan.grid == min(B, SMS)
+    for ctas in owners.values():
+        assert len({cta // plan.cluster for cta in ctas}) == 1 and len(ctas) == plan.cluster
+        assert sorted(plan.columns(cta).start for cta in ctas) == list(range(0, plan.H, plan.width))
+    assert plan.grid == plan.cluster * min(B, SMS // plan.cluster)
 
 
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
@@ -133,24 +148,31 @@ def test_f32_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
     """The fp32 kernels. At H = 256 the ring kernels: blocks of
     F32_RING_ROWS[kind] rows (64 per consumer warpgroup), one activation
     tile in the forward and max(2, L-1) in the backward, and as many 16 KB ring
-    stages (2 .. F32_MAX_STAGES) as shared memory leaves. At H = 128, 512 the
-    wide kernels: 8 warps with at most two 16 x 64 output tiles each, on the same
-    64 columns (H / 64 divides 8), two W chunks, two tiles in the forward and
-    L in the backward. Within shared memory either way."""
+    stages (2 .. F32_MAX_STAGES) as shared memory leaves; the backward at H =
+    512 the same on clusters of two CTAs, each on 256 of the columns. At H =
+    128, and the forward at 512, the wide kernels: 8 warps with at most two
+    16 x 64 output tiles each, on the same 64 columns (H / 64 divides 8), two
+    W chunks, two tiles in the forward and L in the backward. Within shared
+    memory either way."""
     B, ni, nj, H, L = shape
     plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS, esize=4)
     assert plan.esize == 4 and plan.smem <= tpw.SMEM_LIMIT and plan.wgs == 2
-    assert plan.smem == tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages, esize=4, bm=plan.bm, ring=plan.ring)
+    assert plan.smem == tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages, esize=4, bm=plan.bm, ring=plan.ring,
+                                       cluster=plan.cluster)
     assert 1 <= plan.grid <= SMS
-    assert plan.ring == (H == tpw.F32_RING_WIDTH)  # every config's L = 4 fits the ring at H = 256
+    pair = kind == "bwd" and H == tpw.PAIR_WIDTH
+    assert plan.cluster == (tpw.PAIR if pair else 1)
+    assert not pair or plan.width == tpw.F32_RING_WIDTH
+    assert plan.ring == (H == tpw.F32_RING_WIDTH or pair)  # every config's L = 4 fits the ring at H = 256
     if plan.ring:
         # two warpgroups: on their own 64 rows each (all H columns), or on 128 columns each of 64 rows
         assert plan.bm == tpw.F32_RING_ROWS[kind] == (128 if kind == "fwd" else 64)
         assert plan.slots == (max(2, L - 1) if kind == "bwd" else 1)
         assert 2 <= plan.stages <= tpw.F32_MAX_STAGES
-        more = tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages + 1, esize=4, bm=plan.bm, ring=True)
+        more = tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages + 1, esize=4, bm=plan.bm, ring=True,
+                              cluster=plan.cluster)
         assert plan.stages == tpw.F32_MAX_STAGES or more > tpw.SMEM_LIMIT
-        assert H % (tpw.F32_STAGE_BYTES // 8 // H) == 0  # whole stages a layer
+        assert H % (tpw.F32_STAGE_BYTES // 8 // plan.width) == 0  # whole stages a layer
     else:
         assert plan.bm in tpw.F32_ROWS and plan.bm * H <= tpw.F32_MAX_TILE and 8 % (H // 64) == 0
         assert (plan.stages, plan.slots) == (2, L if kind == "bwd" else 2)
@@ -169,31 +191,115 @@ def test_f32_plan_tiles_every_row_exactly_once(kind, shape):
         _assert_one_owner_cta_per_sample(plan)
 
 
+PAIR_SHAPES = sorted({shape for shape in SHAPES + F32_SHAPES if shape[3] == tpw.PAIR_WIDTH})
+
+
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_pair_plan_splits_the_columns_over_a_cluster(esize, shape):
+    """The backward at H = 512 (wide-fp's and the SD models' g widths, and
+    every H=512 case of chip_smoke.py), bf16 and fp32: clusters of two CTAs
+    within shared memory, each on 256 of the columns with the H=256 kernels'
+    tiles (bf16: 128-row blocks, two warpgroups, >= 3 W chunks; fp32: 64-row
+    blocks, >= 2 ring stages), every (row, column) once, one owner cluster
+    per sample. dW's bytes per pair row: fp32, each CTA reads and writes
+    its (L-1) x H x H/2 partial once per 64 rows, a quarter of what the
+    one-CTA wide kernel's (L-1) x H x H partial cost per row over its
+    16-row blocks; bf16, each CTA writes a_{l-1} and dpre_l of its columns
+    once and the GEMM reads them once, an eighth of what the one-CTA
+    plan's partial cost per row over its 64-row blocks."""
+    B, ni, nj, H, L = shape
+    plan = tpw.tile_plan("bwd", *shape, SMS, esize=esize)
+    assert (plan.cluster, plan.width, plan.wgs) == (tpw.PAIR, H // 2, 2) and plan.grid % 2 == 0
+    assert plan.smem <= tpw.SMEM_LIMIT
+    assert plan.smem == tpw.smem_bytes("bwd", 2, H, L, plan.slots, plan.stages, esize, plan.bm, plan.ring, tpw.PAIR)
+    if esize == 2:
+        assert (plan.bm, plan.slots) == (128, max(3, L - 1)) and plan.stages >= tpw.MIN_STAGES
+    else:
+        assert plan.ring and (plan.bm, plan.slots) == (64, max(2, L - 1)) and plan.stages >= 2
+    _assert_tiles_every_row_once(plan)
+    _assert_one_owner_cta_per_sample(plan)
+    # bytes per pair row; the one-CTA plans this replaced read and wrote an
+    # (L-1) x H x H fp32 partial per 64-row (bf16) or 16-row (fp32) block
+    one_cta = 2 * (L - 1) * H * H * 4 / (64 if esize == 2 else 16)
+    if esize == 2:  # a_{l-1} and dpre_l of each rank's columns in bf16, written once and read once
+        stored = 2 * plan.cluster * 2 * (L - 1) * plan.width * 2
+        assert stored * 8 == one_cta
+    else:
+        flush = plan.cluster * 2 * (L - 1) * H * plan.width * 4 / plan.bm
+        assert flush * 4 == one_cta
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_dw_gemm_splits_cover_the_rows_in_order(shape):
+    """The bf16 cluster backward's dW GEMM: (L-1) x (H/128) x (H/256) output
+    tiles cover every dW element once; the rows (B x nblk blocks of 128,
+    two 64-row chunks each) split into dw_splits contiguous ranges, in
+    order, each chunk in one range, about two CTAs per SM and never more
+    splits than chunks."""
+    plan = tpw.tile_plan("bwd", *shape, SMS)
+    B, _, _, H, L = shape
+    gm, gn = tpw.DW_TILE
+    tiles = (L - 1) * (H // gm) * (H // gn)
+    assert tiles * gm * gn == (L - 1) * H * H and gn == plan.width
+    splits = tpw.dw_splits(plan, SMS)
+    nq = 2 * B * plan.nblk
+    assert 1 <= splits <= nq and splits * tiles <= max(2 * SMS, tiles)
+    assert splits == nq or (splits + 1) * tiles > 2 * SMS
+    ranges = [range(nq * sp // splits, nq * (sp + 1) // splits) for sp in range(splits)]
+    assert [q for r in ranges for q in r] == list(range(nq))
+
+
+@pytest.mark.parametrize("esize", [2, 4])
+def test_pair_plan_refuses_what_the_cluster_kernels_cannot_take(esize):
+    """The plan picks the cluster from the shape alone: clusters of two only
+    in the backward at H=512 where their tiles fit (L <= 4); at L=5 the
+    fp32 backward falls back to the one-CTA wide kernel and bf16 has no plan;
+    the other widths and kinds run on one CTA."""
+    assert tpw._pair_plan(4, 8, 8, 512, 5, SMS, esize) is None
+    if esize == 2:
+        with pytest.raises(ValueError, match="does not fit"):
+            tpw.tile_plan("bwd", 4, 8, 8, 512, 5, SMS)
+    else:
+        deep = tpw.tile_plan("bwd", 4, 8, 8, 512, 5, SMS, esize=4)
+        assert (deep.cluster, deep.ring, deep.bm) == (1, False, 16)
+    assert tpw.tile_plan("bwd", 4, 8, 8, 256, 4, SMS, esize=esize).cluster == 1
+    assert tpw.tile_plan("fwd", 4, 8, 8, 512, 4, SMS, esize=esize).cluster == 1
+    if esize == 2:  # H=384: the one-CTA backward on one warpgroup
+        h384 = tpw.tile_plan("bwd", 4, 8, 8, 384, 4, SMS)
+        assert (h384.cluster, h384.wgs) == (1, 1)
+
+
 def test_f32_plan_takes_the_most_rows_that_fit():
     """original-fp: the ring forward's 128-row blocks (a warpgroup on 64 rows
     of all 256 columns, one 128 KB tile, 6 stages), the ring backward's
     64-row blocks (two warpgroups on 128 columns each, 2 stages beside three
-    64 KB tiles); H=128 and 512: the wide kernels' 64 and 64, 32 and 16
-    rows."""
+    64 KB tiles); H=512: the ring backward's 64-row blocks on a cluster of
+    two CTAs (256 columns each; at L=5, where those tiles do not fit, the
+    one-CTA wide kernel's 16 rows), the wide forward's 32; H=128: the wide
+    kernels' 64 rows."""
     plans = {(kind, H): tpw.tile_plan(kind, 512, 64, 64, H, 4, SMS, esize=4)
              for kind in ("fwd", "bwd") for H in (128, 256, 512)}
     assert {k: (p.bm, p.ring) for k, p in plans.items()} == {
         ("fwd", 128): (64, False), ("fwd", 256): (128, True), ("fwd", 512): (32, False),
-        ("bwd", 128): (64, False), ("bwd", 256): (64, True), ("bwd", 512): (16, False)}
+        ("bwd", 128): (64, False), ("bwd", 256): (64, True), ("bwd", 512): (64, True)}
+    assert (plans[("bwd", 512)].cluster, plans[("bwd", 512)].stages, plans[("bwd", 512)].slots) == (2, 2, 3)
+    assert tpw.tile_plan("bwd", 512, 64, 64, 512, 5, SMS, esize=4).bm == 16  # L=5: the one-CTA wide kernel
     assert (plans[("fwd", 256)].stages, plans[("bwd", 256)].stages, plans[("bwd", 256)].slots) == (6, 2, 3)
     assert tpw.tile_plan("fwd", 1, 12, 12, 512, 4, SMS, esize=4).nblk == 5  # 144 rows: a ragged fifth block
     assert tpw.tile_plan("bwd", 1, 12, 12, 256, 4, SMS, esize=4).nblk == 3  # 144 rows in blocks of 64
 
 
-@pytest.mark.parametrize("H, L, ring", [(256, 4, True), (256, 5, False), (128, 4, False), (512, 4, False),
+@pytest.mark.parametrize("H, L, ring", [(256, 4, True), (256, 5, False), (128, 4, False), (512, 4, True),
                                         (256, 2, True), (256, 3, True)])
 def test_f32_backward_takes_the_wide_kernel_where_the_ring_does_not_fit(H, L, ring):
-    """The ring backward (H = 256) keeps max(2, L-1) tiles of 64 x 256 fp32
-    (64 KB): up to L = 4 beside two stages; deeper chains and the other
-    widths take the wide kernel, so every shape the wrappers took still
-    runs."""
+    """The ring backward (H = 256, and H = 512 on clusters of two CTAs with
+    256 columns each) keeps max(2, L-1) tiles of 64 x 256 fp32 (64 KB): up to
+    L = 4 beside two stages; deeper chains and H = 128 take the wide kernel,
+    so every shape the wrappers took still runs."""
     plan = tpw.tile_plan("bwd", 140, 64, 64, H, L, SMS, esize=4)
     assert plan.ring == ring and plan.smem <= tpw.SMEM_LIMIT
+    assert plan.cluster == (2 if H == 512 else 1)
     assert plan.slots == (max(2, L - 1) if ring else L)
 
 
@@ -263,7 +369,9 @@ def test_forward_fills_the_card_at_small_batches():
     big = tpw.tile_plan("fwd", 512, 64, 64, 256, 4, SMS)
     assert (small.wgs, small.grid) == (1, 64)
     assert (big.wgs, big.bm, big.grid) == (2, 128, SMS)
-    assert tpw.tile_plan("bwd", 512, 64, 64, 512, 4, SMS).wgs == 1  # H=512: one warpgroup
+    wide = tpw.tile_plan("bwd", 512, 64, 64, 512, 4, SMS)  # H=512: a cluster of two CTAs of two warpgroups
+    assert (wide.wgs, wide.bm, wide.cluster, wide.grid) == (2, 128, 2, SMS)
+    assert tpw.tile_plan("bwd", 512, 64, 64, 384, 4, SMS).wgs == 1  # H=384: one CTA of one warpgroup
 
 
 def test_int8_plan_fills_the_card_and_takes_what_fits():

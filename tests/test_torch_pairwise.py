@@ -253,6 +253,176 @@ def _jax_vjp(args, g, inject, dtype):
 GRAD_NAMES = ["du", "dv", "ds", "dqa", "dws", "dbs"]
 
 
+def _streamed(x, plan):
+    """What each CTA of the plan's cluster reads of x (L-1, N, K) from its W
+    stream: ``pack_weight_chunks`` of its ``pair_halves`` slice, read back
+    at the chunk and core-matrix offsets the kernel's descriptors use
+    (chunk q = n_tile * (K / kc) + k_chunk of nt x kc, core matrices of 8 x
+    8). Returns (cluster, L-1, N / cluster, K): rank c's row n, at depth k
+    of its stream (its own K share first)."""
+    n_l, N, K = x.shape
+    width = N // plan.cluster
+    packed = tpw._pack_for(x, plan, tpw.pack_weight_chunks).reshape(plan.cluster, n_l, -1)
+    nt, kc = tpw.TILE_N, tpw.CHUNK_BYTES // 2 // tpw.TILE_N
+    nn, kk = torch.arange(width)[:, None], torch.arange(K)[None, :]
+    chunk = (nn // nt) * (K // kc) + kk // kc
+    idx = chunk * nt * kc + ((nn % nt) // 8 * (kc // 8) + (kk % kc) // 8) * 64 + (nn % 8) * 8 + kk % 8
+    return packed[:, :, idx]
+
+
+def _core_index(rows, width):
+    """core_off (csrc/pairwise_chain.cuh) of every (row, column) of a
+    rows x width core-matrix tile, as a (rows, width) index tensor."""
+    r = torch.arange(rows).view(-1, 1)
+    c = torch.arange(width).view(1, -1)
+    return ((((r >> 3) * (width >> 3) + (c >> 3)) << 6) + ((r & 7) << 3) + (c & 7))
+
+
+def _stored_tiles_dw(stored, plan, L, splits):
+    """dw_gemm_kernel's dW over the tiles the bf16 cluster kernel stored:
+    `stored` is the flat act buffer (2, L-1, blocks, 2 ranks, 128 x W tiles
+    in core-matrix order); CTA (split, tile) gathers its 64-row chunks with
+    the kernel's offsets (A: 128 columns of a_{l-1}, one 2 KB copy per row
+    group; D: 256 columns of dpre_l, one copy), multiplies, and the splits
+    are added in order."""
+    H, W = plan.H, plan.width
+    gm, gn = tpw.DW_TILE
+    tile_el = 2 * 64 * W
+    nb = stored.numel() // (2 * (L - 1) * 2 * tile_el)
+    per_layer = (H // gm) * (H // gn)
+    ntiles = (L - 1) * per_layer
+    nq = 2 * nb
+    a_idx, d_idx = _core_index(64, gm), _core_index(64, gn)
+    part = torch.zeros((splits, L - 1, H, H))
+    for cta in range(splits * ntiles):
+        sp, t = divmod(cta, ntiles)
+        li, m0, n0 = t // per_layer, (t % per_layer) // (H // gn) * gm, t % (H // gn) * gn
+        a_base = (li * nb * 2 + m0 // W) * tile_el + (m0 % W) // 8 * 64
+        d_base = ((L - 1 + li) * nb * 2 + n0 // W) * tile_el
+        for q in range(nq * sp // splits, nq * (sp + 1) // splits):
+            off = (q >> 1) * 2 * tile_el + (q & 1) * 64 * W
+            a_stage = torch.cat([stored[a_base + off + rg * 8 * W:][:gm // 8 * 64] for rg in range(8)])
+            d_stage = stored[d_base + off:][:64 * gn]
+            part[sp, li, m0:m0 + gm, n0:n0 + gn] += a_stage[a_idx].T @ d_stage[d_idx]
+    dws = torch.zeros(L - 1, H, H)
+    for sp in range(splits):  # in split order, as reduce_partials_kernel
+        dws += part[sp]
+    return dws
+
+
+def _pair_backward_emulation(args, g, inject, sms, esize=4):
+    """The column-split backward of the cluster kernels (H = 512), emulated
+    in fp32 torch on the CPU through what each CTA holds and reads: rank c
+    keeps the activation columns c W .. (W = H / 2) of every block; every
+    product is its own share of the depth (its tile) times the first W of its
+    streamed W rows, plus the peer's share (read through distributed shared
+    memory) times the last W. du, dv, ds, dqa and db of each column come
+    from its owner CTA alone. dW, with ``esize=4`` (the fp32 kernel): CTA
+    (pair q, rank c)'s partial is the H x W block a_{l-1}^T dpre_l[:, own
+    columns] summed over the pair's blocks, and the partials are added over
+    the pairs in pair order into dW's columns of rank c. With ``esize=2``
+    (the bf16 kernel's plan and route): each CTA stores a_{l-1} and dpre_l
+    of its columns per block as 128-row core-matrix tiles (rows past the
+    block's end: a garbage, dpre 0, as the kernel leaves them), and
+    _stored_tiles_dw sums them as dw_gemm_kernel does."""
+    u, v, s, qa, ws, bs = (torch.from_numpy(a) for a in args)
+    g = torch.from_numpy(g)
+    B, n, H = u.shape
+    L = ws.shape[0] + 1
+    plan = tpw.tile_plan("bwd", B, n, n, H, L, sms, esize=esize)
+    assert plan.cluster == 2 and plan.grid > 2  # several pairs: their partials are added in order
+    W = plan.width
+    chain, dstream = _streamed(ws.transpose(1, 2), plan), _streamed(ws, plan)
+    cols = [plan.columns(c) for c in range(2)]
+    part = torch.zeros((plan.grid, L - 1, H, W))
+    tile_el = plan.bm * W
+    stored = torch.zeros(2 * (L - 1) * B * plan.nblk * 2 * tile_el)
+    t_idx = _core_index(plan.bm, W).flatten()
+    du, dv, ds, dqa = torch.zeros(B, n, H), torch.zeros(B, n, H), torch.zeros(B, H), torch.zeros(B, H)
+    dbs = torch.zeros(L - 1, H)
+
+    def split(x, stream):  # every rank's product: own share x stream[:W] + the peer's x stream[W:]
+        return [x[c] @ stream[c][:, :W].T + x[1 - c] @ stream[c][:, W:].T for c in range(2)]
+
+    for q in range(0, plan.grid, 2):
+        assert plan.blocks(q) == plan.blocks(q + 1)  # both CTAs walk the same rows
+        for b, p0, rows in plan.blocks(q):
+            p = torch.arange(p0, p0 + rows)
+            i, j = p // n, p % n
+            a0 = torch.relu(u[b, i] + v[b, j] + s[b])
+            acts = [[a0[:, cols[c]] for c in range(2)]]
+            for l in range(1, L):
+                pre = split(acts[-1], chain[:, l - 1])
+                extra = [bs[l - 1, cols[c]] + (qa[b, cols[c]] if l == inject else 0.0) for c in range(2)]
+                acts.append([torch.relu(pre[c] + extra[c]) for c in range(2)])
+            dpre = [torch.where(acts[L - 1][c] > 0, g[b, cols[c]].expand(rows, W), 0.0) for c in range(2)]
+            for l in range(L - 1, 0, -1):
+                a_full = torch.cat(acts[l - 1], dim=1)  # rank 0's columns, then rank 1's
+                for c in range(2):
+                    if esize == 4:
+                        part[q + c, l - 1] += a_full.T @ dpre[c]
+                    else:  # the two tiles of rank c in the act buffer's [which][l-1][block][rank] order
+                        gblk = b * plan.nblk + p0 // plan.bm
+                        for which, x, pad in ((0, acts[l - 1][c], 1.0), (1, dpre[c], 0.0)):
+                            tile = torch.full((plan.bm, W), pad)
+                            tile[:rows] = x
+                            at = (((which * (L - 1) + l - 1) * B * plan.nblk + gblk) * 2 + c) * tile_el
+                            stored[at:at + tile_el][t_idx] = tile.flatten()
+                    dbs[l - 1, cols[c]] += dpre[c].sum(0)
+                    if l == inject:
+                        dqa[b, cols[c]] += dpre[c].sum(0)
+                d = split(dpre, dstream[:, l - 1])
+                dpre = [torch.where(acts[l - 1][c] > 0, d[c], 0.0) for c in range(2)]
+            for c in range(2):
+                du[b, :, cols[c]] += torch.zeros(n, W).index_add_(0, i, dpre[c])
+                dv[b, :, cols[c]] += torch.zeros(n, W).index_add_(0, j, dpre[c])
+                ds[b, cols[c]] += dpre[c].sum(0)
+    dws = torch.zeros(L - 1, H, H)
+    if esize == 2:
+        dws = _stored_tiles_dw(stored, plan, L, tpw.dw_splits(plan, 64))
+    for c in range(2 if esize == 4 else 0):
+        for q in range(0, plan.grid, 2):  # pair order
+            dws[:, :, cols[c]] += part[q + c]
+    return [t.numpy() for t in (du, dv, ds, dqa, dws, dbs)]
+
+
+@pytest.mark.parametrize("inject", [1, 2])
+def test_pair_backward_column_split_matches_jax_vjp_fp32(inject):
+    """The cluster backward's column split at a shrunk H=512 shape (B=2, n=4,
+    L=3, two pairs of CTAs, one sample each): N-half packing of W^T and W,
+    the depth split into the CTA's own share and its peer's, per-half dW
+    partials added in pair order, vs the VJP of rnet's Pallas kernel in
+    interpret mode, in fp32, at tests/test_kernel.py's VJP tolerance (rtol
+    5e-4, atol 5e-3: the sums in another order)."""
+    H = tpw.PAIR_WIDTH
+    args = _inputs(2, 4, H, 3, seed=90 + inject)
+    g = _upstream(2, H, 95 + inject)
+    want = _jax_vjp(args, g, inject, jnp.float32)
+    got = _pair_backward_emulation(args, g, inject, sms=4)
+    for name, w, d in zip(GRAD_NAMES, want, got):
+        assert d.shape == w.shape, name
+        np.testing.assert_allclose(d, w, rtol=5e-4, atol=5e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("inject", [1, 2])
+def test_pair_backward_stored_tiles_match_jax_vjp_fp32(inject):
+    """The bf16 cluster backward's route to dW at a shrunk H=512 shape (B=2,
+    n=4, L=3: one 128-row block a sample, 16 rows valid), emulated in fp32:
+    each rank stores a_{l-1} and dpre_l of its columns as core-matrix tiles,
+    and dw_gemm_kernel's tiles, chunk offsets and splits (4, added in order)
+    sum a_{l-1}^T dpre_l over them; vs the VJP of rnet's Pallas kernel in
+    interpret mode, at tests/test_kernel.py's VJP tolerance (rtol 5e-4,
+    atol 5e-3: the sums in another order)."""
+    H = tpw.PAIR_WIDTH
+    args = _inputs(2, 4, H, 3, seed=80 + inject)
+    g = _upstream(2, H, 85 + inject)
+    want = _jax_vjp(args, g, inject, jnp.float32)
+    got = _pair_backward_emulation(args, g, inject, sms=4, esize=2)
+    for name, w, d in zip(GRAD_NAMES, want, got):
+        assert d.shape == w.shape, name
+        np.testing.assert_allclose(d, w, rtol=5e-4, atol=5e-3, err_msg=name)
+
+
 @pytest.mark.parametrize("inject", [0, 2])
 def test_bwd_reference_matches_jax_grad_fp32(inject):
     """fp32 inputs: the plain backward vs the VJP of rnet's Pallas kernel in
