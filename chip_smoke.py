@@ -12,7 +12,9 @@ Phases, each fatal (exit 1, no result line) when it fails:
   3. Forward kernel vs plain version on the card at the paths' shapes
      (original-fp B=1/64/512 with inject 0 and 2 as in ir-fp, wide-fp's
      H=512 at B=64 and at B=140 > the SM count, a ragged small shape, a
-     rectangular ni != nj and stretch-fp-32's 1,024 objects), seeded numpy
+     rectangular ni != nj and stretch-fp-32's 1,024 objects; at H=512,
+     where the forward runs on clusters of two CTAs, also the serving
+     buckets B=1 and 8, B=3 with L=3 and the SD grid of 12), seeded numpy
      inputs in bf16, at pair_keep 1 and 0.75.
   4. Philox pair mask: the mask kernel's bits equal ``pair_mask_reference``
      exactly.
@@ -35,7 +37,8 @@ Phases, each fatal (exit 1, no result line) when it fails:
      ``F32_CASES`` (original-fp B=512 and 64, ir-fp's injection 2, H=512 at
      n=64 and at the SD grid of 12, a rectangular grid, stretch-fp-32's
      1,024 objects at B=1, pair dropout at keep 0.9; L = 3 and 2 at H=256,
-     and H=128): the forward within 1e-4 of max|plain|, each gradient's
+     and H=128; the forward on clusters at H=512 also at B=1 and B=140):
+     the forward within 1e-4 of max|plain|, each gradient's
      max|d|/max|plain| printed and its distance from the float64 chain held
      to 1e-4 + twice the plain fp32 version's; the B=512 backward twice,
      bitwise.
@@ -81,9 +84,13 @@ Phases, each fatal (exit 1, no result line) when it fails:
      taken in turns (bf16 int8 int8 bf16). The fp32 kernels at B = 64 and
      512 beside the cuBLAS fp32 chain (TF32 off) and its autograd. wide-fp's
      H=512 at B=512 (n=64): the bf16 forward and backward, int8 and the
-     fp32 kernels, each with its plain version, yardstick and bound; the
-     phase breakdown of the H=512 backwards (bf16 and fp32, on clusters of
-     two CTAs).
+     fp32 kernels, each with its plain version, yardstick, bound and plan
+     (``cluster``), each forward and backward twice, bitwise, and held to
+     its plain version (phases 3, 5 and 5c's tolerances; the fp32 gradients
+     to the float64 chain), each forward at the serving buckets B=1 and 8
+     replayed from a graph; the phase
+     breakdown of the H=512 forwards and backwards (bf16 and fp32, on
+     clusters of two CTAs; slot ``pair_wait`` the waits for the peer).
   9. Augment kernel vs its plain version on the card: B = 1, 7 and 512, fp32
      and bf16 outputs, angles of ±2.8 degrees and 0, the four corner offsets
      (where the shears wrap around the canvas), repeated indices, a cache of
@@ -139,11 +146,12 @@ Phases, each fatal (exit 1, no result line) when it fails:
      NLL and parameters bitwise equal.
 12b. wide-fp (g_theta 4 x 512) train steps at B=512 on device-resident
      data, replayed: bf16 through ``rl_impl="auto"`` (the kernels) against
-     ``"xla"``, fp32 through ``"pallas"`` against ``"xla"``, each pair in the
-     order kernel xla xla kernel: host ms, q/s and the launches of every
-     kernel per step; busy ms and idle share from one profiled window
-     (host clock and profiler over the same replays); the first step's loss
-     of the kernel arm against the ``xla`` arm's (same weights and draws).
+     ``"xla"``, fp32 through ``"pallas"`` against ``"xla"``, and original-fp
+     in fp32 through ``"pallas"`` against ``"xla"``, each pair in the order
+     kernel xla xla kernel: host ms, q/s and the launches of every kernel
+     per step; busy ms and idle share from one profiled window (host clock
+     and profiler over the same replays); the first step's loss of the
+     kernel arm against the ``xla`` arm's (same weights and draws).
  11. fp32 and extraction: (a) ``python -m rnet_torch.train --precision
      float32 --rl-impl pallas``, one epoch of 16 steps (one
      ``pairwise_fwd_f32`` launch per train and eval batch, one
@@ -213,6 +221,24 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def replay_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    """Device ms per call of fn replayed from a CUDA graph of `calls` calls
+    (no host gaps between them, as a served bucket's graph replays), the mean
+    over `reps` replays after one warm-up call on a side stream."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(torch, graph.replay, reps, warmup=1) / calls
+    del graph
+    return ms
 
 
 def pair_inputs(torch, B, n, H, L, seed, dtype=None):
@@ -359,32 +385,39 @@ def log_profile(torch, what, fn, wall_ms, top=8):
 # CTAs: B=64, and B=3 (odd, one sample a cluster, a grid of 3 clusters with
 # L=3), and the SD grid of 12 objects at B=5 (144 pair rows: a ragged
 # second block of 128). H=384 (B=8): the one-CTA backward on one consumer
-# warpgroup, the only plan of the bf16 backward above H=256 but H=512.
+# warpgroup, the only plan of the bf16 backward above H=256 but H=512. The
+# forward at H=512 runs on clusters of two CTAs too: at wide-fp's serving
+# buckets B=1 (one warpgroup a CTA on 64-row blocks: 64 tiles for 66
+# clusters) and B=8 (two, 128-row blocks), B=3 with L=3 and inject 2 (96
+# tiles: 30 clusters take a second), the SD grid (a ragged block), B=140.
 TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0)
 CASES = [
     (1, 64, 64, 256, 4, 0), (64, 64, 64, 256, 4, 0), (1, 64, 64, 256, 4, 2),
     (64, 64, 64, 256, 4, 2), (64, 64, 64, 512, 4, 0), (3, 12, 12, 128, 3, 1),
     (2, 16, 64, 256, 4, 1), (1, 1024, 1024, 256, 4, 1), TRAIN_CASE, (140, 64, 64, 512, 4, 2),
     (3, 64, 64, 512, 3, 1), (5, 12, 12, 512, 4, 2), (8, 64, 64, 384, 4, 1),
+    (1, 64, 64, 512, 4, 0), (8, 64, 64, 512, 4, 0), (3, 64, 64, 512, 3, 2),
 ]
 KEEPS = (1.0, 0.75)
 GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
 # fp32 kernel agreement cases (B, ni, nj, H, L, inject, keep): original-fp
 # at the training batch and B=64, ir-fp's injection at layer 2, wide-fp's
 # H=512, the SD grid of 12 objects at H=512 (144 pair rows: a ragged last
-# block of the forward's 32-row blocks), a rectangular ni != nj,
+# block of the forward's 128-row blocks), a rectangular ni != nj,
 # stretch-fp-32's 1,024 objects, and pair dropout at keep 0.9; then the
 # other tile layouts of the backward at H=256 (L=3: dpre_2 in a_0's tile;
 # L=2: in its own), with the injection at the last layer, a ragged block
 # and dropout, and H=128 (the wide kernels); at H=512 (the backward on
-# clusters of two CTAs) B=3 (odd, one sample a cluster) with dropout and
-# the SD grid at B=5 with L=3.
+# clusters of two CTAs, as is the forward) B=3 (odd, one sample a cluster)
+# with dropout and the SD grid at B=5 with L=3; the forward at wide-fp's
+# serving bucket B=1 and at B=140 (clusters walk 67-68 tiles each).
 F32_TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0, 1.0)
 F32_CASES = [
     F32_TRAIN_CASE, (64, 64, 64, 256, 4, 0, 1.0), (64, 64, 64, 256, 4, 2, 1.0), (64, 64, 64, 512, 4, 0, 1.0),
     (64, 12, 12, 512, 4, 2, 1.0), (2, 16, 40, 256, 4, 1, 1.0), (1, 1024, 1024, 256, 4, 0, 1.0),
     (64, 64, 64, 256, 4, 0, 0.9), (4, 24, 24, 256, 3, 2, 0.75), (3, 10, 10, 256, 2, 1, 1.0),
     (4, 16, 16, 128, 3, 1, 1.0), (3, 64, 64, 512, 4, 1, 0.75), (5, 12, 12, 512, 3, 2, 1.0),
+    (1, 64, 64, 512, 4, 0, 1.0), (140, 64, 64, 512, 4, 2, 1.0),
 ]
 
 
@@ -1003,23 +1036,44 @@ def phase_breakdown(torch, pw):
             log(f"phases {name} {json.dumps(row)}")
         del args, args32, g, folded
         torch.cuda.empty_cache()
-    B, H = TRAIN_B, 512
+    out.update(phase_breakdown_wide(torch, pw))
+    return out
+
+
+WIDE_PHASE_KINDS = (("fwd", 2), ("fwd_f32", 4), ("bwd", 2), ("bwd_f32", 4))
+
+
+def phase_breakdown_wide(torch, pw):
+    """Phase 8 at wide-fp's H=512, B=512 (n=64, L=4): one launch of the
+    phase-timing build of each of WIDE_PHASE_KINDS ((kind, esize): the bf16
+    and fp32 forwards and backwards, all on clusters of two CTAs), its cycles
+    per phase as shares of their total, with the plan; the timing build must
+    compute the kernel's values. Rows keyed (kind, "H512")."""
+    B, n, H, L, inject = TRAIN_B, 64, 512, 4, 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     args = pair_inputs(torch, B, n, H, L, seed=700)
     g = upstream(torch, B, H, seed=701)
-    for kind, esize in (("bwd", 2), ("bwd_f32", 4)):
-        plan = pw.tile_plan("bwd", B, n, n, H, L, sms, esize=esize)
+    out = {}
+    for kind, esize in WIDE_PHASE_KINDS:
+        fwd = kind.startswith("fwd")
+        plan = pw.tile_plan(kind[:3], B, n, n, H, L, sms, esize=esize)
         a = [x.float() for x in args] if esize == 4 else args
         cycles = torch.zeros((plan.grid, pw.PHASE_SLOTS), dtype=torch.int64, device="cuda")
-        got = pw.pairwise_bwd_cuda(*a, g, inject=inject, phases=cycles)[4]
-        want = pw.pairwise_bwd_cuda(*a, g, inject=inject)[4]
+        if fwd:
+            got = pw.pairwise_fwd_cuda(*a, inject=inject, phases=cycles)
+            want = pw.pairwise_fwd_cuda(*a, inject=inject)
+        else:
+            got = pw.pairwise_bwd_cuda(*a, g, inject=inject, phases=cycles)[4]
+            want = pw.pairwise_bwd_cuda(*a, g, inject=inject)[4]
         torch.cuda.synchronize()
         name = "pairwise_" + kind
         if not torch.equal(got, want):
             fail(f"the phase-timing build of {name} at H={H} computes other values than the kernel")
         total = cycles.sum(dim=0).double()
+        names = pw.FWD_PHASES if fwd else pw.BWD_PHASES
         row = {"B": B, "H": H, "cluster": plan.cluster, "total_cycles": int(total.sum().item()), "ctas": plan.grid,
                "warpgroups": plan.wgs, "bm": plan.bm,
-               "shares": {nm: (total[k] / total.sum()).item() for k, nm in enumerate(pw.BWD_PHASES)}}
+               "shares": {nm: (total[k] / total.sum()).item() for k, nm in enumerate(names)}}
         out[(kind, "H512")] = row
         log(f"phases {name} H=512 {json.dumps(row)}")
     del args, g
@@ -2074,28 +2128,35 @@ def graph_phase(torch, np, pw, aug, cfg, dicts, burst):
 WIDE_WINDOW = 4  # wide-fp train steps in a timed window
 
 
+# Phase 12b's cells: (model, compute dtype, the kernel arm's rl_impl).
+STEP_CELLS = (("wide-fp", "bfloat16", "auto"), ("wide-fp", "float32", "pallas"), ("original-fp", "float32", "pallas"))
+
+
 def wide_fp_steps(torch, pw, aug, n_answers):
-    """Phase 12b: replayed train steps of wide-fp (g_theta 4 x 512, n = 64)
-    at B=512 on device-resident data (a 2,048-canvas cache, device augment,
-    as phase 12 builds it), in bf16 through rl_impl "auto" (the kernels)
-    against "xla", and in fp32 through "pallas" against "xla", each pair in
-    the order kernel xla xla kernel: host ms, device busy ms, idle share,
-    questions/s and every kernel's launches per replayed step. The busy
-    time and the idle share come from one profiled window of WIDE_WINDOW
-    replays, host clock and profiler on the same replays. Both arms start
-    from the same weights and draw the same augmentation and dropout, so the
-    first replayed step's loss of the kernel arm must match the xla arm's:
-    within 1e-2 relative in bf16 (phase 7's bound) and 1e-5 in fp32 (phase
-    7b's)."""
+    """Phase 12b: replayed train steps at B=512 on device-resident data (a
+    2,048-canvas cache, device augment, as phase 12 builds it), through the
+    kernels against "xla", in each of STEP_CELLS: wide-fp (g_theta 4 x 512,
+    n = 64) in bf16 through rl_impl "auto" (the kernels) and in fp32 through
+    "pallas", and original-fp in fp32 through "pallas" (what "auto" would
+    pick in fp32 if it followed rnet); each pair in the order kernel xla xla
+    kernel: host ms, device busy ms, idle share, questions/s and every
+    kernel's launches per replayed step. The busy time and the idle share
+    come from one profiled window of WIDE_WINDOW replays, host clock and
+    profiler on the same replays. Both arms start from the same weights and
+    draw the same augmentation and dropout, so the first replayed step's
+    loss of the kernel arm must match the xla arm's: within 1e-2 relative in
+    bf16 (phase 7's bound) and 1e-5 in fp32 (phase 7b's). Rows keyed by
+    dtype for wide-fp, "original-fp float32" for the last."""
     from rnet_torch.config import load_config
     from rnet_torch.train import steps
 
     torch.backends.cudnn.deterministic = True
-    cfg = load_config("wide-fp").replace(n_answers=n_answers, device_augment=True)
-    cache, data = device_data(torch, cfg, AUG_SMALL, 2 * TRAIN_B, seed=13)
     idx = torch.arange(TRAIN_B, dtype=torch.int32, device="cuda").view(1, TRAIN_B)
     out = {}
-    for dtype, kernel_impl in (("bfloat16", "auto"), ("float32", "pallas")):
+    for model, dtype, kernel_impl in STEP_CELLS:
+        cfg = load_config(model).replace(n_answers=n_answers, device_augment=True)
+        cache, data = device_data(torch, cfg, AUG_SMALL, 2 * TRAIN_B, seed=13)
+        key = dtype if model == "wide-fp" else f"{model} {dtype}"
         arms = {}
         for impl in (kernel_impl, "xla"):
             state = new_state(torch, cfg.replace(rl_impl=impl, compute_dtype=dtype))
@@ -2109,20 +2170,20 @@ def wide_fp_steps(torch, pw, aug, n_answers):
             metrics = train(idx, data, cache)
             torch.cuda.synchronize()
             if not torch.isfinite(metrics).all():
-                fail(f"wide-fp {dtype} {impl}: non-finite step metrics {metrics.tolist()}")
+                fail(f"{model} {dtype} {impl}: non-finite step metrics {metrics.tolist()}")
             counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
             arms[impl] = (state, graphs, lambda t=train: t(idx, data, cache), counts, loss0)
         resolved = arms[kernel_impl][0].model.relational.resolve_impl(64, torch.device("cuda"))
         bwd = pw.BWD_KERNEL if dtype == "bfloat16" else pw.F32_BWD_KERNEL
         if resolved != "pallas" or arms[kernel_impl][3].get(bwd) != 1 or bwd in arms["xla"][3]:
-            fail(f"wide-fp {dtype}: {kernel_impl} should run the kernels ({resolved}, launches "
+            fail(f"{key}: {kernel_impl} should run the kernels ({resolved}, launches "
                  f"{arms[kernel_impl][3]}) and xla none ({arms['xla'][3]})")
         lk, lx = arms[kernel_impl][4], arms["xla"][4]
         loss_rel, loss_tol = abs(lk - lx) / abs(lx), (1e-2 if dtype == "bfloat16" else 1e-5)
-        log(f"wide-fp {dtype} first replayed step: loss {kernel_impl} {lk!r} vs xla {lx!r}, relative difference "
+        log(f"{model} {dtype} first replayed step: loss {kernel_impl} {lk!r} vs xla {lx!r}, relative difference "
             f"{loss_rel!r} (tol {loss_tol!r})")
         if not loss_rel <= loss_tol:
-            fail(f"wide-fp {dtype}: the kernel path's train loss disagrees with the xla path's")
+            fail(f"{model} {dtype}: the kernel path's train loss disagrees with the xla path's")
         win = timed_windows(torch, {k: a[2] for k, a in arms.items()}, order=(kernel_impl, "xla", "xla", kernel_impl),
                             n=WIDE_WINDOW)
         row = {"first_step_loss": {kernel_impl: lk, "xla": lx}, "first_step_loss_rel_diff": loss_rel}
@@ -2131,9 +2192,9 @@ def wide_fp_steps(torch, pw, aug, n_answers):
             prof_host = []
             busy, kern, top = profile_device(torch, fn, reps=WIDE_WINDOW, host=prof_host)
             if kern == 0:
-                fail(f"wide-fp {dtype} {impl}: the profiler saw no kernel in the replayed steps")
+                fail(f"{model} {dtype} {impl}: the profiler saw no kernel in the replayed steps")
             idle = 1.0 - busy / prof_host[0]
-            log(f"profile wide-fp train step B={TRAIN_B} {dtype} {impl} (replayed): host {prof_host[0]!r} ms, device "
+            log(f"profile {model} train step B={TRAIN_B} {dtype} {impl} (replayed): host {prof_host[0]!r} ms, device "
                 f"busy {busy!r} ms in {kern!r} kernels over the same {WIDE_WINDOW} replays, idle share {idle!r}")
             for ms_k, count, name in top[:5]:
                 log(f"  {ms_k!r} ms x{count!r} {name[:100]}")
@@ -2141,13 +2202,11 @@ def wide_fp_steps(torch, pw, aug, n_answers):
                          "profiled_host_ms": prof_host[0], "idle_share": idle, "qps": TRAIN_B / host * 1e3,
                          "launches_per_step": counts, "capture": graph_memory(graphs)}
         row["kernel_over_xla_host"] = row[kernel_impl]["host_ms"] / row["xla"]["host_ms"]
-        log(f"wide-fp train step B={TRAIN_B} {dtype}, replayed, {WIDE_WINDOW} a window in the order {kernel_impl} "
+        log(f"{model} train step B={TRAIN_B} {dtype}, replayed, {WIDE_WINDOW} a window in the order {kernel_impl} "
             f"xla xla {kernel_impl}: {json.dumps(row)}")
-        out[dtype] = row
-        del arms
+        out[key] = row
+        del arms, cache, data
         torch.cuda.empty_cache()
-    del cache, data
-    torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
     return out
 
@@ -2206,12 +2265,50 @@ def trainer_epochs(torch, root):
     return runs
 
 
+def wide_bwd_agreement(torch, pw, args, g, inject, got, dt):
+    """The H=512 backward's gradients `got` at wide-fp B=512 held to phase 5's
+    (bf16: against the plain version) or phase 5c's (fp32: against the
+    float64 chain, with the plain fp32 version's own distance beside it)
+    tolerances. The float64 chain runs 32 samples at a time (dW and db
+    summed over the chunks). Returns the largest max |kernel - plain|."""
+    want = pw.pairwise_core_bwd_reference(*args, g, inject)
+    exact = None
+    if dt == "fp32":
+        chunks = [vjp64(torch, pw, [a[i:i + 32] for a in args[:4]] + list(args[4:]), g[i:i + 32], inject, 1.0, 0)[1]
+                  for i in range(0, g.shape[0], 32)]
+        exact = [torch.cat(p) for p in list(zip(*chunks))[:4]] + [sum(p) for p in list(zip(*chunks))[4:]]
+        del chunks
+    worst, parts = 0.0, []
+    for k, (name, d, w) in enumerate(zip(GRAD_NAMES, got, want)):
+        if d.shape != w.shape or not torch.isfinite(d).all():
+            fail(f"pairwise_bwd {dt} {name} at wide-fp is not a finite {tuple(w.shape)}")
+        err, scale = (d - w).abs().max().item(), w.abs().max().item()
+        worst = max(worst, err)
+        if dt == "bf16":
+            rel = ((d - w).norm() / w.norm().clamp_min(1e-30)).item()
+            parts.append(f"{name} {err:.4g}/{scale:.4g} rel {rel:.3g}")
+            ok = err <= 3e-2 * scale + 1e-2 and rel <= 1e-2
+        else:
+            z = exact[k]
+            rk, rp = (((x.double() - z).norm() / z.norm().clamp_min(1e-300)).item() for x in (d, w))
+            parts.append(f"{name} {err / max(scale, 1e-30):.3g} (from float64: kernel {rk:.3g}, plain {rp:.3g})")
+            ok = rk <= 1e-4 + 2 * rp
+        if not ok:
+            fail(f"pairwise_bwd {dt} {name} disagrees with its plain version at wide-fp: {parts[-1]}")
+    log(f"pairwise_bwd {dt} vs plain at wide-fp B={g.shape[0]}: " + " | ".join(parts))
+    del want, exact
+    torch.cuda.empty_cache()
+    return worst
+
+
 def time_wide(torch, pw, seed):
     """Phase 8, wide-fp's H=512 at B=512 (n=64, L=4): the bf16 forward and
     backward, int8 and the fp32 forward and backward, each beside its plain
-    version, its PyTorch yardstick and its bound; each backward twice,
-    bitwise, and (bf16) the device ms of the kernels of one launch
-    (profiler)."""
+    version, its PyTorch yardstick and its bound, with its plan (the
+    forwards and backwards on clusters of two CTAs); each forward and
+    backward twice, bitwise, and held to its plain version, (bf16) the
+    device ms of the kernels of one backward launch (profiler), and each
+    forward at the serving buckets B=1 and 8 replayed from a graph."""
     B, n, H, L, inject = TRAIN_B, 64, 512, 4, 0
     rows = {}
     args = pair_inputs(torch, B, n, H, L, seed=700)
@@ -2224,9 +2321,18 @@ def time_wide(torch, pw, seed):
             "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_cuda(*args_, inject=inject), 5, warmup=1),
             "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_reference(*args_, inject=inject), 2, warmup=1),
             "library_ms": cuda_ms(torch, lambda: library_chain(torch, *args_, inject), 3, warmup=1),
-            "plan": {"wgs": plans["fwd"].wgs, "bm": plans["fwd"].bm, "ring": plans["fwd"].ring},
+            "plan": {"wgs": plans["fwd"].wgs, "bm": plans["fwd"].bm, "ring": plans["fwd"].ring,
+                     "cluster": plans["fwd"].cluster, "stages": plans["fwd"].stages},
         }
         rows[f"fwd_{dt}"].update(zip(("bound_ms", "bound_by"), fb(B, n, n, H, L)))
+        buckets = rows[f"fwd_{dt}"]["buckets"] = {}
+        for b in (1, 8):  # wide-fp's serving buckets, replayed from a graph as the server replays them
+            sub = [a[:b] for a in args_[:4]] + list(args_[4:])
+            plan = pw.tile_plan("fwd", b, n, n, H, L, sms, esize=2 if dt == "bf16" else 4)
+            buckets[b] = {"replay_ms": replay_ms(torch, lambda: pw.pairwise_fwd_cuda(*sub, inject=inject)),
+                          "bm": plan.bm, "grid": plan.grid, "cluster": plan.cluster}
+            buckets[b].update(zip(("bound_ms", "bound_by"), fb(b, n, n, H, L)))
+            del sub
         rows[f"bwd_{dt}"] = {
             "ms": cuda_ms(torch, lambda: pw.pairwise_bwd_cuda(*args_, g, inject=inject), 3, warmup=1),
             "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args_, g, inject), 2, warmup=1),
@@ -2247,7 +2353,22 @@ def time_wide(torch, pw, seed):
             fail(f"pairwise_bwd {dt} at wide-fp B={B} is not bitwise repeatable")
         log(f"pairwise_bwd {dt} at wide-fp B={B} (plan cluster {plans['bwd'].cluster}): the same launch twice gives "
             "bitwise-equal gradients")
-        del args_, first, again
+        del again
+        rows[f"bwd_{dt}"]["err_vs_plain"] = wide_bwd_agreement(torch, pw, args_, g, inject, first, dt)
+        first, again = (pw.pairwise_fwd_cuda(*args_, inject=inject) for _ in range(2))
+        if not torch.equal(first, again) or not torch.isfinite(first).all():
+            fail(f"pairwise_fwd {dt} at wide-fp B={B} is not finite and bitwise repeatable")
+        log(f"pairwise_fwd {dt} at wide-fp B={B} (plan cluster {plans['fwd'].cluster}): the same launch twice gives "
+            "bitwise-equal outputs")
+        # Held to the plain version at phase 3's (bf16) and phase 5c's (fp32) tolerances.
+        ref = pw.pairwise_core_reference(*args_, inject=inject)
+        err, scale = (first - ref).abs().max().item(), ref.abs().max().item()
+        tol = 2e-3 * scale + 1e-2 if dt == "bf16" else 1e-4 * scale
+        log(f"pairwise_fwd {dt} vs plain at wide-fp B={B}: max_abs_err {err!r} (max|ref| {scale!r}, tol {tol!r})")
+        if not err <= tol:
+            fail(f"pairwise_fwd {dt} disagrees with its plain version at wide-fp B={B}")
+        rows[f"fwd_{dt}"]["err_vs_plain"] = err
+        del args_, first, again, ref
         torch.cuda.empty_cache()
     folded = pw.quantize_int8(*args, inject)
     rows["int8"] = {
@@ -2263,6 +2384,9 @@ def time_wide(torch, pw, seed):
         r = rows[f"bwd_{dt}"]
         log(f"pairwise_bwd {dt} at wide-fp B={B}, same call: kernel {r['ms']!r} ms, autograd through cuBLAS "
             f"{r['library_ms']!r} ms: ms_over_library {r['ms_over_library']!r}")
+        r = rows[f"fwd_{dt}"]
+        log(f"pairwise_fwd {dt} at wide-fp B={B}, same call: kernel {r['ms']!r} ms, the cuBLAS chain "
+            f"{r['library_ms']!r} ms: ms_over_library {r['ms_over_library']!r}, x_bound {r['x_bound']!r}")
     del args, g, folded
     torch.cuda.empty_cache()
     return rows
@@ -2449,7 +2573,8 @@ def main() -> int:
                max_abs_err_all_cases=fwd_err, serve_launches=serve_launches,
                phase_shares=phases[("fwd", TRAIN_B)]["shares"],
                entry_point_launches=entry_counts[pw.KERNEL], replay_launches=graph_out["train_counts"][pw.KERNEL],
-               h512=wide["fwd_bf16"]),
+               h512=wide["fwd_bf16"], h512_phase_shares=phases[("fwd", "H512")]["shares"],
+               wide_fp_step_launches=graph_out["wide_fp_steps"]["bfloat16"]["auto"]["launches_per_step"]),
         record(pw.BWD_KERNEL, "rnet_torch/csrc/pairwise_bwd.cu", "rnet/kernels/pairwise.py:120",
                train_counts[pw.BWD_KERNEL], bwd_err_at_shape, bwd[TRAIN_B], shape=shape,
                max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL],
@@ -2484,7 +2609,8 @@ def main() -> int:
                max_rel_err=f32_fwd_err, max_rel_err_all_cases=f32_fwd_err_all, precision="3xTF32",
                ms_over_library=f32_rows[("fwd", TRAIN_B)]["ms_over_library"], ms_b64=f32_rows[("fwd", 64)]["ms"],
                phase_shares=phases[("fwd_f32", TRAIN_B)]["shares"], step_launches=f32_step_counts[pw.F32_KERNEL],
-               h512=wide["fwd_fp32"],
+               h512=wide["fwd_fp32"], h512_phase_shares=phases[("fwd_f32", "H512")]["shares"],
+               wide_fp_step_launches=graph_out["wide_fp_steps"]["float32"]["pallas"]["launches_per_step"],
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512 (16 train + 2 eval batches)"),
         record(pw.F32_BWD_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:120",

@@ -12,7 +12,7 @@ packages.
   * ``pallas_int8`` — inference only: the int8 CUDA kernel
     (``rnet_torch/csrc/pairwise_fwd_int8.cu``) in eval mode, ``pallas`` in
     train mode (with a warning);
-  * ``auto``   — the kernel on CUDA in bf16 for large uniform shapes, else xla.
+  * ``auto``   — the kernels on CUDA (bf16 or fp32) for large uniform shapes, else xla.
 """
 
 from __future__ import annotations

@@ -82,7 +82,8 @@
 //   * The depth of every product is all 512: the CTA's own 256 columns of
 //     A come from its tile by descriptor, the peer's 256 from the peer's
 //     tile through distributed shared memory (mapa + ld.shared::cluster)
-//     into registers as wgmma A fragments, two chunks ahead (pair_product).
+//     into registers as wgmma A fragments, two chunks ahead
+//     (pairwise_chain.cuh::pair_product_rows).
 //     Each CTA streams only its 256 rows of W_l^T and W_l, its own depth
 //     first (kernels/pairwise.py::pair_halves).
 //   * dW. Per block and layer, one thread stores a_{l-1} and dpre_l, the
@@ -134,90 +135,6 @@ size_t smem_bytes(int bm, int W, int slots, int stages, int cl) {
 // floats, 8-float groups swizzled by the row, so that a warp's fragment
 // stores spread over the banks.
 __device__ __forceinline__ int f32_off(int r, int c) { return r * NT + (c ^ ((r & 7) << 3)); }
-
-// acc (+)= A . B for one NT-column output tile of a cluster CTA, over the
-// depth 2W: the first W from the CTA's own core-matrix tile (its columns of
-// A, the warpgroup's 64 rows at a_addr, rows of W), the last W from the
-// peer's tile at the shared::cluster address `peer` (the same rows), read
-// into registers as wgmma A fragments. B streams through the ring as 2W /
-// KC chunks in that order (pair_halves). The peer's fragments of two chunks
-// load while the previous two chunks' products run; the first two during
-// the CTA's own half.
-__device__ __forceinline__ void pair_product(float (&acc)[NT / 2], uint32_t a_addr, uint32_t peer, int W, int tid,
-                                             Ring& r, bool lead, PhaseClock& pc, int wait_phase) {
-  const int nk = W / KC;  // chunks of each half
-  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
-  const uint32_t fr = peer + 2u * core_off(16 * warp + g, 2 * t, W);  // (row g, depth 2t) of the warp's 16 rows
-  const uint32_t row8 = 16u * W;                                      // bytes: 8 rows down
-  uint32_t fa[4][4], fb[4][4];                                        // [k-step of two chunks][register]
-  auto load = [&](uint32_t (&f)[4][4], int q) {                       // chunks 2q, 2q + 1 of the peer's depth
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint32_t a = fr + (uint32_t)(q * 4 + ks) * 256;  // 16 of depth: two core matrices of 128 bytes
-      f[ks][0] = ld_cluster_u32(a);
-      f[ks][1] = ld_cluster_u32(a + row8);
-      f[ks][2] = ld_cluster_u32(a + 128);
-      f[ks][3] = ld_cluster_u32(a + row8 + 128);
-    }
-  };
-  load(fa, 0);
-  int prev = 0;
-  wgmma_fence();
-  for (int kc = 0; kc < nk; ++kc) {  // the own half: A from shared memory
-    const int was = pc.mark(wait_phase);
-    mbar_wait(r.full + 8 * r.stage, r.parity);
-    pc.mark(was);
-    const uint32_t b = r.buf + r.stage * CHUNK_BYTES;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-      wgmma_step(acc, desc(a_addr + (kc * (DEPTH_BYTES / 16) + 2 * ks) * 128, 128, 16 * W),
-                 desc(b + ks * 256, 128, 8 * DEPTH_BYTES), 1);
-    wgmma_commit();
-    if (kc > 0) {
-      wgmma_wait<1>();
-      if (lead) mbar_arrive(r.empty + 8 * prev);
-    }
-    prev = r.stage;
-    r.advance();
-  }
-  // the peer's half: group q of two chunks reads `cur`; once chunk 2q's
-  // product is issued and the previous one done, group q + 1 loads into `nxt`
-  auto group = [&](uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4], int q) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int was = pc.mark(wait_phase);
-      mbar_wait(r.full + 8 * r.stage, r.parity);
-      pc.mark(was);
-      const uint32_t b = r.buf + r.stage * CHUNK_BYTES;
-      wgmma_fence();
-      wgmma_m64n128_ra<0>(acc, cur[2 * h], desc(b, 128, 8 * DEPTH_BYTES), 1);
-      wgmma_m64n128_ra<0>(acc, cur[2 * h + 1], desc(b + 256, 128, 8 * DEPTH_BYTES), 1);
-      wgmma_commit();
-      wgmma_wait<1>();
-      if (lead) mbar_arrive(r.empty + 8 * prev);
-      prev = r.stage;
-      r.advance();
-      if (h == 0) {  // the products that read `nxt` (group q - 1) are done
-#pragma unroll
-        for (int i = 0; i < 16; ++i) keep(nxt[i / 4][i % 4]);
-        if (2 * (q + 1) < nk) load(nxt, q + 1);
-      }
-    }
-  };
-  for (int q = 0; 2 * q < nk; q += 2) {
-    group(fa, fb, q);
-    if (2 * (q + 1) < nk) group(fb, fa, q + 1);
-  }
-  wgmma_wait<0>();
-  if (lead) mbar_arrive(r.empty + 8 * prev);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    keep(fa[i / 4][i % 4]);
-    keep(fb[i / 4][i % 4]);
-  }
-#pragma unroll
-  for (int i = 0; i < NT / 2; ++i) keep(acc[i]);
-}
 
 // The consumer warpgroups' part of pairwise_bwd_kernel (below). CL = 1: the
 // CTA owns its samples and every column; CL = 2: a cluster CTA of rank c
@@ -271,7 +188,8 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
     if constexpr (CL == 1)
       streamed_product(acc, smem_u32(A + r0 * W), 2 * W, r, tid == 0, pc, PH_FEED);
     else
-      pair_product(acc, smem_u32(A + r0 * W), peer_slot(k) + 2u * r0 * W, W, tid, r, tid == 0, pc, PH_FEED);
+      pair_product_rows<1>(reinterpret_cast<float(&)[1][NT / 2]>(acc), smem_u32(A + r0 * W), peer_slot(k) + 2u * r0 * W,
+                           tid, r, tid == 0, pc, PH_FEED);
   };
 
   for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL) {
@@ -752,31 +670,15 @@ struct Args {
   long long* phases;
 };
 
-// A cluster kernel (CL = 2) is launched with its cluster dimension through
-// cudaLaunchKernelEx, which a CUDA graph captures like any launch.
 template <int WGS, int CL, bool DROP>
 cudaError_t launch(const Args& a, int grid, size_t smem, cudaStream_t st) {
   auto kern = pairwise_bwd_kernel<WGS, CL, DROP>;
   static size_t allowed = 0;
   cudaError_t err = raise_smem_limit(kern, smem, allowed);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3((WGS + 1) * WG_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kern, a.u, a.v, a.s, a.qa, a.wt, a.w, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
-                           a.dw_part, a.db_part, a.act, a.B, a.ni, a.nj, a.H, a.L, a.inject, a.slots, a.stages,
-                           a.seed, a.thr, a.inv_keep, a.phases);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cluster(kern, grid, (WGS + 1) * WG_THREADS, smem, st, CL, a.u, a.v, a.s, a.qa, a.wt, a.w, a.bs, a.g,
+                        a.du, a.dv, a.ds, a.dqa, a.dw_part, a.db_part, a.act, a.B, a.ni, a.nj, a.H, a.L, a.inject,
+                        a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
 }
 
 template <bool DROP>

@@ -40,10 +40,10 @@
 // * Epilogues run on the accumulator fragment (frag_base, frag_col) at the
 //   reference's rounding points and write bf16 pairs straight into the
 //   core-matrix tile, two row pointers and immediate offsets a thread.
-// * Clusters (the backward at H = 512, bf16 and fp32): the two CTAs of a
-//   cluster read each other's activation tiles through distributed shared
-//   memory (mapa + ld.shared::cluster) and order their phases with PairSync,
-//   mbarriers on which the peer arrives remotely.
+// * Clusters (the forward and backward at H = 512, bf16 and fp32): the two
+//   CTAs of a cluster read each other's activation tiles through
+//   distributed shared memory (mapa + ld.shared::cluster) and order their
+//   phases with PairSync, mbarriers on which the peer arrives remotely.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -526,6 +526,97 @@ __device__ __forceinline__ void streamed_product(Acc (&acc)[NT / 2], uint32_t a_
   }
   wgmma_wait<0>();
   if (lead) mbar_arrive(r.empty + 8 * prev);
+}
+
+// The width of a cluster CTA (H = 512, clusters of two): its share of the
+// columns and of every product's depth.
+constexpr int PW = 2 * NT;
+
+// acc[m] (+)= A . B for one NT-column output tile of a cluster CTA and the
+// MH 64-row halves m of its block, over the depth 2 PW: the first PW from
+// the CTA's own core-matrix tile (the block's rows from a_addr, rows of PW),
+// the last PW from the peer's tile at the shared::cluster address `peer`
+// (the same rows), read into registers as wgmma A fragments two chunks
+// ahead. B streams through the ring as 2 PW / KC chunks in that order
+// (pair_halves); every chunk feeds the MH products, so a chunk serves 64 MH
+// rows. The peer's chunk c + 2 loads while chunk c's products run.
+template <int MH>
+__device__ __forceinline__ void pair_product_rows(float (&acc)[MH][NT / 2], uint32_t a_addr, uint32_t peer, int tid,
+                                                  Ring& r, bool lead, PhaseClock& pc, int wait_phase) {
+  constexpr int NK = PW / KC;  // chunks of each half
+  const int warp = tid >> 5, g = (tid & 31) >> 2, t = tid & 3;
+  constexpr uint32_t HALF = 2u * 64 * PW, ROW8 = 16u * PW;             // bytes: 64 and 8 rows down
+  const uint32_t fr = peer + 2u * core_off(16 * warp + g, 2 * t, PW);  // (row g, depth 2t) of the warp's 16 rows
+  uint32_t f[3][MH][2][4];  // [chunk % 3][row half][k-step of the chunk][register]
+  auto load = [&](uint32_t (&x)[MH][2][4], int c) {  // chunk c of the peer's depth
+#pragma unroll
+    for (int m = 0; m < MH; ++m)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const uint32_t a = fr + m * HALF + (uint32_t)(2 * c + ks) * 256;  // 16 of depth: two core matrices
+        x[m][ks][0] = ld_cluster_u32(a);
+        x[m][ks][1] = ld_cluster_u32(a + ROW8);
+        x[m][ks][2] = ld_cluster_u32(a + 128);
+        x[m][ks][3] = ld_cluster_u32(a + ROW8 + 128);
+      }
+  };
+  load(f[0], 0);
+  load(f[1], 1);
+  int prev = 0;
+  wgmma_fence();
+#pragma unroll 1
+  for (int kc = 0; kc < NK; ++kc) {  // the own half: A from shared memory
+    const int was = pc.mark(wait_phase);
+    mbar_wait(r.full + 8 * r.stage, r.parity);
+    pc.mark(was);
+    const uint32_t b = r.buf + r.stage * CHUNK_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int m = 0; m < MH; ++m)
+        wgmma_step(acc[m], desc(a_addr + m * HALF + (kc * (DEPTH_BYTES / 16) + 2 * ks) * 128, 128, 16 * PW),
+                   desc(b + ks * 256, 128, 8 * DEPTH_BYTES), 1);
+    wgmma_commit();
+    if (kc > 0) {
+      wgmma_wait<1>();
+      if (lead) mbar_arrive(r.empty + 8 * prev);
+    }
+    prev = r.stage;
+    r.advance();
+  }
+  // the peer's half: chunk c reads f[c % 3]; once its products are issued
+  // and chunk c - 1's (which read f[(c + 2) % 3]) are done, chunk c + 2 loads there
+#pragma unroll
+  for (int c = 0; c < NK; ++c) {
+    const int was = pc.mark(wait_phase);
+    mbar_wait(r.full + 8 * r.stage, r.parity);
+    pc.mark(was);
+    const uint32_t b = r.buf + r.stage * CHUNK_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int m = 0; m < MH; ++m)
+        wgmma_m64n128_ra<0>(acc[m], f[c % 3][m][ks], desc(b + ks * 256, 128, 8 * DEPTH_BYTES), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (lead) mbar_arrive(r.empty + 8 * prev);
+    prev = r.stage;
+    r.advance();
+    if (c + 2 < NK) {
+#pragma unroll
+      for (int i = 0; i < 8 * MH; ++i) keep(f[(c + 2) % 3][i / 8][(i / 4) & 1][i & 3]);
+      load(f[(c + 2) % 3], c + 2);
+    }
+  }
+  wgmma_wait<0>();
+  if (lead) mbar_arrive(r.empty + 8 * prev);
+#pragma unroll
+  for (int i = 0; i < 24 * MH; ++i) keep(f[i / (8 * MH)][(i / 8) % MH][(i / 4) & 1][i & 3]);
+#pragma unroll
+  for (int m = 0; m < MH; ++m)
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) keep(acc[m][i]);
 }
 
 // acc += A^T . D over `rows` (a multiple of 16) tile rows: the 64 x NT block

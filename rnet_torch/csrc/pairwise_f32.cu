@@ -128,12 +128,33 @@
 // overwrites what it reads; the sums over the clusters run in cluster
 // order (reduce_dw_ring), db / ds / dqa stay in fp64 with one writer.
 //
-// H = 128, the forward at H = 512, and chains too deep for the ring
-// backward's tiles (L > 4 at H = 256; L > 4 at H = 512, where the cluster's
-// tiles do not fit either): the "wide" kernels, the first design, kept as
-// they were; no model runs H = 128. These kernels run mma.sync on blocks of
-// 64, 32 or 16 rows, W streamed as fp32 through two cp.async chunks and
-// split as it is read.
+// The forward at H = 512: the ring forward on clusters of two CTAs. The
+// one-CTA wide kernel (below) took 32-row blocks and split W, read as fp32
+// from L2, into tf32 hi / lo in registers for every block (196 GB of W at
+// wide-fp B=512). The two CTAs of a cluster take the same 128-row block
+// and split the columns: rank c computes columns c*256 .. c*256 + 255 and
+// keeps those of the block, the H = 256 forward's tile (128 x 256 fp32 =
+// 131,072 B), beside 6 ring stages of 16,400 B, two pair mbarriers (16 B)
+// and the row scales (512 B): 230,000 B of the 232,448. Each warpgroup
+// holds its 64 rows x 256 columns of the layer in registers (two 64-float
+// running sums a thread), its depth all 512: its own 256 columns from the
+// tile, the peer's 256 through distributed shared memory, one stage ahead
+// (chain_product_pair); each CTA streams only its 256 rows of W^T, split
+// once per call (pack_f32_weights of pair_halves), its own depth first.
+// The tile is updated in place, but the peer's warps read this CTA's
+// columns of the same rows, so a layer takes two pair syncs: after the
+// products (both CTAs are done reading both tiles; the layer may be
+// stored) and after the stores (the layer is complete in both). With one
+// tile there is no room for a second (ping-pong would take 128-row tiles
+// to 64 and double the W bytes per row). a_0 takes one sync, the next
+// block's a_0 waits for the last layer's first one.
+//
+// H = 128 and chains too deep for the ring backward's tiles (L > 4 at H =
+// 256; L > 4 at H = 512, where the cluster's tiles do not fit either): the
+// "wide" kernels, the first design, kept as they were (the wide forward
+// now only at H = 128, which no model runs). These kernels run mma.sync on
+// blocks of 64, 32 or 16 rows, W streamed as fp32 through two cp.async
+// chunks and split as it is read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -144,7 +165,7 @@
 
 namespace {
 
-// The wide kernels (H = 128, 512, and chains too deep for the ring backward), described at the top.
+// The wide kernels (H = 128, and backward chains too deep for the ring kernels), described at the top.
 namespace wide {
 
 constexpr int THREADS = 256;
@@ -623,7 +644,7 @@ size_t ring_smem_bytes(bool bwd, int bm, int H, int slots, int stages) {
   return (size_t)slots * bm * H * 4 + (size_t)stages * (STAGE_BYTES + 16) + (bwd ? 8 : 0) + (size_t)bm * 4;
 }
 
-enum { FP_PRODUCTS, FP_EPILOGUES, FP_POOL, FP_FEED, FP_A0, FP_SYNC };
+enum { FP_PRODUCTS, FP_EPILOGUES, FP_POOL, FP_FEED, FP_A0, FP_SYNC, FP_PAIR };
 enum { BP_RECOMPUTE, BP_DW, BP_FLUSH, BP_D, BP_COLUMNS, BP_FEED, BP_A0, BP_SYNC, BP_PAIR };
 
 // Offset of (r, c) in a tile of bm rows: core matrices of 8 columns x 4 rows
@@ -755,15 +776,16 @@ __device__ __forceinline__ void chain_product(float (&total)[NTW][64], const flo
   }
 }
 
-// chain_product for a cluster CTA (one column tile `ct` of 128 of the
+// chain_product for a cluster CTA (NTW column tiles of 128 from ct0 of the
 // stage's W): total += A . W over the depth 2W, the first W from the CTA's
 // own tile A, the last W from the peer's tile at the shared::cluster address
 // peerA (the same rows); the ring's stages come in that order (pair_halves).
 // Each stage's fragments load (from shared or distributed shared memory)
 // while the previous stage's products run.
-template <int W, int BM>
-__device__ __forceinline__ void chain_product_pair(float (&total)[64], const float* A, uint32_t peerA, int row, int ct,
-                                                   rnet::Ring& r, bool lead, rnet::PhaseClock& pc, int wait_phase) {
+template <int W, int BM, int NTW>
+__device__ __forceinline__ void chain_product_pair(float (&total)[NTW][64], const float* A, uint32_t peerA, int row,
+                                                   int ct0, rnet::Ring& r, bool lead, rnet::PhaseClock& pc,
+                                                   int wait_phase) {
   constexpr int KD = ring_kd(W), KS = KD / 8, NS = W / KD;  // NS stages of each half
   constexpr uint32_t LO = (uint32_t)W * KD * 4, SBO = KD / 4 * 128;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -797,23 +819,26 @@ __device__ __forceinline__ void chain_product_pair(float (&total)[64], const flo
     const int was = pc.mark(wait_phase);
     rnet::mbar_wait(r.full + 8 * r.stage, r.parity);
     pc.mark(was);
-    const uint32_t bh = r.buf + r.stage * STAGE_BYTES + ct * (128 * KD * 4);
-    float acc[64];
-    rnet::wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      wgmma_tf32(acc, al[ks], rnet::desc(bh + ks * 256, 128, SBO), ks);
-      wgmma_tf32(acc, ah[ks], rnet::desc(bh + LO + ks * 256, 128, SBO), 1);
-      wgmma_tf32(acc, ah[ks], rnet::desc(bh + ks * 256, 128, SBO), 1);
-    }
-    rnet::wgmma_commit();
+    for (int ct = 0; ct < NTW; ++ct) {
+      const uint32_t bh = r.buf + r.stage * STAGE_BYTES + (ct0 + ct) * (128 * KD * 4);
+      float acc[64];
+      rnet::wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 64; ++i) keep(acc[i]);
-    rnet::wgmma_wait<0>();
+      for (int ks = 0; ks < KS; ++ks) {
+        wgmma_tf32(acc, al[ks], rnet::desc(bh + ks * 256, 128, SBO), ks);
+        wgmma_tf32(acc, ah[ks], rnet::desc(bh + LO + ks * 256, 128, SBO), 1);
+        wgmma_tf32(acc, ah[ks], rnet::desc(bh + ks * 256, 128, SBO), 1);
+      }
+      rnet::wgmma_commit();
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      keep(acc[i]);
-      total[i] += acc[i];
+      for (int i = 0; i < 64; ++i) keep(acc[i]);
+      rnet::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        keep(acc[i]);
+        total[ct][i] += acc[i];
+      }
     }
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks)
@@ -933,28 +958,44 @@ __device__ __forceinline__ void init_bias(float (&total)[64], const float* __res
     }
 }
 
-template <int H, bool DROP>
+// The ring forward. CL = 1: H = 256, the CTA on all columns. CL = 2: H =
+// 512, a cluster CTA of rank c on the columns c W .. c W + W - 1 (W = 256)
+// of the same 128-row tile as its peer, the peer's half of every product's
+// depth read through distributed shared memory.
+template <int H, int CL, bool DROP>
 __global__ void __launch_bounds__(RING_THREADS, 1)
     pairwise_fwd_f32_ring(const float* __restrict__ u, const float* __restrict__ v, const float* __restrict__ s,
                           const float* __restrict__ qa, const float* __restrict__ chain,
                           const float* __restrict__ bs, float* __restrict__ partial, int B, int ni, int nj, int L,
                           int inject, int stages, const int64_t* __restrict__ seed, uint32_t thr, float inv_keep,
                           long long* phases) {
-  constexpr int BM = FWD_BM, NTW = H / 128, PER_LAYER = H / ring_kd(H);
+  constexpr int W = H / CL, BM = FWD_BM, NTW = W / 128, PER_LAYER = H / ring_kd(W);
+  constexpr int STAGE_FLOATS = STAGE_BYTES / 4;
+  static_assert(W == RING_H, "a CTA keeps the H = 256 kernel's tile");
   extern __shared__ __align__(128) unsigned char smem[];
   float* X = reinterpret_cast<float*>(smem);
-  unsigned char* ring = smem + (size_t)BM * H * 4;
+  unsigned char* ring = smem + (size_t)BM * W * 4;
   uint64_t* bars = reinterpret_cast<uint64_t*>(ring + (size_t)stages * STAGE_BYTES);
-  float* rowscale = reinterpret_cast<float*>(bars + 2 * stages);
+  uint64_t* pair_bars = bars + 2 * stages;
+  float* rowscale = reinterpret_cast<float*>(pair_bars + (CL > 1 ? 2 : 0));
   rnet::Ring r{rnet::smem_u32(ring), rnet::smem_u32(bars), rnet::smem_u32(bars + stages), stages, 0, 0};
+  const uint32_t rank = CL == 1 ? 0u : rnet::cluster_rank();
+  rnet::PairSync ps{rnet::smem_u32(pair_bars), CL == 1 ? 0u : rnet::mapa(rnet::smem_u32(pair_bars), rank ^ 1u), 0};
   if (threadIdx.x == 0) {
     for (int k = 0; k < stages; ++k) {
       rnet::mbar_init(r.full + 8 * k, 1);
       rnet::mbar_init(r.empty + 8 * k, 2);
     }
+    if (CL == 2) {
+      rnet::mbar_init(ps.bar, 1);
+      rnet::mbar_init(ps.bar + 8, 1);
+    }
     rnet::mbar_fence_init();
   }
-  __syncthreads();
+  if constexpr (CL == 2)
+    rnet::cluster_sync_all();  // both CTAs' mbarriers are initialised before either arrives on the other's
+  else
+    __syncthreads();
   const int npairs = ni * nj, nblk = (npairs + BM - 1) / BM;
   const long long ntiles = (long long)B * nblk;
   rnet::PhaseClock pc;
@@ -962,46 +1003,70 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
   const int warp = threadIdx.x >> 5;
   if (warp >= CONSUMERS / 32) {  // the producer warpgroup: one thread streams W
     setmaxnreg_dec();
-    if (threadIdx.x == CONSUMERS)
-      for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x)
-        produce_stages(r, chain, (L - 1) * PER_LAYER, pc, FP_FEED);
+    if (threadIdx.x == CONSUMERS) {
+      const size_t own = (size_t)rank * (L - 1) * PER_LAYER * STAGE_FLOATS;  // a cluster CTA's pair_halves slice
+      for (long long tile = blockIdx.x / CL; tile < ntiles; tile += gridDim.x / CL)
+        produce_stages(r, chain + own, (L - 1) * PER_LAYER, pc, FP_FEED);
+    }
     return;
   }
   setmaxnreg_inc();
   const int tid = threadIdx.x, wg = tid >> 7, g = (tid & 31) >> 2;
-  const int row = 64 * wg;  // the warpgroup's rows: all H columns of them
+  const int row = 64 * wg;  // the warpgroup's rows: all W columns of them
   const int wrow = row + 16 * (warp & 3) + 2 * g;
+  const int c0 = (int)rank * W;
+  const uint32_t peerX = CL == 1 ? 0u : rnet::mapa(rnet::smem_u32(X), rank ^ 1u);
   const uint64_t key = DROP ? (uint64_t)*seed : 0;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  // every consumer of both CTAs has reached this point (CL = 2)
+  auto pair_sync = [&]() {
+    pc.mark(FP_SYNC);
+    ps.sync(CONSUMERS, tid == 0, pc, FP_PAIR);
+  };
+  for (long long tile = blockIdx.x / CL; tile < ntiles; tile += gridDim.x / CL) {
     const int b = (int)(tile / nblk), blk = (int)(tile % nblk);
     const int p0 = blk * BM, valid = min(BM, npairs - p0);
     pc.mark(FP_SYNC);
     rnet::bar_sync(1, CONSUMERS);  // the previous tile's pool is done with the tile
     pc.mark(FP_A0);
     ring_row_scales<BM, DROP>(rowscale, valid, p0, b, key, thr, inv_keep, tid);
-    ring_a0<H, BM>(X, u, v, s, b, ni, nj, p0, valid, tid);
-    pc.mark(FP_SYNC);
-    rnet::bar_sync(1, CONSUMERS);
-    // Layer by layer in place: a warp reads and writes only its own 16 rows,
-    // and its products have read them (the wgmma waits) before it writes.
+    ring_a0<W, BM>(X, u, v, s, b, ni, nj, p0, valid, tid, H, c0);
+    if constexpr (CL == 2) {
+      pair_sync();  // a_0 of both CTAs' columns is complete
+    } else {
+      pc.mark(FP_SYNC);
+      rnet::bar_sync(1, CONSUMERS);
+    }
+    // Layer by layer in place. CL = 1: a warp reads and writes only its own
+    // 16 rows, and its products have read them (the wgmma waits) before it
+    // writes. CL = 2: the peer's warps read this CTA's columns of the same
+    // rows, so the layer stays in registers until both CTAs' products are
+    // done, and is complete in both before either reads it.
     for (int l = 1; l < L; ++l) {
       float total[NTW][64];
 #pragma unroll
       for (int ct = 0; ct < NTW; ++ct)
-        init_bias(total[ct], bs + (size_t)(l - 1) * H, l == inject ? qa + (size_t)b * H : nullptr, 128 * ct);
+        init_bias(total[ct], bs + (size_t)(l - 1) * H + c0, l == inject ? qa + (size_t)b * H + c0 : nullptr,
+                  128 * ct);
       pc.mark(FP_PRODUCTS);
-      chain_product<H, BM, NTW>(total, X, row, 0, r, (tid & 127) == 0, pc, FP_FEED);
+      if constexpr (CL == 1)
+        chain_product<H, BM, NTW>(total, X, row, 0, r, (tid & 127) == 0, pc, FP_FEED);
+      else
+        chain_product_pair<W, BM, NTW>(total, X, peerX, row, 0, r, (tid & 127) == 0, pc, FP_FEED);
+      if constexpr (CL == 2) pair_sync();  // both CTAs' products have read both tiles
       pc.mark(FP_EPILOGUES);
 #pragma unroll
       for (int ct = 0; ct < NTW; ++ct)
         store_fragment<BM>(X, wrow, 128 * ct, total[ct], [](float2, int, float x0, float x1) {
           return make_float2(fmaxf(x0, 0.0f), fmaxf(x1, 0.0f));
         });
+      if constexpr (CL == 2)
+        if (l < L - 1) pair_sync();  // layer l is stored in both CTAs
     }
     pc.mark(FP_SYNC);
     rnet::bar_sync(1, CONSUMERS);
     pc.mark(FP_POOL);
-    for (int c = tid; c < H; c += CONSUMERS) partial[((size_t)b * nblk + blk) * H + c] = column_sum<BM>(X, c, rowscale);
+    for (int c = tid; c < W; c += CONSUMERS)
+      partial[((size_t)b * nblk + blk) * H + c0 + c] = column_sum<BM>(X, c, rowscale);
   }
   pc.mark(FP_A0);
   if (tid == 0 && phases) pc.store(phases + (size_t)blockIdx.x * rnet::NPHASE);
@@ -1191,7 +1256,7 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
     if constexpr (CL == 1)
       chain_product<H, BM, 1>(total, A, row, ct, r, lead, pc, BP_FEED);
     else
-      chain_product_pair<W, BM>(total[0], A, peer_slot(k), row, ct, r, lead, pc, BP_FEED);
+      chain_product_pair<W, BM, 1>(total, A, peer_slot(k), row, ct, r, lead, pc, BP_FEED);
   };
   for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL) {
     const float* gb = gup + (size_t)b * H + c0;
@@ -1344,24 +1409,27 @@ struct Args {
   long long* phases;
 };
 
+// The wide forward at H = 128; the ring forward at H = 256 and, on clusters
+// of two CTAs (CL = H / 256), at H = 512.
 template <int H, bool DROP>
 cudaError_t launch_fwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
-  if (!a.ring) {
+  if constexpr (H == 128) {
     auto kern = wide::pairwise_fwd_f32_kernel<H, DROP>;
     static size_t allowed = 0;
     cudaError_t err = raise_smem_limit(kern, smem, allowed);
     if (err != cudaSuccess) return err;
     kern<<<grid, wide::THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.bs, a.partial, a.B, a.ni, a.nj, a.L, a.inject,
                                             a.bm, a.seed, a.thr, a.inv_keep);
-  } else if constexpr (H == RING_H) {
-    auto kern = pairwise_fwd_f32_ring<H, DROP>;
+    return cudaGetLastError();
+  } else {
+    constexpr int CL = H / RING_H;
+    auto kern = pairwise_fwd_f32_ring<H, CL, DROP>;
     static size_t allowed = 0;
     cudaError_t err = raise_smem_limit(kern, smem, allowed);
     if (err != cudaSuccess) return err;
-    kern<<<grid, RING_THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.chain, a.bs, a.partial, a.B, a.ni, a.nj, a.L,
-                                           a.inject, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
+    return launch_cluster(kern, grid, RING_THREADS, smem, st, CL, a.u, a.v, a.s, a.qa, a.chain, a.bs, a.partial, a.B,
+                          a.ni, a.nj, a.L, a.inject, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
   }
-  return cudaGetLastError();
 }
 
 template <int H, bool DROP>
@@ -1375,29 +1443,14 @@ cudaError_t launch_bwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
                                             a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.bm,
                                             a.seed, a.thr, a.inv_keep);
   } else if constexpr (H == RING_H || H == 2 * RING_H) {
-    // H = 2 RING_H: a cluster of two CTAs, launched with its cluster
-    // dimension through cudaLaunchKernelEx (a CUDA graph captures it)
-    constexpr int CL = H / RING_H;
+    constexpr int CL = H / RING_H;  // H = 512: a cluster of two CTAs
     auto kern = pairwise_bwd_f32_ring<H, CL, DROP>;
     static size_t allowed = 0;
     cudaError_t err = raise_smem_limit(kern, smem, allowed);
     if (err != cudaSuccess) return err;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(RING_THREADS);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = st;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CL;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = CL > 1 ? 1 : 0;
-    err = cudaLaunchKernelEx(&cfg, kern, a.u, a.v, a.s, a.qa, a.chain, a.dst, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
-                             a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.slots, a.stages, a.seed,
-                             a.thr, a.inv_keep, a.phases);
-    if (err != cudaSuccess) return err;
+    return launch_cluster(kern, grid, RING_THREADS, smem, st, CL, a.u, a.v, a.s, a.qa, a.chain, a.dst, a.bs, a.g,
+                          a.du, a.dv, a.ds, a.dqa, a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject,
+                          a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
   }
   return cudaGetLastError();
 }
@@ -1418,21 +1471,22 @@ cudaError_t dispatch(const Args& a, int H, bool drop, int grid, size_t smem, cud
   }
 }
 
-// The plan checks both launchers share. The wide kernels: H in {128, 256,
-// 512}, bm in {16, 32, 64} with at most two 16 x 64 output tiles a warp,
-// `slots` tiles (2, or L in the backward) and two W chunks. The ring
-// kernels: H = 256, blocks of FWD_BM / BWD_BM rows, `slots` tiles (1 in the
-// forward, max(2, L-1) in the backward) and `stages` >= 2 ring stages; the
-// backward also at H = 512 on clusters of two CTAs (grid even), each with
-// the tiles of H = 256 and two more mbarriers.
+// The plan checks both launchers share. The wide kernels: the forward at H
+// = 128, the backward at H in {128, 256, 512}, bm in {16, 32, 64} with at
+// most two 16 x 64 output tiles a warp, `slots` tiles (2, or L in the
+// backward) and two W chunks. The ring kernels: H = 256, blocks of FWD_BM /
+// BWD_BM rows, `slots` tiles (1 in the forward, max(2, L-1) in the
+// backward) and `stages` >= 2 ring stages; also at H = 512 on clusters of
+// two CTAs (grid even), each with the tiles of H = 256 and two more
+// mbarriers.
 bool plan_ok(bool ring, bool bwd, int H, int L, int bm, int slots, int stages, int grid, int cluster,
              long long smem) {
   if (L < 2 || grid < 1) return false;
   if (!ring)
-    return cluster == 1 && (H == 128 || H == 256 || H == 512) && (bm == 16 || bm == 32 || bm == 64) &&
+    return cluster == 1 && (H == 128 || (bwd && (H == 256 || H == 512))) && (bm == 16 || bm == 32 || bm == 64) &&
            bm * H <= 2 * wide::WARPS * 16 * wide::WN && stages == 2 &&
            slots == (bwd ? L : 2) && smem == (long long)wide::smem_bytes(bm, H, slots);
-  const bool pair = bwd && cluster == 2 && H == 2 * RING_H && grid % 2 == 0;
+  const bool pair = cluster == 2 && H == 2 * RING_H && grid % 2 == 0;
   return (pair || (cluster == 1 && H == RING_H)) && bm == (bwd ? BWD_BM : FWD_BM) && stages >= 2 &&
          slots == (bwd ? (L - 1 > 2 ? L - 1 : 2) : 1) &&
          smem == (long long)ring_smem_bytes(bwd, bm, RING_H, slots, stages) + (pair ? 16 : 0);
@@ -1443,22 +1497,23 @@ bool plan_ok(bool ring, bool bwd, int H, int L, int bm, int slots, int stages, i
 extern "C" {
 
 // Launches the fp32 forward on `stream` for the plan (ring, bm, slots,
-// stages, grid, smem) of kernels/pairwise.py::tile_plan("fwd", ...,
-// esize=4), then the ordered pool of the per-block partials;
+// stages, grid, cluster, smem) of kernels/pairwise.py::tile_plan("fwd",
+// ..., esize=4), then the ordered pool of the per-block partials;
 // cudaErrorInvalidValue for a plan it cannot take. Device pointers to
 // contiguous fp32 tensors, 16-byte aligned: u (B,ni,H), v (B,nj,H), s, qa
 // (B,H), ws (L-1,H,H) (read by the wide kernel), chain =
-// pack_f32_weights(W^T) (read by the ring kernel), bs (L-1,H); partial (B,
-// nblk, H) scratch; out (B,H). drop != 0 turns on the pair mask of
-// philox.cuh with the int64 seed at `seed` (device) and the threshold thr,
-// kept rows scaled by inv_keep. phases (grid, 8) int64 or null: the
-// phase-timing build of the ring kernel writes there. Returns
-// cudaGetLastError().
+// pack_f32_weights(W^T) (read by the ring kernel; with cluster 2, of each
+// CTA's pair_halves slice, rank after rank), bs (L-1,H); partial (B, nblk,
+// H) scratch; out (B,H). drop != 0 turns on the pair mask of philox.cuh
+// with the int64 seed at `seed` (device) and the threshold thr, kept rows
+// scaled by inv_keep. phases (grid, 9) int64 or null: the phase-timing
+// build of the ring kernel writes there. Returns cudaGetLastError().
 int rnet_pairwise_fwd_f32(const void* u, const void* v, const void* s, const void* qa, const void* ws,
                           const void* chain, const void* bs, void* partial, void* out, int B, int ni, int nj, int H,
-                          int L, int inject, int ring, int bm, int slots, int stages, int grid, long long smem,
-                          int drop, const void* seed, unsigned int thr, float inv_keep, void* phases, void* stream) {
-  if (!plan_ok(ring != 0, false, H, L, bm, slots, stages, grid, 1, smem)) return (int)cudaErrorInvalidValue;
+                          int L, int inject, int ring, int bm, int slots, int stages, int grid, int cluster,
+                          long long smem, int drop, const void* seed, unsigned int thr, float inv_keep, void* phases,
+                          void* stream) {
+  if (!plan_ok(ring != 0, false, H, L, bm, slots, stages, grid, cluster, smem)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a{};
   a.u = static_cast<const float*>(u), a.v = static_cast<const float*>(v), a.s = static_cast<const float*>(s);

@@ -26,7 +26,7 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   ``pack_weight_chunks`` lays W out as the bf16 and int8 kernels stream it
   and ``pack_f32_weights`` splits W into tf32 hi / lo stages for the fp32
   ring kernels (``pair_halves`` first cuts W for each CTA of the H=512
-  backward's clusters of two; ``dw_splits`` splits the rows of that
+  kernels' clusters of two; ``dw_splits`` splits the rows of the
   backward's dW GEMM in bf16); all are pure and tested on the CPU. A ``phases`` buffer
   selects the phase-timing build (``PHASE_DEFINES``) of the bf16, int8 and
   fp32 ring kernels.
@@ -92,7 +92,7 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     """Declare the C interface of library `name` (KERNEL, BWD_KERNEL, INT8_KERNEL or F32_LIB)."""
     vp, i32, u32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_longlong
     if name == KERNEL:
-        lib.rnet_pairwise_fwd.argtypes = [vp] * 8 + [i32] * 9 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_fwd.argtypes = [vp] * 8 + [i32] * 11 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_fwd.restype = i32
         lib.rnet_pair_mask.argtypes = [vp, i32, i32, vp, u32, vp]
         lib.rnet_pair_mask.restype = i32
@@ -100,7 +100,7 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 9 + [i64, i32, vp, vp]
         lib.rnet_pairwise_fwd_int8.restype = i32
     elif name == F32_LIB:
-        lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 9 + [i32] * 11 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 9 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_fwd_f32.restype = i32
         lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 19 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd_f32.restype = i32
@@ -263,8 +263,9 @@ INT8_MAX_WGS = 3  # consumer warpgroups of an int8 CTA, each on its own tile
 # The fp32 kernels (csrc/pairwise_f32.cu). At H = F32_RING_WIDTH the ring
 # kernels: blocks of F32_RING_ROWS[kind] pair rows, two consumer warpgroups
 # on tf32 wgmma, W split into tf32 hi / lo once per call (pack_f32_weights)
-# and streamed in F32_STAGE_BYTES stages through a ring of >= 2 stages. At H
-# = 128, 512, or where the ring kernels' tiles do not fit, the wide kernels: 8
+# and streamed in F32_STAGE_BYTES stages through a ring of >= 2 stages (at H
+# = PAIR_WIDTH on clusters of PAIR CTAs, each with the tiles of H = 256). At H
+# = 128, or where the ring backward's tiles do not fit, the wide kernels: 8
 # warps, each with at most two 16 x 64 output tiles of a layer (H / 64
 # divides 8), W streamed as fp32 through two chunks of F32_CHUNK_FLOATS / H
 # rows of H + 8 floats, activation tiles of rows of H + 4 floats.
@@ -280,11 +281,12 @@ F32_ROWS = (64, 32, 16)  # the wide kernels' block rows, the largest that fits f
 F32_MAX_TILE = 2 * 8 * 16 * 64  # bm * H: two 16 x 64 tiles for each of the 8 warps
 F32_CHUNK_FLOATS = 8192
 H100_SMS = 132
-# The backward at H = PAIR_WIDTH (bf16 and fp32): a cluster of PAIR CTAs on
-# neighbouring SMs shares each block of rows, CTA c on the output columns
-# c * H / PAIR .. of every product, with H / PAIR = 256 columns of every
-# activation tile in its shared memory (the layout of the H=256 kernels) and
-# the peer's half read through distributed shared memory. bf16: each CTA
+# The forward and backward at H = PAIR_WIDTH (bf16 and fp32): a cluster of
+# PAIR CTAs on neighbouring SMs shares each block of rows, CTA c on the output
+# columns c * H / PAIR .. of every product, with H / PAIR = 256 columns of
+# every activation tile in its shared memory (the layout of the H=256
+# kernels) and the peer's half read through distributed shared memory; each
+# CTA streams only its rows of W (``pair_halves``). In the backward, bf16: each CTA
 # stores a_{l-1} and dpre_l of its columns for every block (bf16, the tiles
 # as they are) and a GEMM kernel sums dW over all rows afterwards
 # (``dw_splits``). fp32: its dW partial is (L-1) x H x H / PAIR, so a block
@@ -297,13 +299,14 @@ KINDS = ("fwd", "bwd", "int8")
 # cycles per phase and CTA into a (grid, PHASE_SLOTS) int64 buffer.
 PHASE_DEFINES = ("RNET_PHASE_TIMES",)
 PHASE_SLOTS = 9
-FWD_PHASES = ("products", "epilogues", "pool", "feed_wait", "a0", "barriers")
-# "pair_wait": the cluster-pair backward's waits for its peer CTA (0 elsewhere).
-# In the bf16 cluster backward "dW_products" holds the column sums' products
-# and "dW_flush" the stores of a_{l-1} and dpre_l (their dW is a second kernel).
+# "pair_wait": a cluster kernel's waits for its peer CTA (0 in the one-CTA
+# kernels). In the bf16 cluster backward "dW_products" holds the column sums'
+# products and "dW_flush" the stores of a_{l-1} and dpre_l (their dW is a
+# second kernel).
+FWD_PHASES = ("products", "epilogues", "pool", "feed_wait", "a0", "barriers", "pair_wait")
 BWD_PHASES = ("recompute", "dW_products", "dW_flush", "d_products", "column_pass", "feed_wait", "a0", "barriers",
               "pair_wait")
-INT8_PHASES = FWD_PHASES
+INT8_PHASES = FWD_PHASES[:6]
 
 
 @dataclass(frozen=True)
@@ -312,9 +315,10 @@ class TilePlan:
     warpgroups of 64 pair rows per CTA, a ring of ``stages`` 8 KB W chunks,
     ``slots`` activation tiles per block, ``grid`` persistent CTAs and
     ``smem`` bytes of shared memory each. The bf16 kernels' warpgroups share
-    a block of ``bm`` = 64 * wgs rows; the int8 kernel's each take their own
-    64-row block (``bm`` = 64), wgs consecutive blocks a round of the CTA's
-    contiguous range. The fp32 kernels (``esize`` = 4) run two warpgroups
+    a block of ``bm`` = 64 * wgs rows (the cluster forward's two warpgroups
+    split the columns of blocks of ``bm`` = 64 or 128); the int8 kernel's
+    each take their own 64-row block (``bm`` = 64), wgs consecutive blocks a
+    round of the CTA's contiguous range. The fp32 kernels (``esize`` = 4) run two warpgroups
     (``wgs`` = 2): the ring kernels (``ring``) on blocks of ``bm`` =
     F32_RING_ROWS[kind] rows with ``stages`` ring stages of F32_STAGE_BYTES,
     the wide kernels on blocks of ``bm`` = 64, 32 or 16 rows with W streamed
@@ -334,7 +338,7 @@ class TilePlan:
     smem: int
     bm: int  # pair rows of one block
     esize: int = 2  # bytes of an input element: 4 for the fp32 kernels
-    ring: bool = False  # the fp32 ring kernels (H = F32_RING_WIDTH); else the wide ones
+    ring: bool = False  # the fp32 ring kernels (H = F32_RING_WIDTH, or PAIR_WIDTH on clusters); else the wide ones
     cluster: int = 1  # CTAs of a cluster that share a block of rows, each on H / cluster columns
 
     @property
@@ -366,8 +370,8 @@ class TilePlan:
             owner, owners = cta // self.cluster, self.grid // self.cluster
             return [(b, k * self.bm, min(self.bm, npairs - k * self.bm))
                     for b in range(owner, self.B, owners) for k in range(self.nblk)]
-        if self.kind == "fwd":
-            tiles = range(cta, ntiles, self.grid)
+        if self.kind == "fwd":  # with a cluster, both CTAs of cluster cta // cluster walk its tiles
+            tiles = range(cta // self.cluster, ntiles, self.grid // self.cluster)
         else:
             tiles = range(cta * ntiles // self.grid, (cta + 1) * ntiles // self.grid)
         return [(t // self.nblk, t % self.nblk * self.bm, min(self.bm, npairs - t % self.nblk * self.bm))
@@ -378,17 +382,20 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esi
                ring: bool = False, cluster: int = 1) -> int:
     """Shared memory of a CTA with `wgs` consumer warpgroups: the activation
     slots, the W ring and its full and empty mbarriers (8 B each). The bf16
-    kernels' slots are (64 * wgs) x H bf16 and they keep a per-row fp32
-    scale; the forward adds the biases in fp32 and one row of H column sums
-    per warp, the backward a core matrix of ones. The int8 kernel keeps
+    kernels' slots are (64 * wgs) x H bf16 (``bm`` x H / cluster in the
+    cluster forward) and they keep a per-row fp32 scale; the forward adds
+    the biases in fp32 and one row of H column sums per warp (the cluster
+    forward: a row-scale copy per warpgroup and rows of TILE_N column sums),
+    the backward a core matrix of ones. The int8 kernel keeps
     `slots` tiles of 64 x H int8 per warpgroup, the biases in fp32 and one
     row of H column sums per warp. The fp32 kernels (``esize`` = 4) keep
     `slots` tiles of `bm` x H floats (the ring kernels, ``ring``; H + 4
     floats a row in the wide ones), `stages` ring stages of F32_STAGE_BYTES
     with their mbarriers and, in the backward, one more (wide: W chunks of
     F32_CHUNK_FLOATS / H rows of H + 8 floats) and a per-row scale. A CTA of
-    a ``cluster`` of PAIR (the backward at H = PAIR_WIDTH) keeps H / cluster
-    columns of each tile and two more mbarriers, for its peer's arrivals."""
+    a ``cluster`` of PAIR (H = PAIR_WIDTH) keeps H / cluster columns of each
+    tile (bf16 forward: of the biases and column sums too) and two more
+    mbarriers, for its peer's arrivals."""
     pair = 16 if cluster > 1 else 0
     H //= cluster
     if esize == 4 and ring:  # the backward adds the mbarrier of its dW products
@@ -399,12 +406,14 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esi
     warps_sums = 4 * wgs * H * 4
     if kind == "int8":
         return slots * wgs * WG_ROWS * H + ring + (L - 1) * H * 4 + warps_sums
-    bm = WG_ROWS * wgs
-    n = slots * bm * H * 2 + ring + bm * 4
-    if kind == "fwd":
+    bm = bm or WG_ROWS * wgs
+    n = slots * bm * H * 2 + ring + bm * 4 + pair
+    if kind == "fwd" and cluster > 1:  # a row-scale copy per warpgroup, one row of TILE_N column sums per warp
+        n += bm * 4 + (L - 1) * H * 4 + 4 * wgs * TILE_N * 4
+    elif kind == "fwd":
         n += (L - 1) * H * 4 + warps_sums
     else:
-        n += 128 + pair  # one 8 x 8 core matrix of ones (the column sums' wgmma operand)
+        n += 128  # one 8 x 8 core matrix of ones (the column sums' wgmma operand)
     return n
 
 
@@ -413,23 +422,24 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
     (``"bwd"``) or int8 forward (``"int8"``) kernel; with ``esize=4`` that
     of the fp32 forward or backward (``_tile_plan_f32``).
 
-    bf16: two warpgroups (128 rows a block) up to H=256; one at H > 256,
+    bf16: two warpgroups (128 rows a block) up to H=256; one at H=384,
     where the activation tiles of 128 rows would not leave room for the ring,
     and in the forward when 128-row tiles would not give every SM one
     (serving buckets). The forward keeps two activation slots (ping-pong),
     the backward max(3, L-1). int8: two slots per warpgroup, and as many
     warpgroups (up to INT8_MAX_WGS) as leave room for MIN_STAGES W chunks;
     one when 128-row tiles would not give every SM one. The ring takes what
-    shared memory is left, up to MAX_STAGES. The backward at H = PAIR_WIDTH
-    runs on clusters of PAIR CTAs where their tiles fit (``_pair_plan``), and
-    on one CTA where they do not (deeper chains). ValueError if the plan does
-    not fit."""
+    shared memory is left, up to MAX_STAGES. The forward and backward at H =
+    PAIR_WIDTH run on clusters of PAIR CTAs where their tiles fit
+    (``_pair_plan``; the forward's always do), and on one CTA where they do
+    not (deeper chains in the backward). ValueError if the plan does not
+    fit."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if H % 128 != 0:
         raise ValueError(f"the pairwise kernels need H % 128 == 0, got H={H}")
-    if kind == "bwd" and H == PAIR_WIDTH:
-        plan = _pair_plan(B, ni, nj, H, L, sms, esize)
+    if kind in ("fwd", "bwd") and H == PAIR_WIDTH:
+        plan = _pair_plan(kind, B, ni, nj, H, L, sms, esize)
         if plan is not None:
             return plan
     if esize == 4:
@@ -473,30 +483,45 @@ def dw_splits(plan: TilePlan, sms: int = H100_SMS) -> int:
     return max(1, min(2 * plan.B * plan.nblk, 2 * sms // tiles))
 
 
-def _pair_plan(B: int, ni: int, nj: int, H: int, L: int, sms: int, esize: int) -> Optional[TilePlan]:
-    """The backward on clusters of PAIR CTAs at H = PAIR_WIDTH, or None where
-    its tiles do not fit. Each CTA keeps the tiles of the H=256 kernels on
-    its H / PAIR columns: bf16 (``esize`` 2) two consumer warpgroups on
-    blocks of 128 rows, max(3, L-1) slots and >= MIN_STAGES W chunks; fp32
-    the ring backward's 64-row blocks, max(2, L-1) tiles and >= 2 stages.
-    Grid: PAIR * min(B, sms // PAIR) CTAs, one owner cluster per sample."""
+def _pair_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int, esize: int) -> Optional[TilePlan]:
+    """The forward or backward on clusters of PAIR CTAs at H = PAIR_WIDTH,
+    or None where its tiles do not fit. Each CTA keeps the tiles of the
+    H=256 kernels on its H / PAIR columns. Forward: fp32 the ring forward's
+    one tile of 128 rows (a warpgroup on 64 of them) and >= 2 stages; bf16
+    two slots (ping-pong) of blocks of 128 rows, or of 64 where 128-row
+    tiles would not give every cluster one (serving buckets), two consumer
+    warpgroups each on TILE_N of the columns of all the block's rows, each
+    with its own ring of stages / 2 >= MIN_STAGES - 1 W chunks; grid PAIR *
+    min(tiles, sms // PAIR), both CTAs of a cluster on the same tiles. Backward: bf16
+    two consumer warpgroups on blocks of 128 rows, max(3, L-1) slots and >=
+    MIN_STAGES W chunks; fp32 the ring backward's 64-row blocks, max(2,
+    L-1) tiles and >= 2 stages; grid PAIR * min(B, sms // PAIR), one owner
+    cluster per sample."""
     if esize == 4:
-        bm, slots, unit, lo, hi = F32_RING_ROWS["bwd"], max(2, L - 1), F32_STAGE_BYTES + 16, 2, F32_MAX_STAGES
+        bm, unit, lo, hi = F32_RING_ROWS[kind], F32_STAGE_BYTES + 16, 2, F32_MAX_STAGES
+        slots = 1 if kind == "fwd" else max(2, L - 1)
     else:
-        bm, slots, unit, lo, hi = 2 * WG_ROWS, max(3, L - 1), CHUNK_BYTES + 16, MIN_STAGES, MAX_STAGES
+        bm, unit, lo, hi = 2 * WG_ROWS, CHUNK_BYTES + 16, MIN_STAGES, MAX_STAGES
+        if kind == "fwd" and B * -(-ni * nj // bm) < sms // PAIR:
+            bm = WG_ROWS
+        slots = 2 if kind == "fwd" else max(3, L - 1)
 
     def smem(stages):
-        return smem_bytes("bwd", 2, H, L, slots, stages, esize, bm, ring=esize == 4, cluster=PAIR)
+        return smem_bytes(kind, 2, H, L, slots, stages, esize, bm, ring=esize == 4, cluster=PAIR)
 
     stages = min(hi, (SMEM_LIMIT - smem(0)) // unit)
+    if kind == "fwd" and esize == 2:  # a ring of stages / 2 chunks per consumer warpgroup
+        stages, lo = stages - stages % 2, 2 * (MIN_STAGES - 1)
     if stages < lo:
         return None
-    grid = PAIR * min(B, sms // PAIR)
-    return TilePlan("bwd", B, ni, nj, H, L, 2, stages, slots, grid, smem(stages), bm, esize, esize == 4, PAIR)
+    units = B if kind == "bwd" else B * -(-ni * nj // bm)
+    grid = PAIR * min(units, sms // PAIR)
+    return TilePlan(kind, B, ni, nj, H, L, 2, stages, slots, grid, smem(stages), bm, esize, esize == 4, PAIR)
 
 
 def _tile_plan_f32(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int) -> TilePlan:
-    """The fp32 kernels' plan. At H = F32_RING_WIDTH the ring kernels, where
+    """The fp32 kernels' plan where H = PAIR_WIDTH's clusters (``_pair_plan``)
+    do not take the shape. At H = F32_RING_WIDTH the ring kernels, where
     they fit: blocks of F32_RING_ROWS[kind] rows, one activation tile in the
     forward (each layer in place) and max(2, L-1) in the backward (a_0 ..
     a_{L-2}, dpre_{L-1} in a_0's tile, a_0 rebuilt), and as many ring
@@ -696,15 +721,16 @@ def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.
     plan = tile_plan("fwd", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(KERNEL, defines)
-    chunks = pack_weight_chunks(ws.transpose(1, 2))
-    partial = torch.empty((B, plan.nblk * plan.wgs, H), dtype=torch.float32, device=dev)
+    chunks = _pack_for(ws.transpose(1, 2), plan, pack_weight_chunks)
+    parts = 1 if plan.cluster > 1 else plan.wgs  # pooled rows per block: one per warpgroup of a one-CTA block
+    partial = torch.empty((B, plan.nblk * parts, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_fwd(
             u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), chunks.data_ptr(), bs.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, int(inject), plan.wgs, plan.stages,
-            plan.grid, plan.smem, drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
+            partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, int(inject), plan.wgs, plan.bm, plan.stages,
+            plan.grid, plan.cluster, plan.smem, drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, KERNEL)
     launches[KERNEL] += 1
@@ -783,10 +809,10 @@ def _f32_plan(kind, B, ni, nj, H, L, dev, phases):
 
 def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep, phases):
     """The fp32 forward's launch (``pairwise_fwd_cuda`` for fp32 inputs): the
-    ring kernel reads W^T split and packed by pack_f32_weights, the wide one
-    W itself."""
+    ring kernel reads W^T split and packed by pack_f32_weights (each cluster
+    CTA its ``pair_halves`` slice), the wide one W itself."""
     plan, phase_ptr, lib = _f32_plan("fwd", B, ni, nj, H, L, dev, phases)
-    chain = pack_f32_weights(ws.transpose(1, 2)) if plan.ring else None
+    chain = _pack_for(ws.transpose(1, 2), plan, pack_f32_weights) if plan.ring else None
     partial = torch.empty((B, plan.nblk, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -794,8 +820,8 @@ def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, 
         err = lib.rnet_pairwise_fwd_f32(
             u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), _ptr(chain),
             bs.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            B, ni, nj, H, L, inject, int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.smem,
-            drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
+            B, ni, nj, H, L, inject, int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.cluster,
+            plan.smem, drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, F32_KERNEL)
     launches[F32_KERNEL] += 1

@@ -20,9 +20,10 @@ set (flax layout: ``g{l}_kernel`` (in, out), ``g{l}_bias``, ``f{l}_*``):
       plain version on the CPU; a loud fp fallback on shapes it does not
       take); in train mode it warns and runs ``pallas``.
 
-``auto`` mirrors rnet's rule with "on CUDA in bf16" in place of "on TPU":
-the kernel for n >= 32 objects and uniform g widths that are multiples of
-128, else ``xla`` (fp32 takes the kernels only when ``pallas`` is asked for).
+``auto`` is rnet's rule with "on CUDA" in place of "on TPU": the kernels,
+in bf16 or fp32, for n >= 32 objects and uniform g widths that are multiples
+of 128 (in fp32: one of ``F32_WIDTHS``, the widths the fp32 kernels take),
+else ``xla``.
 
 In train mode (``module.train()``) f_phi drops its last hidden layer's units
 with rate ``dropout`` (inverted, in fp32) and, with ``pair_dropout`` > 0,
@@ -44,7 +45,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.pairwise import fused_pairwise_g, pairwise_clip_fractions
+from ..kernels.pairwise import F32_WIDTHS, fused_pairwise_g, pairwise_clip_fractions
 from .initializers import fan_in_uniform, linear_kernel
 
 
@@ -134,8 +135,9 @@ class RelationalLayer(nn.Module):
         impl = self.impl
         if impl == "auto":
             uniform = len(set(self.g_layers)) == 1 and self.g_layers[0] % 128 == 0
-            on_card = device.type == "cuda" and self.dtype == torch.bfloat16
-            impl = "pallas" if (n >= 32 and uniform and on_card) else "xla"
+            if self.dtype == torch.float32:  # the fp32 kernels take fewer widths
+                uniform = uniform and self.g_layers[0] in F32_WIDTHS
+            impl = "pallas" if (n >= 32 and uniform and device.type == "cuda") else "xla"
         if impl not in ("naive", "xla", "pallas", "pallas_int8"):
             raise ValueError(f"unknown relational impl {impl!r}")
         return impl

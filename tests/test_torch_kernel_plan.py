@@ -14,7 +14,9 @@ object grid of ``config.json``, and every agreement case of
   sample ragged (its surplus rows masked);
 * in the backward, one owner CTA per sample (du, dv, ds, dqa have one writer);
   at H = 512 one owner cluster of two CTAs, each on its half of the output
-  columns, so that every (row, column) still has one writer.
+  columns, so that every (row, column) still has one writer;
+* at H = 512 the forward on clusters of two CTAs too, both on the same
+  tiles, each on its half of the columns.
 """
 
 from __future__ import annotations
@@ -75,11 +77,14 @@ def test_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
     B, ni, nj, H, L = shape
     plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS)
     assert plan.smem <= tpw.SMEM_LIMIT
-    assert plan.cluster == (tpw.PAIR if kind == "bwd" and H == tpw.PAIR_WIDTH else 1)
-    assert plan.smem == tpw.smem_bytes(kind, plan.wgs, H, L, plan.slots, plan.stages, cluster=plan.cluster)
+    assert plan.cluster == (tpw.PAIR if kind in ("fwd", "bwd") and H == tpw.PAIR_WIDTH else 1)
+    assert plan.smem == tpw.smem_bytes(kind, plan.wgs, H, L, plan.slots, plan.stages, bm=plan.bm,
+                                       cluster=plan.cluster)
     assert tpw.MIN_STAGES <= plan.stages <= tpw.MAX_STAGES
     if kind == "int8":  # each warpgroup its own 64-row block
         assert 1 <= plan.wgs <= tpw.INT8_MAX_WGS and plan.bm == 64
+    elif kind == "fwd" and plan.cluster > 1:  # two warpgroups on the columns of 64- or 128-row blocks
+        assert plan.wgs == 2 and plan.bm in (64, 128)
     else:
         assert plan.wgs in (1, 2) and plan.bm == 64 * plan.wgs
     assert H % tpw.TILE_N == 0
@@ -148,9 +153,9 @@ def test_f32_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
     """The fp32 kernels. At H = 256 the ring kernels: blocks of
     F32_RING_ROWS[kind] rows (64 per consumer warpgroup), one activation
     tile in the forward and max(2, L-1) in the backward, and as many 16 KB ring
-    stages (2 .. F32_MAX_STAGES) as shared memory leaves; the backward at H =
-    512 the same on clusters of two CTAs, each on 256 of the columns. At H =
-    128, and the forward at 512, the wide kernels: 8 warps with at most two
+    stages (2 .. F32_MAX_STAGES) as shared memory leaves; at H = 512 the
+    same on clusters of two CTAs, each on 256 of the columns. At H = 128
+    the wide kernels: 8 warps with at most two
     16 x 64 output tiles each, on the same 64 columns (H / 64 divides 8), two
     W chunks, two tiles in the forward and L in the backward. Within shared
     memory either way."""
@@ -160,7 +165,7 @@ def test_f32_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
     assert plan.smem == tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages, esize=4, bm=plan.bm, ring=plan.ring,
                                        cluster=plan.cluster)
     assert 1 <= plan.grid <= SMS
-    pair = kind == "bwd" and H == tpw.PAIR_WIDTH
+    pair = H == tpw.PAIR_WIDTH
     assert plan.cluster == (tpw.PAIR if pair else 1)
     assert not pair or plan.width == tpw.F32_RING_WIDTH
     assert plan.ring == (H == tpw.F32_RING_WIDTH or pair)  # every config's L = 4 fits the ring at H = 256
@@ -230,6 +235,47 @@ def test_pair_plan_splits_the_columns_over_a_cluster(esize, shape):
         assert flush * 4 == one_cta
 
 
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_pair_forward_plan_splits_the_columns_over_a_cluster(esize, shape):
+    """The forward at H = 512 (every config and serving bucket at H=512 and
+    every H=512 case of chip_smoke.py), bf16 and fp32: clusters of two CTAs
+    within shared memory, both CTAs of a cluster on the same tiles, each on
+    256 of the columns with the H=256 kernels' tiles (fp32: the ring
+    forward's one 128-row tile and >= 2 stages; bf16: two slots of 128 rows,
+    or of 64 where 128-row tiles would not give every cluster one, two
+    warpgroups on 128 columns each, and >= 3 W chunks), every (row, column) once, a grid
+    of two CTAs per tile up to the card's SMs. W bytes per pair row against
+    the one-CTA plans the pair replaced: fp32, tf32 hi and lo of each rank's
+    half per 128-row block, half the wide kernel's fp32 W per 32-row block;
+    bf16, each rank's half of W per block, half the one-warpgroup plan's
+    all of W per 64-row block on 128-row blocks (the same on 64-row ones)."""
+    B, ni, nj, H, L = shape
+    plan = tpw.tile_plan("fwd", *shape, SMS, esize=esize)
+    assert (plan.cluster, plan.width) == (tpw.PAIR, H // 2) and plan.grid % 2 == 0
+    assert plan.smem <= tpw.SMEM_LIMIT
+    assert plan.smem == tpw.smem_bytes("fwd", plan.wgs, H, L, plan.slots, plan.stages, esize, plan.bm, plan.ring,
+                                       tpw.PAIR)
+    tiles = B * plan.nblk
+    assert plan.grid == tpw.PAIR * min(tiles, SMS // tpw.PAIR)
+    for q in range(0, plan.grid, plan.cluster):
+        assert plan.blocks(q) == plan.blocks(q + 1)  # both CTAs of a cluster walk the same tiles
+        assert [plan.columns(c) for c in (q, q + 1)] == [range(0, H // 2), range(H // 2, H)]
+    _assert_tiles_every_row_once(plan)
+    if esize == 4:
+        assert plan.ring and (plan.bm, plan.slots, plan.wgs) == (128, 1, 2)
+        assert 2 <= plan.stages <= tpw.F32_MAX_STAGES
+        old = H * H * 4 / 32  # fp32 W bytes per pair row of the one-CTA wide forward
+        new = plan.cluster * plan.width * H * 8 / plan.bm  # tf32 hi and lo of each rank's rows
+    else:
+        few = B * -(-ni * nj // 128) < SMS // tpw.PAIR
+        assert (plan.wgs, plan.bm, plan.slots) == ((2, 64, 2) if few else (2, 128, 2))
+        assert 2 * (tpw.MIN_STAGES - 1) <= plan.stages <= tpw.MAX_STAGES and plan.stages % 2 == 0  # a ring each
+        old = H * H * 2 / 64
+        new = plan.cluster * plan.width * H * 2 / plan.bm
+    assert new * (plan.bm // 64 if esize == 2 else 2) == old
+
+
 @pytest.mark.parametrize("shape", PAIR_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_dw_gemm_splits_cover_the_rows_in_order(shape):
     """The bf16 cluster backward's dW GEMM: (L-1) x (H/128) x (H/256) output
@@ -253,10 +299,11 @@ def test_dw_gemm_splits_cover_the_rows_in_order(shape):
 @pytest.mark.parametrize("esize", [2, 4])
 def test_pair_plan_refuses_what_the_cluster_kernels_cannot_take(esize):
     """The plan picks the cluster from the shape alone: clusters of two only
-    in the backward at H=512 where their tiles fit (L <= 4); at L=5 the
-    fp32 backward falls back to the one-CTA wide kernel and bf16 has no plan;
-    the other widths and kinds run on one CTA."""
-    assert tpw._pair_plan(4, 8, 8, 512, 5, SMS, esize) is None
+    at H=512, in the backward where its tiles fit (L <= 4; at L=5 the fp32
+    backward falls back to the one-CTA wide kernel and bf16 has no plan),
+    in the forward at every depth (its tiles do not grow with L); the other
+    widths and kinds run on one CTA."""
+    assert tpw._pair_plan("bwd", 4, 8, 8, 512, 5, SMS, esize) is None
     if esize == 2:
         with pytest.raises(ValueError, match="does not fit"):
             tpw.tile_plan("bwd", 4, 8, 8, 512, 5, SMS)
@@ -264,10 +311,13 @@ def test_pair_plan_refuses_what_the_cluster_kernels_cannot_take(esize):
         deep = tpw.tile_plan("bwd", 4, 8, 8, 512, 5, SMS, esize=4)
         assert (deep.cluster, deep.ring, deep.bm) == (1, False, 16)
     assert tpw.tile_plan("bwd", 4, 8, 8, 256, 4, SMS, esize=esize).cluster == 1
-    assert tpw.tile_plan("fwd", 4, 8, 8, 512, 4, SMS, esize=esize).cluster == 1
-    if esize == 2:  # H=384: the one-CTA backward on one warpgroup
+    assert tpw.tile_plan("fwd", 4, 8, 8, 512, 4, SMS, esize=esize).cluster == 2
+    assert tpw.tile_plan("fwd", 4, 8, 8, 512, 6, SMS, esize=esize).cluster == 2
+    assert tpw.tile_plan("fwd", 4, 8, 8, 256, 4, SMS, esize=esize).cluster == 1
+    if esize == 2:  # H=384: the one-CTA kernels on one warpgroup
         h384 = tpw.tile_plan("bwd", 4, 8, 8, 384, 4, SMS)
         assert (h384.cluster, h384.wgs) == (1, 1)
+        assert tpw.tile_plan("fwd", 512, 64, 64, 384, 4, SMS).cluster == 1
 
 
 def test_f32_plan_takes_the_most_rows_that_fit():
@@ -276,17 +326,19 @@ def test_f32_plan_takes_the_most_rows_that_fit():
     64-row blocks (two warpgroups on 128 columns each, 2 stages beside three
     64 KB tiles); H=512: the ring backward's 64-row blocks on a cluster of
     two CTAs (256 columns each; at L=5, where those tiles do not fit, the
-    one-CTA wide kernel's 16 rows), the wide forward's 32; H=128: the wide
-    kernels' 64 rows."""
+    one-CTA wide kernel's 16 rows), the ring forward's 128-row blocks on a
+    cluster of two (one 128 KB tile of 256 columns each, 6 stages); H=128:
+    the wide kernels' 64 rows."""
     plans = {(kind, H): tpw.tile_plan(kind, 512, 64, 64, H, 4, SMS, esize=4)
              for kind in ("fwd", "bwd") for H in (128, 256, 512)}
     assert {k: (p.bm, p.ring) for k, p in plans.items()} == {
-        ("fwd", 128): (64, False), ("fwd", 256): (128, True), ("fwd", 512): (32, False),
+        ("fwd", 128): (64, False), ("fwd", 256): (128, True), ("fwd", 512): (128, True),
         ("bwd", 128): (64, False), ("bwd", 256): (64, True), ("bwd", 512): (64, True)}
     assert (plans[("bwd", 512)].cluster, plans[("bwd", 512)].stages, plans[("bwd", 512)].slots) == (2, 2, 3)
+    assert (plans[("fwd", 512)].cluster, plans[("fwd", 512)].stages, plans[("fwd", 512)].slots) == (2, 6, 1)
     assert tpw.tile_plan("bwd", 512, 64, 64, 512, 5, SMS, esize=4).bm == 16  # L=5: the one-CTA wide kernel
     assert (plans[("fwd", 256)].stages, plans[("bwd", 256)].stages, plans[("bwd", 256)].slots) == (6, 2, 3)
-    assert tpw.tile_plan("fwd", 1, 12, 12, 512, 4, SMS, esize=4).nblk == 5  # 144 rows: a ragged fifth block
+    assert tpw.tile_plan("fwd", 1, 12, 12, 512, 4, SMS, esize=4).nblk == 2  # 144 rows: a ragged second block
     assert tpw.tile_plan("bwd", 1, 12, 12, 256, 4, SMS, esize=4).nblk == 3  # 144 rows in blocks of 64
 
 
@@ -371,6 +423,10 @@ def test_forward_fills_the_card_at_small_batches():
     assert (big.wgs, big.bm, big.grid) == (2, 128, SMS)
     wide = tpw.tile_plan("bwd", 512, 64, 64, 512, 4, SMS)  # H=512: a cluster of two CTAs of two warpgroups
     assert (wide.wgs, wide.bm, wide.cluster, wide.grid) == (2, 128, 2, SMS)
+    # the H=512 forward's clusters: wide-fp's bucket 1 (32 tiles of 128 rows < 66 clusters) on 64-row
+    # blocks, 64 clusters; bucket 8 and the training batch on 128-row blocks
+    assert [(p.bm, p.grid) for p in (tpw.tile_plan("fwd", B, 64, 64, 512, 4, SMS) for B in (1, 8, 512))] == [
+        (64, 128), (128, SMS), (128, SMS)]
     assert tpw.tile_plan("bwd", 512, 64, 64, 384, 4, SMS).wgs == 1  # H=384: one CTA of one warpgroup
 
 

@@ -239,16 +239,33 @@ def test_convert_round_trip_is_exact(name):
         ("wide-fp", "cuda", "bfloat16", "pallas"),
         ("stretch-fp-16", "cuda", "bfloat16", "pallas"),
         ("original-sd", "cuda", "bfloat16", "xla"),  # n = 12 < 32
-        ("original-fp", "cuda", "float32", "xla"),
+        ("original-fp", "cuda", "float32", "pallas"),
+        ("wide-fp", "cuda", "float32", "pallas"),
+        ("ir-fp", "cuda", "float32", "pallas"),
+        ("original-sd", "cuda", "float32", "xla"),  # n = 12 < 32
+        ("original-fp", "cpu", "float32", "xla"),
         ("original-fp", "cpu", "bfloat16", "xla"),
     ],
 )
 def test_auto_impl_rule(name, device, dtype, want):
     """The kernel is on the path exactly where rnet would use Pallas on a
-    TPU (n >= 32, uniform widths, multiple of 128) — here on CUDA in bf16."""
+    TPU (n >= 32, uniform widths, multiple of 128) — here on CUDA, in bf16
+    and in fp32 (rnet's rule does not look at the dtype; the device is only
+    named, no card is needed)."""
     cfg = load_config(name, overrides={"compute_dtype": dtype})
     m = RN(cfg, V)
     assert m.relational.resolve_impl(cfg.n_objects, torch.device(device)) == want
+
+
+@pytest.mark.parametrize("width, dtype, want", [(384, "float32", "xla"), (640, "float32", "xla"),
+                                                (384, "bfloat16", "pallas"), (512, "float32", "pallas")])
+def test_auto_impl_rule_takes_only_the_kernels_widths(width, dtype, want):
+    """In fp32, ``auto`` takes the kernels only at the widths the fp32
+    kernels take (F32_WIDTHS); a uniform 384- or 640-wide fp32 model runs
+    ``xla`` rather than raising in the kernel's plan."""
+    cfg = load_config("original-fp", overrides={"compute_dtype": dtype, "g_layers": (width,) * 4})
+    m = RN(cfg, V)
+    assert m.relational.resolve_impl(cfg.n_objects, torch.device("cuda")) == want
 
 
 def test_int8_impl_not_ported_raises():

@@ -423,6 +423,119 @@ def test_pair_backward_stored_tiles_match_jax_vjp_fp32(inject):
         np.testing.assert_allclose(d, w, rtol=5e-4, atol=5e-3, err_msg=name)
 
 
+def _f32_streamed(x, plan):
+    """What each CTA of the plan's cluster reads of x (L-1, N, K) from its
+    fp32 W stream: ``pack_f32_weights`` of its ``pair_halves`` slice, read
+    back at the offsets the ring kernels' descriptors use (stage k // KD,
+    column tile n // 128 at 128 KD floats, core matrices of 8 rows x 4 fp32
+    of depth, lo half a stage after hi). Returns (hi, lo), each (cluster,
+    L-1, N / cluster, K): rank c's row n at depth k of its stream (its own
+    K share first)."""
+    n_l, N, K = x.shape
+    width = N // plan.cluster
+    kd = tpw.F32_STAGE_BYTES // 8 // width
+    stage = tpw.F32_STAGE_BYTES // 4
+    packed = tpw._pack_for(x, plan, tpw.pack_f32_weights).reshape(plan.cluster, n_l, -1)
+    nn, kk = torch.arange(width)[:, None], torch.arange(K)[None, :]
+    idx = ((kk // kd) * stage + (nn // 128) * 128 * kd + (nn % 128) // 8 * 8 * kd + (kk % kd) // 4 * 32
+           + (nn % 8) * 4 + kk % 4)
+    return packed[:, :, idx], packed[:, :, idx + stage // 2]
+
+
+def _pair_forward_emulation(args, inject, sms, esize):
+    """The column-split forward of the cluster kernels (H = 512), emulated
+    in fp32 torch on the CPU through what each CTA holds and reads: both CTAs
+    of a cluster walk the same blocks; rank c keeps the activation columns c
+    W .. (W = H / 2) of its block and computes those output columns, its
+    own share of the depth (its tile) against the first W of its streamed
+    W rows, the peer's share (read through distributed shared memory)
+    against the last W. ``esize=4``: the fp32 kernel's 3xTF32 on the
+    packed hi / lo stages, each stage summed from zero (in float64, then one
+    fp32 rounding) and added onto the fp32 running sum, each block's column
+    sums in fp32, the blocks added in fp64. ``esize=2``: the bf16 kernel's
+    plan and W chunks, in fp32 (no bf16 rounding), each block pooled into
+    its partial row (two warpgroups, each on 128 of a rank's columns), the
+    partials added in order."""
+    u, v, s, qa, ws, bs = (torch.from_numpy(a) for a in args)
+    B, n, H = u.shape
+    L = ws.shape[0] + 1
+    plan = tpw.tile_plan("fwd", B, n, n, H, L, sms, esize=esize)
+    assert plan.cluster == 2 and plan.width == H // 2 and plan.ring == (esize == 4)
+    W = plan.width
+    cols = [plan.columns(c) for c in range(2)]
+    if esize == 4:
+        hi, lo = _f32_streamed(ws.transpose(1, 2), plan)
+        kd = tpw.F32_STAGE_BYTES // 8 // W
+    else:
+        chain = _streamed(ws.transpose(1, 2), plan)
+    partial = torch.zeros(B, plan.nblk, H)
+
+    def product(c, x, l):  # rank c's output columns of a . W_l over the depth as it streams: own share first
+        if esize == 2:
+            return x @ chain[c, l - 1].T
+        total = torch.zeros(x.shape[0], W)
+        for k0 in range(0, H, kd):
+            xs = x[:, k0:k0 + kd]
+            ah = tpw.tf32_round(xs)
+            al = ((xs - ah).view(torch.int32) & -0x2000).view(torch.float32)  # the tf32 bits the tensor cores read
+            bh, bl = hi[c, l - 1][:, k0:k0 + kd].double().T, lo[c, l - 1][:, k0:k0 + kd].double().T
+            total = total + (al.double() @ bh + ah.double() @ bl + ah.double() @ bh).float()
+        return total
+
+    for q in range(0, plan.grid, 2):
+        assert plan.blocks(q) == plan.blocks(q + 1)  # both CTAs walk the same rows
+        for b, p0, rows in plan.blocks(q):
+            p = torch.arange(p0, p0 + rows)
+            a0 = torch.relu(u[b, p // n] + v[b, p % n] + s[b])
+            acts = [a0[:, cols[c]] for c in range(2)]
+            for l in range(1, L):
+                acts = [torch.relu(product(c, torch.cat([acts[c], acts[1 - c]], dim=1), l) + bs[l - 1, cols[c]]
+                                   + (qa[b, cols[c]] if l == inject else 0.0)) for c in range(2)]
+            for c in range(2):
+                partial[b, p0 // plan.bm, cols[c]] = acts[c].sum(0)
+    if esize == 4:
+        return partial.double().sum(dim=1).float().numpy()
+    out = torch.zeros(B, H)
+    for k in range(partial.shape[1]):  # in part order, as pool_partials_kernel
+        out += partial[:, k]
+    return out.numpy()
+
+
+@pytest.mark.parametrize("inject", [1, 2])
+def test_pair_forward_column_split_matches_jax_fp32(inject):
+    """The fp32 cluster forward's column split at a shrunk H=512 shape (B=2,
+    n=4, L=3: two clusters, a 128-row block each, 16 rows valid): each rank
+    streams pack_f32_weights of its pair_halves slice of W^T, its own share
+    of the depth first, in 3xTF32 on the packed stages, vs rnet's Pallas
+    kernel in interpret mode in fp32: within 1e-5 of max |ref|, as the
+    one-CTA ring kernel's arithmetic (test_ring_kernel_arithmetic_matches_jax_fp32)."""
+    H = tpw.PAIR_WIDTH
+    args = _inputs(2, 4, H, 3, seed=70 + inject)
+    want = np.asarray(jpw.pairwise_core(*[jnp.asarray(a) for a in args], inject=inject, interpret=True))
+    got = _pair_forward_emulation(args, inject, sms=4, esize=4)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("sms", [4, 8], ids=["rows128", "rows64"])
+@pytest.mark.parametrize("inject", [1, 2])
+def test_pair_forward_column_split_matches_jax_bf16_route(inject, sms):
+    """The bf16 cluster forward's column split at a shrunk H=512 shape (B=2,
+    n=4, L=3), emulated in fp32: each rank reads pack_weight_chunks of its
+    pair_halves slice of W^T, its own share of the depth first, and pools
+    each block into its partial row; with 4 SMs the plan's 128-row blocks,
+    with 8 (too few tiles for 4 clusters) 64-row blocks. Against rnet's Pallas kernel in interpret
+    mode at tests/test_kernel.py's forward tolerance (rtol 2e-4, atol
+    5e-3)."""
+    H = tpw.PAIR_WIDTH
+    args = _inputs(2, 4, H, 3, seed=60 + inject)
+    plan = tpw.tile_plan("fwd", 2, 4, 4, H, 3, sms)
+    assert (plan.wgs, plan.bm) == ((2, 128) if sms == 4 else (2, 64))
+    want = np.asarray(jpw.pairwise_core(*[jnp.asarray(a) for a in args], inject=inject, interpret=True))
+    got = _pair_forward_emulation(args, inject, sms=sms, esize=2)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=5e-3)
+
+
 @pytest.mark.parametrize("inject", [0, 2])
 def test_bwd_reference_matches_jax_grad_fp32(inject):
     """fp32 inputs: the plain backward vs the VJP of rnet's Pallas kernel in
