@@ -162,6 +162,29 @@ Phases, each fatal (exit 1, no result line) when it fails:
      rnet_torch.extract`` end to end for ir-sd (the synthetic scenes) and,
      where Pillow imports, ir-fp (PNGs written from the val canvases): one
      row per image, in order, with a ragged last batch.
+ 13. Several processes (``rnet_torch/parallel/mesh.py``), after 12's Trainer
+     epochs, on original-fp at full width in bf16 through the kernels,
+     B=512 global, device data, dropout, pair dropout and augmentation off:
+     the g_theta kernels timed in one process at the per-shard shapes
+     (B, ni, nj) = (512, 32, 64) under pairs:2 and (256, 64, 64) under
+     data:2 beside (512, 64, 64); (a) two processes sharing the card over
+     gloo (file-based init, ``cuda_graphs`` off): 4 steps under data:2 and
+     under pairs:2, each step's loss within 1e-2 of one process's at
+     B=512 on the same weights and order (phase 7's bound), the parameters
+     bitwise equal on both ranks, each rank's counters (zeroed just before)
+     one pairwise_fwd and pairwise_bwd a step at the per-shard shape; 4
+     steps with pair dropout under pairs:2, every launch at seed + shard_id
+     * 1_000_003, its mask bit for bit ``pair_mask_reference``'s; an eval
+     batch under data:2 (predictions gathered, against one process's) and
+     under pairs:2 through ``pallas_int8`` (one int8 launch at ni=32 a
+     rank); (b) a one-rank NCCL group under ``torch.distributed.run``: 8
+     eager steps against 8 replays with the gradient all-reduce captured in
+     the graph, bitwise, then ``rnet_torch.train --mesh data:1 --multihost``
+     for one epoch of phase 10's directory with CUDA graphs (its launches
+     counted); (c) with two or more cards, (a) again over NCCL, the steps
+     replayed from CUDA graphs, one process a card; with one card a line
+     says it was not run.
+     A worker that fails fails the phase.
 Then one JSON line of kernel records and, last, the device line.
 
 Only torch, numpy and ``rnet_torch`` are imported (never JAX or ``rnet``).
@@ -268,8 +291,8 @@ def upstream(torch, B, H, seed):
 def library_chain(torch, u, v, s, qa, ws, bs, inject):
     """The same function through cuBLAS bf16 matmuls on materialised pair
     rows (the decomposed path): the yardstick, used nowhere in the port."""
-    B, n, H = u.shape
-    a = torch.relu(u[:, :, None, :] + v[:, None, :, :] + s[:, None, None, :]).reshape(B, n * n, H)
+    B, ni, H = u.shape
+    a = torch.relu(u[:, :, None, :] + v[:, None, :, :] + s[:, None, None, :]).reshape(B, ni * v.shape[1], H)
     for l in range(1, ws.shape[0] + 1):
         pre = torch.matmul(a, ws[l - 1]) + bs[l - 1]
         if l == inject:
@@ -438,25 +461,33 @@ def check_forward(torch, pw, seed):
         args = pair_inputs(torch, B, nj, H, L, seed=k)
         args[0] = args[0][:, :ni].contiguous()
         for keep in KEEPS:
-            out = pw.pairwise_fwd_cuda(*args, inject=inject, pair_keep=keep, seed=seed)
-            ref = pw.pairwise_core_reference(*args, inject=inject, keep=keep, seed=seed)
-            torch.cuda.synchronize()
-            case = (B, ni, nj, H, L, inject, keep)
-            if out.shape != (B, H) or not torch.isfinite(out).all():
-                fail(f"pairwise_fwd output at {case} is not finite (B, H)")
-            err = (out - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            tol = 2e-3 * scale + 1e-2
-            log(f"pairwise_fwd vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep}: "
-                f"max_abs_err {err!r} (max|ref| {scale!r}, tol {tol!r})")
-            if not err <= tol:
-                fail(f"pairwise_fwd disagrees with its plain version at {case}")
+            err = fwd_agreement(torch, pw, args, inject, keep, seed)
             max_err = max(max_err, err)
             if CASES[k] == TRAIN_CASE:
                 at_shape = max(at_shape, err)
-        del args, out, ref
+        del args
         torch.cuda.empty_cache()
     return max_err, at_shape
+
+
+def fwd_agreement(torch, pw, args, inject, keep, seed, tag=""):
+    """One bf16 forward launch against its plain version at phase 3's bound;
+    returns max |kernel - plain|."""
+    (B, ni, H), nj, L = args[0].shape, args[1].shape[1], args[4].shape[0] + 1
+    out = pw.pairwise_fwd_cuda(*args, inject=inject, pair_keep=keep, seed=seed)
+    ref = pw.pairwise_core_reference(*args, inject=inject, keep=keep, seed=seed)
+    torch.cuda.synchronize()
+    case = (B, ni, nj, H, L, inject, keep)
+    if out.shape != (B, H) or not torch.isfinite(out).all():
+        fail(f"pairwise_fwd output at {case} is not finite (B, H)")
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    tol = 2e-3 * scale + 1e-2
+    log(f"pairwise_fwd vs plain{tag} B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep}: "
+        f"max_abs_err {err!r} (max|ref| {scale!r}, tol {tol!r})")
+    if not err <= tol:
+        fail(f"pairwise_fwd disagrees with its plain version at {case}")
+    return err
 
 
 def check_mask(torch, pw, seed):
@@ -499,37 +530,46 @@ def check_backward(torch, pw, seed):
         args[0] = args[0][:, :ni].contiguous()
         g = upstream(torch, B, H, seed=50 + k)
         for keep in KEEPS:
-            got = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=keep, seed=seed)
-            want = pw.pairwise_core_bwd_reference(*args, g, inject, keep, seed)
-            torch.cuda.synchronize()
-            case = (B, ni, nj, H, L, inject, keep)
-            parts = []
-            for name, d, w in zip(GRAD_NAMES, got, want):
-                if d.shape != w.shape or d.dtype != torch.float32 or not torch.isfinite(d).all():
-                    fail(f"pairwise_bwd {name} at {case} is not a finite fp32 {tuple(w.shape)}")
-                err = (d - w).abs().max().item()
-                scale = w.abs().max().item()
-                rel = ((d - w).norm() / w.norm().clamp_min(1e-30)).item()
-                parts.append(f"{name} {err:.4g}/{scale:.4g} rel {rel:.3g}")
-                if not (err <= 3e-2 * scale + 1e-2 and rel <= 1e-2):
-                    fail(f"pairwise_bwd {name} disagrees with its plain version at {case}: "
-                         f"max_abs_err {err} (max {scale}), relative norm {rel}")
-                max_err = max(max_err, err)
-                if CASES[k] == TRAIN_CASE:
-                    at_shape = max(at_shape, err)
-            plan = pw.tile_plan("bwd", B, ni, nj, H, L, sms)
-            log(f"pairwise_bwd vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep} "
-                f"({-(-B // (plan.grid // plan.cluster))} samples per {'cluster of 2' if plan.cluster > 1 else 'CTA'} "
-                f"at most): " + " | ".join(parts))
+            got, err = bwd_agreement(torch, pw, args, g, inject, keep, seed)
+            max_err = max(max_err, err)
+            if CASES[k] == TRAIN_CASE:
+                at_shape = max(at_shape, err)
         if CASES[k] == TRAIN_CASE:  # the same launch twice, bitwise
             again = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=0.75, seed=seed)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail("pairwise_bwd is not bitwise repeatable")
             log(f"pairwise_bwd at B={B}: the same launch twice gives bitwise-equal gradients")
             del again
-        del args, g, got, want
+        del args, g, got
         torch.cuda.empty_cache()
     return max_err, at_shape
+
+
+def bwd_agreement(torch, pw, args, g, inject, keep, seed, tag=""):
+    """One bf16 backward launch against its plain version at phase 5's
+    bounds; returns (the gradients, max |kernel - plain| over them)."""
+    (B, ni, H), nj, L = args[0].shape, args[1].shape[1], args[4].shape[0] + 1
+    got = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=keep, seed=seed)
+    want = pw.pairwise_core_bwd_reference(*args, g, inject, keep, seed)
+    torch.cuda.synchronize()
+    case = (B, ni, nj, H, L, inject, keep)
+    parts, max_err = [], 0.0
+    for name, d, w in zip(GRAD_NAMES, got, want):
+        if d.shape != w.shape or d.dtype != torch.float32 or not torch.isfinite(d).all():
+            fail(f"pairwise_bwd {name} at {case} is not a finite fp32 {tuple(w.shape)}")
+        err = (d - w).abs().max().item()
+        scale = w.abs().max().item()
+        rel = ((d - w).norm() / w.norm().clamp_min(1e-30)).item()
+        parts.append(f"{name} {err:.4g}/{scale:.4g} rel {rel:.3g}")
+        if not (err <= 3e-2 * scale + 1e-2 and rel <= 1e-2):
+            fail(f"pairwise_bwd {name} disagrees with its plain version at {case}: "
+                 f"max_abs_err {err} (max {scale}), relative norm {rel}")
+        max_err = max(max_err, err)
+    plan = pw.tile_plan("bwd", B, ni, nj, H, L, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"pairwise_bwd vs plain{tag} B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep} "
+        f"({-(-B // (plan.grid // plan.cluster))} samples per {'cluster of 2' if plan.cluster > 1 else 'CTA'} "
+        f"at most): " + " | ".join(parts))
+    return got, max_err
 
 
 def vjp64(torch, pw, args, g, inject, keep, seed):
@@ -626,14 +666,16 @@ def check_f32(torch, pw, seed):
 # B=64 and B=140 > the SM count through ``pairwise_core_int8``; n=24 (576
 # pairs, a ragged last block of 64 rows) and a rectangular ni != nj with the
 # injection at the last layer through the wrapper; original-fp B=64 with
-# fp32 u, v, s (int8 with fp32 compute, as rnet's kernel reads them).
+# fp32 u, v, s (int8 with fp32 compute, as rnet's kernel reads them);
+# original-fp's shard under pairs:2 at B=512 (ni=32 of nj=64, calibrated on
+# its own rows, as phase 13 launches it).
 INT8_MAIN = (TRAIN_B, 64, 64, 256, 4, 0)
 INT8_CASES = [
     ((1, 64, 64, 256, 4, 0), True, "bfloat16"), ((64, 64, 64, 256, 4, 0), True, "bfloat16"),
     (INT8_MAIN, True, "bfloat16"), ((64, 64, 64, 256, 4, 2), True, "bfloat16"),
     ((64, 64, 64, 512, 4, 0), True, "bfloat16"), ((140, 64, 64, 512, 4, 0), True, "bfloat16"),
     ((3, 24, 24, 256, 4, 1), False, "bfloat16"), ((2, 16, 40, 256, 3, 2), False, "bfloat16"),
-    ((64, 64, 64, 256, 4, 0), True, "float32"),
+    ((64, 64, 64, 256, 4, 0), True, "float32"), ((TRAIN_B, 32, 64, 256, 4, 0), True, "bfloat16"),
 ]
 
 
@@ -792,13 +834,17 @@ def train_batch(torch, np, cfg, B, seed):
     return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
 
 
-def new_state(torch, cfg, state_dict=None):
+def new_state(torch, cfg, state_dict=None, mesh=None):
+    """A train state of seeded weights (or ``state_dict``); under a ``mesh``
+    rank 0's weights on every rank."""
     from rnet_torch.models import RN
+    from rnet_torch.parallel.mesh import replicate_state
     from rnet_torch.train import steps
 
-    model = RN(cfg, VOCAB, generator=torch.Generator().manual_seed(0)).cuda()
+    model = RN(cfg, VOCAB, generator=torch.Generator().manual_seed(0), mesh=mesh).cuda()
     if state_dict is not None:
         model.load_state_dict(state_dict)
+    replicate_state(model, mesh)
     return steps.create_train_state(model, steps.make_optimizer(LR, 50.0), seed=0)
 
 
@@ -1883,7 +1929,7 @@ def graph_memory(graphs):
     return {str(k[0]): {"capture_s": c.capture_s, "pool_mb": c.pool_bytes / 2**20} for k, c in graphs.captured.items()}
 
 
-def replay_vs_eager(torch, pw, aug, cfg, data, cache, tag, lr_change_at=None):
+def replay_vs_eager(torch, pw, aug, cfg, data, cache, tag, lr_change_at=None, mesh=None):
     """GRAPH_STEPS steps of (1, B) chunks through ``make_chunked_steps``
     eagerly, then from the same saved state (parameters, BN stats, Adam,
     generator) as GRAPH_STEPS calls of the captured chunk (the first call
@@ -1894,7 +1940,7 @@ def replay_vs_eager(torch, pw, aug, cfg, data, cache, tag, lr_change_at=None):
     the capturing run)."""
     from rnet_torch.train import steps
 
-    state = new_state(torch, cfg)
+    state = new_state(torch, cfg, mesh=mesh)
     rb = steps.StateRollback(state)
     snap = rb.snapshot()
     n_q = data["answer"].shape[0]
@@ -2392,6 +2438,468 @@ def time_wide(torch, pw, seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 13. Several processes: the data x pairs mesh (rnet_torch/parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 4  # train steps under each mesh
+SHARD_CANVAS = 2_048  # canvases of the phase's device cache
+SHARD_PAIR_DROPOUT = 0.25
+SHARD_TIMEOUT = 420  # seconds for one launch of the phase's processes
+# Bound on |grad_norm - one process's| / one process's at every step: the
+# sound meshes read up to ~1e-4 or 1e-3 (bf16 kernels over other batch
+# splits, 4 Adam steps), a gradient off by the data group's size (summed,
+# not averaged) reads ~1. Adam ignores a gradient's scale, so the losses
+# alone cannot see such a fault.
+SHARD_GRAD_NORM_REL = 1e-2
+WORKER_FLAG = "--phase13-worker"
+# Per-shard shapes of the g_theta kernels at original-fp B=512 (n=64):
+# (B, ni, nj) under pairs:2, under data:2, and one process.
+SHARD_SHAPES = {"pairs:2": (TRAIN_B, 32, 64), "data:2": (TRAIN_B // 2, 64, 64), "one process": (TRAIN_B, 64, 64)}
+
+
+def shard_cfg(cfg):
+    """Phase 13's model: original-fp at full width in bf16 through the
+    kernels, dropout, pair dropout and augmentation off."""
+    return cfg.replace(dropout=0.0, pair_dropout=0.0, device_augment=False)
+
+
+def shard_data(torch, cfg):
+    """The device cache, per-question data and (SHARD_STEPS, B) global index
+    block, made from seeds on the card: the same in every process."""
+    cache, data = device_data(torch, cfg, SHARD_CANVAS, SHARD_STEPS * TRAIN_B, seed=13)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    order = torch.randperm(SHARD_STEPS * TRAIN_B, generator=gen, device="cuda").to(torch.int32)
+    return cache, data, order.view(SHARD_STEPS, TRAIN_B)
+
+
+def state_digest(state):
+    """sha256 of every parameter and BatchNorm buffer's bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sorted(state.model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class LaunchRecorder:
+    """Wraps the g_theta kernels' wrappers and ``pairwise_core_sharded`` in
+    ``rnet_torch.kernels.pairwise`` (the module the core calls them
+    through) to record each launch's (B, ni, nj) and pair-dropout seed, the
+    base seed each sharded call was given and the inputs of the last
+    forward with pair dropout. The wrappers' own counters count as before."""
+
+    NAMES = ("pairwise_fwd_cuda", "pairwise_bwd_cuda", "pairwise_fwd_int8_cuda", "pairwise_core_sharded")
+
+    def __init__(self, pw):
+        self.pw = pw
+        self.orig = {n: getattr(pw, n) for n in self.NAMES}
+        self.launches = {"fwd": [], "bwd": [], "int8": []}
+        self.base_seeds = []
+        self.last_fwd = None
+
+        def seed_of(kw):
+            return None if kw.get("seed") is None else int(kw["seed"].item())
+
+        def wrap(kind, name):
+            def call(u, v, *a, **kw):
+                self.launches[kind].append((u.shape[0], u.shape[1], v.shape[1], seed_of(kw)))
+                if kind == "fwd" and kw.get("pair_keep", 1.0) < 1.0:
+                    self.last_fwd = ((u, v, *a), kw)
+                return self.orig[name](u, v, *a, **kw)
+            return call
+
+        def sharded(*a, **kw):
+            self.base_seeds.append(seed_of(kw))
+            return self.orig["pairwise_core_sharded"](*a, **kw)
+
+        pw.pairwise_fwd_cuda = wrap("fwd", "pairwise_fwd_cuda")
+        pw.pairwise_bwd_cuda = wrap("bwd", "pairwise_bwd_cuda")
+        pw.pairwise_fwd_int8_cuda = wrap("int8", "pairwise_fwd_int8_cuda")
+        pw.pairwise_core_sharded = sharded
+
+    def close(self):
+        for n, f in self.orig.items():
+            setattr(self.pw, n, f)
+
+
+def shard_train(torch, pw, cfg, mesh, graphs=False):
+    """SHARD_STEPS train steps on this process's share of the phase's data
+    (its ``data`` columns of each index row; all of it without a mesh),
+    eagerly or replayed from a captured chunk of one step; the counters
+    zeroed just before and read just after. Returns the per-step losses,
+    the launches, each launch's (B, ni, nj, seed), the sharded calls' base
+    seeds, the last dropout forward and a digest of the state."""
+    from rnet_torch.parallel import mesh as pmesh
+    from rnet_torch.train import steps
+
+    cache, data, order = shard_data(torch, cfg)
+    idx = pmesh.shard_batch(order, mesh, dim=1)
+    state = new_state(torch, cfg, mesh=mesh)
+    chunk = steps.make_chunked_steps(state, steps.step_graphs(state) if graphs else None)[0]
+    rec = LaunchRecorder(pw)
+    try:
+        torch.cuda.synchronize()
+        pw.reset_launches()
+        ms = torch.cat([chunk(idx[k : k + 1], data, cache) for k in range(SHARD_STEPS)])
+        torch.cuda.synchronize()
+        counts = dict(pw.launches)
+    finally:
+        rec.close()
+    return {"loss": ms[:, 0].tolist(), "grad_norm": ms[:, 2].tolist(), "counts": counts, "launches": rec.launches,
+            "base_seeds": rec.base_seeds, "digest": state_digest(state), "last_fwd": rec.last_fwd,
+            "shard_id": 0 if mesh is None else mesh.shard_id}
+
+
+def shard_masks(torch, pw, run, keep):
+    """The pair-dropout run's seeds and masks: every launch drew at its
+    step's base seed + shard_id * 1_000_003, the mask kernel's bits at that
+    seed equal ``pair_mask_reference``'s, and the last forward launch on
+    its recorded inputs agrees with the plain version at that seed (phase
+    3's bound: a mask differing in one pair exceeds it)."""
+    from rnet_torch.parallel.mesh import SHARD_SEED_STRIDE
+
+    off = run["shard_id"] * SHARD_SEED_STRIDE
+    want = [b + off for b in run["base_seeds"]]
+    got = {k: [ln[3] for ln in run["launches"][k]] for k in ("fwd", "bwd")}
+    (args, kw) = run["last_fwd"]
+    B, ni, nj = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+    seed = torch.tensor([want[-1]], dtype=torch.int64, device="cuda")
+    mask_equal = torch.equal(pw.pair_mask_cuda(seed, B, ni, nj, keep), pw.pair_mask_reference(seed, B, ni, nj, keep))
+    out = pw.pairwise_fwd_cuda(*args, inject=kw["inject"], pair_keep=keep, seed=seed)
+    ref = pw.pairwise_core_reference(*args, inject=kw["inject"], keep=keep, seed=seed)
+    err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+    return {"seeds_offset": got["fwd"] == want and got["bwd"] == want, "mask_bitwise": mask_equal,
+            "fwd_err": err, "fwd_tol": 2e-3 * scale + 1e-2, "seeds": want, "shape": [B, ni, nj]}
+
+
+def shard_eval(torch, pw, cfg, mesh, int8=False):
+    """One eval batch (the first B of the index block) on this process's
+    share, its predictions gathered over ``data``, with the launches
+    counted; int8 under warnings as errors (a "NOT int8" fallback fails)."""
+    import warnings
+
+    from rnet_torch.parallel import mesh as pmesh
+    from rnet_torch.train import steps
+
+    cache, data, order = shard_data(torch, cfg)
+    idx = pmesh.shard_batch(order[0], mesh)
+    state = new_state(torch, cfg.replace(rl_impl="pallas_int8") if int8 else cfg, mesh=mesh)
+    rec = LaunchRecorder(pw)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            torch.cuda.synchronize()
+            pw.reset_launches()
+            out = steps.eval_step(state, {k: v[idx] for k, v in data.items()}, cache)
+            torch.cuda.synchronize()
+            counts = dict(pw.launches)
+    finally:
+        rec.close()
+    pred = pmesh.fetch_global(out["pred"], mesh)
+    nll = pmesh.fetch_global(out["nll_sum"].reshape(1), mesh).sum()
+    return {"pred": pred.tolist(), "nll_sum": float(nll), "counts": counts, "launches": rec.launches}
+
+
+def phase13_worker(argv) -> int:
+    """``python chip_smoke.py --phase13-worker JOB.json [RANK]``: one
+    process of phase 13. JOB names the tasks and, for gloo, the file of the
+    process group (RANK given); under torchrun NCCL is joined from its
+    environment. Writes <out>/<rank>.json."""
+    import os
+
+    import torch
+
+    from rnet_torch.config import load_config
+    from rnet_torch.kernels import augment as aug
+    from rnet_torch.kernels import pairwise as pw
+    from rnet_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(argv[0]) as f:
+        job = json.load(f)
+    rank = int(argv[1]) if len(argv) > 1 else int(os.environ["RANK"])
+    cfg = shard_cfg(load_config("original-fp").replace(n_answers=job["n_answers"]))
+    if job.get("init"):  # phase 13(a): two processes on one card, gloo
+        pmesh.distributed_init("cuda", init_method=job["init"], world_size=job["world"], rank=rank, backend="gloo")
+    out = {}
+    for task in job["tasks"]:
+        pmesh.distributed_init("cuda")  # under torchrun: its NCCL group (a no-op once joined)
+        if task == "entry":  # 13(b): the entry point in the group joined
+            pw.reset_launches()
+            aug.reset_launches()
+            run_cli(job["entry_argv"])
+            torch.cuda.synchronize()
+            out[task] = {**pw.launches, **aug.launches}
+        elif task == "replay":  # 13(b): eager steps vs replays, the all-reduce in the graph
+            import torch.distributed as dist
+
+            captured = []
+            all_reduce = dist.all_reduce
+
+            def counting(t, *a, **kw):
+                captured.append(torch.cuda.is_current_stream_capturing())
+                return all_reduce(t, *a, **kw)
+
+            dist.all_reduce = counting
+            cache, data = device_data(torch, cfg, SHARD_CANVAS, GRAPH_STEPS * TRAIN_B, seed=15)
+            mesh = pmesh.make_mesh(job["spec"], "cuda")
+            captured.clear()
+            counts = replay_vs_eager(torch, pw, aug, cfg, data, cache, f"nccl {job['spec']}", mesh=mesh)[3]
+            dist.all_reduce = all_reduce
+            out[task] = {"counts": counts, "all_reduce_calls": len(captured), "captured_all_reduces": sum(captured)}
+        elif task == "steps":
+            out[task] = {}
+            for spec in job["specs"]:
+                run = shard_train(torch, pw, cfg, pmesh.make_mesh(spec, "cuda"), graphs=job.get("graphs", False))
+                run.pop("last_fwd")
+                out[task][spec] = run
+        elif task == "control":  # data:2 with the gradients summed over data, not averaged
+            from rnet_torch.train import steps
+
+            average = steps.average_over_data
+
+            def summed(grads, metrics, mesh):
+                out = average(grads, metrics, mesh)
+                for g in grads:
+                    g.mul_(mesh.size("data"))
+                return out
+
+            steps.average_over_data = summed
+            try:
+                out[task] = shard_train(torch, pw, cfg, pmesh.make_mesh("data:2", "cuda"))["grad_norm"]
+            finally:
+                steps.average_over_data = average
+        elif task == "dropout":
+            mesh = pmesh.make_mesh("pairs:2", "cuda")
+            run = shard_train(torch, pw, cfg.replace(pair_dropout=SHARD_PAIR_DROPOUT), mesh)
+            out[task] = {**shard_masks(torch, pw, run, 1.0 - SHARD_PAIR_DROPOUT),
+                         **{k: run[k] for k in ("counts", "loss", "shard_id", "digest")}}
+        elif task == "eval":
+            out[task] = {"data:2": shard_eval(torch, pw, cfg, pmesh.make_mesh("data:2", "cuda")),
+                         "pairs:2 int8": shard_eval(torch, pw, cfg, pmesh.make_mesh("pairs:2", "cuda"), int8=True)}
+    with open(os.path.join(job["out"], f"{rank}.json"), "w") as f:
+        json.dump(out, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_workers(job, path, cmd_prefix, ranks):
+    """Start phase 13's worker processes (``cmd_prefix`` + the script, per
+    rank or once under torchrun), wait for all under SHARD_TIMEOUT, fail the
+    phase if one fails; returns each rank's results."""
+    import os
+
+    with open(path, "w") as f:
+        json.dump(job, f)
+    cmds = ([[*cmd_prefix, sys.executable, __file__, WORKER_FLAG, path, str(r)] for r in range(ranks)]
+            if not cmd_prefix else [[sys.executable, *cmd_prefix, __file__, WORKER_FLAG, path]])
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in cmds]
+    try:
+        logs = [p.communicate(timeout=SHARD_TIMEOUT)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"phase 13: {job['tag']} did not finish within {SHARD_TIMEOUT} s")
+    finally:
+        for p in procs:
+            p.kill()
+    for p, text in zip(procs, logs):
+        for line in text.splitlines()[-40:]:
+            log(f"  [{job['tag']}] {line}")
+        if p.returncode != 0:
+            fail(f"phase 13: a process of {job['tag']} exited {p.returncode}")
+    results = []
+    for r in range(ranks):
+        with open(os.path.join(job["out"], f"{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def shard_kernel_times(torch, pw, seed):
+    """The bf16 g_theta kernels at the shapes phase 13 launches (pairs:2,
+    data:2) beside the one-process shape, in one process: each forward and
+    backward held to its plain version at phase 3 and 5's bounds, with and
+    without pair dropout (phase 13 draws masks at (B, 32, 64)), then timed
+    with CUDA events beside the plain versions and the cuBLAS chain and its
+    autograd. The int8 kernel's shard shape is an ``INT8_CASES`` case of
+    phase 5b."""
+    n, H, L, inject = 64, 256, 4, 0
+    rows = {}
+    for tag, (B, ni, nj) in SHARD_SHAPES.items():
+        args = pair_inputs(torch, B, nj, H, L, seed=300 + ni)
+        args[0] = args[0][:, :ni].contiguous()
+        g = upstream(torch, B, H, seed=301)
+        errs = {"fwd": 0.0, "bwd": 0.0}
+        for keep in KEEPS:
+            errs["fwd"] = max(errs["fwd"], fwd_agreement(torch, pw, args, inject, keep, seed, f" ({tag} shard)"))
+            errs["bwd"] = max(errs["bwd"], bwd_agreement(torch, pw, args, g, inject, keep, seed, f" ({tag} shard)")[1])
+        torch.cuda.empty_cache()
+        f_ms, f_by = fwd_bound(B, ni, nj, H, L)
+        b_ms, b_by = bwd_bound(B, ni, nj, H, L)
+        rows[tag] = {"B": B, "ni": ni, "nj": nj, "H": H, "L": L,
+                     "fwd_max_abs_err": errs["fwd"], "bwd_max_abs_err": errs["bwd"],
+                     "fwd_ms": cuda_ms(torch, lambda: pw.pairwise_fwd_cuda(*args, inject=inject), 10),
+                     "fwd_bound_ms": f_ms, "fwd_bound_by": f_by,
+                     "fwd_plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_reference(*args, inject=inject), 2,
+                                             warmup=1),
+                     "fwd_library_ms": cuda_ms(torch, lambda: library_chain(torch, *args, inject), 10),
+                     "bwd_ms": cuda_ms(torch, lambda: pw.pairwise_bwd_cuda(*args, g, inject=inject), 5, warmup=2),
+                     "bwd_bound_ms": b_ms, "bwd_bound_by": b_by,
+                     "bwd_plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args, g, inject), 2,
+                                             warmup=1),
+                     "bwd_library_ms": cuda_ms(torch, lambda: library_vjp(torch, args, g, inject), 3, warmup=1)}
+        log(f"time per shard {tag} {json.dumps(rows[tag])}")
+        del args, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_shards(np, pw, ranks, one, ev_one, tag):
+    """Phase 13's checks of two ranks' results (``phase13_worker``'s
+    steps, dropout and eval tasks) against one process's; the summary."""
+    def norm_rel(norms):
+        return [abs(a - b) / abs(b) for a, b in zip(norms, one["grad_norm"])]
+
+    summary = {}
+    for spec in ("data:2", "pairs:2"):
+        runs = [r["steps"][spec] for r in ranks]
+        shape = list(SHARD_SHAPES[spec])
+        rel = [abs(a - b) / abs(b) for a, b in zip(runs[0]["loss"], one["loss"])]
+        nrel = [norm_rel(r["grad_norm"]) for r in runs]
+        log(f"phase {tag} {spec}: losses per rank {[r['loss'] for r in runs]} vs one process {one['loss']} "
+            f"(rel {rel}); grad_norm per rank {[r['grad_norm'] for r in runs]} vs one process {one['grad_norm']} "
+            f"(rel per rank {nrel}, bound {SHARD_GRAD_NORM_REL}); launches per rank {[r['counts'] for r in runs]}; "
+            f"(B, ni, nj) of pairwise_fwd {sorted({tuple(x[:3]) for r in runs for x in r['launches']['fwd']})}, "
+            f"pairwise_bwd {sorted({tuple(x[:3]) for r in runs for x in r['launches']['bwd']})}; state digests "
+            f"{[r['digest'][:16] for r in runs]}")
+        if not all(x <= 1e-2 for x in rel):  # phase 7's bound between the kernel and xla paths' losses
+            fail(f"phase {tag} {spec}: the losses disagree with one process's: rel {rel}")
+        if not all(x <= SHARD_GRAD_NORM_REL for r in nrel for x in r):
+            fail(f"phase {tag} {spec}: a rank's grad_norm disagrees with one process's: rel {nrel}")
+        if runs[0]["loss"] != runs[1]["loss"] or runs[0]["digest"] != runs[1]["digest"]:
+            fail(f"phase {tag} {spec}: the ranks' losses or parameters differ")
+        for r in runs:
+            want = {**dict.fromkeys(r["counts"], 0), pw.KERNEL: SHARD_STEPS, pw.BWD_KERNEL: SHARD_STEPS}
+            shapes = {tuple(x[:3]) for k in ("fwd", "bwd") for x in r["launches"][k]}
+            if r["counts"] != want or shapes != {tuple(shape)}:
+                fail(f"phase {tag} {spec}: expected one pairwise_fwd and pairwise_bwd a step at {shape}, "
+                     f"counted {r['counts']} at {shapes}")
+        summary[spec] = {"launches_per_rank": [r["counts"] for r in runs], "shape": shape, "loss_rel": rel,
+                         "grad_norm_rel": max(x for r in nrel for x in r)}
+    control = [norm_rel(r["control"]) for r in ranks]
+    log(f"phase {tag} control, data:2 with the gradients summed over data (a factor 2): grad_norm per rank "
+        f"{[r['control'] for r in ranks]}, rel per rank {control} (bound {SHARD_GRAD_NORM_REL})")
+    if not all(x > SHARD_GRAD_NORM_REL for r in control for x in r):
+        fail(f"phase {tag}: the grad_norm check does not see gradients off by a factor 2: rel {control}")
+    summary["control_grad_norm_rel"] = min(x for r in control for x in r)
+    drop = [r["dropout"] for r in ranks]
+    log(f"phase {tag} pairs:2 with pair_dropout {SHARD_PAIR_DROPOUT}: {json.dumps(drop)}")
+    for d in drop:
+        if not (d["seeds_offset"] and d["mask_bitwise"] and d["fwd_err"] <= d["fwd_tol"]):
+            fail(f"phase {tag}: a shard's pair-dropout mask is not pair_mask_reference(seed + shard_id * 1_000_003): {d}")
+        if d["counts"]["pair_mask"] != 2 * SHARD_STEPS:
+            fail(f"phase {tag}: pair dropout drew {d['counts']['pair_mask']} masks, not {2 * SHARD_STEPS}")
+    if drop[0]["digest"] != drop[1]["digest"] or drop[0]["seeds"] == drop[1]["seeds"]:
+        fail(f"phase {tag}: with pair dropout the replicas differ, or the shards drew the same masks")
+    summary["pair_dropout"] = {"mask_launches_per_rank": [d["counts"]["pair_mask"] for d in drop],
+                               "fwd_err": [d["fwd_err"] for d in drop]}
+    ev_two, ev_int8 = ([r["eval"][k] for r in ranks] for k in ("data:2", "pairs:2 int8"))
+    same = float(np.mean(np.array(ev_two[0]["pred"]) == np.array(ev_one["bf16"]["pred"])))
+    same8 = float(np.mean(np.array(ev_int8[0]["pred"]) == np.array(ev_one["int8"]["pred"])))
+    nll_rel = abs(ev_two[0]["nll_sum"] - ev_one["bf16"]["nll_sum"]) / abs(ev_one["bf16"]["nll_sum"])
+    log(f"phase {tag} eval batch B={TRAIN_B}: data:2 predictions equal to one process's {same!r}, NLL sum "
+        f"{ev_two[0]['nll_sum']!r} vs {ev_one['bf16']['nll_sum']!r} (rel {nll_rel!r}), launches "
+        f"{[e['counts'] for e in ev_two]}; pallas_int8 under pairs:2: launches {[e['counts'] for e in ev_int8]} at "
+        f"{[e['launches']['int8'] for e in ev_int8]}, predictions equal to one process's int8 {same8!r}, NLL sum "
+        f"{ev_int8[0]['nll_sum']!r} vs {ev_one['int8']['nll_sum']!r}")
+    if any(e["pred"] != ev_two[0]["pred"] for e in ev_two) or any(e["pred"] != ev_int8[0]["pred"] for e in ev_int8):
+        fail(f"phase {tag}: the ranks' gathered predictions differ")
+    if not (same >= 0.99 and nll_rel <= 1e-2):
+        fail(f"phase {tag}: the data:2 eval batch disagrees with one process's")
+    # each pairs shard calibrates on its own rows, so the pooled values move
+    # within the int8 drift bound (3e-2) and no prediction of the batch flips
+    nll8_rel = abs(ev_int8[0]["nll_sum"] - ev_one["int8"]["nll_sum"]) / abs(ev_one["int8"]["nll_sum"])
+    if not (same8 == 1.0 and nll8_rel <= 3e-2):
+        fail(f"phase {tag}: pallas_int8 under pairs:2 disagrees with one process's int8: predictions equal "
+             f"{same8}, NLL sum rel {nll8_rel}")
+    for e in ev_int8:
+        if e["counts"][pw.INT8_KERNEL] != 1 or e["counts"][pw.KERNEL] or e["launches"]["int8"][0][1] != 32:
+            fail(f"phase {tag}: pallas_int8 under pairs:2 should launch the int8 kernel once at ni=32: {e}")
+    summary["eval"] = {"data:2_equal_predictions": same, "int8_pairs:2_launches_per_rank": [e["counts"][pw.INT8_KERNEL]
+                       for e in ev_int8], "int8_pairs:2_equal_to_one_process": same8, "int8_nll_rel": nll8_rel}
+    return summary
+
+
+def shard_phase(torch, np, pw, cfg, root):
+    """Phase 13; returns its summary for the kernel records."""
+    import os
+
+    card_count = torch.cuda.device_count()
+    scfg = shard_cfg(cfg)
+    times = shard_kernel_times(torch, pw, torch.tensor([13], dtype=torch.int64, device="cuda"))
+
+    # the one-process references: SHARD_STEPS steps at B=512, the eval batch in bf16 and int8
+    one = shard_train(torch, pw, scfg, None)
+    one.pop("last_fwd")
+    ev_one = {"bf16": shard_eval(torch, pw, scfg, None), "int8": shard_eval(torch, pw, scfg, None, int8=True)}
+    log(f"phase 13 one process, B={TRAIN_B}: loss {one['loss']}, launches {one['counts']}")
+    torch.cuda.empty_cache()
+
+    # (a) two processes on the one card over gloo, file-based init
+    work = os.path.join(root, "phase13a")
+    os.makedirs(work)
+    job = {"tag": "13(a) gloo", "init": f"file://{work}/pg", "world": 2, "out": work,
+           "n_answers": cfg.n_answers, "tasks": ["steps", "control", "dropout", "eval"], "specs": ["data:2", "pairs:2"]}
+    t0 = time.perf_counter()
+    ranks = launch_workers(job, os.path.join(work, "job.json"), [], 2)
+    log(f"phase 13(a): two processes over gloo in {time.perf_counter() - t0:.1f} s")
+    summary = {"seconds_a": time.perf_counter() - t0, "per_shard": times,
+               **check_shards(np, pw, ranks, one, ev_one, "13(a)")}
+
+    # (b) a one-rank NCCL group: the entry point and replayed steps with the all-reduce captured
+    work = os.path.join(root, "phase13b")
+    os.makedirs(work)
+    entry = ["--clevr-dir", root, "--model", "original-fp", "--batch-size", str(TRAIN_B), "--lr", str(LR),
+             "--log-interval", "8", "--num-workers", "4", "--data-pipeline", "device", "--epochs", "1",
+             "--mesh", "data:1", "--multihost", "--checkpoint-dir", os.path.join(work, "ck"),
+             "--test-results-dir", os.path.join(work, "res")]
+    job = {"tag": "13(b) nccl", "out": work, "n_answers": cfg.n_answers, "tasks": ["replay", "entry"],
+           "spec": "data:1", "entry_argv": entry}
+    t0 = time.perf_counter()
+    (res,) = launch_workers(job, os.path.join(work, "job.json"),
+                            ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1"], 1)
+    hist = read_history(os.path.join(work, "res"))
+    n_steps, n_eval = SYN_TRAIN_Q // TRAIN_B, -(-SYN_VAL_Q // TRAIN_B)
+    log(f"phase 13(b) in {time.perf_counter() - t0:.1f} s: python -m torch.distributed.run --nproc-per-node 1 "
+        f"-m rnet_torch.train --mesh data:1 --multihost (NCCL, CUDA graphs): launches {res['entry']}, history "
+        f"{json.dumps(hist)}; eager vs replayed steps: {json.dumps(res['replay'])}")
+    want = {pw.KERNEL: n_steps + n_eval, pw.BWD_KERNEL: n_steps, "augment": n_steps}
+    if any(res["entry"][k] != v for k, v in want.items()) or not np.isfinite(hist[0]["train_loss"]):
+        fail(f"phase 13(b): the entry point under a one-rank NCCL mesh: launches {res['entry']}, want {want}")
+    if not res["replay"]["captured_all_reduces"]:
+        fail("phase 13(b): no all-reduce of the train step was captured in its graph")
+    summary["nccl_one_rank"] = {"entry_launches": res["entry"], "replay": res["replay"]}
+
+    # (c) NCCL across cards, where the machine has them
+    if card_count < 2:
+        log(f"phase 13(c) not run: torch.cuda.device_count() is {card_count}, the machine has one device; "
+            "NCCL across two or more cards stays unproven")
+        summary["nccl_two_cards"] = f"not run: device_count {card_count}"
+        return summary
+    work = os.path.join(root, "phase13c")
+    os.makedirs(work)
+    job = {"tag": "13(c) nccl", "out": work, "n_answers": cfg.n_answers,
+           "tasks": ["steps", "control", "dropout", "eval"],
+           "specs": ["data:2", "pairs:2"], "graphs": True}
+    ranks = launch_workers(job, os.path.join(work, "job.json"),
+                           ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2"], 2)
+    summary["nccl_two_cards"] = check_shards(np, pw, ranks, one, ev_one, f"13(c) on {card_count} cards")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2553,6 +3061,10 @@ def main() -> int:
         f32_entry_counts = f32_entry_phase(torch, np, pw, aug, root)
         extract_phase(torch, np, pw, root)
         graph_out["trainer_epochs"] = trainer_epochs(torch, root)
+        log(f"phase 12 (Trainer epochs) done at {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        shard = shard_phase(torch, np, pw, cfg, root)
+        log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"all phases done at {time.perf_counter() - t_start:.1f} s")
@@ -2574,17 +3086,24 @@ def main() -> int:
                phase_shares=phases[("fwd", TRAIN_B)]["shares"],
                entry_point_launches=entry_counts[pw.KERNEL], replay_launches=graph_out["train_counts"][pw.KERNEL],
                h512=wide["fwd_bf16"], h512_phase_shares=phases[("fwd", "H512")]["shares"],
-               wide_fp_step_launches=graph_out["wide_fp_steps"]["bfloat16"]["auto"]["launches_per_step"]),
+               wide_fp_step_launches=graph_out["wide_fp_steps"]["bfloat16"]["auto"]["launches_per_step"],
+               per_shard_ms={k: v["fwd_ms"] for k, v in shard["per_shard"].items()},
+               per_shard_max_abs_err={k: v["fwd_max_abs_err"] for k, v in shard["per_shard"].items()},
+               shard_launches_per_rank={k: shard[k]["launches_per_rank"] for k in SHARD_SHAPES if k in shard}),
         record(pw.BWD_KERNEL, "rnet_torch/csrc/pairwise_bwd.cu", "rnet/kernels/pairwise.py:120",
                train_counts[pw.BWD_KERNEL], bwd_err_at_shape, bwd[TRAIN_B], shape=shape,
                max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL],
                phase_shares=phases[("bwd", TRAIN_B)]["shares"],
                replay_launches=graph_out["train_counts"][pw.BWD_KERNEL], h512=wide["bwd_bf16"],
                h512_phase_shares=phases[("bwd", "H512")]["shares"],
-               wide_fp_step_launches=graph_out["wide_fp_steps"]["bfloat16"]["auto"]["launches_per_step"]),
+               wide_fp_step_launches=graph_out["wide_fp_steps"]["bfloat16"]["auto"]["launches_per_step"],
+               per_shard_ms={k: v["bwd_ms"] for k, v in shard["per_shard"].items()},
+               per_shard_max_abs_err={k: v["bwd_max_abs_err"] for k, v in shard["per_shard"].items()},
+               shard_launches_per_rank={k: shard[k]["launches_per_rank"] for k in SHARD_SHAPES if k in shard}),
         record("pair_mask", "rnet_torch/csrc/philox.cuh", "rnet/kernels/pairwise.py:69",
                pd_counts["pair_mask"], float(mask_err), mask,
-               shape={"B": TRAIN_B, "n": 64}, launches_of="one train step with pair_dropout 0.25"),
+               shape={"B": TRAIN_B, "n": 64}, launches_of="one train step with pair_dropout 0.25",
+               shard_pair_dropout=shard["pair_dropout"]),
         record(aug.KERNEL, "rnet_torch/csrc/augment.cu", "rnet/kernels/augment.py:134",
                entry_counts[aug.KERNEL], aug_err, aug_times["full"],
                shape={"B": TRAIN_B, "canvas": CANVAS, "crop": CROP, "cache_images": CLEVR_TRAIN_IMAGES,
@@ -2600,6 +3119,7 @@ def main() -> int:
                serve_max_abs_dlogp=int8_dlp, eval_predictions_equal_to_bf16=int8_eval_same,
                eval_qps=eval_runs,
                ms_b64=int8_rows[64]["ms"], ms_with_calibration=int8_rows[TRAIN_B]["ms_with_calibration"],
+               shard_eval=shard["eval"],
                phase_shares=phases[("int8", TRAIN_B)]["shares"], ms_over_pairwise_fwd=int8_rows[TRAIN_B]["ms"]
                / fwd[TRAIN_B]["ms"], tops=int8_rows[TRAIN_B]["tops"], h512=wide["int8"],
                launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
@@ -2625,6 +3145,7 @@ def main() -> int:
                            "device, 1 epoch of 16 steps at B=512"),
     ]
     log(f"graphs summary {json.dumps(graph_out)}")
+    log(f"phase 13 summary {json.dumps(shard)}")
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2632,4 +3153,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == WORKER_FLAG:
+        sys.exit(phase13_worker(sys.argv[2:]))
     sys.exit(main())

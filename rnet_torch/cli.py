@@ -5,7 +5,9 @@ command line carries across), ``config_from_args``, ``build_datasets`` and
 ``load_dicts`` (dictionaries carried by the checkpoint, messages on stderr
 only: serve's stdout is a JSON-lines protocol). ``--platform`` picks the
 device: ``default`` is CUDA, ``cpu`` the opt-in; a missing card raises
-instead of falling back. Flags of surfaces not ported yet (``--mesh``) raise.
+instead of falling back. ``--mesh`` is read by the train and eval entry
+points (one process per GPU, ``rnet_torch/parallel/mesh.py``); serve and
+extract run on one device, as rnet's do, and refuse it (``refuse_mesh``).
 """
 
 from __future__ import annotations
@@ -58,7 +60,11 @@ def add_common_args(p: argparse.ArgumentParser, clevr_required: bool = True) -> 
         "torch), pallas (the CUDA kernel; plain version on the CPU), pallas_int8 "
         "(inference only: the int8 CUDA kernel; plain version on the CPU)",
     )
-    p.add_argument("--mesh", default=None, help="multi-device mesh (not ported yet)")
+    p.add_argument(
+        "--mesh", default=None,
+        help='process mesh of a multi-GPU run, e.g. "data:8" or "data:4,pairs:2" (default: every '
+        "process on data); launch one process per GPU with python -m torch.distributed.run",
+    )
     p.add_argument(
         "--platform", choices=["default", "cpu"], default="default",
         help="default: run on CUDA (raises without a card); cpu: run on the CPU",
@@ -72,9 +78,12 @@ def device_from_args(args: argparse.Namespace) -> str:
     return "cpu" if getattr(args, "platform", "default") == "cpu" else "cuda"
 
 
-def config_from_args(args: argparse.Namespace, dicts: Dictionaries) -> ModelConfig:
+def refuse_mesh(args: argparse.Namespace, what: str) -> None:
     if getattr(args, "mesh", None):
-        raise SystemExit("--mesh: multi-GPU runs come with a later slice of the port")
+        raise SystemExit(f"--mesh: {what} runs on one device (rnet's takes no mesh either)")
+
+
+def config_from_args(args: argparse.Namespace, dicts: Dictionaries) -> ModelConfig:
     overrides = {
         k: getattr(args, k, None)
         for k in (

@@ -17,8 +17,11 @@ Each random function is a draw (``draw_rotation_angles``,
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+
+from ..parallel.mesh import Mesh, global_batch, local_rows
 
 
 def rotate_bilinear(img: torch.Tensor, angle_rad) -> torch.Tensor:
@@ -91,10 +94,12 @@ def draw_rotation_angles(B: int, generator: torch.Generator, device, max_deg: fl
     return (-max_deg + 2.0 * max_deg * u) * (math.pi / 180.0)
 
 
-def random_rotate_batch(images: torch.Tensor, generator: torch.Generator, max_deg: float = 2.8) -> torch.Tensor:
-    """Per-sample random rotation in [-max_deg, +max_deg] degrees."""
-    angles = draw_rotation_angles(images.shape[0], generator, images.device, max_deg)
-    return rotate_shear_batch(images, angles.to(images.dtype))
+def random_rotate_batch(images: torch.Tensor, generator: torch.Generator, max_deg: float = 2.8,
+                        mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """Per-sample random rotation in [-max_deg, +max_deg] degrees (under a
+    mesh drawn for the global batch; this rank's rows kept)."""
+    angles = draw_rotation_angles(global_batch(images.shape[0], mesh), generator, images.device, max_deg)
+    return rotate_shear_batch(images, local_rows(angles, mesh).to(images.dtype))
 
 
 def crop_groups(B: int, groups: int = 32) -> int:
@@ -128,10 +133,16 @@ def crop_batch(images: torch.Tensor, offs: torch.Tensor, out_size: int) -> torch
     return images[b, rows[:, :, None], cols[:, None, :]]
 
 
-def random_crop_batch(images: torch.Tensor, generator: torch.Generator, out_size: int, groups: int = 32) -> torch.Tensor:
+def random_crop_batch(images: torch.Tensor, generator: torch.Generator, out_size: int, groups: int = 32,
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Crop jitter with per-group offsets (rnet's gather workaround: the
-    samples of a group share the step's offset)."""
-    offs = draw_crop_offsets(images.shape[0], images.shape[1], out_size, generator, images.device, groups)
+    samples of a group share the step's offset). Under a mesh the groups
+    are the global batch's, and this rank crops its rows at their groups'
+    offsets."""
+    B = global_batch(images.shape[0], mesh)
+    offs = draw_crop_offsets(B, images.shape[1], out_size, generator, images.device, groups)
+    if mesh is not None:  # one offset per row of the global batch, then this rank's rows
+        offs = local_rows(offs.repeat_interleave(B // offs.shape[0], dim=0), mesh)
     return crop_batch(images, offs, out_size)
 
 

@@ -7,7 +7,9 @@ Port of ``rnet/data/pipeline.py``:
     short final batch by repeating the first sample of the order with a
     ``valid`` mask and the dataset ``index`` of every row, and question
     inversion — so both packages see the same batches for the same seed
-    and epoch;
+    and epoch; with ``shard=(rank, world)`` (a multi-GPU run's ``data``
+    coordinate) each rank takes every world-th sample of the one global
+    shuffle, in batches of its share, as many on every rank;
   * ``prefetch_to_device`` — each batch is staged in pinned host memory and
     copied with ``non_blocking`` on a side stream, double-buffered; the
     consumer's stream waits on the copy's event before it uses the batch.
@@ -18,7 +20,7 @@ from __future__ import annotations
 import collections
 import random
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -48,19 +50,26 @@ class BatchIterator:
         drop_last: bool = True,
         invert: bool = True,
         num_threads: int = 8,
+        shard: Tuple[int, int] = (0, 1),
     ):
         self.ds = dataset
-        self.bs = batch_size
+        self.bs = batch_size  # the shard's batch size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = epoch
         self.drop_last = drop_last
         self.invert = invert
         self.num_threads = num_threads
+        self.shard = shard
 
     def __len__(self) -> int:
+        # the same count on every shard, or the ranks' collectives would
+        # wait on each other: drop_last floors on the smallest shard, else
+        # ceils on the largest (short and missing tails are padded)
+        _, world = self.shard
         n = len(self.ds)
-        return n // self.bs if self.drop_last else -(-n // self.bs)
+        n_min, n_max = n // world, -(-n // world)
+        return n_min // self.bs if self.drop_last else -(-n_max // self.bs)
 
     def _get(self, i: int) -> Dict[str, np.ndarray]:
         # deterministic per-(seed, epoch, item) augmentation rng
@@ -71,6 +80,9 @@ class BatchIterator:
         order = list(range(len(self.ds)))
         if self.shuffle:
             random.Random((self.seed, self.epoch).__hash__()).shuffle(order)
+        rank, world = self.shard
+        if world > 1:  # one global shuffle, then every world-th sample from the rank's
+            order = order[rank::world]
         vectorized = hasattr(self.ds, "get_batch")
         with ThreadPoolExecutor(self.num_threads) as pool:
             for b in range(len(self)):

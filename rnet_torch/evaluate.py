@@ -11,7 +11,10 @@ port's own epoch checkpoints (a path, or an epoch number under
 ``--checkpoint-dir``); rnet's orbax directories raise (ROADMAP.md). Under
 ``--rl-impl pallas_int8`` the g-chain runs in int8 and the per-layer int8
 calibration clip fractions of the first batch are printed first. Runs on
-CUDA unless ``--platform cpu`` is given; without a card it raises.
+CUDA unless ``--platform cpu`` is given; without a card it raises. Under
+torchrun (one process per GPU, ``--mesh`` as ``rnet_torch.train`` takes
+it) every rank evaluates its ``data`` share of the split, the outputs are
+gathered, and rank 0 prints and writes the reports.
 
 Example:
     python -m rnet_torch.evaluate --clevr-dir /data/CLEVR_v1.0 --model original-fp \\
@@ -42,6 +45,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    from .cli import device_from_args
+    from .parallel.mesh import distributed_init
+
+    joined = distributed_init(device_from_args(args))
+    try:
+        return _evaluate(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _evaluate(args) -> int:
     from .checkpoint import load_weights
     from .cli import build_datasets, config_from_args, device_from_args, load_dicts
     from .train.loop import Trainer
@@ -56,8 +73,9 @@ def main(argv=None) -> int:
         lr=DoublingSchedule(1e-4), bs=DoublingSchedule(args.batch_size, 1.0, 0), seed=args.seed,
         invert=args.invert, num_threads=args.num_workers, checkpoint_dir=args.checkpoint_dir,
         log_interval=args.log_interval, device_data=(args.data_pipeline == "device"),
-        device=device_from_args(args),
+        device=device_from_args(args), mesh_spec=args.mesh,
     )
+    say = print if trainer.primary else (lambda *a, **k: None)
     ck = str(args.checkpoint)
     if ck.endswith(".pkl"):
         load_weights(trainer.state.model, ck)
@@ -68,15 +86,17 @@ def main(argv=None) -> int:
         # calibration-drift receipt: the share of probe activations per layer
         # that would clip at 127 under this batch's int8 scales
         fr = trainer.int8_clip_report(batch_size=min(args.batch_size, 256))
-        print("int8 calibration clip fractions per layer: [" + ", ".join(f"{f:.2e}" for f in fr) + "]")
+        say("int8 calibration clip fractions per layer: [" + ", ".join(f"{f:.2e}" for f in fr) + "]")
         if float(fr.max()) > 1e-3:
-            print(
+            say(
                 "WARNING: clip fraction > 1e-3 — the 1.2x calibration margin "
                 "is being exceeded; int8 accuracy may drift on this data"
             )
 
     stats = trainer.eval_epoch(trainer.epoch, batch_size=args.batch_size)
     acc = stats.pop("_accumulator")
+    if not trainer.primary:
+        return 0
     paths = acc.dump(args.test_results_dir, tag=args.split)
     print(f"overall accuracy: {acc.accuracy:.4f} | mean NLL: {acc.mean_nll:.4f}")
     cat = acc.per_category_accuracy()

@@ -65,13 +65,14 @@ def main(argv=None) -> int:
     import numpy as np
 
     from .checkpoint import load_weights
-    from .cli import config_from_args, device_from_args, load_dicts
+    from .cli import config_from_args, device_from_args, load_dicts, refuse_mesh
     from .data.clevr import ClevrImageDataset, scene_to_objects
     from .data.pipeline import BatchIterator, prefetch_to_device
     from .models import RN
     from .serve import resolve_device
     from .train.checkpoint import CheckpointManager
 
+    refuse_mesh(args, "extraction")
     dicts = load_dicts(args, checkpoint=args.checkpoint, checkpoint_dir=args.checkpoint_dir)
     cfg = config_from_args(args, dicts)
     if cfg.question_injection_position < 1:

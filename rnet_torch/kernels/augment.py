@@ -28,11 +28,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..data.augment import _shear, draw_rotation_angles
+from ..parallel.mesh import Mesh, global_batch, local_rows
 from . import build
 
 KERNEL = "augment"
@@ -167,13 +168,23 @@ def fused_augment(cache, idx, angles, offs, out_size: int, out_dtype=torch.bfloa
 def draw_augment_params(B: int, canvas: int, out_size: int, generator: torch.Generator, device):
     """(angles (B,) fp32 radians, offs (B, 2) int32 (row, col)) from ``generator``."""
     angles = draw_rotation_angles(B, generator, device, MAX_DEG)
-    offs =torch.randint(0, canvas - out_size + 1, (B, 2), generator=generator, device=device, dtype=torch.int32)
+    offs = torch.randint(0, canvas - out_size + 1, (B, 2), generator=generator, device=device, dtype=torch.int32)
     return angles, offs
 
 
-def gather_augment(cache, idx, generator: torch.Generator, out_size: int, out_dtype=torch.bfloat16) -> torch.Tensor:
+def gather_augment(cache, idx, generator: torch.Generator, out_size: int, out_dtype=torch.bfloat16,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Random crop + rotation fused with the cache gather: (B, out, out, C)
     normalized [0, 1] images in out_dtype, with per-sample angles and
-    offsets drawn from ``generator`` (on the cache's device)."""
-    angles, offs = draw_augment_params(idx.shape[0], cache.shape[1], out_size, generator, cache.device)
-    return fused_augment(cache, idx, angles, offs, out_size, out_dtype)
+    offsets drawn from ``generator`` (on the cache's device).
+
+    Under a ``mesh`` (rnet's ``gather_augment(mesh=)``) ``idx`` is this
+    rank's ``data`` slice of the batch and the rank augments only those
+    rows: of a replicated device cache (the device pipeline), or of its own
+    batch of padded canvases (``idx = arange(B)``, rnet's ``batch_local``).
+    The angles and offsets are drawn for the global batch and the rank keeps
+    its rows (``parallel.mesh.local_rows``)."""
+    B = global_batch(idx.shape[0], mesh)
+    angles, offs = draw_augment_params(B, cache.shape[1], out_size, generator, cache.device)
+    return fused_augment(cache, idx, local_rows(angles, mesh), local_rows(offs, mesh).contiguous(), out_size,
+                         out_dtype)

@@ -37,7 +37,7 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   plain versions.
 * ``fused_pairwise_g`` — objects + question -> pooled g (B, H) through
   ``_project_pair_inputs`` and ``pairwise_core`` (or, with ``int8=True``,
-  ``pairwise_core_int8``).
+  ``pairwise_core_int8``), by way of ``pairwise_core_sharded``.
 
 The int8 inference path (rnet's ``pairwise_core_int8`` and
 ``_fwd_pallas_int8``): ``activation_scales`` calibrates per-layer activation
@@ -47,8 +47,13 @@ int8 domain, one fp32 multiplier per layer), and
 ``pairwise_core_int8_reference`` / ``pairwise_fwd_int8_cuda`` (the kernel of
 ``csrc/pairwise_fwd_int8.cu``) run the int8 g-chain. ``int8_clip_fractions``
 and ``pairwise_clip_fractions`` report the share of activations the
-calibration would clip. The sharded island comes with a later slice
-(ROADMAP.md).
+calibration would clip.
+
+Under a mesh (``rnet_torch/parallel/mesh.py``) ``pairwise_core_sharded``
+is rnet's shard_map island: each rank holds its ``data`` slice of the
+batch, runs the core (or the int8 core) on its ``pairs`` shard of u's
+i-rows through the same wrappers, and the pooled partial sums are
+all-reduced over ``pairs``.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.mesh import SHARD_SEED_STRIDE, Mesh, all_reduce_flat, reduce_pairs
 from . import build
 
 KERNEL = "pairwise_fwd"
@@ -1084,23 +1090,32 @@ def pairwise_core_int8(u, v, s, qa, ws, bs, *, inject: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _core_fwd(u, v, s, qa, ws, bs, inject: int, keep: float, seed) -> torch.Tensor:
+    """The pooled core: the plain version for CPU tensors, the kernel for CUDA ones."""
+    if u.device.type == "cpu":
+        return pairwise_core_reference(u, v, s, qa, ws, bs, inject, keep, seed)
+    return pairwise_fwd_cuda(u, v, s, qa, ws, bs, inject=inject, pair_keep=keep, seed=seed)
+
+
+def _core_bwd(u, v, s, qa, ws, bs, g, inject: int, keep: float, seed):
+    """Its VJP (du, dv, ds, dqa, dws, dbs) in fp32, likewise."""
+    g = g.float().contiguous()
+    if u.device.type == "cpu":
+        return pairwise_core_bwd_reference(u, v, s, qa, ws, bs, g, inject, keep, seed)
+    return pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, inject=inject, pair_keep=keep, seed=seed)
+
+
 class _PairwiseCore(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, v, s, qa, ws, bs, inject: int, keep: float, seed):
         ctx.save_for_backward(u, v, s, qa, ws, bs, seed)
         ctx.inject, ctx.keep = inject, keep
-        if u.device.type == "cpu":
-            return pairwise_core_reference(u, v, s, qa, ws, bs, inject, keep, seed)
-        return pairwise_fwd_cuda(u, v, s, qa, ws, bs, inject=inject, pair_keep=keep, seed=seed)
+        return _core_fwd(u, v, s, qa, ws, bs, inject, keep, seed)
 
     @staticmethod
     def backward(ctx, g):
         u, v, s, qa, ws, bs, seed = ctx.saved_tensors
-        g = g.float().contiguous()
-        if u.device.type == "cpu":
-            grads = pairwise_core_bwd_reference(u, v, s, qa, ws, bs, g, ctx.inject, ctx.keep, seed)
-        else:
-            grads = pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, inject=ctx.inject, pair_keep=ctx.keep, seed=seed)
+        grads = _core_bwd(u, v, s, qa, ws, bs, g, ctx.inject, ctx.keep, seed)
         # each gradient in its input's dtype, as _make_core.bwd returns them
         return (*(d.to(t.dtype) for d, t in zip(grads, (u, v, s, qa, ws, bs))), None, None, None)
 
@@ -1112,6 +1127,61 @@ def pairwise_core(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.0, s
     if pair_keep < 1.0 and seed is None:
         raise ValueError("pair_keep < 1 needs a seed: a (1,) int64 tensor")
     return _PairwiseCore.apply(u, v, s, qa, ws, bs, int(inject), float(pair_keep), seed)
+
+
+class _ShardedCore(torch.autograd.Function):
+    """The core on this rank's ``pairs`` shard of u's i-rows, the pooled
+    partials all-reduced over ``pairs``. The backward returns replicated
+    full gradients, as shard_map's transpose does: du's rows in a zero
+    (B, n, H) buffer, and du, dv, ds, dqa, dws and dbs summed over ``pairs``
+    in one all-reduce."""
+
+    @staticmethod
+    def forward(ctx, u, v, s, qa, ws, bs, inject: int, keep: float, seed, mesh: Mesh):
+        rows = mesh.pair_rows(u.shape[1], exact=True)
+        u_l = u[:, rows].contiguous()
+        ctx.save_for_backward(u_l, v, s, qa, ws, bs, seed)
+        ctx.inject, ctx.keep, ctx.mesh, ctx.rows, ctx.u_shape, ctx.u_dtype = inject, keep, mesh, rows, u.shape, u.dtype
+        out = _core_fwd(u_l, v, s, qa, ws, bs, inject, keep, seed)
+        return reduce_pairs(out, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        u_l, v, s, qa, ws, bs, seed = ctx.saved_tensors
+        du_l, *rest = _core_bwd(u_l, v, s, qa, ws, bs, g, ctx.inject, ctx.keep, seed)
+        du = du_l.new_zeros(ctx.u_shape)
+        du[:, ctx.rows] = du_l
+        grads = all_reduce_flat([du, *rest], ctx.mesh.group("pairs"))
+        dtypes = (ctx.u_dtype, v.dtype, s.dtype, qa.dtype, ws.dtype, bs.dtype)
+        return (*(d.to(dt) for d, dt in zip(grads, dtypes)), None, None, None, None)
+
+
+def pairwise_core_sharded(u, v, s, qa, ws, bs, *, inject: int, mesh: Optional[Mesh], pair_keep: float = 1.0,
+                          seed=None, int8: bool = False) -> torch.Tensor:
+    """rnet's shard_map island (``pairwise_core_sharded``, :596-683) on this
+    rank: u, v, s, qa are its ``data`` slice of the batch, ws and bs
+    replicated. Under a ``pairs`` axis u's i-rows split over it (P must
+    divide them) and the pooled (B, H) sums are all-reduced over it; the
+    gradients come back replicated over ``pairs`` (their sum over ``data``
+    is the train step's). Pair dropout draws with ``seed + shard_id *
+    1_000_003``, so every shard's mask differs; ``int8=True`` runs the int8
+    core per shard, each calibrating on its own rows. One process (no mesh,
+    or a mesh of one rank) runs ``pairwise_core`` / ``pairwise_core_int8``."""
+    if int8 and pair_keep < 1.0:
+        raise ValueError("int8 is inference-only; pair dropout cannot be active")
+    if pair_keep < 1.0 and seed is None:
+        raise ValueError("pair_keep < 1 needs a seed: a (1,) int64 tensor")
+    if mesh is not None and mesh.world > 1 and pair_keep < 1.0:
+        seed = seed + mesh.shard_id * SHARD_SEED_STRIDE
+    if mesh is None or mesh.size("pairs") == 1:
+        if int8:
+            return pairwise_core_int8(u, v, s, qa, ws, bs, inject=inject)
+        return pairwise_core(u, v, s, qa, ws, bs, inject=inject, pair_keep=pair_keep, seed=seed)
+    if int8:
+        with torch.no_grad():
+            u_l = u[:, mesh.pair_rows(u.shape[1], exact=True)].contiguous()
+            return reduce_pairs(pairwise_core_int8(u_l, v, s, qa, ws, bs, inject=inject), mesh)
+    return _ShardedCore.apply(u, v, s, qa, ws, bs, int(inject), float(pair_keep), seed, mesh)
 
 
 def _project_pair_inputs(x, q, gw: Sequence[torch.Tensor], gb: Sequence[torch.Tensor], inject: int, dtype):
@@ -1153,14 +1223,14 @@ def pairwise_clip_fractions(x, q, gw, gb, *, inject: int, dtype=torch.bfloat16, 
 
 
 def fused_pairwise_g(
-    x, q, gw, gb, *, inject: int, dtype=torch.bfloat16, pair_keep: float = 1.0, seed=None, int8: bool = False
+    x, q, gw, gb, *, inject: int, dtype=torch.bfloat16, pair_keep: float = 1.0, seed=None, int8: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Pooled g_theta over all object pairs; (B, g_out) fp32, differentiable
     in x, q, gw and gb — except with ``int8=True`` (inference only:
-    ``pairwise_core_int8``, no gradient)."""
-    if int8 and pair_keep < 1.0:
-        raise ValueError("int8 is inference-only; pair dropout cannot be active")
+    ``pairwise_core_int8``, no gradient). The core is
+    ``pairwise_core_sharded``: ``pairwise_core`` (or the int8 core) in one
+    process, its shard of them under a ``mesh``."""
     u, v, s, qa, ws, bs = _project_pair_inputs(x, q, gw, gb, inject, dtype)
-    if int8:
-        return pairwise_core_int8(u, v, s, qa, ws, bs, inject=inject)
-    return pairwise_core(u, v, s, qa, ws, bs, inject=inject, pair_keep=pair_keep, seed=seed)
+    return pairwise_core_sharded(u, v, s, qa, ws, bs, inject=inject, mesh=mesh, pair_keep=pair_keep, seed=seed,
+                                 int8=int8)

@@ -32,6 +32,14 @@ impls, the kernels' own Philox mask (seeded per call) in the pallas impl.
 Every random draw comes from the ``generator`` passed to ``forward``, on
 the tensors' device.
 
+Under a ``mesh`` (``rnet_torch/parallel/mesh.py``) the inputs are this
+rank's ``data`` slice of the batch, and with a ``pairs`` axis each member
+computes the pairs of its shard of the i-objects: ``pallas`` through
+``pairwise_core_sharded`` (rnet's shard_map island), ``xla`` and ``naive``
+on their rows of the pair tensor (rnet's ``constrain_pairs``; the result
+equals the unsplit one, as GSPMD's does), their inputs' gradients summed
+over the members and their partial pooled sums all-reduced.
+
 ``g_prefix_features`` is the retrieval feature of ``ir`` models: the g
 layers before the question joins, summed over pairs (plain torch, as rnet's
 is plain JAX).
@@ -39,6 +47,7 @@ is plain JAX).
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import List, Optional, Tuple
 
@@ -46,24 +55,31 @@ import torch
 from torch import nn
 
 from ..kernels.pairwise import F32_WIDTHS, fused_pairwise_g, pairwise_clip_fractions
+from ..parallel.mesh import Mesh, global_batch, local_rows, reduce_pairs, replicate_pairs
 from .initializers import fan_in_uniform, linear_kernel
 
 
-def dropout(y: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(y: torch.Tensor, rate: float, generator: torch.Generator, mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Inverted dropout of single units: where(mask, y / keep, 0) with
-    mask ~ Bernoulli(keep = 1 - rate), as rnet's f_phi dropout."""
+    mask ~ Bernoulli(keep = 1 - rate), as rnet's f_phi dropout (under a
+    mesh drawn at the global batch, this rank's rows kept)."""
     keep = 1.0 - rate
-    mask = torch.rand(y.shape, generator=generator, device=y.device) < keep
-    return torch.where(mask, y / keep, 0.0)
+    u = torch.rand((global_batch(y.shape[0], mesh), *y.shape[1:]), generator=generator, device=y.device)
+    return torch.where(local_rows(u, mesh) < keep, y / keep, 0.0)
 
 
-def pair_dropout(a: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
-    """Inverted dropout of whole pairs of the (B, n^2, H) activations, in
-    their dtype: a * mask / keep with mask ~ Bernoulli(keep) per (b, pair),
-    as rnet's ``_pool``."""
+def pair_dropout(a: torch.Tensor, rate: float, generator: torch.Generator, mesh: Optional[Mesh] = None,
+                 n: Optional[int] = None) -> torch.Tensor:
+    """Inverted dropout of whole pairs of the (B, ni * n, H) activations of
+    n objects (default: all n^2 pairs), in their dtype: a * mask / keep
+    with mask ~ Bernoulli(keep) per (b, pair), as rnet's ``_pool``. The
+    mask is drawn at the global batch over all n^2 pairs; under a mesh this
+    rank keeps its ``data`` rows and the pairs of its ``pairs`` i-rows."""
     keep = 1.0 - rate
-    mask = torch.rand(a.shape[:2], generator=generator, device=a.device) < keep
-    return a * (mask[..., None].to(a.dtype) / torch.tensor(keep, dtype=a.dtype))
+    n = n or math.isqrt(a.shape[1])
+    u = torch.rand((global_batch(a.shape[0], mesh), n, n), generator=generator, device=a.device)
+    u = local_rows(u, mesh)[:, slice(None) if mesh is None else mesh.pair_rows(n)].reshape(a.shape[:2])
+    return a * ((u < keep)[..., None].to(a.dtype) / torch.tensor(keep, dtype=a.dtype))
 
 
 def g_input_dims(obj_dim: int, q_dim: int, g_layers: Tuple[int, ...], inject: int) -> List[int]:
@@ -93,8 +109,10 @@ class RelationalLayer(nn.Module):
         impl: str = "auto",
         dtype: torch.dtype = torch.bfloat16,
         generator: Optional[torch.Generator] = None,
+        mesh: Optional[Mesh] = None,
     ):
         super().__init__()
+        self.mesh = mesh
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         inject = question_injection_position
         if not 0 <= inject < len(g_layers):
@@ -144,29 +162,36 @@ class RelationalLayer(nn.Module):
 
     # ---- g over all pairs: (B, n, c), (B, h) -> (B, n^2, g_out) acts ----
 
-    def _g_naive(self, x, q):
+    # ``gw``, ``gb``: the g layers (default: the parameters); ``rows``: the
+    # i-rows of the pairs computed here (all of them, or this rank's shard
+    # of a ``pairs`` split); the result is (B, ni * n, g_out).
+
+    def _g_naive(self, x, q, gw=None, gb=None, rows: slice = slice(None)):
+        gw, gb = gw or self.gw, gb or self.gb
         B, n, c = x.shape
-        xi = x[:, :, None, :].expand(B, n, n, c)  # row i in slot 1
-        xj = x[:, None, :, :].expand(B, n, n, c)  # row j in slot 2
-        a = torch.cat([xi, xj], -1).reshape(B, n * n, 2 * c)
-        for l, (w, b) in enumerate(zip(self.gw, self.gb)):
+        xr = x[:, rows]
+        ni = xr.shape[1]
+        xi = xr[:, :, None, :].expand(B, ni, n, c)  # row i in slot 1
+        xj = x[:, None, :, :].expand(B, ni, n, c)  # row j in slot 2
+        a = torch.cat([xi, xj], -1).reshape(B, ni * n, 2 * c)
+        for l, (w, b) in enumerate(zip(gw, gb)):
             if l == self.inject:
-                qb = q[:, None, :].expand(B, n * n, q.shape[-1])
+                qb = q[:, None, :].expand(B, ni * n, q.shape[-1])
                 a = torch.cat([a, qb.to(a.dtype)], -1)
             a = torch.relu(a @ w.to(a.dtype) + b.to(a.dtype))
         return a
 
-    def _g_xla(self, x, q):
+    def _g_xla(self, x, q, gw=None, gb=None, rows: slice = slice(None)):
+        gw, gb = gw or self.gw, gb or self.gb
         B, n, c = x.shape
         dt = x.dtype
-        gw, gb = self.gw, self.gb
         w0 = gw[0].to(dt)
-        u = x @ w0[:c]  # (B, n, H0)
+        u = x[:, rows] @ w0[:c]  # (B, ni, H0)
         v = x @ w0[c : 2 * c]
         shift0 = gb[0].to(dt)
         if self.inject == 0:
             shift0 = (shift0 + q @ w0[2 * c :])[:, None, None, :]
-        a = torch.relu(u[:, :, None, :] + v[:, None, :, :] + shift0).reshape(B, n * n, self.g_layers[0])
+        a = torch.relu(u[:, :, None, :] + v[:, None, :, :] + shift0).reshape(B, -1, self.g_layers[0])
         for l in range(1, len(gw)):
             w, b = gw[l].to(dt), gb[l].to(dt)
             if l == self.inject:
@@ -228,15 +253,26 @@ class RelationalLayer(nn.Module):
                 keep = 1.0 - self.pair_dropout
                 seed = torch.randint(0, 2**62, (1,), generator=generator, device=x.device)
             pooled = fused_pairwise_g(
-                x, q, self.gw, self.gb, inject=self.inject, dtype=self.dtype, pair_keep=keep, seed=seed, int8=int8
+                x, q, self.gw, self.gb, inject=self.inject, dtype=self.dtype, pair_keep=keep, seed=seed, int8=int8,
+                mesh=self.mesh,
             )
         else:
-            a = self._g_naive(x, q) if impl == "naive" else self._g_xla(x, q)
+            # a ``pairs`` split: this rank's i-rows, its inputs' gradients
+            # summed over the members, its partial pooled sums all-reduced
+            split = self.mesh is not None and self.mesh.size("pairs") > 1
+            gw, gb, rows = self.gw, self.gb, slice(None)
+            if split:
+                L = len(gw)
+                x, q, *params = replicate_pairs([x, q, *gw, *gb], self.mesh)
+                gw, gb, rows = params[:L], params[L:], self.mesh.pair_rows(n)
+            a = (self._g_naive if impl == "naive" else self._g_xla)(x, q, gw, gb, rows)
             if pair_mask is not None:
-                a = a * pair_mask[..., None].to(a.dtype)
+                a = a * pair_mask.reshape(B, n, n)[:, rows].reshape(B, -1)[..., None].to(a.dtype)
             if pair_drop:
-                a = pair_dropout(a, self.pair_dropout, generator)
+                a = pair_dropout(a, self.pair_dropout, generator, self.mesh, n)
             pooled = a.sum(dim=1)
+            if split:
+                pooled = reduce_pairs(pooled, self.mesh)
 
         y = pooled.float()
         if self.pair_pool == "mean":
@@ -244,7 +280,7 @@ class RelationalLayer(nn.Module):
         for l in range(self.n_f - 1):
             y = torch.relu(y @ getattr(self, f"f{l}_kernel") + getattr(self, f"f{l}_bias"))
         if f_drop:
-            y = dropout(y, self.dropout, generator)
+            y = dropout(y, self.dropout, generator, self.mesh)
         last = self.n_f - 1
         y = y @ getattr(self, f"f{last}_kernel") + getattr(self, f"f{last}_bias")
         return torch.log_softmax(y, dim=-1)

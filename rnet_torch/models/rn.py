@@ -33,6 +33,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..data.augment import center_crop_batch, random_crop_batch, random_rotate_batch
+from ..parallel.mesh import Mesh
 from .conv import ConvInputModel
 from .relational import RelationalLayer
 from .text import QuestionEmbedModel
@@ -56,17 +57,23 @@ def grid_coords(g: int, dtype=torch.float32, device=None) -> torch.Tensor:
 
 class RN(nn.Module):
     """Weights from ``generator`` (a seed-0 generator if None) until a
-    checkpoint is loaded over them."""
+    checkpoint is loaded over them. Under a ``mesh``
+    (``rnet_torch/parallel/mesh.py``) inputs are this rank's ``data`` slice
+    of the batch: the BatchNorms take global-batch moments, the relational
+    layer splits its pairs over ``pairs``, and every random draw is made at
+    the global batch, this rank keeping its rows."""
 
-    def __init__(self, cfg: ModelConfig, vocab_size: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: ModelConfig, vocab_size: int, generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None):
         super().__init__()
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         self.cfg = cfg
         self.dtype = compute_dtype(cfg)
+        self.mesh = mesh
         if not cfg.state_description:
             self.conv = ConvInputModel(
                 channels=cfg.conv_channels, kernel=cfg.conv_kernel,
-                stride=cfg.conv_stride, dtype=self.dtype, generator=gen,
+                stride=cfg.conv_stride, dtype=self.dtype, generator=gen, mesh=mesh,
             )
         self.text = QuestionEmbedModel(
             vocab_size=vocab_size, emb_dim=cfg.lstm_word_emb, hidden=cfg.lstm_hidden,
@@ -78,7 +85,7 @@ class RN(nn.Module):
             question_injection_position=cfg.question_injection_position,
             dropout=cfg.dropout, pair_dropout=cfg.pair_dropout,
             pair_pool=cfg.pair_pool, object_mask=cfg.object_mask,
-            impl=cfg.rl_impl, dtype=self.dtype, generator=gen,
+            impl=cfg.rl_impl, dtype=self.dtype, generator=gen, mesh=mesh,
         )
 
     def objects(self, inputs: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -94,7 +101,7 @@ class RN(nn.Module):
             raise ValueError("device_augment in train mode needs a torch.Generator on the input's device")
         if x.shape[1] > cfg.image_size:
             if augment:
-                x = random_crop_batch(x, generator, cfg.image_size)
+                x = random_crop_batch(x, generator, cfg.image_size, mesh=self.mesh)
             else:
                 x = center_crop_batch(x, cfg.image_size)
         if x.shape[1] != cfg.image_size or x.shape[2] != cfg.image_size:
@@ -105,7 +112,7 @@ class RN(nn.Module):
         if x.dtype == torch.uint8:
             x = x.to(self.dtype) / 255.0
         if augment:
-            x = random_rotate_batch(x, generator)
+            x = random_rotate_batch(x, generator, mesh=self.mesh)
         return self._grid_objects(x)
 
     def _grid_objects(self, x: torch.Tensor) -> torch.Tensor:

@@ -313,9 +313,10 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> int:
-    from .cli import config_from_args, device_from_args, load_dicts
+    from .cli import config_from_args, device_from_args, load_dicts, refuse_mesh
 
     args = parse_args(argv)
+    refuse_mesh(args, "serving")
     dicts = load_dicts(args, checkpoint=args.checkpoint, checkpoint_dir=args.checkpoint_dir)
     cfg = config_from_args(args, dicts)
     buckets = [int(b) for b in args.buckets.split(",")] if args.buckets else None

@@ -6,12 +6,19 @@ per-epoch eval with reports and a full-state checkpoint, ``--resume``
 (a path, an epoch number or ``latest``), ``history.json`` under
 ``--test-results-dir``, the stall watchdog and ``--auto-restart``
 supervision. Runs on CUDA unless ``--platform cpu`` is given; without a card
-it raises. ``--mesh`` and ``--multihost`` (multi-GPU) come with a later
-slice and are refused.
+it raises.
 
-Example:
+Several GPUs: one process per GPU, launched by torchrun, whose environment
+the run joins (NCCL on CUDA, gloo with ``--platform cpu``); ``--mesh``
+lays the processes out (default: all on ``data``), ``--multihost`` insists
+on that environment. Rank 0 prints, writes checkpoints, reports and
+``history.json``.
+
+Examples:
     python -m rnet_torch.train --clevr-dir /data/CLEVR_v1.0 --model original-fp \\
         --data-pipeline device --batch-size 512 --epochs 400 --lr 1e-4 --lr-max 5e-4
+    python -m torch.distributed.run --nproc-per-node 8 -m rnet_torch.train \\
+        --clevr-dir /data/CLEVR_v1.0 --data-pipeline device --batch-size 512 --mesh data:4,pairs:2
 """
 
 from __future__ import annotations
@@ -47,7 +54,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--test-results-dir", default=None)
     p.add_argument("--eval-every", type=int, default=1)
     p.add_argument("--save-every", type=int, default=1)
-    p.add_argument("--multihost", action="store_true", help="multi-host training (not ported yet)")
+    p.add_argument(
+        "--multihost", action="store_true",
+        help="join the process group of torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR, "
+        "MASTER_PORT) and fail without it; torchrun's runs join it anyway",
+    )
     p.add_argument("--tb-dir", default=None, help="TensorBoard/CSV scalar log dir")
     p.add_argument("--profile-dir", default=None, help="write a torch.profiler trace of one epoch here")
     p.add_argument("--profile-epoch", type=int, default=1)
@@ -65,11 +76,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _resume_target(trainer, resume: str):
+def _resume_target(trainer, resume: str, say=print):
     if str(resume) == "latest":
         latest = trainer.ckpt.latest_epoch()
         if latest is None:
-            print("no checkpoint found for --resume latest; starting fresh")
+            say("no checkpoint found for --resume latest; starting fresh")
         return latest
     return int(resume) if str(resume).isdigit() else resume
 
@@ -87,16 +98,35 @@ def main(argv=None) -> int:
                 "detected; restarts only follow stall exits of a watchdog-enabled child"
             )
         return supervise([sys.executable, "-m", "rnet_torch.train"] + child_argv, max_restarts=args.auto_restart)
-    if args.multihost:
-        raise SystemExit("--multihost: multi-GPU training comes with a later slice of the port")
+    if args.multihost and "WORLD_SIZE" not in os.environ:
+        raise SystemExit(
+            "--multihost: no process group to join: launch one process per GPU with "
+            "python -m torch.distributed.run --nproc-per-node N -m rnet_torch.train ..."
+        )
+    from ..cli import device_from_args
+    from ..parallel.mesh import distributed_init
+
+    joined = distributed_init(device_from_args(args))
+    try:
+        return _train(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args) -> int:
     from ..cli import build_datasets, config_from_args, device_from_args, load_dicts
+    from ..parallel.mesh import process_rank
     from .loop import Trainer
     from .schedules import DoublingSchedule
 
+    say = print if process_rank() == 0 else (lambda *a, **k: None)
     dicts = load_dicts(args)
     cfg = config_from_args(args, dicts)
-    print(f"model: {cfg.name} | vocab {dicts.vocab_size} | answers {dicts.n_answers}")
-    print(f"config: {cfg}")
+    say(f"model: {cfg.name} | vocab {dicts.vocab_size} | answers {dicts.n_answers}")
+    say(f"config: {cfg}")
     ds = build_datasets(args, cfg, dicts)
 
     watchdog = None
@@ -104,7 +134,7 @@ def main(argv=None) -> int:
         from ..utils.watchdog import Watchdog
 
         watchdog = Watchdog(args.stall_timeout).start()
-        print(f"stall watchdog armed: {args.stall_timeout:.0f}s")
+        say(f"stall watchdog armed: {args.stall_timeout:.0f}s")
     try:
         trainer = Trainer(
             cfg, dicts.vocab_size, ds["train"], ds["val"], dicts,
@@ -115,25 +145,26 @@ def main(argv=None) -> int:
             keep_checkpoints=args.keep_checkpoints, log_interval=args.log_interval, tb_dir=args.tb_dir,
             profile_dir=args.profile_dir, profile_epoch=args.profile_epoch,
             device_data=(args.data_pipeline == "device"), watchdog=watchdog, device=device_from_args(args),
+            mesh_spec=args.mesh,
         )
         if args.resume is not None:
-            target = _resume_target(trainer, args.resume)
+            target = _resume_target(trainer, args.resume, say)
             if target is not None:
                 epoch = trainer.resume(target)
-                print(f"resumed from {args.resume} (epoch {epoch})")
+                say(f"resumed from {args.resume} (epoch {epoch})")
         history = trainer.fit(
             args.epochs, eval_every=args.eval_every, save_every=args.save_every, results_dir=args.test_results_dir
         )
     finally:
         if watchdog is not None:
             watchdog.stop()
-    if args.test_results_dir:
+    if args.test_results_dir and trainer.primary:
         os.makedirs(args.test_results_dir, exist_ok=True)
         with open(os.path.join(args.test_results_dir, "history.json"), "w") as f:
             json.dump(history, f, indent=2)
     if history:
         last = history[-1]
-        print(
+        say(
             f"done: epoch {last['epoch']} train_loss {last['train_loss']:.4f}"
             + (f" val_acc {last['val_acc']:.4f}" if "val_acc" in last else "")
         )

@@ -14,6 +14,10 @@ sidecar format (``run_dicts_path``), and it raises at construction when the
 directory records dictionaries that differ from this run's: word and answer
 ids follow first-seen data order, so a regenerated dataset would permute the
 answer head silently.
+
+In a multi-GPU run (``mesh``) rank 0 writes, and every rank waits for it
+at a barrier before going on; a resume reads the same file on every rank
+(the replicas are equal, so rank 0's state is everyone's).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Optional
 import torch
 
 from ..checkpoint import check_match, load_run_dicts, run_dicts_path
+from ..parallel.mesh import Mesh, barrier, is_primary
 from .steps import TrainState, load_adam_state
 
 
@@ -40,8 +45,9 @@ class CheckpointManager:
     keep=N > 0 deletes all but the newest N after each save.
     """
 
-    def __init__(self, directory: str, model_name: str, keep: int = 0, dicts=None):
+    def __init__(self, directory: str, model_name: str, keep: int = 0, dicts=None, mesh: Optional[Mesh] = None):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh
         self.model_name = model_name
         os.makedirs(self.directory, exist_ok=True)
         self.keep = keep
@@ -70,12 +76,18 @@ class CheckpointManager:
         return sorted(int(m.group(1)) for f in os.listdir(self.directory) if (m := self._pat.match(f)))
 
     def save(self, state: TrainState, epoch: int) -> str:
+        path = self._path(epoch)
+        if is_primary(self.mesh):
+            self._write(state, path)
+        barrier(self.mesh)
+        return path
+
+    def _write(self, state: TrainState, path: str) -> None:
         if self.dicts is not None:
             p = run_dicts_path(self.directory, self.model_name)
             if not os.path.exists(p):
                 with open(p, "w") as f:
                     json.dump(_dicts_payload(self.dicts), f)
-        path = self._path(epoch)
         payload = {
             "model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
             "adam": state.adam.state_dict(),
@@ -85,7 +97,6 @@ class CheckpointManager:
         torch.save(payload, path + ".tmp")
         os.replace(path + ".tmp", path)
         self._gc()
-        return path
 
     def _gc(self) -> None:
         if self.keep <= 0:

@@ -28,8 +28,21 @@ the two; no CLI flag sets it); on the CPU nothing is captured.
     with the per-answer and per-family reports, a full-state checkpoint;
   * ``int8_clip_report``: the ``pallas_int8`` calibration-drift receipt on
     one val batch (printed by ``python -m rnet_torch.evaluate``).
-Multi-GPU runs (rnet's ``--mesh``, ``--multihost``) come with a later
-slice; the CLI refuses them.
+
+Several GPUs (rnet's ``mesh_spec``): one process per GPU joined in a
+process group (``rnet_torch/parallel/mesh.py``), ``mesh_spec`` "data:N" or
+"data:D,pairs:P". The batch size is rounded to a multiple of the world
+size, every rank ``pairs`` included, as rnet rounds by its device count;
+each rank takes bs // D rows of every global batch: the host pipeline's
+``BatchIterator`` shards the epoch's one shuffle by the rank's ``data``
+coordinate, and on device-resident data each rank holds the replicated
+cache and takes its ``data`` columns of each index chunk. The step
+averages gradients and metrics over ``data``; eval outputs are gathered
+over ``data`` (``fetch_global``) before the ``EvalAccumulator``, so every
+rank reports the same numbers. The model starts from rank 0's weights.
+Rank 0 alone logs, writes scalars, traces, reports and checkpoints (a
+barrier after each save). NCCL collectives are captured in the steps'
+graphs; gloo's cannot be, so a gloo mesh on CUDA needs ``cuda_graphs=False``.
 """
 
 from __future__ import annotations
@@ -47,6 +60,7 @@ from ..data.pipeline import BatchIterator, prefetch_to_device
 from ..data.vocab import invert_questions
 from ..eval.metrics import EvalAccumulator
 from ..models import RN
+from ..parallel import mesh as pmesh
 from ..serve import resolve_device
 from ..utils.profiling import ScalarWriter, profile_trace
 from . import steps
@@ -81,6 +95,7 @@ class Trainer:
         watchdog=None,
         device="cuda",
         cuda_graphs: bool = True,
+        mesh_spec: Optional[str] = None,
     ):
         self.cfg = cfg
         self.dicts = dicts
@@ -92,17 +107,25 @@ class Trainer:
         self.invert = invert
         self.num_threads = num_threads
         self.log_interval = max(1, log_interval)
-        self.log = log_fn
         # heartbeat of the stall watchdog (rnet_torch/utils/watchdog.py)
         self._beat = watchdog.beat if watchdog is not None else (lambda: None)
         self.device = resolve_device(device)
+        self.mesh = pmesh.make_mesh(mesh_spec, self.device)
+        self.primary = pmesh.is_primary(self.mesh)
+        self.log = log_fn if self.primary else (lambda *a, **k: None)
+        if cuda_graphs and self.device.type == "cuda" and self.mesh is not None and self.mesh.backend != "nccl":
+            raise ValueError(
+                f"a {self.mesh.backend} process group's collectives cannot be captured in a CUDA graph: "
+                "pass cuda_graphs=False, or use NCCL"
+            )
 
-        model = RN(cfg, vocab_size, generator=torch.Generator().manual_seed(seed)).to(self.device)
+        model = RN(cfg, vocab_size, generator=torch.Generator().manual_seed(seed), mesh=self.mesh).to(self.device)
+        pmesh.replicate_state(model, self.mesh)
         self.state = steps.create_train_state(model, steps.make_optimizer(lr.base, clip_norm, weight_decay), seed=seed)
         self.graphs = steps.step_graphs(self.state) if cuda_graphs and self.device.type == "cuda" else None
         self.train_step, self.eval_step = steps.make_jitted_steps(self.state, self.graphs)
         self.train_chunk, self.eval_chunk = steps.make_chunked_steps(self.state, self.graphs)
-        self.ckpt = CheckpointManager(checkpoint_dir, cfg.name, keep=keep_checkpoints, dicts=dicts)
+        self.ckpt = CheckpointManager(checkpoint_dir, cfg.name, keep=keep_checkpoints, dicts=dicts, mesh=self.mesh)
 
         self.train_cache = self._device_cache(train_ds)
         self._beat()  # each heavy init stage restarts the stall clock
@@ -115,8 +138,8 @@ class Trainer:
             self._beat()
         self.epoch = 0
         self.history: list = []
-        self.scalars = ScalarWriter(tb_dir)
-        self.profile_dir = profile_dir
+        self.scalars = ScalarWriter(tb_dir if self.primary else None)
+        self.profile_dir = profile_dir if self.primary else None
         self.profile_epoch = profile_epoch
         self._last_bs = None
 
@@ -140,7 +163,7 @@ class Trainer:
             idx = arrs["image_idx"]
             if cache is None or idx.size and not 0 <= idx.min() <= idx.max() < cache.shape[0]:
                 raise ValueError("image indices of the dataset fall outside its image cache")
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in arrs.items()}
+        return {k: pmesh.put_global(v, self.device) for k, v in arrs.items()}
 
     # ---- resume ----
 
@@ -179,6 +202,16 @@ class Trainer:
 
     # ---- epochs ----
 
+    def _global_bs(self, bs: int) -> int:
+        """rnet's rounding: a multiple of the world size (every rank, pairs
+        included), at least one row a rank."""
+        size = 1 if self.mesh is None else self.mesh.world
+        return max(size, (bs // size) * size)
+
+    def _data_shard(self):
+        """(data index, data size): the BatchIterator shard of this rank."""
+        return (0, 1) if self.mesh is None else (self.mesh.index("data"), self.mesh.size("data"))
+
     def _val_categories(self):
         fn = getattr(self.val_ds, "question_categories", None)
         return fn() if fn is not None else None
@@ -204,7 +237,7 @@ class Trainer:
             .astype(np.int32)
             .reshape(nb, bs)
         )
-        order = torch.from_numpy(order).to(self.device)  # one upload per epoch
+        order = pmesh.shard_batch(pmesh.put_global(order, self.device), self.mesh, dim=1)  # one upload per epoch
         out, pending = [], None
         for c0 in range(0, nb, self.log_interval):
             ms = self.train_chunk(order[c0 : c0 + self.log_interval], self.train_data, self.train_cache)
@@ -226,9 +259,10 @@ class Trainer:
         """Run the epoch's steps; (steps, 3) loss, accuracy, grad_norm."""
         if self.train_data is not None:
             return self._train_steps_device(epoch, bs, lr)
+        _, D = self._data_shard()
         it = BatchIterator(
-            self.train_ds, bs, shuffle=True, seed=self.seed, epoch=epoch, drop_last=True,
-            invert=self.invert, num_threads=self.num_threads,
+            self.train_ds, bs // D, shuffle=True, seed=self.seed, epoch=epoch, drop_last=True,
+            invert=self.invert, num_threads=self.num_threads, shard=self._data_shard(),
         )
         nb = len(it)
         ms = []
@@ -242,7 +276,7 @@ class Trainer:
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         lr = self.lr_sched.value(epoch)
-        bs = max(1, self.bs_sched.int_value(epoch))
+        bs = self._global_bs(self.bs_sched.int_value(epoch))
         if self._last_bs is not None and bs != self._last_bs:
             self.log(f"BS schedule: {self._last_bs} -> {bs} at epoch {epoch}")
             if self.graphs is not None:
@@ -274,22 +308,24 @@ class Trainer:
         idx[:n] = np.arange(n, dtype=np.int32)
         valid = np.zeros((nb * bs,), bool)
         valid[:n] = True
-        idx_d = torch.from_numpy(idx.reshape(nb, bs)).to(self.device)
-        valid_d = torch.from_numpy(valid.reshape(nb, bs)).to(self.device)
+        idx_d = pmesh.shard_batch(pmesh.put_global(idx.reshape(nb, bs), self.device), self.mesh, dim=1)
+        valid_d = pmesh.shard_batch(pmesh.put_global(valid.reshape(nb, bs), self.device), self.mesh, dim=1)
         for c0 in range(0, nb, self.log_interval):
             c = slice(c0, c0 + self.log_interval)
             out = self.eval_chunk(idx_d[c], valid_d[c], self.val_data, self.val_cache)
             yield {k: v.reshape(-1) for k, v in out.items()}
 
     def eval_epoch(self, epoch: int, batch_size: Optional[int] = None) -> Dict[str, Any]:
-        bs = max(1, batch_size or self.bs_sched.int_value(max(epoch, 1)))
+        bs = self._global_bs(batch_size or self.bs_sched.int_value(max(epoch, 1)))
         acc = EvalAccumulator(self.dicts, categories=self._val_categories())
         t0 = time.time()
         if self.val_data is not None:
             results = self._eval_device(bs)
         else:
+            _, D = self._data_shard()
             it = BatchIterator(
-                self.val_ds, bs, shuffle=False, drop_last=False, invert=self.invert, num_threads=self.num_threads
+                self.val_ds, bs // D, shuffle=False, drop_last=False, invert=self.invert,
+                num_threads=self.num_threads, shard=self._data_shard(),
             )
             results = (self.eval_step(batch, self.val_cache) for batch in prefetch_to_device(iter(it), self.device))
         outs = {"pred": [], "label": [], "valid": [], "index": []}
@@ -298,10 +334,13 @@ class Trainer:
             for k in outs:
                 outs[k].append(out[k])
             nll = nll + out["nll_sum"].sum()
-        # one fetch per epoch: everything stayed on the device until here
-        host = {k: torch.cat(v).cpu().numpy() for k, v in outs.items() if v}
-        if host:
-            acc.update(host["pred"], host["label"], host["valid"], float(nll), qidx=host["index"])
+        # one fetch per epoch: everything stayed on the device until here;
+        # under a mesh every data rank's rows, gathered on every rank
+        if outs["pred"]:
+            packed = torch.stack([torch.cat(outs[k]).long() for k in outs])
+            packed = pmesh.fetch_global(packed, self.mesh, dim=1).cpu().numpy()
+            nll = pmesh.fetch_global(nll.reshape(1), self.mesh).sum()
+            acc.update(packed[0], packed[1], packed[2], float(nll), qidx=packed[3])
         dt = time.time() - t0
         self.log(f"Eval Epoch: {epoch} accuracy: {acc.accuracy:.4f} nll: {acc.mean_nll:.4f} ({acc.n / dt:.0f} q/s)")
         self._beat()
@@ -320,7 +359,7 @@ class Trainer:
                 estats = self.eval_epoch(epoch)
                 acc = estats.pop("_accumulator")
                 stats.update(estats)
-                if results_dir:
+                if results_dir and self.primary:
                     acc.dump(results_dir, tag=f"val_epoch{epoch:03d}")
             if save_every and epoch % save_every == 0:
                 self.ckpt.save(self.state, epoch)

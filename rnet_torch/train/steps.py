@@ -40,6 +40,14 @@ tensors with rnet's keys: ``image`` (uint8 NHWC, possibly a padded canvas),
 ``objects``, ``question``, ``answer``, and optionally ``n_objects``,
 ``valid`` and ``index``.
 
+Under a mesh (the model's ``mesh``, ``rnet_torch/parallel/mesh.py``) a
+batch is the rank's ``data`` slice of the global batch, and a train step
+averages the gradients, the loss and the accuracy over ``data`` in one
+all-reduce (``average_over_data``) before the norm, the clip and Adam, as
+GSPMD's reduction does for rnet: the metrics are global and the replicas
+stay equal. On CUDA with NCCL that all-reduce is captured in the step's
+graph; ``eval_step`` gives the rank's own rows (the Trainer gathers them).
+
 Train-time augmentation (``_train_inputs``, as rnet's): with
 ``device_augment`` on a from-pixels config, the fused augment kernel
 (``rnet_torch/kernels/augment.py``) gathers, crops, rotates and normalizes
@@ -59,6 +67,7 @@ import torch
 
 from ..kernels.augment import gather_augment
 from ..models import RN
+from ..parallel.mesh import Mesh, all_reduce_flat
 from ..models.rn import compute_dtype
 from .graphs import StepGraphs, shape_key, tensor_key
 
@@ -201,7 +210,8 @@ def _fused_augment_ok(cfg, device: torch.device) -> bool:
     return device.type == "cuda" or cfg.augment_impl == "pallas"
 
 
-def _train_inputs(b: Dict[str, torch.Tensor], cfg, image_cache, generator, device) -> Tuple[torch.Tensor, bool]:
+def _train_inputs(b: Dict[str, torch.Tensor], cfg, image_cache, generator, device,
+                  mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, bool]:
     """(training inputs, whether they are already augmented)."""
     if not _fused_augment_ok(cfg, device):
         return _inputs_of(b, cfg, image_cache), False
@@ -215,7 +225,7 @@ def _train_inputs(b: Dict[str, torch.Tensor], cfg, image_cache, generator, devic
         return _inputs_of(b, cfg, image_cache), False
     if generator is None:
         raise ValueError("device_augment in train mode needs a torch.Generator on the batch's device")
-    out = gather_augment(src, idx.contiguous(), generator, cfg.image_size, out_dtype=compute_dtype(cfg))
+    out = gather_augment(src, idx.contiguous(), generator, cfg.image_size, out_dtype=compute_dtype(cfg), mesh=mesh)
     return out, True
 
 
@@ -236,7 +246,7 @@ def loss_and_grads(
     params = list(model.parameters())
     for p in params:
         p.grad = None
-    inputs, augmented = _train_inputs(b, cfg, image_cache, generator, dev)
+    inputs, augmented = _train_inputs(b, cfg, image_cache, generator, dev, model.mesh)
     n_objects = b.get("n_objects") if cfg.object_mask else None
     logp = model(inputs, b["question"], n_objects=n_objects, generator=generator, augmented=augmented)
     loss = -logp.gather(1, labels[:, None]).mean()
@@ -250,12 +260,27 @@ def loss_and_grads(
     return loss.detach(), accuracy, [p.grad for p in params]
 
 
+def average_over_data(grads: List[torch.Tensor], metrics: List[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
+    """The gradients (in place) and the metrics averaged over the ``data``
+    ranks, in one all-reduce: what GSPMD's gradient reduction gives rnet.
+    Every rank then holds the same values, so the norm, the clip and the
+    Adam update, and with them the parameters, stay equal on every rank."""
+    D = mesh.size("data")
+    summed = all_reduce_flat([*grads, *metrics], mesh.group("data"))
+    for g, total in zip(grads, summed):
+        g.copy_(total / D)
+    return [total / D for total in summed[len(grads):]]
+
+
 def _update(state: TrainState, batch: Mapping[str, Any], image_cache: Optional[torch.Tensor]) -> torch.Tensor:
     """A train step's device work (forward, backward, clip, Adam); its
     (loss, accuracy, grad_norm) as one (3,) tensor. The step count is the
-    caller's: a replay runs no Python."""
+    caller's: a replay runs no Python. Under a mesh the gradients, loss and
+    accuracy are averaged over ``data`` before the norm."""
     loss, accuracy, grads = loss_and_grads(state.model, batch, state.generator, image_cache)
     with torch.no_grad():
+        if state.model.mesh is not None:
+            loss, accuracy = average_over_data(grads, [loss, accuracy], state.model.mesh)
         norm = global_norm(grads)
         if state.clip_norm > 0:
             clip_by_global_norm_(grads, norm, state.clip_norm)

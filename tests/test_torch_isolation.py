@@ -43,7 +43,8 @@ assert not bad, bad
 want = {"rnet_torch.kernels.augment", "rnet_torch.data.augment", "rnet_torch.data.cache",
         "rnet_torch.data.categories", "rnet_torch.data.pipeline", "rnet_torch.eval.metrics",
         "rnet_torch.train.checkpoint", "rnet_torch.train.loop", "rnet_torch.train.__main__",
-        "rnet_torch.utils.watchdog", "rnet_torch.utils.profiling", "rnet_torch.evaluate", "rnet_torch.extract"}
+        "rnet_torch.utils.watchdog", "rnet_torch.utils.profiling", "rnet_torch.evaluate", "rnet_torch.extract",
+        "rnet_torch.parallel.mesh"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 """

@@ -99,9 +99,13 @@ def test_train_cli_supervised_child(fixture_dir, tmp_path, monkeypatch):
 def test_train_cli_refuses_what_is_not_ported(fixture_dir, tmp_path, monkeypatch):
     base = ["--clevr-dir", fixture_dir, "--model", "original-sd", "--epochs", "1",
             "--checkpoint-dir", str(tmp_path / "m")]
-    with pytest.raises(SystemExit, match="multi-GPU"):
+    # one process: a two-rank mesh names both numbers and the launch, and
+    # --multihost wants torchrun's environment (tests/test_torch_parallel.py
+    # runs both under torchrun)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match=r"needs 2 processes, the run has 1.*--nproc-per-node 2"):
         main(base + ["--mesh", "data:2", "--platform", "cpu"])
-    with pytest.raises(SystemExit, match="multi-GPU"):
+    with pytest.raises(SystemExit, match="torch.distributed.run"):
         main(base + ["--multihost", "--platform", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
