@@ -161,7 +161,20 @@ Phases, each fatal (exit 1, no result line) when it fails:
      1e-5 of the largest feature, images/s of each; ``python -m
      rnet_torch.extract`` end to end for ir-sd (the synthetic scenes) and,
      where Pillow imports, ir-fp (PNGs written from the val canvases): one
-     row per image, in order, with a ragged last batch.
+     row per image, in order, with a ragged last batch. ``RN.extract`` of
+     ir-fp at B=512, bf16 and fp32, replayed from a CUDA graph as the CLI
+     runs it (``rnet_torch.extract.Extractor``) against eager: bitwise
+     equal, both timed (eager replay replay eager), the graph's pool.
+ 14. rnet's own epoch directory (``tests/torch_fixtures/``: original-fp at
+     full width after two Adam steps, saved by rnet's CheckpointManager with
+     phase 10's dictionaries): restored by ``rnet_torch.ocdbt`` on the host
+     (seconds, MB), every leaf equal to its recorded sha256;
+     ``rnet_torch.evaluate`` on it in bf16 and ``--rl-impl pallas_int8``
+     (16 launches of the bf16 / int8 kernel, nothing else);
+     ``InferenceServer.load`` of it (one launch per served batch, log-probs
+     against an ``xla`` server of the same epoch); ``rnet_torch.train
+     --resume`` from it for one epoch of 16 steps (16 ``pairwise_bwd`` and
+     ``augment`` launches, 18 ``pairwise_fwd``; Adam's step 2 + 16).
  13. Several processes (``rnet_torch/parallel/mesh.py``), after 12's Trainer
      epochs, on original-fp at full width in bf16 through the kernels,
      B=512 global, device data, dropout, pair dropout and augmentation off:
@@ -194,6 +207,7 @@ fp32 comparisons run with TF32 off for matmuls and convolutions.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -212,6 +226,7 @@ CANVAS, CROP = 144, 128  # padded CLEVR canvas, model input
 CLEVR_TRAIN_IMAGES = 70_000  # CLEVR v1.0 train split
 AUG_SMALL = 2_048  # the synthetic run's train images
 SYN_TRAIN_Q, SYN_VAL_IMAGES, SYN_VAL_Q = 8_192, 256, 1_024  # 16 train steps of 512 per epoch
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures")  # phase 14
 
 
 def fail(msg: str) -> None:
@@ -1426,13 +1441,12 @@ FAMILIES = [
 ]
 
 
-def write_synthetic_clevr(np, root, seed):
-    """A CLEVR-schema directory without PNGs: seeded questions over the 28
-    answers and every question family, a scene of 3-10 seeded objects for
-    every image (scenes/CLEVR_<split>_scenes.json, what state-description
-    models read), and the decoded uint8 caches (rnet_cache/<split>_128p8.u8
-    + .json) of seeded noise canvases, which CachedClevrDataset reads as
-    they are."""
+def write_synthetic_questions(np, root, seed):
+    """The questions and scenes of a CLEVR-schema directory: seeded
+    questions over the 28 answers and every question family, and a scene of
+    3-10 seeded objects for every image (scenes/CLEVR_<split>_scenes.json,
+    what state-description models read). The questions fix the directory's
+    dictionaries, those of tests/torch_fixtures/."""
     import os
 
     from rnet_torch.data.vocab import (
@@ -1443,10 +1457,8 @@ def write_synthetic_clevr(np, root, seed):
                "shapes": CLEVR_SHAPES, "materials": CLEVR_MATERIALS, "sizes": CLEVR_SIZES}
     rs = np.random.RandomState(seed)
     srs = np.random.RandomState(seed + 1)  # the scenes' own stream: the questions stay as they were
-    gen = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "questions"))
     os.makedirs(os.path.join(root, "scenes"))
-    os.makedirs(os.path.join(root, "rnet_cache"))
     for split, n_img, n_q in (("train", AUG_SMALL, SYN_TRAIN_Q), ("val", SYN_VAL_IMAGES, SYN_VAL_Q)):
         files = [f"CLEVR_{split}_{i:06d}.png" for i in range(n_img)]
         every = [(f, a) for f in FAMILIES for a in answers[f[2]]]  # each answer and family at least once
@@ -1473,6 +1485,19 @@ def write_synthetic_clevr(np, root, seed):
                   for i, name in enumerate(files)]
         with open(os.path.join(root, "scenes", f"CLEVR_{split}_scenes.json"), "w") as f:
             json.dump({"info": {"split": split, "synthetic": True}, "scenes": scenes}, f)
+
+
+def write_synthetic_clevr(np, root, seed):
+    """A CLEVR-schema directory without PNGs: ``write_synthetic_questions``
+    and the decoded uint8 caches (rnet_cache/<split>_128p8.u8 + .json) of
+    seeded noise canvases, which CachedClevrDataset reads as they are."""
+    import os
+
+    write_synthetic_questions(np, root, seed)
+    gen = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "rnet_cache"))
+    for split, n_img in (("train", AUG_SMALL), ("val", SYN_VAL_IMAGES)):
+        files = [f"CLEVR_{split}_{i:06d}.png" for i in range(n_img)]
         base = os.path.join(root, "rnet_cache", f"{split}_{CROP}p8")
         mm = np.lib.format.open_memmap(base + ".u8", mode="w+", dtype=np.uint8, shape=(n_img, CANVAS, CANVAS, 3))
         for lo in range(0, n_img, 512):
@@ -1774,6 +1799,7 @@ def extract_phase(torch, np, pw, root):
         rates[name] = {"B": TRAIN_B, "ms": ms, "images_per_s": TRAIN_B / ms * 1e3,
                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     log(f"extract ir-fp at B={TRAIN_B}, CUDA events: {json.dumps(rates)}")
+    extract_replay(torch, {"bf16": card16, "fp32": card32}, xc)
     del card32, card16, cpu32, xc, f32, f16, fcpu
     torch.cuda.empty_cache()
 
@@ -1818,6 +1844,180 @@ def extract_phase(torch, np, pw, root):
             f"{os.path.exists(os.path.join(out, f'{name}_val_gfeatures.h5'))}")
         if res["filenames"] != want or feats.shape != (len(want), H) or not np.isfinite(feats).all():
             fail(f"the {name} extraction CLI gave the wrong rows or file names")
+
+
+def extract_replay(torch, models, x):
+    """Phase 11b's graphs: ``RN.extract`` of each model on ``x`` through
+    ``rnet_torch.extract.Extractor`` as the CLI runs it on the card, one CUDA
+    graph per (shape, dtype) replayed, against the same function eagerly
+    (no autograd): bitwise equal at the capture's replay and a later one;
+    then both timed with CUDA events in the order eager replay replay eager,
+    with each graph's capture seconds and pool."""
+    from rnet_torch.extract import Extractor
+    from rnet_torch.train.graphs import StepGraphs
+
+    out = {}
+    for name, model in models.items():
+        eager, replayed = Extractor(model), Extractor(model, StepGraphs(x.device))
+        want = eager(x)
+        got = [replayed(x), replayed(x)]
+        torch.cuda.synchronize()
+        (c,) = replayed.graphs.captured.values()
+        if not all(torch.equal(g, want) for g in got):
+            fail(f"replayed RN.extract ({name}) is not bitwise equal to eager: max|d| "
+                 f"{max((g - want).abs().max().item() for g in got)!r}")
+        times = {"eager": [], "replay": []}
+        for arm in ("eager", "replay", "replay", "eager"):
+            fn = eager if arm == "eager" else replayed
+            times[arm].append(cuda_ms(torch, lambda: fn(x), 5, warmup=1))
+        out[name] = {"B": int(x.shape[0]), "bitwise_equal": True, "eager_ms": times["eager"],
+                     "replay_ms": times["replay"], "capture_s": c.capture_s, "pool_mb": c.pool_bytes / 2**20}
+    log(f"extract ir-fp, eager (no autograd) against one CUDA graph replayed, CUDA events in the order eager replay "
+        f"replay eager: {json.dumps(out)}")
+    return out
+
+
+def _leaves(tree, where=()):
+    """{path joined with ".": leaf} of a restored checkpoint tree."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _leaves(sub, where + (key,)).items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree) for k, v in _leaves(sub, where + (str(i),)).items()}
+    return {} if tree is None else {".".join(where): tree}
+
+
+def rnet_fixture_phase(torch, np, pw, aug, root):
+    """Phase 14: the epoch directory rnet's CheckpointManager saved
+    (``tests/torch_fixtures/``: original-fp at full width after two Adam
+    steps, the synthetic directory's dictionaries) read by the port's own
+    reader on the host (seconds and MB), every leaf against its recorded
+    sha256; ``python -m rnet_torch.evaluate`` on it (bf16, then
+    ``--rl-impl pallas_int8``; 16 batches of 512, launches counted);
+    ``InferenceServer.load`` of it (the kernel server against an ``xla``
+    one, one launch per served batch); ``python -m rnet_torch.train
+    --resume`` from it for one epoch of 16 steps (launches counted, Adam's
+    step = the fixture's count + 16, finite losses)."""
+    import hashlib
+    import math
+    import os
+    import re
+
+    from rnet_torch.checkpoint import load_run_dicts
+    from rnet_torch.config import load_config
+    from rnet_torch.data.vocab import Dictionaries, build_dictionaries
+    from rnet_torch.ocdbt import restore
+    from rnet_torch.serve import InferenceServer
+
+    with open(os.path.join(FIXTURE_DIR, "digests.json")) as f:
+        rec = json.load(f)
+    epoch = os.path.join(FIXTURE_DIR, rec["epoch"])
+    files = [os.path.join(r, n) for r, _, fs in os.walk(epoch) for n in fs]
+    mb = sum(os.path.getsize(p) for p in files) / 1e6
+    t0 = time.perf_counter()
+    leaves = _leaves(restore(epoch))
+    restore_s = time.perf_counter() - t0
+    bad = sorted(set(leaves) ^ set(rec["leaves"]))
+    bad += [k for k, v in leaves.items() if k in rec["leaves"] and (
+        hashlib.sha256(v.tobytes()).hexdigest() != rec["leaves"][k]["sha256"]
+        or [str(v.dtype), list(v.shape)] != [rec["leaves"][k]["dtype"], rec["leaves"][k]["shape"]])]
+    log(f"phase 14: restored rnet's {rec['epoch']} ({mb!r} MB in {len(files)} files) with the port's reader in "
+        f"{restore_s!r} s on the host; {len(leaves) - len(bad)} of {len(rec['leaves'])} leaves equal to their digests")
+    if bad:
+        fail(f"restored leaves differ from the fixture's digests: {bad[:10]}")
+    w2i, a2i = load_run_dicts(FIXTURE_DIR, rec["model"])
+    data = build_dictionaries(root)
+    if (w2i, a2i) != (dict(data.word_to_idx), dict(data.answer_to_idx)):
+        fail("the fixture's dictionaries are not the synthetic directory's")
+    dicts = Dictionaries(w2i, a2i)
+    out = {"restore_s": restore_s, "restore_mb": mb, "leaves": len(leaves)}
+
+    # evaluate through the kernels: bf16, then int8
+    n_batches = SYN_TRAIN_Q // TRAIN_B
+    preds = {}
+    for tag in ("bf16", "int8"):
+        argv = ["--clevr-dir", root, "--model", rec["model"], "--checkpoint", epoch, "--test-results-dir",
+                os.path.join(root, f"eval14_{tag}"), "--data-pipeline", "device", "--split", "train",
+                "--batch-size", str(TRAIN_B), "--num-workers", "4"] + (["--rl-impl", "pallas_int8"] if tag == "int8" else [])
+        pw.reset_launches()
+        aug.reset_launches()
+        text, preds[tag], sec = run_eval_cli(argv, int8=(tag == "int8"))
+        torch.cuda.synchronize()
+        counts = {**pw.launches, **aug.launches}
+        want = {**dict.fromkeys(counts, 0), pw.KERNEL: 0 if tag == "int8" else n_batches,
+                pw.INT8_KERNEL: n_batches if tag == "int8" else 0}
+        m = re.search(r"overall accuracy: (\S+) \| mean NLL: (\S+)", text)
+        if m is None:
+            fail(f"evaluate ({tag}) on the rnet fixture printed no accuracy line")
+        acc, nll = float(m.group(1)), float(m.group(2))
+        log(f"phase 14 evaluate ({tag}) on rnet's epoch: {sec:.1f} s, accuracy {acc!r}, NLL {nll!r}, "
+            f"{len(preds[tag])} questions, launches {counts}")
+        if counts != want or not (math.isfinite(acc) and math.isfinite(nll)) or len(preds[tag]) != SYN_TRAIN_Q:
+            fail(f"evaluate ({tag}) on the rnet fixture: expected launches {want} and {SYN_TRAIN_Q} finite "
+                 f"predictions, got {counts}, {len(preds[tag])}")
+        out[f"eval_{tag}"] = {"accuracy": acc, "nll": nll, "launches": counts}
+    out["eval_int8_equal_to_bf16"] = float(np.mean([preds["int8"][i] == p for i, p in preds["bf16"].items()]))
+
+    # serve it: the kernel server against an xla server of the same epoch
+    cfg = load_config(rec["model"]).replace(n_answers=dicts.n_answers)
+    servers = {}
+    for impl in ("auto", "xla"):
+        servers[impl] = InferenceServer(cfg.replace(rl_impl=impl), dicts, max_batch=64, device="cuda")
+        servers[impl].load(epoch)
+    server = servers["auto"]
+    with open(os.path.join(root, "questions", "CLEVR_val_questions.json")) as f:
+        qs = json.load(f)["questions"][:100]
+    canvases = np.load(os.path.join(root, "rnet_cache", f"val_{CROP}p8.u8"), mmap_mode="r")
+    samples = [{"image": np.array(canvases[q["image_index"]][8 : 8 + CROP, 8 : 8 + CROP]),
+                "question": dicts.encode_question(q["question"], cfg.question_max_len)} for q in qs]
+    server.warmup()
+    torch.cuda.synchronize()
+    pw.reset_launches()
+    results = server.serve_samples(samples)
+    counts = dict(pw.launches)
+    inputs, q = server.batch_arrays(samples[:64], 64)
+    lp_k, lp_x = server.log_probs(inputs, q), servers["xla"].log_probs(inputs, q)
+    lp_err, lp_scale = (lp_k - lp_x).abs().max().item(), lp_x.abs().max().item()
+    log(f"phase 14 serve rnet's epoch: {len(results)} answers, launches {counts} for 2 served batches; kernel vs xla "
+        f"log-probs max_abs_err {lp_err!r} (max|logp| {lp_scale!r})")
+    if counts[pw.KERNEL] != 2 or any(v for k, v in counts.items() if k != pw.KERNEL):
+        fail(f"serving the rnet fixture: expected 2 pairwise_fwd launches and nothing else, counted {counts}")
+    if any(r["answer"] not in dicts.answer_to_idx or not r["log_prob"] <= 0.0 for r in results):
+        fail("serving the rnet fixture gave a bad answer")
+    if not lp_err <= 2e-2 * lp_scale + 2e-2:  # phase 6's bound
+        fail("served log-probs of the rnet fixture disagree between the kernel and xla paths")
+    out["serve"] = {"launches": counts, "max_abs_dlogp_vs_xla": lp_err}
+    del servers, server
+    torch.cuda.empty_cache()
+
+    # resume training from it: one epoch of 16 steps through the entry point
+    steps_per_epoch, eval_batches = SYN_TRAIN_Q // TRAIN_B, -(-SYN_VAL_Q // TRAIN_B)
+    ck, res = os.path.join(root, "ck14"), os.path.join(root, "res14")
+    resumed = int(re.search(r"_epoch_(\d+)", rec["epoch"]).group(1))
+    pw.reset_launches()
+    aug.reset_launches()
+    sec = run_cli(["--clevr-dir", root, "--model", rec["model"], "--batch-size", str(TRAIN_B), "--lr", str(LR),
+                   "--log-interval", "8", "--num-workers", "4", "--data-pipeline", "device", "--epochs",
+                   str(resumed + 1), "--checkpoint-dir", ck, "--test-results-dir", res, "--resume", epoch])
+    torch.cuda.synchronize()
+    counts = {**pw.launches, **aug.launches}
+    (h,) = read_history(res)
+    payload = torch.load(os.path.join(ck, f"{rec['model']}_epoch_{resumed + 1:03d}"), map_location="cpu",
+                         weights_only=True)
+    adam_steps = sorted({float(st["step"]) for st in payload["adam"]["state"].values()})
+    log(f"phase 14 train --resume rnet's epoch {resumed}: {sec:.1f} s, launches {counts}, step {payload['step']} "
+        f"(fixture {rec['steps']} + {steps_per_epoch}), Adam steps {adam_steps}; history {json.dumps(h)}")
+    want = {**dict.fromkeys(counts, 0), aug.KERNEL: steps_per_epoch, pw.BWD_KERNEL: steps_per_epoch,
+            pw.KERNEL: steps_per_epoch + eval_batches}
+    if counts != want:
+        fail(f"train --resume from the rnet fixture: expected launches {want}, counted {counts}")
+    total = rec["steps"] + steps_per_epoch
+    if payload["step"] != total or adam_steps != [float(total)] or h["epoch"] != resumed + 1:
+        fail(f"train --resume from the rnet fixture: step {payload['step']}, Adam {adam_steps}, expected {total}")
+    if not (math.isfinite(h["train_loss"]) and math.isfinite(h["val_nll"])):
+        fail(f"train --resume from the rnet fixture: non-finite losses {h}")
+    out["train_resume"] = {"launches": counts, "step": payload["step"], "train_loss": h["train_loss"]}
+    log(f"phase 14 summary {json.dumps(out)}")
+    return out
 
 
 def entry_step(torch, root, extra):
@@ -3060,6 +3260,8 @@ def main() -> int:
         profile_entry_step(torch, root)
         f32_entry_counts = f32_entry_phase(torch, np, pw, aug, root)
         extract_phase(torch, np, pw, root)
+        rnet_fixture_phase(torch, np, pw, aug, root)
+        log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
         graph_out["trainer_epochs"] = trainer_epochs(torch, root)
         log(f"phase 12 (Trainer epochs) done at {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()

@@ -2,11 +2,12 @@
 
 Own copies of the parts of ``rnet/train/checkpoint.py`` that serving needs,
 without orbax or JAX: ``run_dicts_path``/``load_run_dicts`` (lines 41-52,
-the per-run dictionary sidecar JSON), ``load_exported_dicts`` (line 213) and
-the weights-only pickle of ``export_weights`` (lines 201-210), loaded into a
-port model through ``rnet_torch.convert``. The pickle holds plain dicts of
-numpy arrays, so it unpickles without JAX or flax. Restoring an orbax epoch
-directory comes with a later slice.
+the per-run dictionary sidecar JSON), ``load_exported_dicts`` (line 213),
+the weights-only pickle of ``export_weights`` (lines 201-210), and the
+``params``/``batch_stats`` of an orbax epoch directory that rnet's
+``CheckpointManager.save`` writes (read by ``rnet_torch.ocdbt``), loaded
+into a port model through ``rnet_torch.convert``. The pickle holds plain
+dicts of numpy arrays, so it unpickles without JAX or flax.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 from torch import nn
 
 from .convert import flax_to_state_dict, state_dict_to_flax
+from .ocdbt import restore
 
 DICTS_KEY = "dicts"
 
@@ -63,19 +65,26 @@ def check_match(path: str, got: dict, want: dict) -> None:
         )
 
 
-def load_weights(model: nn.Module, checkpoint: str) -> None:
-    """Load a weights-only pkl into ``model`` in place (dtype and device kept)."""
-    ck = str(checkpoint)
-    if not ck.endswith(".pkl"):
-        raise NotImplementedError(
-            f"{ck!r} is not a weights-only .pkl: restoring orbax checkpoints comes "
-            "with a later slice of the port (ROADMAP.md); export weights with "
-            "rnet/train/checkpoint.py::export_weights and pass the .pkl"
-        )
-    sd = flax_to_state_dict(_read_pkl(ck))
+def state_dict_of(variables, path: str, model: nn.Module) -> dict:
+    """rnet's ``{"params", "batch_stats"}`` as ``model``'s state_dict (its
+    dtypes), validated against it as rnet's ``_check_tree_match`` does."""
+    sd = flax_to_state_dict(variables)
     want = model.state_dict()
-    check_match(ck, sd, want)
-    model.load_state_dict({k: v.to(want[k].dtype) for k, v in sd.items()})
+    check_match(path, sd, want)
+    return {k: v.to(want[k].dtype) for k, v in sd.items()}
+
+
+def load_weights(model: nn.Module, checkpoint: str) -> None:
+    """Load a weights-only pkl, or the weights of an rnet epoch directory,
+    into ``model`` in place (dtype and device kept)."""
+    ck = str(checkpoint)
+    if os.path.isdir(ck):
+        variables = restore(ck)
+    elif ck.endswith(".pkl"):
+        variables = _read_pkl(ck)
+    else:
+        raise ValueError(f"{ck!r} is neither a weights-only .pkl nor an rnet epoch directory")
+    model.load_state_dict(state_dict_of(variables, ck, model))
 
 
 def export_weights(model: nn.Module, path: str, dicts=None) -> None:

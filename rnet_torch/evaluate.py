@@ -6,9 +6,9 @@ carries first), run one split (``--split``, default ``val``) with the
 deterministic eval transform, print overall, per-question-family and
 per-answer-class accuracy, and dump the reports (``<split>_accuracy.csv``,
 ``<split>_confusion.csv``) into ``--test-results-dir``. ``--checkpoint``
-takes a weights-only ``.pkl`` exported by either package, or one of the
-port's own epoch checkpoints (a path, or an epoch number under
-``--checkpoint-dir``); rnet's orbax directories raise (ROADMAP.md). Under
+takes a weights-only ``.pkl`` exported by either package, or an epoch
+checkpoint of either package (a path, or an epoch number under
+``--checkpoint-dir``: the port's file or rnet's orbax directory). Under
 ``--rl-impl pallas_int8`` the g-chain runs in int8 and the per-layer int8
 calibration clip fractions of the first batch are printed first. Runs on
 CUDA unless ``--platform cpu`` is given; without a card it raises. Under
@@ -35,7 +35,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_common_args(p)
     p.add_argument(
         "--checkpoint", required=True,
-        help="the port's epoch checkpoint (path or epoch number) or a weights-only .pkl export",
+        help="an epoch checkpoint of the port or rnet (path or epoch number) or a weights-only .pkl export",
     )
     p.add_argument("--checkpoint-dir", default="model")
     p.add_argument("--test-results-dir", default="results")

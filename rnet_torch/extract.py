@@ -11,9 +11,13 @@ pairs) and write one feature row per image, in file-name order, to
 From-pixels models read the split's PNGs (eval transform); state-description
 models take one row per scene of ``scenes/CLEVR_<split>_scenes.json``.
 ``--checkpoint`` takes a weights-only ``.pkl`` exported by either package,
-or one of the port's own epoch checkpoints (a path, or an epoch number
-under ``--checkpoint-dir``); rnet's orbax directories raise (ROADMAP.md).
-Runs on CUDA unless ``--platform cpu`` is given; without a card it raises.
+or an epoch checkpoint of either package (a path, or an epoch number under
+``--checkpoint-dir``: the port's file or rnet's orbax directory). Runs on
+CUDA unless ``--platform cpu`` is given; without a card it raises. On
+CUDA each batch is one replay of a CUDA graph captured at the first batch
+of its shape and dtype (rnet jits ``RN.extract``; a ragged last batch is
+its own shape), through ``train/graphs.py``'s ``StepGraphs``; on the CPU
+the batches run eagerly.
 
 Example:
     python -m rnet_torch.extract --clevr-dir /data/CLEVR_v1.0 --model ir-fp \\
@@ -28,6 +32,10 @@ import os
 import pickle
 import sys
 
+import torch
+
+from .train.graphs import StepGraphs, shape_key
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     from .cli import add_common_args
@@ -37,7 +45,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     add_common_args(p)
     p.add_argument(
         "--checkpoint", required=True,
-        help="the port's epoch checkpoint (path or epoch number) or a weights-only .pkl export",
+        help="an epoch checkpoint of the port or rnet (path or epoch number) or a weights-only .pkl export",
     )
     p.add_argument("--checkpoint-dir", default="model")
     p.add_argument("--features-dirs", default="features", help="output directory")
@@ -58,6 +66,25 @@ class _SceneDataset:
         import numpy as np
 
         return {"objects": self.objects[i], "index": np.int32(i)}
+
+
+class Extractor:
+    """``RN.extract`` per batch: on CUDA one replay of the graph captured at
+    the first batch of each shape and dtype (``graphs``: a ``StepGraphs``
+    on the model's device), else eagerly."""
+
+    def __init__(self, model, graphs=None):
+        self.model = model
+        self.graphs = graphs
+
+    @torch.no_grad()
+    def _body(self, b):
+        return self.model.extract(b["x"])
+
+    def __call__(self, x):
+        if self.graphs is None:
+            return self._body({"x": x})
+        return self.graphs.run(("extract", shape_key({"x": x})), self._body, {"x": x})
 
 
 def main(argv=None) -> int:
@@ -104,10 +131,11 @@ def main(argv=None) -> int:
     else:
         CheckpointManager(args.checkpoint_dir, cfg.name).restore_weights(model, int(ck) if ck.isdigit() else ck)
 
+    extract = Extractor(model, StepGraphs(device) if device.type == "cuda" else None)
     feats, order = [], []
     it = BatchIterator(ds, args.batch_size, drop_last=False, invert=False, num_threads=args.num_workers)
     for batch in prefetch_to_device(iter(it), device):
-        out = model.extract(batch[key]).cpu().numpy()
+        out = extract(batch[key]).cpu().numpy()
         valid = batch["valid"].cpu().numpy()
         feats.append(out[valid])
         order.extend(batch["index"].cpu().numpy()[valid].tolist())

@@ -77,7 +77,8 @@ class InferenceServer:
     """Micro-batched RN inference over a bucket ladder of batch shapes.
 
     Weights come from ``load()`` (a weights-only pkl exported by either
-    package) or ``init_weights(seed)``; serving before either raises.
+    package, or an epoch of either package's ``CheckpointManager``) or
+    ``init_weights(seed)``; serving before either raises.
     """
 
     def __init__(
@@ -115,9 +116,19 @@ class InferenceServer:
         gen = torch.Generator().manual_seed(seed)
         return RN(self.cfg, self.dicts.vocab_size, generator=gen).eval().to(self.device)
 
-    def load(self, checkpoint: str) -> None:
-        """Load a weights-only pkl, validated against this config's skeleton."""
-        load_weights(self.model, checkpoint)
+    def load(self, checkpoint: str, checkpoint_dir: Optional[str] = None) -> None:
+        """Load weights, validated against this config's skeleton, as rnet's
+        ``load`` does: a ``.pkl`` export, or an epoch as a path or an epoch
+        number under ``checkpoint_dir`` (default: the path's directory), an
+        rnet orbax directory or a port epoch file."""
+        ck = str(checkpoint)
+        if ck.endswith(".pkl"):
+            load_weights(self.model, ck)
+        else:
+            from .train.checkpoint import CheckpointManager
+
+            mgr = CheckpointManager(checkpoint_dir or os.path.dirname(os.path.abspath(ck)), self.cfg.name)
+            mgr.restore_weights(self.model, int(ck) if ck.isdigit() else ck)
         self._new_weights()
 
     def init_weights(self, seed: int) -> None:
@@ -303,7 +314,10 @@ def parse_args(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p, clevr_required=False)
-    p.add_argument("--checkpoint", required=True, help="weights-only .pkl export")
+    p.add_argument(
+        "--checkpoint", required=True,
+        help="weights-only .pkl export, or an epoch (path or epoch number under --checkpoint-dir) of rnet or the port",
+    )
     p.add_argument("--checkpoint-dir", default="model")
     p.add_argument(
         "--buckets", default=None,
@@ -324,7 +338,7 @@ def main(argv=None) -> int:
         cfg, dicts, invert=args.invert, max_batch=args.batch_size, buckets=buckets,
         device=device_from_args(args),
     )
-    server.load(args.checkpoint)
+    server.load(args.checkpoint, args.checkpoint_dir)
     server.warmup()
     print(
         f"ready: {cfg.name} on {server.device} | max batch {args.batch_size} | "

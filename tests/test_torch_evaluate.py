@@ -30,6 +30,7 @@ from rnet_torch.data.vocab import Dictionaries
 from rnet_torch.evaluate import main
 from rnet_torch.kernels import pairwise as tpw
 from rnet_torch.models import RN
+from rnet_torch.ocdbt import CheckpointFormatError
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import test as rnet_test_cli  # noqa: E402  (rnet's eval CLI, the top-level test.py)
@@ -108,8 +109,8 @@ def test_evaluate_port_checkpoint_by_epoch(fixture_dir, small_config, tmp_path, 
     assert rows["overall_accuracy"] == pytest.approx(h["val_acc"], abs=1e-6)
     assert rows["mean_nll"] == pytest.approx(h["val_nll"], abs=1e-5)
     assert "overall accuracy:" in capsys.readouterr().out
-    os.makedirs(os.path.join(ck, "original-sd_epoch_007"))  # rnet's orbax layout: a directory
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    os.makedirs(os.path.join(ck, "original-sd_epoch_007"))  # a directory, as rnet's epochs, but no checkpoint
+    with pytest.raises(CheckpointFormatError, match="_METADATA"):
         main(_argv(fixture_dir, small_config, tmp_path, "original-sd", 7, *PORT))
 
 

@@ -36,6 +36,7 @@ from rnet_torch.data.clevr import scene_to_objects
 from rnet_torch.extract import main, parse_args
 from rnet_torch.models import RN
 from rnet_torch.models.relational import RelationalLayer
+from rnet_torch.ocdbt import CheckpointFormatError
 from rnet_torch.train.__main__ import main as train_main
 from rnet_torch.train.checkpoint import CheckpointManager
 
@@ -263,8 +264,8 @@ def test_extract_cli_refuses_inject_zero(fixture_dir, small_config, dicts, tmp_p
 
 def test_extract_cli_port_checkpoint_by_epoch(fixture_dir, small_config, tmp_path):
     """A checkpoint of ``python -m rnet_torch.train`` given by its epoch
-    number extracts what RN.extract gives on the same weights; rnet's orbax
-    layout (a directory) raises and names the pkl route."""
+    number extracts what RN.extract gives on the same weights; a directory
+    of that name that is no orbax checkpoint raises and says why."""
     ck = str(tmp_path / "ck")
     assert train_main(["--clevr-dir", fixture_dir, "--model", "ir-sd", "--config", small_config,
                        "--precision", "float32", "--epochs", "1", "--batch-size", "16", "--lr", "1e-3",
@@ -281,8 +282,8 @@ def test_extract_cli_port_checkpoint_by_epoch(fixture_dir, small_config, tmp_pat
         scenes = json.load(f)["scenes"]
     objs = np.stack([scene_to_objects(s["objects"], cfg.max_objects, cfg.object_dim) for s in scenes])
     np.testing.assert_allclose(got["features"], model.extract(torch.from_numpy(objs)).numpy(), rtol=1e-6, atol=1e-6)
-    os.makedirs(os.path.join(ck, "ir-sd_epoch_007"))  # rnet's orbax layout: a directory
-    with pytest.raises(NotImplementedError, match="pkl"):
+    os.makedirs(os.path.join(ck, "ir-sd_epoch_007"))  # a directory, as rnet's epochs, but no checkpoint
+    with pytest.raises(CheckpointFormatError, match="_METADATA"):
         main(_argv(fixture_dir, small_config, tmp_path, "ir-sd", 7, *PORT))
 
 
@@ -293,3 +294,32 @@ def test_extract_cli_needs_a_card_unless_asked_for_the_cpu(fixture_dir, small_co
     pkl = _rnet_pkl("ir-sd", small_config, dicts, tmp_path / "sd.pkl")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(_argv(fixture_dir, small_config, tmp_path, "ir-sd", pkl))
+
+
+def test_extractor_captures_one_graph_per_batch_shape_and_dtype():
+    """``python -m rnet_torch.extract`` on CUDA runs each batch as one replay
+    of the graph captured at the first batch of its (shape, dtype); a
+    ragged last batch is its own key. The bookkeeping through
+    test_torch_graphs.py's fake capture backend (no card here); without
+    graphs, as on the CPU, the same function runs eagerly."""
+    from rnet_torch.extract import Extractor
+    from rnet_torch.train.graphs import StepGraphs, shape_key
+    from test_torch_graphs import FakeBackend
+
+    cfg = load_config("ir-sd", overrides={"compute_dtype": "float32"}).replace(
+        **{k: tuple(v) if isinstance(v, list) else v for k, v in SHRUNK["ir-sd"].items()})
+    model = RN(cfg, V, generator=torch.Generator().manual_seed(3))
+    rs = np.random.RandomState(0)
+    full, ragged = (torch.from_numpy(rs.randn(n, cfg.max_objects, cfg.object_dim).astype(np.float32)) for n in (5, 3))
+    backend = FakeBackend()
+    graphs = StepGraphs("cpu", backend=backend)
+    extract = Extractor(model, graphs)
+    with torch.no_grad():
+        want = model.extract(full)
+    assert torch.equal(extract(full), want) and torch.equal(Extractor(model)(full), want)
+    for x in (full + 1, ragged, full + 2, ragged.double()):
+        extract(x)
+    keys = [("extract", shape_key({"x": x})) for x in (full, ragged, ragged.double())]
+    assert list(graphs.captured) == keys
+    assert [graphs.captured[k].graph["replays"] for k in keys] == [3, 1, 1]
+    assert backend.events.count("warmup") == 3

@@ -25,6 +25,7 @@ from rnet.train.steps import create_train_state
 from rnet_torch import serve as tserve
 from rnet_torch.config import load_config
 from rnet_torch.data.vocab import Dictionaries
+from rnet_torch.ocdbt import CheckpointFormatError
 
 torch.set_num_threads(1)
 
@@ -227,7 +228,7 @@ def test_requires_weights(dicts, sd_pair):
 
 def test_load_refuses_orbax_dir_and_wrong_skeleton(dicts, sd_pair, tmp_path):
     _, server, path = sd_pair
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(CheckpointFormatError, match="not an orbax checkpoint"):
         server.load(str(tmp_path))
     wider = tserve.InferenceServer(server.cfg.replace(g_layers=(64, 96)), dicts, device="cpu")
     with pytest.raises(ValueError, match="relational.g1_kernel"):
