@@ -19,12 +19,14 @@ Phases, each fatal (exit 1, no result line) when it fails:
   4. Philox pair mask: the mask kernel's bits equal ``pair_mask_reference``
      exactly.
   5. Backward kernel vs plain version at the same shapes and keeps, and the
-     same launch twice gives bitwise-equal gradients. The shapes with B above
-     the SM count (the training shape B=512, and B=140 at H=512) are the
-     ones where a CTA of the backward's persistent grid owns several
-     samples; at H=512 the backward runs on clusters of two CTAs, also at
-     B=3 (odd: one sample a cluster) and at the SD grid of 12 (a ragged
-     block); at H=384 (B=8) the one-CTA backward on one warpgroup.
+     same launch twice gives bitwise-equal gradients (at B=512 and B=64).
+     The shapes with B above the SM count (the training shape B=512, and
+     B=140 at H=512) are the ones where a CTA of the backward's persistent
+     grid owns several samples; below it the one-CTA backward splits each
+     sample over SMs // B CTAs (B = 1, 2, 3, 8, 64, and stretch-fp-16's 256
+     objects at B=8); at H=512 the backward runs on clusters of two CTAs,
+     also at B=3 (odd: one sample a cluster) and at the SD grid of 12 (a
+     ragged block); at H=384 (B=8) the one-CTA backward on one warpgroup.
  5b. The int8 kernel (``pairwise_fwd_int8``) vs its plain version on the
      same folded inputs (``quantize_int8``): original-fp B = 1, 64, 512 and
      ir-fp (inject 2) B=64 through ``pairwise_core_int8``, wide-fp's H=512
@@ -40,8 +42,9 @@ Phases, each fatal (exit 1, no result line) when it fails:
      and H=128; the forward on clusters at H=512 also at B=1 and B=140):
      the forward within 1e-4 of max|plain|, each gradient's
      max|d|/max|plain| printed and its distance from the float64 chain held
-     to 1e-4 + twice the plain fp32 version's; the B=512 backward twice,
-     bitwise.
+     to 1e-4 + twice the plain fp32 version's; the B=512 backward (one
+     owner CTA a sample) and the B=64 one (2 CTAs a sample) twice, bitwise;
+     stretch-fp-16's grid at B=8.
   6. Serving: an ``InferenceServer`` for original-fp at full width with
      seeded random weights, buckets 1/8/64. After ``warmup()`` (which
      captures each bucket's CUDA graph) the launch counters are zeroed, a
@@ -82,7 +85,11 @@ Phases, each fatal (exit 1, no result line) when it fails:
      calibration and folding ops around the kernel included), and serve
      latency per bucket and burst throughput of the bf16 and int8 servers,
      taken in turns (bf16 int8 int8 bf16). The fp32 kernels at B = 64 and
-     512 beside the cuBLAS fp32 chain (TF32 off) and its autograd. wide-fp's
+     512 beside the cuBLAS fp32 chain (TF32 off) and its autograd. The
+     backward at stretch-fp-32's shape (B = 8 and 16, 1,024 objects; fp32
+     at B=8) with its grid and CTAs per sample, bound and cuBLAS autograd
+     ("OOM" where that does not fit), and the grid and splits of every
+     B=64 row and phase breakdown. wide-fp's
      H=512 at B=512 (n=64): the bf16 forward and backward, int8 and the
      fp32 kernels, each with its plain version, yardstick, bound and plan
      (``cluster``), each forward and backward twice, bitwise, and held to
@@ -116,6 +123,11 @@ Phases, each fatal (exit 1, no result line) when it fails:
      questions/s of every run, one train step of (a) and of (d) timed
      alternately in both cuDNN modes, and a profile of each with the
      kernels whose device time differs most between them.
+10c. ``python -m rnet_torch.train --model stretch-fp-32 --batch-size 16``
+     on the same directory, device pipeline, capped at one epoch (512
+     steps, 64 eval batches): 512 ``pairwise_bwd`` and ``augment`` and 576
+     ``pairwise_fwd`` launches, nothing else, finite history (run after
+     10b).
 10b. The eval entry point, ``rnet_torch.evaluate.main``, on (a)'s epoch-2
      checkpoint: ``--data-pipeline device --split train --batch-size 512``
      (8,192 questions, 16 batches), as is (16 ``pairwise_fwd`` launches,
@@ -152,6 +164,12 @@ Phases, each fatal (exit 1, no result line) when it fails:
      per step; busy ms and idle share from one profiled window (host clock
      and profiler over the same replays); the first step's loss of the
      kernel arm against the ``xla`` arm's (same weights and draws).
+12c. stretch-fp-32 (1,024 objects, mean pool) replayed bf16 train steps at
+     B = 8 and 16, ``auto`` (the kernels, the backward on sample splits)
+     against ``xla`` in the order auto xla xla auto, the same measurements
+     and first-step loss check as 12b, one pairwise_fwd, pairwise_bwd and
+     augment launch a step counted with the counters zeroed just before;
+     ``xla``'s row says "OOM" where its step does not fit the card.
  11. fp32 and extraction: (a) ``python -m rnet_torch.train --precision
      float32 --rl-impl pallas``, one epoch of 16 steps (one
      ``pairwise_fwd_f32`` launch per train and eval batch, one
@@ -428,13 +446,21 @@ def log_profile(torch, what, fn, wall_ms, top=8):
 # buckets B=1 (one warpgroup a CTA on 64-row blocks: 64 tiles for 66
 # clusters) and B=8 (two, 128-row blocks), B=3 with L=3 and inject 2 (96
 # tiles: 30 clusters take a second), the SD grid (a ragged block), B=140.
+# Below the SM count the one-CTA backward splits each sample over SMs // B
+# CTAs (at most its blocks; tile_plan's ``splits``): B=1 (32 splits of one
+# block at n=64, 132 of 62 blocks at the 1,024 objects), B=2, 3, 8 and 64
+# (2 splits of 16 blocks), stretch-fp-16's grid of 256 objects at B=8 (16
+# splits of 32 blocks) and stretch-fp-32's 1,024 objects at B=8 (16 splits
+# of 512 blocks); the same launch twice is bitwise equal at B=64.
 TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0)
+SPLIT_CASE = (64, 64, 64, 256, 4, 0)
 CASES = [
     (1, 64, 64, 256, 4, 0), (64, 64, 64, 256, 4, 0), (1, 64, 64, 256, 4, 2),
     (64, 64, 64, 256, 4, 2), (64, 64, 64, 512, 4, 0), (3, 12, 12, 128, 3, 1),
     (2, 16, 64, 256, 4, 1), (1, 1024, 1024, 256, 4, 1), TRAIN_CASE, (140, 64, 64, 512, 4, 2),
     (3, 64, 64, 512, 3, 1), (5, 12, 12, 512, 4, 2), (8, 64, 64, 384, 4, 1),
-    (1, 64, 64, 512, 4, 0), (8, 64, 64, 512, 4, 0), (3, 64, 64, 512, 3, 2),
+    (1, 64, 64, 512, 4, 0), (8, 64, 64, 512, 4, 0), (3, 64, 64, 512, 3, 2), (8, 256, 256, 256, 4, 0),
+    (8, 1024, 1024, 256, 4, 0),
 ]
 KEEPS = (1.0, 0.75)
 GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
@@ -448,15 +474,19 @@ GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
 # and dropout, and H=128 (the wide kernels); at H=512 (the backward on
 # clusters of two CTAs, as is the forward) B=3 (odd, one sample a cluster)
 # with dropout and the SD grid at B=5 with L=3; the forward at wide-fp's
-# serving bucket B=1 and at B=140 (clusters walk 67-68 tiles each).
+# serving bucket B=1 and at B=140 (clusters walk 67-68 tiles each);
+# stretch-fp-16's grid at B=8 (the backward's 16 splits of 64 blocks a
+# sample). Every backward case below B=132 at H=128 and 256 runs a split
+# plan; B=64 twice, bitwise.
 F32_TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0, 1.0)
 F32_CASES = [
     F32_TRAIN_CASE, (64, 64, 64, 256, 4, 0, 1.0), (64, 64, 64, 256, 4, 2, 1.0), (64, 64, 64, 512, 4, 0, 1.0),
     (64, 12, 12, 512, 4, 2, 1.0), (2, 16, 40, 256, 4, 1, 1.0), (1, 1024, 1024, 256, 4, 0, 1.0),
     (64, 64, 64, 256, 4, 0, 0.9), (4, 24, 24, 256, 3, 2, 0.75), (3, 10, 10, 256, 2, 1, 1.0),
     (4, 16, 16, 128, 3, 1, 1.0), (3, 64, 64, 512, 4, 1, 0.75), (5, 12, 12, 512, 3, 2, 1.0),
-    (1, 64, 64, 512, 4, 0, 1.0), (140, 64, 64, 512, 4, 2, 1.0),
+    (1, 64, 64, 512, 4, 0, 1.0), (140, 64, 64, 512, 4, 2, 1.0), (8, 256, 256, 256, 4, 0, 1.0),
 ]
+F32_SPLIT_CASE = (64, 64, 64, 256, 4, 0, 1.0)
 
 
 def check_forward(torch, pw, seed):
@@ -539,6 +569,8 @@ def check_backward(torch, pw, seed):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if not any(c[0] > sms for c in CASES):
         fail(f"no backward case has more samples than the card's {sms} SMs")
+    if pw.tile_plan("bwd", *SPLIT_CASE[:5], sms).splits < 2:
+        fail(f"the backward at {SPLIT_CASE} should split each sample over several CTAs on {sms} SMs")
     max_err = at_shape = 0.0
     for k, (B, ni, nj, H, L, inject) in enumerate(CASES):
         args = pair_inputs(torch, B, nj, H, L, seed=k)
@@ -549,10 +581,10 @@ def check_backward(torch, pw, seed):
             max_err = max(max_err, err)
             if CASES[k] == TRAIN_CASE:
                 at_shape = max(at_shape, err)
-        if CASES[k] == TRAIN_CASE:  # the same launch twice, bitwise
+        if CASES[k] in (TRAIN_CASE, SPLIT_CASE):  # the same launch twice, bitwise (one owner; sample splits)
             again = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=0.75, seed=seed)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                fail("pairwise_bwd is not bitwise repeatable")
+                fail(f"pairwise_bwd is not bitwise repeatable at B={B}")
             log(f"pairwise_bwd at B={B}: the same launch twice gives bitwise-equal gradients")
             del again
         del args, g, got
@@ -560,12 +592,15 @@ def check_backward(torch, pw, seed):
     return max_err, at_shape
 
 
-def bwd_agreement(torch, pw, args, g, inject, keep, seed, tag=""):
+def bwd_agreement(torch, pw, args, g, inject, keep, seed, tag="", chunk=None):
     """One bf16 backward launch against its plain version at phase 5's
-    bounds; returns (the gradients, max |kernel - plain| over them)."""
+    bounds, the plain version run on `chunk` samples at a time where given
+    (``plain_in_chunks``); returns (the gradients, max |kernel - plain| over
+    them)."""
     (B, ni, H), nj, L = args[0].shape, args[1].shape[1], args[4].shape[0] + 1
     got = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=keep, seed=seed)
-    want = pw.pairwise_core_bwd_reference(*args, g, inject, keep, seed)
+    want = plain_in_chunks(torch, lambda a, gg: pw.pairwise_core_bwd_reference(*a, gg, inject, keep, seed),
+                           args, g, chunk or B, keep)
     torch.cuda.synchronize()
     case = (B, ni, nj, H, L, inject, keep)
     parts, max_err = [], 0.0
@@ -581,10 +616,60 @@ def bwd_agreement(torch, pw, args, g, inject, keep, seed, tag=""):
                  f"max_abs_err {err} (max {scale}), relative norm {rel}")
         max_err = max(max_err, err)
     plan = pw.tile_plan("bwd", B, ni, nj, H, L, torch.cuda.get_device_properties(0).multi_processor_count)
+    unit = "cluster of 2" if plan.cluster > 1 else "CTA"
+    spread = (f"{plan.splits} CTAs per sample" if plan.splits > 1 else
+              f"{-(-B // (plan.grid // plan.cluster))} samples per {unit} at most")
+    chunks = f", plain {chunk} samples at a time" if chunk and chunk < B else ""
     log(f"pairwise_bwd vs plain{tag} B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep} "
-        f"({-(-B // (plan.grid // plan.cluster))} samples per {'cluster of 2' if plan.cluster > 1 else 'CTA'} "
-        f"at most): " + " | ".join(parts))
+        f"(grid {plan.grid}, {spread}{chunks}): " + " | ".join(parts))
     return got, max_err
+
+
+# Pair rows a plain backward takes at once on the card: the bf16 plain
+# version's fp32 chain fits 8 x 2^20 rows (stretch-fp-32 at B=8), the float64
+# chain (vjp64) 2^20 rows.
+PLAIN_ROWS, F64_ROWS = 1 << 23, 1 << 20
+
+
+def plain_in_chunks(torch, fn, args, g, chunk, keep=1.0):
+    """fn(args, g) -> (du, dv, ds, dqa, dws, dbs) over `chunk` samples at a
+    time: the per-sample gradients concatenated, dW and db added chunk by
+    chunk in order. The pair-dropout mask is drawn for the whole batch, so
+    a batch in chunks takes keep 1."""
+    B = g.shape[0]
+    if chunk >= B:
+        return list(fn(args, g))
+    if keep < 1.0:
+        fail(f"a plain backward in chunks of {chunk} of {B} samples cannot draw the batch's pair mask")
+    parts = list(zip(*(fn([a[b:b + chunk] for a in args[:4]] + list(args[4:]), g[b:b + chunk])
+                       for b in range(0, B, chunk))))
+    return [torch.cat(p) for p in parts[:4]] + [sum(p) for p in parts[4:]]
+
+
+def rel64(a, z):
+    """The relative distance in norm of a from the float64 value z."""
+    return ((a.double() - z).norm() / z.norm().clamp_min(1e-300)).item()
+
+
+def f32_grads_agreement(torch, case, got, want, exact):
+    """Phase 5c's bound on each fp32 backward gradient (see check_f32):
+    ||kernel - exact|| <= 1e-4 ||exact|| + 2 ||plain - exact||; logs and
+    returns {name: (max |kernel - plain| / max |plain|, max |kernel - plain|)}."""
+    parts, errs = [], {}
+    for name, d, w, z in zip(GRAD_NAMES, got, want, exact):
+        if d.shape != w.shape or d.dtype != torch.float32 or not torch.isfinite(d).all():
+            fail(f"pairwise_bwd_f32 {name} at {case} is not a finite fp32 {tuple(w.shape)}")
+        m = ((d - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        rk, rp = rel64(d, z), rel64(w, z)
+        parts.append(f"{name} {m:.3g} (from float64: kernel {rk:.3g}, plain {rp:.3g})")
+        if not rk <= 1e-4 + 2 * rp:
+            fail(f"pairwise_bwd_f32 {name} at {case}: {rk} from the float64 gradient, plain fp32 {rp} "
+                 f"(bound 1e-4 + 2 x plain)")
+        errs[name] = (m, (d - w).abs().max().item())
+    B, ni, nj, H, L, inject, keep = case
+    log(f"pairwise_bwd_f32 vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep}, "
+        "max|d|/max|ref|: " + " | ".join(parts))
+    return errs
 
 
 def vjp64(torch, pw, args, g, inject, keep, seed):
@@ -622,9 +707,6 @@ def check_f32(torch, pw, seed):
     # ||kernel - exact|| <= 1e-4 ||exact|| + 2 ||plain - exact||, with the
     # plain fp32 version's own distance printed beside it, and max |kernel -
     # plain| / max |plain| is printed for every gradient.
-    def rel(a, z):  # relative distance in norm from the float64 value z
-        return ((a.double() - z).norm() / z.norm().clamp_min(1e-300)).item()
-
     fwd_at = fwd_all = bwd_at = bwd_all = 0.0
     abs_at = {}
     for k, (B, ni, nj, H, L, inject, keep) in enumerate(F32_CASES):
@@ -642,34 +724,27 @@ def check_f32(torch, pw, seed):
             fail(f"pairwise_fwd_f32 output at {case} is not a finite fp32 (B, H)")
         err = ((out - ref).abs().max() / ref.abs().max()).item()
         log(f"pairwise_fwd_f32 vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep}: "
-            f"max|d|/max|ref| {err!r} (tol 1e-4); rel. norm from float64: kernel {rel(out, exact)!r}, "
-            f"plain {rel(ref, exact)!r}")
+            f"max|d|/max|ref| {err!r} (tol 1e-4); rel. norm from float64: kernel {rel64(out, exact)!r}, "
+            f"plain {rel64(ref, exact)!r}")
         if not err <= 1e-4:
             fail(f"pairwise_fwd_f32 disagrees with its plain version at {case}")
         fwd_all = max(fwd_all, err)
-        parts = []
-        for name, d, w, z in zip(GRAD_NAMES, got, want, exact_grads):
-            if d.shape != w.shape or d.dtype != torch.float32 or not torch.isfinite(d).all():
-                fail(f"pairwise_bwd_f32 {name} at {case} is not a finite fp32 {tuple(w.shape)}")
-            m = ((d - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
-            rk, rp = rel(d, z), rel(w, z)
-            parts.append(f"{name} {m:.3g} (from float64: kernel {rk:.3g}, plain {rp:.3g})")
-            if not rk <= 1e-4 + 2 * rp:
-                fail(f"pairwise_bwd_f32 {name} at {case}: {rk} from the float64 gradient, plain fp32 {rp} "
-                     f"(bound 1e-4 + 2 x plain)")
+        for name, (m, a) in f32_grads_agreement(torch, case, got, want, exact_grads).items():
             bwd_all = max(bwd_all, m)
             if case == F32_TRAIN_CASE:
                 bwd_at = max(bwd_at, m)
-                abs_at[name] = (d - w).abs().max().item()
-        log(f"pairwise_bwd_f32 vs plain B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep}, "
-            "max|d|/max|ref|: " + " | ".join(parts))
+                abs_at[name] = a
         if case == F32_TRAIN_CASE:
             fwd_at = err
             abs_at["out"] = (out - ref).abs().max().item()
+        if case in (F32_TRAIN_CASE, F32_SPLIT_CASE):  # one owner CTA a sample; sample splits
             again = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=keep, seed=seed)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                fail("pairwise_bwd_f32 is not bitwise repeatable")
-            log(f"pairwise_bwd_f32 at B={B}: the same launch twice gives bitwise-equal gradients")
+                fail(f"pairwise_bwd_f32 is not bitwise repeatable at B={B}")
+            splits = pw.tile_plan("bwd", B, ni, nj, H, L, torch.cuda.get_device_properties(0).multi_processor_count,
+                                  esize=4).splits
+            log(f"pairwise_bwd_f32 at B={B} ({splits} CTAs per sample): the same launch twice gives bitwise-equal "
+                f"gradients")
             del again
         del args, g, out, ref, exact, exact_grads, got, want
         torch.cuda.empty_cache()
@@ -1004,9 +1079,10 @@ def time_kernels(torch, pw, seed):
             plain_ms = cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args, g, inject), 2, warmup=1)
             library_ms = cuda_ms(torch, lambda: library_vjp(torch, args, g, inject), iters, warmup=1)
             b_ms, b_by = bwd_bound(B, n, n, H, L)
+            plan = pw.tile_plan("bwd", B, n, n, H, L, torch.cuda.get_device_properties(0).multi_processor_count)
             bwd[B] = {"B": B, "n": n, "H": H, "L": L, "ms": ms, "ms_keep_0.75": ms_drop, "plain_ms": plain_ms,
                       "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
-                      "tflops": 3 * flops / (ms * 1e-3) / 1e12}
+                      "tflops": 3 * flops / (ms * 1e-3) / 1e12, "ctas": plan.grid, "splits": plan.splits}
             log(f"time pairwise_bwd {json.dumps(bwd[B])}")
         del args
         torch.cuda.empty_cache()
@@ -1016,6 +1092,88 @@ def time_kernels(torch, pw, seed):
     mask = {"B": TRAIN_B, "n": n, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
     log(f"time pair_mask {json.dumps(mask)}")
     return fwd, bwd, mask
+
+
+def auto_ms(torch, fn, iters=None, warmup=1):
+    """cuda_ms of fn; with iters None, as many calls as take ~0.3 s (2 ..
+    20) after the warm-up."""
+    if iters is None:
+        first = cuda_ms(torch, fn, 1, warmup=warmup)
+        iters, warmup = max(2, min(20, int(300.0 / max(first, 1e-3)))), 0
+    return cuda_ms(torch, fn, iters, warmup=warmup)
+
+
+def ms_or_oom(torch, fn, iters=None, warmup=1):
+    """auto_ms of fn, or "OOM" where fn runs out of the card's memory: for
+    the yardsticks only (a kernel that does not fit fails its phase)."""
+    import gc
+
+    try:
+        return auto_ms(torch, fn, iters, warmup)
+    except torch.cuda.OutOfMemoryError:
+        pass
+    gc.collect()
+    torch.cuda.empty_cache()
+    return "OOM"
+
+
+# Rows of the backward below and above the SM count (H=256, L=4, inject 0):
+# (model, B, n, esize). original-fp at the CLI's default B=64 (2 CTAs a
+# sample) and at B=512 (one owner CTA, several samples each); stretch-fp-32
+# (1,024 objects, 1,048,576 pair rows a sample) at B=8 and 16, as rnet
+# trained it (BS 16) and scripts/bench_stretch32.py times it (16 and 8 CTAs
+# a sample); bf16 (esize 2) and fp32 (esize 4).
+BWD_ROWS = (("original-fp", 64, 64, 2), ("original-fp", TRAIN_B, 64, 2), ("stretch-fp-32", 8, 1024, 2),
+            ("stretch-fp-32", 16, 1024, 2), ("original-fp", 64, 64, 4), ("original-fp", TRAIN_B, 64, 4),
+            ("stretch-fp-32", 8, 1024, 4))
+STRETCH_BWD_ROWS = tuple(r for r in BWD_ROWS if r[0] == "stretch-fp-32")
+
+
+def time_bwd_rows(torch, pw, rows=BWD_ROWS):
+    """Phase 8, the backward at each (model, B, n, esize) of `rows` (H=256,
+    L=4, inject 0; bf16 or fp32 inputs): ms (CUDA events, ~0.3 s of calls
+    after a warm-up), the plan's grid and CTAs per sample (``splits``), the
+    bound, the plain version (one call after one warm-up) and cuBLAS
+    autograd (``library_vjp``, the forward included), each yardstick "OOM"
+    where it does not fit the card's memory (the plain version's fp32
+    activations are 8.6 GB each at stretch-fp-32's B=8). Each row's
+    gradients are then held to the plain version at phase 5's bounds (bf16,
+    ``bwd_agreement``) or phase 5c's against the float64 chain (fp32), the
+    plain backwards run PLAIN_ROWS or F64_ROWS pair rows at a time
+    (``plain_in_chunks``: stretch-fp-32's B=16 in halves, its fp32 B=8 one
+    sample at a time). Keyed "bfloat16 B=8 n=1024" etc."""
+    H, L, inject = 256, 4, 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for model, B, n, esize in rows:
+        dt = torch.float32 if esize == 4 else torch.bfloat16
+        args = pair_inputs(torch, B, n, H, L, seed=800 + B + n, dtype=dt)
+        g = upstream(torch, B, H, seed=801 + B + n)
+        plan = pw.tile_plan("bwd", B, n, n, H, L, sms, esize=esize)
+        b_ms, b_by = (f32_bwd_bound if esize == 4 else bwd_bound)(B, n, n, H, L)
+        row = {"model": model, "B": B, "n": n, "H": H, "L": L, "dtype": str(dt).split(".")[-1],
+               "ms": auto_ms(torch, lambda: pw.pairwise_bwd_cuda(*args, g, inject=inject)),
+               "ctas": plan.grid, "splits": plan.splits, "bound_ms": b_ms, "bound_by": b_by,
+               "plain_ms": ms_or_oom(torch, lambda: pw.pairwise_core_bwd_reference(*args, g, inject), 1),
+               "library_ms": ms_or_oom(torch, lambda: library_vjp(torch, args, g, inject), None)}
+        row["x_bound"] = row["ms"] / b_ms
+        if isinstance(row["library_ms"], float):
+            row["ms_over_library"] = row["ms"] / row["library_ms"]
+        key = f"{row['dtype']} B={B} n={n}"
+        out[key] = row
+        log(f"time pairwise_bwd{'_f32' if esize == 4 else ''} {model} {json.dumps(row)}")
+        if esize == 2:
+            bwd_agreement(torch, pw, args, g, inject, 1.0, None, f" ({model} row)", max(1, PLAIN_ROWS // (n * n)))
+        else:
+            chunk = max(1, F64_ROWS // (n * n))
+            got = pw.pairwise_bwd_cuda(*args, g, inject=inject)
+            want = plain_in_chunks(torch, lambda a, gg: pw.pairwise_core_bwd_reference(*a, gg, inject), args, g, chunk)
+            exact = plain_in_chunks(torch, lambda a, gg: vjp64(torch, pw, a, gg, inject, 1.0, None)[1], args, g, chunk)
+            f32_grads_agreement(torch, (B, n, n, H, L, inject, 1.0), got, want, exact)
+            del got, want, exact
+        del args, g
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_f32(torch, pw, seed):
@@ -1040,7 +1198,8 @@ def time_f32(torch, pw, seed):
         fwd["ms_keep_0.9"] = cuda_ms(
             torch, lambda: pw.pairwise_fwd_cuda(*args, inject=0, pair_keep=0.9, seed=seed), 5, warmup=1)
         b_ms, b_by = f32_bwd_bound(B, n, n, H, L)
-        bwd = {"B": B, "n": n, "H": H, "L": L,
+        plan = pw.tile_plan("bwd", B, n, n, H, L, torch.cuda.get_device_properties(0).multi_processor_count, esize=4)
+        bwd = {"B": B, "n": n, "H": H, "L": L, "ctas": plan.grid, "splits": plan.splits,
                "ms": cuda_ms(torch, lambda: pw.pairwise_bwd_cuda(*args, g, inject=0), 3 if big else 10, warmup=1),
                "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_bwd_reference(*args, g, 0), 2, warmup=1),
                "library_ms": cuda_ms(torch, lambda: library_vjp(torch, args, g, inject), 3, warmup=1),
@@ -1091,8 +1250,8 @@ def phase_breakdown(torch, pw):
             if not torch.equal(got, want):
                 fail(f"the phase-timing build of {name} computes other values than the kernel")
             total = cycles.sum(dim=0).double()
-            row = {"B": B, "total_cycles": int(total.sum().item()), "ctas": plan.grid, "warpgroups": plan.wgs,
-                   "shares": {nm: (total[k] / total.sum()).item() for k, nm in enumerate(names)}}
+            row = {"B": B, "total_cycles": int(total.sum().item()), "ctas": plan.grid, "splits": plan.splits,
+                   "warpgroups": plan.wgs, "shares": {nm: (total[k] / total.sum()).item() for k, nm in enumerate(names)}}
             out[(kind, B)] = row
             log(f"phases {name} {json.dumps(row)}")
         del args, args32, g, folded
@@ -1739,6 +1898,40 @@ def f32_entry_phase(torch, np, pw, aug, root):
     if not (np.isfinite(h["train_loss"]) and np.isfinite(h["val_nll"])):
         fail(f"the fp32 train run is not finite: {h}")
     return counts
+
+
+STRETCH_CLI_B = 16  # rnet's BS for stretch-fp-32 (results/stretch32_train_r4)
+
+
+def stretch_entry_phase(torch, np, pw, aug, root):
+    """Phase 10c: ``python -m rnet_torch.train --model stretch-fp-32
+    --batch-size 16`` on phase 10's synthetic directory, device pipeline,
+    capped at one epoch (512 steps, 64 eval batches): every g_theta launch
+    through the kernels at 1,024 objects (the backward on sample splits:
+    8 CTAs a sample), finite history; returns (launch counts, seconds,
+    epoch questions/s)."""
+    import os
+
+    steps_per_epoch = SYN_TRAIN_Q // STRETCH_CLI_B
+    eval_batches = -(-SYN_VAL_Q // STRETCH_CLI_B)
+    pw.reset_launches()
+    aug.reset_launches()
+    sec = run_cli(["--clevr-dir", root, "--model", "stretch-fp-32", "--batch-size", str(STRETCH_CLI_B), "--lr",
+                   str(LR), "--log-interval", "16", "--num-workers", "4", "--data-pipeline", "device", "--epochs",
+                   "1", "--checkpoint-dir", os.path.join(root, "ck_stretch"),
+                   "--test-results-dir", os.path.join(root, "res_stretch")])
+    torch.cuda.synchronize()
+    counts = {**pw.launches, **aug.launches}
+    (h,) = read_history(os.path.join(root, "res_stretch"))
+    log(f"entry point, stretch-fp-32 (1,024 objects), 1 epoch of {steps_per_epoch} steps at B={STRETCH_CLI_B}: "
+        f"{sec:.1f} s, launches {counts}; history {json.dumps(h)}")
+    want = {**dict.fromkeys(counts, 0), pw.KERNEL: steps_per_epoch + eval_batches, pw.BWD_KERNEL: steps_per_epoch,
+            aug.KERNEL: steps_per_epoch}
+    if counts != want:
+        fail(f"the stretch-fp-32 train run expected launches {want}, counted {counts}")
+    if not (np.isfinite(h["train_loss"]) and np.isfinite(h["val_nll"]) and 0.0 <= h["val_acc"] <= 1.0):
+        fail(f"the stretch-fp-32 train run is not finite: {h}")
+    return counts, sec, h.get("qps")
 
 
 def extract_phase(torch, np, pw, root):
@@ -2454,6 +2647,96 @@ def wide_fp_steps(torch, pw, aug, n_answers):
         del arms, cache, data
         torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = False
+    return out
+
+
+STRETCH_BATCHES = (8, 16)  # rnet trained stretch-fp-32 at BS 16; scripts/bench_stretch32.py times 8 and 16
+STRETCH_WINDOW = 4  # stretch-fp-32 train steps in a timed window
+
+
+def stretch_steps(torch, pw, aug, n_answers, batches=STRETCH_BATCHES):
+    """Phase 12c: stretch-fp-32 (2 convs, a 32 x 32 grid: 1,024 objects and
+    1,048,576 pairs a question; g_theta 4 x 256, mean pool) replayed train
+    steps in bf16 at each B of `batches` on device-resident data (a
+    2,048-canvas cache, device augment, as phase 12b), through rl_impl
+    "auto" (the kernels: n >= 32) against "xla", in the order auto xla xla
+    auto: host ms, device busy ms and idle share from one profiled window,
+    questions/s and every kernel's launches per replayed step, counted over
+    one replay with the counters zeroed just before it (auto: one
+    pairwise_fwd, pairwise_bwd and augment; xla: no g_theta kernel). The
+    first replayed step's loss of auto against xla's within 1e-2 relative
+    (phase 7's bound). Where xla's step does not fit the card's memory its
+    row is "OOM" (the capture's eager warm-up raises OutOfMemoryError
+    before anything is captured). Rows keyed by B."""
+    import gc
+
+    from rnet_torch.config import load_config
+    from rnet_torch.train import steps
+
+    torch.backends.cudnn.deterministic = True
+    cfg = load_config("stretch-fp-32").replace(n_answers=n_answers, device_augment=True)
+    cache, data = device_data(torch, cfg, AUG_SMALL, 2 * max(batches), seed=17)
+    out = {}
+    for B in batches:
+        idx = torch.arange(B, dtype=torch.int32, device="cuda").view(1, B)
+        arms, row = {}, {}
+        for impl in ("auto", "xla"):
+            state = new_state(torch, cfg.replace(rl_impl=impl))
+            graphs = steps.step_graphs(state)
+            train = steps.make_chunked_steps(state, graphs)[0]
+            try:
+                first = train(idx, data, cache)  # captures, then replays the first step
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError:  # freed with the exception; the card is emptied below
+                row[impl] = "OOM"
+                log(f"stretch-fp-32 train step B={B} {impl}: OOM (the eager warm-up does not fit the card's memory)")
+                continue
+            loss0 = float(first[0, 0])
+            pw.reset_launches()
+            aug.reset_launches()
+            metrics = train(idx, data, cache)
+            torch.cuda.synchronize()
+            if not torch.isfinite(metrics).all():
+                fail(f"stretch-fp-32 B={B} {impl}: non-finite step metrics {metrics.tolist()}")
+            counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
+            arms[impl] = (graphs, lambda t=train: t(idx, data, cache), counts, loss0)
+        want = {pw.KERNEL: 1, pw.BWD_KERNEL: 1, aug.KERNEL: 1}
+        if "auto" not in arms or arms["auto"][2] != want:
+            fail(f"stretch-fp-32 B={B}: auto should launch {want} a step, counted "
+                 f"{arms['auto'][2] if 'auto' in arms else row.get('auto')}")
+        if "xla" in arms and (pw.KERNEL in arms["xla"][2] or pw.BWD_KERNEL in arms["xla"][2]):
+            fail(f"stretch-fp-32 B={B}: xla launched a g_theta kernel: {arms['xla'][2]}")
+        if "xla" in arms:
+            lk, lx = arms["auto"][3], arms["xla"][3]
+            row["first_step_loss"] = {"auto": lk, "xla": lx}
+            row["first_step_loss_rel_diff"] = abs(lk - lx) / abs(lx)
+            log(f"stretch-fp-32 B={B} first replayed step: loss auto {lk!r} vs xla {lx!r}")
+            if not row["first_step_loss_rel_diff"] <= 1e-2:
+                fail(f"stretch-fp-32 B={B}: the kernel path's train loss disagrees with the xla path's")
+        order = ("auto", "xla", "xla", "auto") if "xla" in arms else ("auto", "auto")
+        win = timed_windows(torch, {k: a[1] for k, a in arms.items()}, order=order, n=STRETCH_WINDOW)
+        for impl, (graphs, fn, counts, _) in arms.items():
+            host = sum(win[impl]) / len(win[impl])
+            prof_host = []
+            busy, kern, top = profile_device(torch, fn, reps=STRETCH_WINDOW, host=prof_host)
+            idle = 1.0 - busy / prof_host[0]
+            log(f"profile stretch-fp-32 train step B={B} {impl} (replayed): host {prof_host[0]!r} ms, device busy "
+                f"{busy!r} ms in {kern!r} kernels, idle share {idle!r}")
+            for ms_k, count, name in top[:4]:
+                log(f"  {ms_k!r} ms x{count!r} {name[:100]}")
+            row[impl] = {"host_ms": host, "host_ms_windows": win[impl], "busy_ms": busy, "idle_share": idle,
+                         "qps": B / host * 1e3, "launches_per_step": counts, "capture": graph_memory(graphs)}
+        if "xla" in arms:
+            row["auto_over_xla_host"] = row["auto"]["host_ms"] / row["xla"]["host_ms"]
+        log(f"stretch-fp-32 train step B={B} bf16, replayed, {STRETCH_WINDOW} a window in the order "
+            f"{' '.join(order)}: {json.dumps(row)}")
+        out[B] = row
+        del arms
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    del cache, data
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3180,6 +3463,7 @@ def main() -> int:
         f"{f32_rows[('fwd', TRAIN_B)]['ms_over_library']!r}, backward (vs its autograd) "
         f"{f32_rows[('bwd', TRAIN_B)]['ms_over_library']!r}")
     wide = time_wide(torch, pw, seed)
+    stretch_bwd = time_bwd_rows(torch, pw, STRETCH_BWD_ROWS)
     phases = phase_breakdown(torch, pw)
     train_times = time_training(torch, cfg, state, batch)
     qps_ratio = train_times["auto"]["qps"] / train_times["xla"]["qps"]
@@ -3241,6 +3525,8 @@ def main() -> int:
     log(f"phase 12 (graphs) done at {time.perf_counter() - t_start:.1f} s")
     graph_out["wide_fp_steps"] = wide_fp_steps(torch, pw, aug, dicts.n_answers)
     log(f"phase 12b (wide-fp steps) done at {time.perf_counter() - t_start:.1f} s")
+    stretch = stretch_steps(torch, pw, aug, dicts.n_answers)
+    log(f"phase 12c (stretch-fp-32 steps) done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 10. training through the entry point ----
     import shutil
@@ -3250,6 +3536,7 @@ def main() -> int:
     try:
         entry_counts, hist_a, hist_c, hist_d, abba = entry_point_phase(torch, np, pw, aug, root)
         int8_eval_launches, int8_eval_same, eval_runs = eval_entry_phase(torch, np, pw, aug, root)
+        stretch_cli = stretch_entry_phase(torch, np, pw, aug, root)
         qps = {"a_device_augment": [h["qps"] for h in hist_a], "c_cached_augment": [h["qps"] for h in hist_c],
                "d_device_no_augment": [h["qps"] for h in hist_d]}
         log(f"entry point epoch questions/s (host clock; epochs 1, 2): {json.dumps(qps)}")
@@ -3301,7 +3588,11 @@ def main() -> int:
                wide_fp_step_launches=graph_out["wide_fp_steps"]["bfloat16"]["auto"]["launches_per_step"],
                per_shard_ms={k: v["bwd_ms"] for k, v in shard["per_shard"].items()},
                per_shard_max_abs_err={k: v["bwd_max_abs_err"] for k, v in shard["per_shard"].items()},
-               shard_launches_per_rank={k: shard[k]["launches_per_rank"] for k in SHARD_SHAPES if k in shard}),
+               shard_launches_per_rank={k: shard[k]["launches_per_rank"] for k in SHARD_SHAPES if k in shard},
+               b64={k: bwd[64][k] for k in ("ms", "library_ms", "bound_ms", "ctas", "splits")},
+               stretch={k: v for k, v in stretch_bwd.items() if k.startswith("bfloat16")},
+               stretch_step_launches={B: r["auto"]["launches_per_step"] for B, r in stretch.items()},
+               stretch_entry_point_launches=stretch_cli[0]),
         record("pair_mask", "rnet_torch/csrc/philox.cuh", "rnet/kernels/pairwise.py:69",
                pd_counts["pair_mask"], float(mask_err), mask,
                shape={"B": TRAIN_B, "n": 64}, launches_of="one train step with pair_dropout 0.25",
@@ -3341,12 +3632,14 @@ def main() -> int:
                precision="3xTF32", ms_over_library=f32_rows[("bwd", TRAIN_B)]["ms_over_library"],
                ms_b64=f32_rows[("bwd", 64)]["ms"], phase_shares=phases[("bwd_f32", TRAIN_B)]["shares"],
                train_loss_rel_diff_from_xla_fp32=f32_loss_rel, h512=wide["bwd_fp32"],
+               stretch={k: v for k, v in stretch_bwd.items() if k.startswith("float32")},
                h512_phase_shares=phases[("bwd_f32", "H512")]["shares"],
                wide_fp_step_launches=graph_out["wide_fp_steps"]["float32"]["pallas"]["launches_per_step"],
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512"),
     ]
     log(f"graphs summary {json.dumps(graph_out)}")
+    log(f"stretch-fp-32 summary {json.dumps({'steps': stretch, 'bwd': stretch_bwd, 'entry_point': stretch_cli})}")
     log(f"phase 13 summary {json.dumps(shard)}")
     log(card)
     log(json.dumps({"kernels": records}))

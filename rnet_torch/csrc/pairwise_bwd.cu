@@ -29,11 +29,18 @@
 // Design (pairwise_chain.cuh has the layout, the W feed and the products).
 // CTAs run in no order, so every output has one fixed writer, and the
 // gradients are bitwise the same from run to run:
-//   * a persistent grid of min(B, #SMs) CTAs; CTA k owns the samples
-//     b = k, k+G, ... and walks all their blocks of BM = 64*WGS pair rows in
-//     order (WGS = 2 up to H=256, 1 at H=384; H=512 runs on clusters of
-//     two, below); dW / db go to the CTA's own fp32 partial,
-//     which a second kernel adds over the CTAs in CTA order;
+//   * a persistent grid that walks units u = b*S + k, split k of sample b:
+//     the contiguous blocks [k*nblk/S, (k+1)*nblk/S) of BM = 64*WGS pair rows,
+//     in order (WGS = 2 up to H=256, 1 at H=384; H=512 runs on clusters of
+//     two, below). With B >= #SMs, S = 1 and min(B, #SMs) CTAs, CTA c owning
+//     the samples b = c, c+G, ...; with fewer samples than SMs, S = #SMs / B
+//     (at most nblk) and one unit a CTA, so that a batch of 8 still runs on
+//     128 of the 132 SMs (kernels/pairwise.py::tile_plan, sample_splits).
+//     rnet's kernel runs its grid (B, ni/TI) in order on one core and needs
+//     no split. dW / db go to the CTA's own fp32 partial, which a second
+//     kernel adds over the CTAs in CTA order; du, dv, ds and dqa go to the
+//     split's own slice (S > 1; S = 1 writes them directly), and
+//     reduce_partials_kernel adds the S slices in split order;
 //   * warpgroup WGS is the producer (one thread of it): per block it streams the packed W_l^T
 //     chunks of the recompute and the packed W_l chunks of the L-1 d
 //     products through the ring, running ahead into the next block;
@@ -67,9 +74,10 @@
 //     on a load from device memory.
 //
 // H = 512 (wide-fp, the SD models): clusters of two CTAs (CL = 2) and a
-// GEMM for dW. rnet's TPU kernel keeps all of dW (3 MB at L=4) in VMEM
-// across its sequential grid (rnet/kernels/pairwise.py:424-450, the
-// backward of :120). One CTA holding that partial would flush 6 MB per
+// GEMM for dW, one unit a sample (S = 1). rnet's TPU kernel keeps all of dW
+// (3 MB at L=4) in VMEM across its sequential grid (the constant index maps
+// of the dW and db out blocks, rnet/kernels/pairwise.py:501-511, of the
+// kernel at :120). One CTA holding that partial would flush 6 MB per
 // 64-row block (197 GB in all at wide-fp B=512, 59 ms at 3.35 TB/s, the
 // H100 SXM data sheet's rate at 700 W), so dW leaves the fused kernel:
 //   * The two CTAs of a cluster, on neighbouring SMs, share each block of
@@ -102,7 +110,7 @@
 //     that reads what the peer just wrote; the producer warpgroup hands its
 //     registers to the consumers (setmaxnreg 40 / 232).
 //   * db, du, dv, ds, dqa keep one writer each (the CTA that owns the
-//     column); every dW element is the ordered sum of its splits' products.
+//     column); every dW element is the ordered sum of its GEMM splits' products.
 //     Bitwise repeatable as the one-CTA kernel.
 // With -DRNET_PHASE_TIMES the first consumer thread of each CTA sums
 // clock64() per phase (recompute, dW products, dW flush, d products,
@@ -149,7 +157,8 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
                                          float* __restrict__ du, float* __restrict__ dv, float* __restrict__ ds,
                                          float* __restrict__ dqa, float* __restrict__ dw_part,
                                          float* __restrict__ db_part, bf16* __restrict__ act, int B, int ni, int nj,
-                                         int H, int L, int inject, int nslots, bf16* slots, float* rowscale,
+                                         int H, int L, int inject, int splits, long long split_stride,
+                                         int nslots, bf16* slots, float* rowscale,
                                          const bf16* ones,
                                          Ring& r, PairSync& ps, PhaseClock& pc, const int64_t* __restrict__ seed,
                                          uint32_t thr, float inv_keep, long long* phases) {
@@ -192,9 +201,15 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
                            tid, r, tid == 0, pc, PH_FEED);
   };
 
-  for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL) {
+  for (int unit = blockIdx.x / CL; unit < B * splits; unit += gridDim.x / CL) {
+    const int b = unit / splits, k = unit - b * splits;  // split k of sample b
     const float* gb = g + (size_t)b * H + c0;
-    for (int blk = 0; blk < nblk; ++blk) {
+    // the split's own slices of du, dv, ds, dqa (split_stride 0 with one split)
+    float* const du_k = du + (size_t)k * split_stride;
+    float* const dv_k = dv + (size_t)k * split_stride;
+    float* const ds_k = ds + (size_t)k * split_stride;
+    float* const dqa_k = dqa + (size_t)k * split_stride;
+    for (int blk = k * nblk / splits; blk < (k + 1) * nblk / splits; ++blk) {
       const int p0 = blk * BM;
       const int valid = min(BM, npairs - p0);
       pc.mark(PH_SYNC);
@@ -286,7 +301,7 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
               if ((i >> 1) & 1) continue;
               const int c = c0 + nt * NT + frag_col(tid, i);
               atomicAdd(dbp + (size_t)(l - 1) * H + c, acc[i]);  // one writer: in order
-              if (l == inject) atomicAdd(dqa + (size_t)b * H + c, acc[i]);
+              if (l == inject) atomicAdd(dqa_k + (size_t)b * H + c, acc[i]);
             }
           }
         };
@@ -416,7 +431,7 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
               const int jb = min(jhi, pend - i * nj);
               for (int j = max(jlo, p0 - i * nj); j < jb; ++j) {
                 const float2 x = *reinterpret_cast<const float2*>(F + f32_off(i * nj + j - p0, cc));
-                atomicAdd(reinterpret_cast<float2*>(dv + ((size_t)b * nj + j) * H + c), x);
+                atomicAdd(reinterpret_cast<float2*>(dv_k + ((size_t)b * nj + j) * H + c), x);
                 run.x += x.x;
                 run.y += x.y;
               }
@@ -426,13 +441,13 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
               run.y += __shfl_xor_sync(0xffffffffu, run.y, 8);
               run.x += __shfl_xor_sync(0xffffffffu, run.x, 16);
               run.y += __shfl_xor_sync(0xffffffffu, run.y, 16);
-              if (h == 0) atomicAdd(reinterpret_cast<float2*>(du + ((size_t)b * ni + i) * H + c), run);
+              if (h == 0) atomicAdd(reinterpret_cast<float2*>(du_k + ((size_t)b * ni + i) * H + c), run);
             }
             ssum.x += __shfl_xor_sync(0xffffffffu, ssum.x, 8);
             ssum.y += __shfl_xor_sync(0xffffffffu, ssum.y, 8);
             ssum.x += __shfl_xor_sync(0xffffffffu, ssum.x, 16);
             ssum.y += __shfl_xor_sync(0xffffffffu, ssum.y, 16);
-            if (h == 0) atomicAdd(reinterpret_cast<float2*>(ds + (size_t)b * H + c), ssum);
+            if (h == 0) atomicAdd(reinterpret_cast<float2*>(ds_k + (size_t)b * H + c), ssum);
           }
           if (nt + 1 < W / NT) {
             pc.mark(PH_SYNC);
@@ -457,8 +472,9 @@ pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, cons
                     const bf16* __restrict__ w_chunks, const bf16* __restrict__ bs, const float* __restrict__ g,
                     float* __restrict__ du, float* __restrict__ dv, float* __restrict__ ds,
                     float* __restrict__ dqa, float* __restrict__ dw_part, float* __restrict__ db_part,
-                    bf16* __restrict__ act, int B, int ni, int nj, int H, int L, int inject, int nslots, int stages,
-                    const int64_t* __restrict__ seed, uint32_t thr, float inv_keep, long long* phases) {
+                    bf16* __restrict__ act, int B, int ni, int nj, int H, int L, int inject, int splits,
+                    long long split_stride, int nslots, int stages, const int64_t* __restrict__ seed, uint32_t thr,
+                    float inv_keep, long long* phases) {
   constexpr int BM = 64 * WGS;
   const int W = H / CL;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -503,8 +519,8 @@ pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, cons
     if (threadIdx.x == WGS * WG_THREADS) {
       // a cluster CTA streams its own pair_halves slice
       const size_t own = (size_t)rank * (L - 1) * per_layer * (CHUNK_BYTES / 2);
-      for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL)
-        for (int blk = 0; blk < nblk; ++blk) {
+      for (int unit = blockIdx.x / CL; unit < B * splits; unit += gridDim.x / CL)  // the consumers' units and blocks
+        for (int blk = unit % splits * nblk / splits; blk < (unit % splits + 1) * nblk / splits; ++blk) {
           produce(r, wt_chunks + own, (L - 1) * per_layer, pc, PH_FEED);
           for (int l = L - 1; l >= 1; --l)
             produce(r, w_chunks + own + (size_t)(l - 1) * per_layer * (CHUNK_BYTES / 2), per_layer, pc, PH_FEED);
@@ -513,7 +529,8 @@ pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, cons
   } else {
     if constexpr (CL == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     consumer<WGS, CL, DROP>(u, v, s, qa, bs, g, du, dv, ds, dqa, dw_part, db_part, act, B, ni, nj, H, L, inject,
-                            nslots, slots, rowscale, ones, r, ps, pc, seed, thr, inv_keep, phases);
+                            splits, split_stride, nslots, slots, rowscale, ones, r, ps, pc, seed, thr, inv_keep,
+                            phases);
   }
 }
 
@@ -541,7 +558,7 @@ __global__ void reduce_dw_kernel(const float* __restrict__ part, float* __restri
   out[l * per + (long long)row * H + col] = sum;
 }
 
-// out[k] = sum over CTAs c = 0..G-1 of part[c, k], in CTA order.
+// out[k] = sum over c = 0..G-1 of part[c, k], in order (CTAs, GEMM splits or sample splits).
 __global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int G, long long n) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
@@ -661,9 +678,11 @@ dw_gemm_kernel(const bf16* __restrict__ act, float* __restrict__ part, int H, in
 struct Args {
   const bf16 *u, *v, *s, *qa, *wt, *w, *bs;
   const float* g;
-  float *du, *dv, *ds, *dqa, *dw_part, *db_part;
+  float *du, *dv, *ds, *dqa, *dw_part, *db_part;  // du .. dqa: split 0's slice
   bf16* act;
-  int B, ni, nj, H, L, inject, slots, stages;
+  int B, ni, nj, H, L, inject, splits;
+  long long split_stride;
+  int slots, stages;
   const int64_t* seed;
   uint32_t thr;
   float inv_keep;
@@ -678,7 +697,7 @@ cudaError_t launch(const Args& a, int grid, size_t smem, cudaStream_t st) {
   if (err != cudaSuccess) return err;
   return launch_cluster(kern, grid, (WGS + 1) * WG_THREADS, smem, st, CL, a.u, a.v, a.s, a.qa, a.wt, a.w, a.bs, a.g,
                         a.du, a.dv, a.ds, a.dqa, a.dw_part, a.db_part, a.act, a.B, a.ni, a.nj, a.H, a.L, a.inject,
-                        a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
+                        a.splits, a.split_stride, a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
 }
 
 template <bool DROP>
@@ -692,43 +711,53 @@ cudaError_t dispatch(const Args& a, int wgs, int cl, int grid, size_t smem, cuda
 extern "C" {
 
 // Launches the backward on `stream` for the tile plan (wgs, slots,
-// stages, grid, cluster, smem) of kernels/pairwise.py::tile_plan: the
-// fused kernel, then (cluster 2) dw_gemm_kernel over `splits` splits of
-// the rows, then the ordered sums of the dW and db partials; returns
-// cudaErrorInvalidValue for a plan it cannot take. Device pointers to
-// contiguous tensors: u (B,ni,H), v (B,nj,H), s, qa (B,H), bs (L-1,H) in
-// bf16; wt_chunks = pack_weight_chunks(W^T), w_chunks =
-// pack_weight_chunks(W) (cluster 2: of each CTA's pair_halves slice, rank
-// after rank); g (B,H) fp32; outputs du (B,ni,H), dv (B,nj,H), ds, dqa
-// (B,H), dws (L-1,H,H), dbs (L-1,H) fp32, of which du, dv, ds and dqa must
-// be zero; db_part (grid,L-1,H) fp32 zero; dw_part (grid,L-1,H,H) fp32
-// zero (cluster 1) or (splits,L-1,H,H) fp32 (cluster 2); act (2,L-1,B*nblk,
-// 2,128*H/2) bf16 for the stored tiles (cluster 2; null otherwise); phases
-// (grid, 9) int64 or null. Pair dropout as in rnet_pairwise_fwd. Returns
-// cudaGetLastError().
+// stages, grid, cluster, splits, smem) of kernels/pairwise.py::tile_plan:
+// the fused kernel, then (splits > 1) the ordered sum of the sample
+// splits' slices of du, dv, ds, dqa, then (cluster 2) dw_gemm_kernel over
+// `dw_splits` splits of the rows, then the ordered sums of the dW and db
+// partials; returns cudaErrorInvalidValue for a plan it cannot take.
+// Device pointers to contiguous tensors: u (B,ni,H), v (B,nj,H), s, qa
+// (B,H), bs (L-1,H) in bf16; wt_chunks = pack_weight_chunks(W^T), w_chunks
+// = pack_weight_chunks(W) (cluster 2: of each CTA's pair_halves slice, rank
+// after rank); g (B,H) fp32; outputs grads, fp32 zero, du (B,ni,H) | dv
+// (B,nj,H) | ds (B,H) | dqa (B,H) in one buffer, dws (L-1,H,H), dbs
+// (L-1,H) fp32; grad_part (splits, size of grads) fp32 zero when splits >
+// 1 (cluster 1 only), else null; db_part (grid,L-1,H) fp32 zero; dw_part
+// (grid,L-1,H,H) fp32 zero (cluster 1) or (dw_splits,L-1,H,H) fp32
+// (cluster 2); act (2,L-1,B*nblk,2,128*H/2) bf16 for the stored tiles
+// (cluster 2; null otherwise); phases (grid, 9) int64 or null. Pair
+// dropout as in rnet_pairwise_fwd. Returns cudaGetLastError().
 int rnet_pairwise_bwd(const void* u, const void* v, const void* s, const void* qa, const void* wt_chunks,
-                      const void* w_chunks, const void* bs, const void* g, void* du, void* dv, void* ds, void* dqa,
-                      void* dws, void* dbs, void* dw_part, void* db_part, void* act, int B, int ni, int nj, int H,
-                      int L, int inject, int wgs, int slots, int stages, int grid, int cluster, int splits,
+                      const void* w_chunks, const void* bs, const void* g, void* grads, void* grad_part, void* dws,
+                      void* dbs, void* dw_part, void* db_part, void* act, int B, int ni, int nj, int H, int L,
+                      int inject, int wgs, int slots, int stages, int grid, int cluster, int dw_splits, int splits,
                       long long smem, int drop, const void* seed, unsigned int thr, float inv_keep, void* phases,
                       void* stream) {
-  // a cluster of 2: two warpgroups on the NT columns each of a CTA's H / 2
-  const bool pair_ok =
-      cluster == 2 && wgs == 2 && H == 2 * NT * 2 && grid % 2 == 0 && act != nullptr && splits >= 1;
+  // a cluster of 2: two warpgroups on the NT columns each of a CTA's H / 2, one sample a unit
+  const bool pair_ok = cluster == 2 && wgs == 2 && H == 2 * NT * 2 && grid % 2 == 0 && act != nullptr &&
+                       dw_splits >= 1 && splits == 1;
   if ((wgs != 1 && wgs != 2) || H % NT != 0 || L < 2 || (cluster != 1 && !pair_ok) ||
-      slots < (L - 1 > 3 ? L - 1 : 3) || stages < 3 || grid < 1 ||
+      slots < (L - 1 > 3 ? L - 1 : 3) || stages < 3 || grid < 1 || splits < 1 ||
+      (splits > 1) != (grad_part != nullptr) ||
       smem != (long long)smem_bytes(64 * wgs, H / cluster, slots, stages, cluster))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long ngrad = (long long)B * (ni + nj + 2) * H;  // du | dv | ds | dqa
+  float* du = static_cast<float*>(splits > 1 ? grad_part : grads);
+  float* dv = du + (size_t)B * ni * H;
+  float* ds = dv + (size_t)B * nj * H;
   Args a{static_cast<const bf16*>(u), static_cast<const bf16*>(v), static_cast<const bf16*>(s),
          static_cast<const bf16*>(qa), static_cast<const bf16*>(wt_chunks), static_cast<const bf16*>(w_chunks),
-         static_cast<const bf16*>(bs), static_cast<const float*>(g), static_cast<float*>(du),
-         static_cast<float*>(dv), static_cast<float*>(ds), static_cast<float*>(dqa), static_cast<float*>(dw_part),
-         static_cast<float*>(db_part), static_cast<bf16*>(act), B, ni, nj, H, L, inject, slots, stages,
-         static_cast<const int64_t*>(seed), thr, inv_keep, static_cast<long long*>(phases)};
+         static_cast<const bf16*>(bs), static_cast<const float*>(g), du, dv, ds, ds + (size_t)B * H,
+         static_cast<float*>(dw_part), static_cast<float*>(db_part), static_cast<bf16*>(act), B, ni, nj, H, L,
+         inject, splits, splits > 1 ? ngrad : 0, slots, stages, static_cast<const int64_t*>(seed), thr, inv_keep,
+         static_cast<long long*>(phases)};
   cudaError_t err = drop ? dispatch<true>(a, wgs, cluster, grid, (size_t)smem, st)
                          : dispatch<false>(a, wgs, cluster, grid, (size_t)smem, st);
   if (err != cudaSuccess) return (int)err;
+  if (splits > 1)
+    reduce_partials_kernel<<<(unsigned)((ngrad + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(grad_part), static_cast<float*>(grads), splits, ngrad);
   const long long nw = (long long)(L - 1) * H * H;
   const long long nb = (long long)(L - 1) * H;
   if (cluster == 2) {
@@ -737,10 +766,10 @@ int rnet_pairwise_bwd(const void* u, const void* v, const void* s, const void* q
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (long long)B * ((ni * nj + 127) / 128);
     const int ntiles = (L - 1) * (H / G_M) * (H / G_N);
-    dw_gemm_kernel<<<(unsigned)(splits * ntiles), 2 * WG_THREADS + 32, G_SMEM, st>>>(a.act, a.dw_part, H, L, blocks,
-                                                                                      splits);
+    dw_gemm_kernel<<<(unsigned)(dw_splits * ntiles), 2 * WG_THREADS + 32, G_SMEM, st>>>(a.act, a.dw_part, H, L,
+                                                                                         blocks, dw_splits);
     reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws),
-                                                                          splits, nw);
+                                                                          dw_splits, nw);
   } else {
     reduce_dw_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid, H,
                                                                     nw);

@@ -68,8 +68,12 @@
 //     The 128-row block halves the W bytes per row of a 64-row one: the
 //     forward is bound by the W feed from L2 as much as by the tensor cores.
 //   * Backward: blocks of 64 rows, warpgroup w on output columns 128w ..
-//     128w + 127 of all 64 rows. One owner CTA per sample (a persistent grid of
-//     min(B, SMs)) walks the sample's blocks in order. Tiles hold a_0 ..
+//     128w + 127 of all 64 rows. A persistent grid walks units u = b*S + k,
+//     split k of sample b: its contiguous blocks [k*nblk/S, (k+1)*nblk/S),
+//     in order. S = 1 when B >= SMs (min(B, SMs) CTAs, each owning whole
+//     samples), else S = SMs / B (at most nblk) and one unit a CTA, so that
+//     a small batch still fills the card (kernels/pairwise.py::
+//     sample_splits; the wide kernel below walks the same units). Tiles hold a_0 ..
 //     a_{L-2}; dpre_{L-1} goes to tile 0 (a_0 is rebuilt from u, v, s for
 //     layer 1) or, at L = 2, to tile 1; dpre_{l-1} overwrites a_{l-1} in
 //     place once dW_l has read it.
@@ -88,12 +92,14 @@
 //     issued before the products (the partials of all CTAs, 104 MB at
 //     H=256, exceed L2, so they come from device memory every block).
 //   * One fixed thread per column adds db_l onto the CTA's fp64 row and ds /
-//     dqa onto the sample's fp64 sums, and the block's du / dv contributions
-//     by fire-and-forget reductions in row order (one thread's reductions
-//     to one address apply in program order). sum_partials and
-//     reduce_dw_ring add the partials over the CTAs in CTA order. Every
-//     output has one fixed writer and a fixed order of adds: the gradients
-//     are bitwise repeatable.
+//     dqa onto the split's fp64 sums of the sample, and the block's du / dv
+//     contributions into the split's slices by fire-and-forget reductions
+//     in row order (one thread's reductions to one address apply in program
+//     order). sum_partials and reduce_dw_ring add the partials over the CTAs
+//     in CTA order, and (S > 1) the splits' du / dv slices and fp64 ds / dqa
+//     sums in split order (fp64 to the end). Every output has one fixed
+//     writer and a fixed order of adds: the gradients are bitwise
+//     repeatable.
 //   * Shared memory (bytes, L=4): forward 1 tile (131,072) + 6 ring stages
 //     of 16,400 + the row scales (512) = 229,984; backward 3 tiles (196,608)
 //     + 2 stages (32,800) + dw_done (8) + row scales (256) = 229,672; within
@@ -536,8 +542,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                             const float* __restrict__ gup, float* __restrict__ du, float* __restrict__ dv,
                             float* __restrict__ ds, float* __restrict__ dqa, float* __restrict__ dw_part,
                             double* __restrict__ db_part, double* __restrict__ sums, int B, int ni, int nj,
-                            int L, int inject, int bm, const int64_t* __restrict__ seed, uint32_t thr,
-                            float inv_keep) {
+                            int L, int inject, int bm, int splits, long long split_stride,
+                            const int64_t* __restrict__ seed, uint32_t thr, float inv_keep) {
   extern __shared__ __align__(16) float smem[];
   constexpr int SA = act_stride(H), SW = w_stride(H), KC = chunk_rows(H);
   // slot k < L-1 holds a_k, then dpre_k; slot L-1 holds dpre_{L-1}
@@ -549,10 +555,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* dwp = dw_part + (size_t)blockIdx.x * (L - 1) * H * H;
   double* dbp = db_part + (size_t)blockIdx.x * (L - 1) * H;
   const uint64_t key = DROP ? (uint64_t)*seed : 0;
-  for (int b = blockIdx.x; b < B; b += gridDim.x) {
-    for (int blk = 0; blk < nblk; ++blk) {
+  for (int unit = blockIdx.x; unit < B * splits; unit += gridDim.x) {  // split k of sample b, as the ring kernel
+    const int b = unit / splits, k = unit - b * splits;
+    float* const du_k = du + (size_t)k * split_stride;
+    float* const dv_k = dv + (size_t)k * split_stride;
+    double* const sums_k = sums + (size_t)k * 2 * B * H;
+    const int blk1 = (k + 1) * nblk / splits;
+    for (int blk = k * nblk / splits; blk < blk1; ++blk) {
       const int p0 = blk * bm, valid = min(bm, npairs - p0);
-      const bool last = blk == nblk - 1;
+      const bool last = splits == 1 && blk == blk1 - 1;
       fill_a0<H>(slot(0), u, v, s, b, ni, nj, p0, valid, bm);
       fill_row_scales<DROP>(rowscale, bm, valid, p0, b, key, thr, inv_keep);
       __syncthreads();
@@ -576,7 +587,7 @@ __global__ void __launch_bounds__(THREADS, 1)
           for (int r = 0; r < valid; ++r) sum += dcur[r * SA + c];
           dbp[(l - 1) * H + c] += sum;
           if (l == inject) {
-            const double q = sums[((size_t)b * 2 + 1) * H + c] += sum;
+            const double q = sums_k[((size_t)B + b) * H + c] += sum;
             if (last) dqa[(size_t)b * H + c] = (float)q;
           }
         }
@@ -595,16 +606,16 @@ __global__ void __launch_bounds__(THREADS, 1)
           const int p = p0 + r, i = p / nj, j = p - i * nj;
           const float x = d0[r * SA + c];
           if (i != i_cur) {
-            du[((size_t)b * ni + i_cur) * H + c] += dui;
+            du_k[((size_t)b * ni + i_cur) * H + c] += dui;
             dui = 0.0f;
             i_cur = i;
           }
           dui += x;
           dsum += x;
-          dv[((size_t)b * nj + j) * H + c] += x;
+          dv_k[((size_t)b * nj + j) * H + c] += x;
         }
-        du[((size_t)b * ni + i_cur) * H + c] += dui;
-        const double sd = sums[(size_t)b * 2 * H + c] += dsum;
+        du_k[((size_t)b * ni + i_cur) * H + c] += dui;
+        const double sd = sums_k[(size_t)b * H + c] += dsum;
         if (last) ds[(size_t)b * H + c] = (float)sd;
       }
       __syncthreads();
@@ -612,7 +623,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// out[k] = sum over CTAs c = 0 .. G-1 (in order) of part[c, k].
+// out[k] = sum over c = 0 .. G-1 (in order: CTAs, or sample splits) of part[c, k].
 template <typename T>
 __global__ void sum_partials_kernel(const T* __restrict__ part, float* __restrict__ out, int G, long long n) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1175,8 +1186,8 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
                           const float* __restrict__ gup, float* __restrict__ du, float* __restrict__ dv,
                           float* __restrict__ ds, float* __restrict__ dqa, float* __restrict__ dw_part,
                           double* __restrict__ db_part, double* __restrict__ sums, int B, int ni, int nj, int L,
-                          int inject, int nslots, int stages, const int64_t* __restrict__ seed, uint32_t thr,
-                          float inv_keep, long long* phases) {
+                          int inject, int splits, long long split_stride, int nslots, int stages,
+                          const int64_t* __restrict__ seed, uint32_t thr, float inv_keep, long long* phases) {
   // A cluster CTA (CL = 2) keeps W = H / 2 of the columns; the depth of every
   // product is all H, the peer's half read through distributed shared memory.
   constexpr int W = H / CL, BM = BWD_BM, PER_LAYER = H / ring_kd(W), STAGE_FLOATS = STAGE_BYTES / 4;
@@ -1216,8 +1227,8 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
     if (threadIdx.x == CONSUMERS) {
       const size_t own = (size_t)rank * (L - 1) * PER_LAYER * STAGE_FLOATS;  // a cluster CTA's pair_halves slice
       uint32_t dw_parity = 0;
-      for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL)
-        for (int blk = 0; blk < nblk; ++blk) {
+      for (int unit = blockIdx.x / CL; unit < B * splits; unit += gridDim.x / CL)  // the consumers' units and blocks
+        for (int blk = unit % splits * nblk / splits; blk < (unit % splits + 1) * nblk / splits; ++blk) {
           produce_stages(r, chain + own, (L - 1) * PER_LAYER, pc, BP_FEED);
           for (int l = L - 1; l >= 1; --l) {
             // the dW products stage their operand in the ring's memory
@@ -1258,11 +1269,16 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
     else
       chain_product_pair<W, BM, 1>(total, A, peer_slot(k), row, ct, r, lead, pc, BP_FEED);
   };
-  for (int b = blockIdx.x / CL; b < B; b += gridDim.x / CL) {
+  for (int unit = blockIdx.x / CL; unit < B * splits; unit += gridDim.x / CL) {
+    const int b = unit / splits, k = unit - b * splits;  // split k of sample b: its blocks, its slices
     const float* gb = gup + (size_t)b * H + c0;
-    for (int blk = 0; blk < nblk; ++blk) {
+    float* const du_k = du + (size_t)k * split_stride;
+    float* const dv_k = dv + (size_t)k * split_stride;
+    double* const sums_k = sums + (size_t)k * 2 * B * H;  // (2, B, H): ds, then dqa
+    const int blk1 = (k + 1) * nblk / splits;
+    for (int blk = k * nblk / splits; blk < blk1; ++blk) {
       const int p0 = blk * BM, valid = min(BM, npairs - p0);
-      const bool last = blk == nblk - 1;
+      const bool last = splits == 1 && blk == blk1 - 1;  // splits > 1: ds, dqa from the sum of the splits' sums
       sync(false);  // the previous block's column pass is done with slot 0
       pc.mark(BP_A0);
       ring_row_scales<BM, DROP>(rowscale, valid, p0, b, key, thr, inv_keep, tid);
@@ -1315,7 +1331,7 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
           const float sum = column_sum<BM>(D, c, nullptr);  // rows past `valid` are 0
           dbp[(size_t)(l - 1) * H + c0 + c] += sum;
           if (l == inject) {
-            const double q = sums[((size_t)b * 2 + 1) * H + c0 + c] += sum;
+            const double q = sums_k[((size_t)B + b) * H + c0 + c] += sum;
             if (last) dqa[(size_t)b * H + c0 + c] = (float)q;
           }
         }
@@ -1345,21 +1361,21 @@ __global__ void __launch_bounds__(RING_THREADS, 1)
           for (int e = 0; e < 4; ++e) {
             if (r0 + e >= valid) break;
             if (i != i_cur) {
-              atomicAdd(du + ((size_t)b * ni + i_cur) * H + cg, dui);
+              atomicAdd(du_k + ((size_t)b * ni + i_cur) * H + cg, dui);
               dui = 0.0f;
               i_cur = i;
             }
             dui += xs[e];
             dsum += xs[e];
-            atomicAdd(dv + ((size_t)b * nj + j) * H + cg, xs[e]);
+            atomicAdd(dv_k + ((size_t)b * nj + j) * H + cg, xs[e]);
             if (++j == nj) {
               j = 0;
               ++i;
             }
           }
         }
-        atomicAdd(du + ((size_t)b * ni + i_cur) * H + cg, dui);
-        const double sd = sums[(size_t)b * 2 * H + cg] += dsum;
+        atomicAdd(du_k + ((size_t)b * ni + i_cur) * H + cg, dui);
+        const double sd = sums_k[(size_t)b * H + cg] += dsum;
         if (last) ds[(size_t)b * H + cg] = (float)sd;
       }
     }
@@ -1401,7 +1417,8 @@ struct Args {
   const float *u, *v, *s, *qa, *ws, *wt, *chain, *dst, *bs, *g;
   float *partial, *du, *dv, *ds, *dqa, *dw_part;
   double *db_part, *sums;
-  int B, ni, nj, L, inject, bm, slots, stages, cluster;
+  int B, ni, nj, L, inject, bm, slots, stages, cluster, splits;
+  long long split_stride;  // between the sample splits' slices of du and dv
   bool ring;
   const int64_t* seed;
   uint32_t thr;
@@ -1441,7 +1458,7 @@ cudaError_t launch_bwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
     if (err != cudaSuccess) return err;
     kern<<<grid, wide::THREADS, smem, st>>>(a.u, a.v, a.s, a.qa, a.ws, a.wt, a.bs, a.g, a.du, a.dv, a.ds, a.dqa,
                                             a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject, a.bm,
-                                            a.seed, a.thr, a.inv_keep);
+                                            a.splits, a.split_stride, a.seed, a.thr, a.inv_keep);
   } else if constexpr (H == RING_H || H == 2 * RING_H) {
     constexpr int CL = H / RING_H;  // H = 512: a cluster of two CTAs
     auto kern = pairwise_bwd_f32_ring<H, CL, DROP>;
@@ -1450,7 +1467,7 @@ cudaError_t launch_bwd(const Args& a, int grid, size_t smem, cudaStream_t st) {
     if (err != cudaSuccess) return err;
     return launch_cluster(kern, grid, RING_THREADS, smem, st, CL, a.u, a.v, a.s, a.qa, a.chain, a.dst, a.bs, a.g,
                           a.du, a.dv, a.ds, a.dqa, a.dw_part, a.db_part, a.sums, a.B, a.ni, a.nj, a.L, a.inject,
-                          a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
+                          a.splits, a.split_stride, a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
   }
   return cudaGetLastError();
 }
@@ -1532,39 +1549,54 @@ int rnet_pairwise_fwd_f32(const void* u, const void* v, const void* s, const voi
 }
 
 // Launches the fp32 backward on `stream` for the plan of tile_plan("bwd",
-// ..., esize=4): the fused kernel, then the ordered sums of the dW and db
-// partials. Inputs as rnet_pairwise_fwd_f32's, plus, for the wide kernel, wt
-// (L-1,H,H) = W_l^T of every layer, for the ring kernel dstages =
-// pack_f32_weights(W) (the d products' B operand; with cluster 2, chain and
-// dstages pack each CTA's pair_halves slice, rank after rank), and g (B,H)
-// the upstream gradient; outputs du (B,ni,H), dv (B,nj,H), ds, dqa (B,H),
-// dws (L-1,H,H), dbs (L-1,H) fp32, of which du, dv and dqa must be zero;
-// scratch, zero: dw_part (grid,L-1,H,H/cluster) fp32, and in fp64 (the sums over a sample's or a
-// CTA's blocks: thousands of addends of one sign at n = 1024) db_part
-// (grid,L-1,H) and sums (B,2,H), ds and dqa of each sample. phases as the
-// forward's. Returns cudaGetLastError().
+// ..., esize=4): the fused kernel, then (splits > 1) the ordered sums of
+// the sample splits' du, dv slices and fp64 ds, dqa sums, then those of
+// the dW and db partials. Inputs as rnet_pairwise_fwd_f32's, plus, for the
+// wide kernel, wt (L-1,H,H) = W_l^T of every layer, for the ring kernel
+// dstages = pack_f32_weights(W) (the d products' B operand; with cluster
+// 2, chain and dstages pack each CTA's pair_halves slice, rank after
+// rank), and g (B,H) the upstream gradient; outputs grads, fp32 zero, du
+// (B,ni,H) | dv (B,nj,H) | ds (B,H) | dqa (B,H) in one buffer, dws
+// (L-1,H,H), dbs (L-1,H) fp32; scratch, zero: grad_part (splits,
+// B*(ni+nj)*H) fp32, the splits' du | dv, when splits > 1 (cluster 1
+// only; else null), dw_part (grid,L-1,H,H/cluster) fp32, and in fp64 (the
+// sums over a split's or a CTA's blocks: thousands of addends of one sign
+// at n = 1024) db_part (grid,L-1,H) and sums (splits,2,B,H), ds and dqa of
+// each split and sample. phases as the forward's. Returns
+// cudaGetLastError().
 int rnet_pairwise_bwd_f32(const void* u, const void* v, const void* s, const void* qa, const void* ws,
                           const void* wt, const void* chain, const void* dstages, const void* bs, const void* g,
-                          void* du, void* dv, void* ds, void* dqa, void* dws, void* dbs, void* dw_part,
-                          void* db_part, void* sums, int B, int ni, int nj, int H, int L, int inject, int ring,
-                          int bm, int slots, int stages, int grid, int cluster, long long smem, int drop,
-                          const void* seed, unsigned int thr, float inv_keep, void* phases, void* stream) {
-  if (!plan_ok(ring != 0, true, H, L, bm, slots, stages, grid, cluster, smem)) return (int)cudaErrorInvalidValue;
+                          void* grads, void* grad_part, void* dws, void* dbs, void* dw_part, void* db_part,
+                          void* sums, int B, int ni, int nj, int H, int L, int inject, int ring, int bm, int slots,
+                          int stages, int grid, int cluster, int splits, long long smem, int drop, const void* seed,
+                          unsigned int thr, float inv_keep, void* phases, void* stream) {
+  if (!plan_ok(ring != 0, true, H, L, bm, slots, stages, grid, cluster, smem) || splits < 1 ||
+      (splits > 1 && cluster != 1) || (splits > 1) != (grad_part != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long nuv = (long long)B * (ni + nj) * H;  // du | dv
+  float* du = static_cast<float*>(splits > 1 ? grad_part : grads);
+  float* ds = static_cast<float*>(grads) + nuv;
   Args a{};
   a.u = static_cast<const float*>(u), a.v = static_cast<const float*>(v), a.s = static_cast<const float*>(s);
   a.qa = static_cast<const float*>(qa), a.ws = static_cast<const float*>(ws), a.wt = static_cast<const float*>(wt);
   a.chain = static_cast<const float*>(chain), a.dst = static_cast<const float*>(dstages);
   a.bs = static_cast<const float*>(bs), a.g = static_cast<const float*>(g);
-  a.du = static_cast<float*>(du), a.dv = static_cast<float*>(dv), a.ds = static_cast<float*>(ds);
-  a.dqa = static_cast<float*>(dqa), a.dw_part = static_cast<float*>(dw_part);
+  a.du = du, a.dv = du + (size_t)B * ni * H, a.ds = ds, a.dqa = ds + (size_t)B * H;
+  a.dw_part = static_cast<float*>(dw_part);
   a.db_part = static_cast<double*>(db_part), a.sums = static_cast<double*>(sums);
   a.B = B, a.ni = ni, a.nj = nj, a.L = L, a.inject = inject, a.bm = bm, a.slots = slots, a.stages = stages;
-  a.ring = ring != 0, a.cluster = cluster;
+  a.ring = ring != 0, a.cluster = cluster, a.splits = splits, a.split_stride = splits > 1 ? nuv : 0;
   a.seed = static_cast<const int64_t*>(seed), a.thr = thr, a.inv_keep = inv_keep;
   a.phases = static_cast<long long*>(phases);
   cudaError_t err = dispatch<true>(a, H, drop != 0, grid, (size_t)smem, st);
   if (err != cudaSuccess) return (int)err;
+  if (splits > 1) {  // with one split the kernel wrote du, dv and, from its last block's fp64 sums, ds and dqa
+    const long long nsd = 2LL * B * H;
+    wide::sum_partials_kernel<float><<<(unsigned)((nuv + 255) / 256), 256, 0, st>>>(
+        static_cast<const float*>(grad_part), static_cast<float*>(grads), splits, nuv);
+    wide::sum_partials_kernel<double><<<(unsigned)((nsd + 255) / 256), 256, 0, st>>>(a.sums, ds, splits, nsd);
+  }
   const long long nw = (long long)(L - 1) * H * H, nb = (long long)(L - 1) * H;
   if (!ring)
     wide::sum_partials_kernel<float><<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws),

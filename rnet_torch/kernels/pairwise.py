@@ -108,10 +108,10 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
     elif name == F32_LIB:
         lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 9 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_fwd_f32.restype = i32
-        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 19 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 17 + [i32] * 13 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd_f32.restype = i32
     else:
-        lib.rnet_pairwise_bwd.argtypes = [vp] * 17 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_bwd.argtypes = [vp] * 15 + [i32] * 13 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd.restype = i32
     lib.rnet_cuda_error_string.argtypes = [i32]
     lib.rnet_cuda_error_string.restype = ctypes.c_char_p
@@ -236,16 +236,43 @@ def pairwise_core_bwd_reference(u, v, s, qa, ws, bs, g, inject: int, keep: float
     d * [a_l > 0] rounded to u's dtype for l >= 1; dW_l = a_{l-1}^T dpre_l and
     db_l = sum dpre_l in fp32; dqa = sum dpre at the inject layer; d = dpre_l
     W_l^T in fp32; dpre_0 kept in fp32 for ds, du (sum over j), dv (over i)."""
-    dt = u.dtype
-    B, ni, H = u.shape
-    nj = v.shape[1]
-    acts = _recompute(u, v, s, qa, ws, bs, inject)
-    d = g.float()[:, None, :].expand(B, ni * nj, H)
+    B, ni, nj = u.shape[0], u.shape[1], v.shape[1]
+    d = g.float()[:, None, :].expand(B, ni * nj, g.shape[1])
     if keep < 1.0:
         d = d * _pair_scale(seed, B, ni, nj, keep)[..., None]
+    return _bwd_chain(_recompute(u, v, s, qa, ws, bs, inject), ws, d, u.dtype, ni, nj, inject)
+
+
+def split_bwd_reference(plan: TilePlan, u, v, s, qa, ws, bs, g, inject: int, keep: float = 1.0, seed=None):
+    """The backward as the kernels decompose it under ``plan`` (a
+    ``tile_plan("bwd", ...)``): split k of every sample, the rows of its
+    blocks ``plan.split_blocks(k)``, through ``pairwise_core_bwd_reference``'s
+    arithmetic on those rows alone, and the splits' gradients added in split
+    order, as the kernels add their per-split slices of du, dv, ds and dqa.
+    (du, dv, ds, dqa, dws, dbs) fp32; with one split, the plain backward."""
+    B, ni, nj = u.shape[0], u.shape[1], v.shape[1]
+    npairs = ni * nj
+    acts = _recompute(u, v, s, qa, ws, bs, inject)
+    scale = _pair_scale(seed, B, ni, nj, keep) if keep < 1.0 else torch.ones((B, npairs), device=u.device)
+    total = None
+    for k in range(plan.splits):
+        blocks = plan.split_blocks(k)
+        rows = torch.zeros(npairs, device=u.device)
+        rows[blocks.start * plan.bm:min(blocks.stop * plan.bm, npairs)] = 1.0
+        d = g.float()[:, None, :] * (scale * rows)[..., None]
+        part = _bwd_chain(acts, ws, d, u.dtype, ni, nj, inject)
+        total = part if total is None else tuple(a + b for a, b in zip(total, part))
+    return total
+
+
+def _bwd_chain(acts, ws, d, dt, ni: int, nj: int, inject: int):
+    """The backward of the recomputed chain ``acts`` for the per-row
+    upstream gradient d (B, ni*nj, H) fp32, at ``pairwise_core_bwd_reference``'s
+    rounding points; (du, dv, ds, dqa, dws, dbs) fp32."""
+    B, _, H = d.shape
     n_l = ws.shape[0]
     dws, dbs = [None] * n_l, [None] * n_l
-    dqa = torch.zeros((B, H), dtype=torch.float32, device=u.device)
+    dqa = torch.zeros((B, H), dtype=torch.float32, device=d.device)
     for l in range(n_l, 0, -1):
         dpre = torch.where(acts[l] > 0, d, 0.0).to(dt).float()
         dws[l - 1] = torch.einsum("bpk,bpn->kn", acts[l - 1].float(), dpre)
@@ -328,8 +355,11 @@ class TilePlan:
     (``wgs`` = 2): the ring kernels (``ring``) on blocks of ``bm`` =
     F32_RING_ROWS[kind] rows with ``stages`` ring stages of F32_STAGE_BYTES,
     the wide kernels on blocks of ``bm`` = 64, 32 or 16 rows with W streamed
-    through ``stages`` = 2 chunks. The C launchers check the plan and refuse
-    what they cannot take."""
+    through ``stages`` = 2 chunks. The one-CTA backwards (bf16 and fp32)
+    give each sample ``splits`` CTAs when the batch is smaller than the
+    card (``sample_splits``), each on a contiguous share of its blocks
+    (``split_blocks``). The C launchers check the plan and refuse what they
+    cannot take."""
 
     kind: str  # one of KINDS
     B: int
@@ -346,6 +376,7 @@ class TilePlan:
     esize: int = 2  # bytes of an input element: 4 for the fp32 kernels
     ring: bool = False  # the fp32 ring kernels (H = F32_RING_WIDTH, or PAIR_WIDTH on clusters); else the wide ones
     cluster: int = 1  # CTAs of a cluster that share a block of rows, each on H / cluster columns
+    splits: int = 1  # the backward's CTAs per sample (S), each on a contiguous share of its blocks
 
     @property
     def width(self) -> int:
@@ -362,20 +393,27 @@ class TilePlan:
         """Row blocks per sample; the last one is ragged when bm does not divide ni*nj."""
         return -(-self.ni * self.nj // self.bm)
 
+    def split_blocks(self, k: int) -> range:
+        """The blocks of split k of a sample in the backward: [k * nblk / S,
+        (k + 1) * nblk / S), in order (S = ``splits``; one split, all)."""
+        return range(k * self.nblk // self.splits, (k + 1) * self.nblk // self.splits)
+
     def blocks(self, cta: int):
         """(b, first pair row, valid rows) of every block CTA `cta` runs, in
         its order: the forward walks tiles t = cta, cta + grid, ... (t = b *
         nblk + block); the int8 forward the contiguous range [cta * tiles //
         grid, (cta + 1) * tiles // grid), wgs tiles a round; the backward
-        owns samples b = cta, cta + grid, ... and walks all their blocks (with a
-        cluster, both CTAs of cluster q = cta // cluster own the samples q, q +
-        grid / cluster, ... and walk the same blocks, each on its columns)."""
+        walks the units u = cta, cta + grid, ... (unit u = b * splits + k:
+        split k of sample b, the blocks ``split_blocks(k)``; with one split,
+        all the blocks of the samples it owns; with a cluster, both CTAs of
+        cluster q = cta // cluster walk the units q, q + grid / cluster, ...,
+        each on its columns)."""
         npairs = self.ni * self.nj
         ntiles = self.B * self.nblk
         if self.kind == "bwd":
             owner, owners = cta // self.cluster, self.grid // self.cluster
-            return [(b, k * self.bm, min(self.bm, npairs - k * self.bm))
-                    for b in range(owner, self.B, owners) for k in range(self.nblk)]
+            return [(u // self.splits, k * self.bm, min(self.bm, npairs - k * self.bm))
+                    for u in range(owner, self.B * self.splits, owners) for k in self.split_blocks(u % self.splits)]
         if self.kind == "fwd":  # with a cluster, both CTAs of cluster cta // cluster walk its tiles
             tiles = range(cta // self.cluster, ntiles, self.grid // self.cluster)
         else:
@@ -438,8 +476,9 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
     shared memory is left, up to MAX_STAGES. The forward and backward at H =
     PAIR_WIDTH run on clusters of PAIR CTAs where their tiles fit
     (``_pair_plan``; the forward's always do), and on one CTA where they do
-    not (deeper chains in the backward). ValueError if the plan does not
-    fit."""
+    not (deeper chains in the backward). The one-CTA backward gives each
+    sample ``sample_splits(B, nblk, sms)`` CTAs: a grid of min(B, sms) owner
+    CTAs when B >= sms, else B * S. ValueError if the plan does not fit."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if H % 128 != 0:
@@ -471,11 +510,21 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
         )
     nblk = -(-ni * nj // (WG_ROWS if kind == "int8" else WG_ROWS * wgs))
     if kind == "bwd":
-        grid = min(B, sms)
+        splits = sample_splits(B, nblk, sms)
+        grid = min(B * splits, sms)
     else:
-        grid = min(-(-B * nblk // (wgs if kind == "int8" else 1)), sms)
+        splits, grid = 1, min(-(-B * nblk // (wgs if kind == "int8" else 1)), sms)
     bm = WG_ROWS if kind == "int8" else WG_ROWS * wgs
-    return TilePlan(kind, B, ni, nj, H, L, wgs, stages, slots, grid, smem_bytes(kind, wgs, H, L, slots, stages), bm)
+    return TilePlan(kind, B, ni, nj, H, L, wgs, stages, slots, grid, smem_bytes(kind, wgs, H, L, slots, stages), bm,
+                    splits=splits)
+
+
+def sample_splits(B: int, nblk: int, sms: int = H100_SMS) -> int:
+    """CTAs per sample of the one-CTA backwards (bf16 H <= 384, fp32 H = 128
+    and 256): 1 when the batch fills the card (B >= sms: a CTA owns whole
+    samples), else sms // B, so that B * S CTAs cover the card, and never
+    more than the sample's nblk blocks (no split without a block)."""
+    return max(1, min(sms // B, nblk))
 
 
 DW_TILE = (128, 256)  # the output tile of the bf16 cluster backward's dW GEMM (dw_gemm_kernel)
@@ -535,8 +584,9 @@ def _tile_plan_f32(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int
     Else the wide kernels: two tiles in the forward, L in the backward, and
     the most rows of F32_ROWS that leave at most two 16 x 64 output tiles a
     warp and fit beside the two W chunks. The forward walks (sample, block)
-    tiles over min(tiles, SMs) CTAs, the backward gives each sample one
-    owner CTA of min(B, SMs). ValueError if no plan fits."""
+    tiles over min(tiles, SMs) CTAs; the backward gives each sample
+    ``sample_splits`` CTAs (one owner CTA of min(B, SMs) when B >= SMs).
+    ValueError if no plan fits."""
     if kind == "int8":
         raise ValueError("the int8 kernel has no fp32 plan (esize=4)")
     if H not in F32_WIDTHS:
@@ -559,9 +609,10 @@ def _tile_plan_f32(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int
             )
         bm = fits[0]
     nblk = -(-ni * nj // bm)
-    grid = min(B, sms) if kind == "bwd" else min(B * nblk, sms)
+    splits = sample_splits(B, nblk, sms) if kind == "bwd" else 1
+    grid = min(B * splits, sms) if kind == "bwd" else min(B * nblk, sms)
     return TilePlan(kind, B, ni, nj, H, L, 2, stages, slots, grid,
-                    smem_bytes(kind, 2, H, L, slots, stages, 4, bm, ring=ring), bm, 4, ring)
+                    smem_bytes(kind, 2, H, L, slots, stages, 4, bm, ring=ring), bm, 4, ring, splits=splits)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -747,9 +798,16 @@ def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.
 def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float = 1.0, seed=None, phases=None):
     """Launch the backward kernel for the inputs' dtype (bf16:
     pairwise_bwd.cu, fp32: pairwise_f32.cu) on the current stream for the
-    upstream gradient g (B, H) fp32; (du, dv, ds, dqa, dws, dbs) in fp32.
-    Raises as ``pairwise_fwd_cuda`` does; ``phases`` as there, for the grid
-    of ``tile_plan("bwd", ...)`` and the BWD_PHASES."""
+    upstream gradient g (B, H) fp32; (du, dv, ds, dqa, dws, dbs) in fp32,
+    du, dv, ds and dqa views of one buffer. Raises as ``pairwise_fwd_cuda``
+    does; ``phases`` as there, for the grid of ``tile_plan("bwd", ...)`` and
+    the BWD_PHASES.
+
+    Memory: a plan of S = ``plan.splits`` > 1 CTAs per sample adds S zeroed
+    fp32 slices of du, dv, ds and dqa (bf16; fp32: of du and dv, and S fp64
+    (2, B, H) sums), which a second kernel adds in split order: at
+    stretch-fp-32's B=8 (n = 1,024, H = 256, S = 16) the du and dv slices
+    are 134 MB each."""
     B, ni, nj, H, L = check_kernel_inputs(u, v, s, qa, ws, bs)
     if g.dtype != torch.float32 or tuple(g.shape) != (B, H) or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous fp32 ({B}, {H}) tensor; got {g.dtype} {tuple(g.shape)}")
@@ -763,15 +821,16 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
     lib = _kernel_lib(BWD_KERNEL, defines)
     wt_chunks, w_chunks = (_pack_for(x, plan, pack_weight_chunks) for x in (ws.transpose(1, 2), ws))
     f32 = dict(dtype=torch.float32, device=dev)
-    du, dv = torch.zeros((B, ni, H), **f32), torch.zeros((B, nj, H), **f32)
-    ds, dqa = torch.zeros((B, H), **f32), torch.zeros((B, H), **f32)
+    grads, views = _grad_buffer(B, ni, nj, H, dev)
+    # the splits' slices of du | dv | ds | dqa, added in split order after the kernel
+    grad_part = torch.zeros((plan.splits, grads.numel()), **f32) if plan.splits > 1 else None
     dws, dbs = torch.empty((L - 1, H, H), **f32), torch.empty((L - 1, H), **f32)
-    splits, act = 0, None
+    gemm_splits, act = 0, None
     if plan.cluster > 1:  # the stored a_{l-1}, dpre_l tiles and the GEMM's split partials of dW
-        splits = dw_splits(plan, _sms(dev))
+        gemm_splits = dw_splits(plan, _sms(dev))
         act = torch.empty((2, L - 1, B * plan.nblk, plan.cluster, plan.bm * plan.width), dtype=torch.bfloat16,
                           device=dev)
-        dw_part = torch.empty((splits, L - 1, H, H), **f32)
+        dw_part = torch.empty((gemm_splits, L - 1, H, H), **f32)
     else:
         dw_part = torch.zeros((plan.grid, L - 1, H, H), **f32)
     db_part = torch.zeros((plan.grid, L - 1, H), **f32)
@@ -779,15 +838,23 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_bwd(
             u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), wt_chunks.data_ptr(), w_chunks.data_ptr(),
-            bs.data_ptr(), g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(),
-            dws.data_ptr(), dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), _ptr(act), B, ni, nj, H, L,
-            int(inject), plan.wgs, plan.slots, plan.stages, plan.grid, plan.cluster, splits, plan.smem, drop,
-            seed_ptr, thr, inv_keep, phase_ptr, stream,
+            bs.data_ptr(), g.data_ptr(), grads.data_ptr(), _ptr(grad_part), dws.data_ptr(), dbs.data_ptr(),
+            dw_part.data_ptr(), db_part.data_ptr(), _ptr(act), B, ni, nj, H, L, int(inject), plan.wgs, plan.slots,
+            plan.stages, plan.grid, plan.cluster, gemm_splits, plan.splits, plan.smem, drop, seed_ptr, thr,
+            inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, BWD_KERNEL)
     launches[BWD_KERNEL] += 1
     launches["pair_mask"] += drop
-    return du, dv, ds, dqa, dws, dbs
+    return (*views, dws, dbs)
+
+
+def _grad_buffer(B: int, ni: int, nj: int, H: int, dev) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One zeroed fp32 buffer du (B, ni, H) | dv (B, nj, H) | ds (B, H) |
+    dqa (B, H), as the backward launchers take it, and its four views."""
+    grads = torch.zeros(B * (ni + nj + 2) * H, dtype=torch.float32, device=dev)
+    du, dv, ds, dqa = grads.split([B * ni * H, B * nj * H, B * H, B * H])
+    return grads, (du.view(B, ni, H), dv.view(B, nj, H), ds.view(B, H), dqa.view(B, H))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -847,26 +914,28 @@ def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_pt
     else:
         wt, chain, dstages = ws.transpose(1, 2).contiguous(), None, None
     f32 = dict(dtype=torch.float32, device=dev)
-    du, dv = torch.zeros((B, ni, H), **f32), torch.zeros((B, nj, H), **f32)
-    ds, dqa = torch.empty((B, H), **f32), torch.zeros((B, H), **f32)
+    grads, views = _grad_buffer(B, ni, nj, H, dev)
+    # the splits' slices of du | dv (fp32), added in split order after the kernel
+    grad_part = torch.zeros((plan.splits, B * (ni + nj) * H), **f32) if plan.splits > 1 else None
     dws, dbs = torch.empty((L - 1, H, H), **f32), torch.empty((L - 1, H), **f32)
     dw_part = torch.zeros((plan.grid, L - 1, H, plan.width), **f32)
-    # sums over a CTA's or a sample's blocks in fp64 (thousands of addends of one sign at n = 1024)
+    # sums over a CTA's or a split's blocks in fp64 (thousands of addends of one sign at n = 1024): db per
+    # CTA; ds and dqa per split and sample
     db_part = torch.zeros((plan.grid, L - 1, H), dtype=torch.float64, device=dev)
-    sums = torch.zeros((B, 2, H), dtype=torch.float64, device=dev)
+    sums = torch.zeros((plan.splits, 2, B, H), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_bwd_f32(
             u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), _ptr(wt), _ptr(chain),
-            _ptr(dstages), bs.data_ptr(), g.data_ptr(), du.data_ptr(), dv.data_ptr(), ds.data_ptr(), dqa.data_ptr(),
-            dws.data_ptr(), dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), sums.data_ptr(), B, ni, nj, H,
-            L, inject, int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.cluster, plan.smem, drop,
+            _ptr(dstages), bs.data_ptr(), g.data_ptr(), grads.data_ptr(), _ptr(grad_part), dws.data_ptr(),
+            dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), sums.data_ptr(), B, ni, nj, H, L, inject,
+            int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.cluster, plan.splits, plan.smem, drop,
             seed_ptr, thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, F32_BWD_KERNEL)
     launches[F32_BWD_KERNEL] += 1
     launches["pair_mask"] += drop
-    return du, dv, ds, dqa, dws, dbs
+    return (*views, dws, dbs)
 
 
 def pair_mask_cuda(seed: torch.Tensor, B: int, ni: int, nj: int, keep: float) -> torch.Tensor:

@@ -12,9 +12,13 @@ object grid of ``config.json``, and every agreement case of
 * shared memory within the 232,448 bytes a CTA may use on Hopper;
 * the pair rows of every sample tiled exactly once, only the last block of a
   sample ragged (its surplus rows masked);
-* in the backward, one owner CTA per sample (du, dv, ds, dqa have one writer);
-  at H = 512 one owner cluster of two CTAs, each on its half of the output
-  columns, so that every (row, column) still has one writer;
+* in the backward, one owner CTA per sample when the batch fills the card
+  (du, dv, ds, dqa have one writer); with fewer samples than SMs, SMs // B
+  CTAs per sample (at H <= 384 in bf16, H = 128 and 256 in fp32), each on a
+  contiguous, ordered share of its blocks and its own slice of du, dv, ds
+  and dqa; at H = 512 one owner cluster of two CTAs, each on its half of
+  the output columns, so that every (row, column) still has one writer;
+* at B >= SMs the backward's plan is the one-owner plan field for field;
 * at H = 512 the forward on clusters of two CTAs too, both on the same
   tiles, each on its half of the columns.
 """
@@ -51,16 +55,21 @@ CONFIGS = _config_shapes()
 # (B, ni, nj, H, L): each config at the serving buckets, a batch above the SM
 # count and the training batch (the 32 x 32 grid, a million pair rows a
 # sample, at the buckets only: the row walk below enumerates every block);
-# every agreement case of chip_smoke.py (bf16 and int8)
+# every agreement case of chip_smoke.py (bf16 and int8); the backward's
+# batches below the SM count: stretch-fp-32 at B=16, as rnet trained it, and
+# original-fp at B=66 (two CTAs a sample) and from 67 to 131 (one)
+SMALL_BATCHES = {(16, 1024, 1024, 256, 4)} | {(B, 64, 64, 256, 4) for B in (66, 67, 100, 131)}
 SHAPES = sorted(
     {(B, n, n, H, L) for _, n, _, H, L in CONFIGS for B in ((1, 8, 64, 140, 512) if n <= 256 else (1, 8))}
     | {(B, ni, nj, H, L) for B, ni, nj, H, L, _ in chip_smoke.CASES}
     | {case[:5] for case, _, _ in chip_smoke.INT8_CASES}
+    | SMALL_BATCHES
 )
 KINDS = ["fwd", "bwd", "int8"]
 F32_SHAPES = sorted(
     {(B, n, n, H, L) for _, n, _, H, L in CONFIGS for B in ((1, 8, 64, 140, 512) if n <= 256 else (1, 8))}
     | {case[:5] for case in chip_smoke.F32_CASES}
+    | SMALL_BATCHES
 )
 
 
@@ -128,23 +137,112 @@ def _assert_tiles_every_row_once(plan):
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
-def test_backward_gives_each_sample_one_owner_cta(shape):
-    _assert_one_owner_cta_per_sample(tpw.tile_plan("bwd", *shape, SMS))
+def test_backward_owns_or_splits_each_sample(shape):
+    _assert_backward_units(tpw.tile_plan("bwd", *shape, SMS))
 
 
-def _assert_one_owner_cta_per_sample(plan):
-    """One owner CTA per sample, or one owner cluster, whose CTAs own the
-    sample's columns one share each."""
-    B = plan.B
-    owners = {}
+def _assert_backward_units(plan, sms=SMS):
+    """The backward's units. B >= SMs, or a cluster (H = 512): one owner CTA
+    per sample, or one owner cluster whose CTAs own the sample's columns one
+    share each, on a grid of min(B, SMs) CTAs (clusters). One CTA and B <
+    SMs: S = min(SMs // B, nblk) splits a sample, a grid of B * S CTAs, CTA
+    b * S + k on split k of sample b alone: the contiguous blocks [k * nblk
+    / S, (k + 1) * nblk / S) in order, the splits covering the sample's
+    blocks once, in split order."""
+    B, S = plan.B, plan.splits
+    units = {}
     for cta in range(plan.grid):
-        for b, _, _ in plan.blocks(cta):
-            owners.setdefault(b, set()).add(cta)
-    assert sorted(owners) == list(range(B))
-    for ctas in owners.values():
-        assert len({cta // plan.cluster for cta in ctas}) == 1 and len(ctas) == plan.cluster
-        assert sorted(plan.columns(cta).start for cta in ctas) == list(range(0, plan.H, plan.width))
-    assert plan.grid == plan.cluster * min(B, SMS // plan.cluster)
+        for b, p0, _ in plan.blocks(cta):
+            units.setdefault(b, {}).setdefault(cta, []).append(p0 // plan.bm)
+    assert sorted(units) == list(range(B))
+    if B >= sms or plan.cluster > 1:
+        assert S == 1 and plan.grid == plan.cluster * min(B, sms // plan.cluster)
+        for ctas in units.values():
+            assert len({cta // plan.cluster for cta in ctas}) == 1 and len(ctas) == plan.cluster
+            assert sorted(plan.columns(cta).start for cta in ctas) == list(range(0, plan.H, plan.width))
+            assert all(blocks == list(range(plan.nblk)) for blocks in ctas.values())
+        return
+    assert S == min(sms // B, plan.nblk) >= 1 and plan.grid == B * S <= sms
+    for b, ctas in units.items():
+        assert sorted(ctas) == [b * S + k for k in range(S)]  # one unit a CTA: split k of sample b
+        for cta, blocks in ctas.items():
+            k = cta - b * S
+            assert blocks == list(plan.split_blocks(k)) == list(range(k * plan.nblk // S, (k + 1) * plan.nblk // S))
+            assert blocks  # no split without a block
+        assert [blk for k in range(S) for blk in ctas[b * S + k]] == list(range(plan.nblk))
+
+
+# The parent's backward plans at B >= SMs (one owner CTA or cluster per
+# sample), field for field: (B, ni, nj, H, L, esize) -> (wgs, stages, slots,
+# grid, smem, bm, ring, cluster), as tile_plan gave them before the sample
+# splits; the split plan must leave every one of them as it was (bitwise the
+# same gradients at B=512 and B=140).
+ONE_OWNER_PLANS = {
+    (140, 12, 12, 512, 4, 2): (2, 4, 3, 132, 230096, 128, False, 2),
+    (140, 64, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
+    (140, 64, 64, 512, 4, 2): (2, 4, 3, 132, 230096, 128, False, 2),
+    (140, 256, 256, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
+    (512, 12, 12, 512, 4, 2): (2, 4, 3, 132, 230096, 128, False, 2),
+    (512, 32, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
+    (512, 64, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
+    (512, 64, 64, 512, 4, 2): (2, 4, 3, 132, 230096, 128, False, 2),
+    (512, 256, 256, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
+    (140, 64, 64, 384, 4, 2): (1, 8, 3, 132, 213504, 64, False, 1),
+    (140, 12, 12, 512, 4, 4): (2, 2, 3, 132, 229688, 64, True, 2),
+    (140, 64, 64, 128, 4, 4): (2, 2, 4, 132, 205056, 64, False, 1),
+    (140, 64, 64, 256, 5, 4): (2, 2, 5, 132, 150848, 16, False, 1),
+    (512, 64, 64, 256, 2, 4): (2, 6, 2, 132, 229736, 64, True, 1),
+    (512, 64, 64, 256, 3, 4): (2, 6, 2, 132, 229736, 64, True, 1),
+    (140, 64, 64, 256, 4, 4): (2, 2, 3, 132, 229672, 64, True, 1),
+    (140, 64, 64, 512, 4, 4): (2, 2, 3, 132, 229688, 64, True, 2),
+    (140, 256, 256, 256, 4, 4): (2, 2, 3, 132, 229672, 64, True, 1),
+    (512, 12, 12, 512, 4, 4): (2, 2, 3, 132, 229688, 64, True, 2),
+    (512, 64, 64, 256, 4, 4): (2, 2, 3, 132, 229672, 64, True, 1),
+    (512, 64, 64, 512, 4, 4): (2, 2, 3, 132, 229688, 64, True, 2),
+    (512, 256, 256, 256, 4, 4): (2, 2, 3, 132, 229672, 64, True, 1),
+}
+
+
+@pytest.mark.parametrize("key", sorted(ONE_OWNER_PLANS), ids=lambda k: "B{}-{}x{}-H{}-L{}-e{}".format(*k))
+def test_backward_plan_at_full_batches_is_the_one_owner_plan(key):
+    """B >= SMs: the parent's plan field for field, one split, and each CTA
+    the blocks of the samples c, c + grid, ... (the same launch)."""
+    *shape, esize = key
+    plan = tpw.tile_plan("bwd", *shape, SMS, esize=esize)
+    assert (plan.wgs, plan.stages, plan.slots, plan.grid, plan.smem, plan.bm, plan.ring, plan.cluster) == \
+        ONE_OWNER_PLANS[key]
+    assert plan.splits == 1 and plan.split_blocks(0) == range(plan.nblk)
+    npairs = plan.ni * plan.nj
+    for cta in (0, 1, plan.grid - 1):
+        q, owners = cta // plan.cluster, plan.grid // plan.cluster
+        assert plan.blocks(cta) == [(b, k * plan.bm, min(plan.bm, npairs - k * plan.bm))
+                                    for b in range(q, plan.B, owners) for k in range(plan.nblk)]
+
+
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape, splits, grid", [
+    ((8, 1024, 1024, 256, 4), 16, 128), ((16, 1024, 1024, 256, 4), 8, 128), ((64, 64, 64, 256, 4), 2, 128),
+    ((66, 64, 64, 256, 4), 2, 132), ((67, 64, 64, 256, 4), 1, 67), ((100, 64, 64, 256, 4), 1, 100),
+    ((131, 64, 64, 256, 4), 1, 131)], ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s) if isinstance(s, tuple) else "")
+def test_backward_splits_small_batches_over_the_card(esize, shape, splits, grid):
+    """Below the SM count the one-CTA backward covers the card: stretch-fp-32
+    at B=8 and 16 and the CLI's default B=64 on 128 CTAs, B=66 on 132; from
+    B = 67 to 131 one CTA a sample, a grid of B."""
+    plan = tpw.tile_plan("bwd", *shape, SMS, esize=esize)
+    assert (plan.splits, plan.grid) == (splits, grid)
+
+
+@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [(1, 64, 64, 256, 4), (3, 12, 12, 128, 3), (3, 24, 24, 256, 4),
+                                   (8, 256, 256, 256, 4), (16, 64, 64, 256, 4)],
+                         ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_backward_splits_on_a_smaller_card(esize, shape):
+    """tile_plan(..., sms=16), the switch the CPU tests build split plans
+    with: the same units on 16 SMs (B=3 at 12 x 12: 5 splits capped at the
+    sample's blocks; B=16: one owner CTA)."""
+    plan = tpw.tile_plan("bwd", *shape, 16, esize=esize)
+    _assert_tiles_every_row_once(plan)
+    _assert_backward_units(plan, sms=16)
 
 
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
@@ -189,11 +287,12 @@ def test_f32_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
 @pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_f32_plan_tiles_every_row_exactly_once(kind, shape):
     """Every pair row of every sample in exactly one block, only a sample's
-    last block ragged; in the backward each sample has one owner CTA."""
+    last block ragged; in the backward each sample has one owner CTA, or
+    below the SM count SMs // B CTAs on ordered shares of its blocks."""
     plan = tpw.tile_plan(kind, *shape, SMS, esize=4)
     _assert_tiles_every_row_once(plan)
     if kind == "bwd":
-        _assert_one_owner_cta_per_sample(plan)
+        _assert_backward_units(plan)
 
 
 PAIR_SHAPES = sorted({shape for shape in SHAPES + F32_SHAPES if shape[3] == tpw.PAIR_WIDTH})
@@ -223,7 +322,7 @@ def test_pair_plan_splits_the_columns_over_a_cluster(esize, shape):
     else:
         assert plan.ring and (plan.bm, plan.slots) == (64, max(2, L - 1)) and plan.stages >= 2
     _assert_tiles_every_row_once(plan)
-    _assert_one_owner_cta_per_sample(plan)
+    _assert_backward_units(plan)
     # bytes per pair row; the one-CTA plans this replaced read and wrote an
     # (L-1) x H x H fp32 partial per 64-row (bf16) or 16-row (fp32) block
     one_cta = 2 * (L - 1) * H * H * 4 / (64 if esize == 2 else 16)

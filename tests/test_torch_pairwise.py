@@ -570,6 +570,41 @@ def test_bwd_reference_matches_jax_grad_bf16(inject):
         assert np.abs(d - w).max() <= 2e-2 * scale, (name, np.abs(d - w).max(), scale)
 
 
+@pytest.mark.parametrize("keep", [1.0, 0.75])
+@pytest.mark.parametrize("esize, H", [(2, 128), (4, 256)], ids=["bf16-plan", "fp32-ring-plan"])
+def test_split_bwd_reference_matches_the_whole_and_jax_vjp(esize, H, keep):
+    """The backward's sample splits (B < SMs): B=3, n=24 (576 pair rows) on a
+    card of 16 SMs (``sms=16``: 5 splits a sample; the bf16 plan's 128-row
+    blocks, the last ragged, one a split; the fp32 ring plan's 64-row blocks,
+    9 over 5 splits). ``split_bwd_reference`` runs each split's rows alone
+    and adds the splits in split order; in fp32 it equals the plain backward
+    of the whole up to the order of the sums (max |split - whole| <= 2e-6
+    max |whole| per gradient: fp32 sums of up to 1,728 rows regrouped, ~4e-7
+    seen), pair dropout included, and (keep 1) the VJP of
+    rnet's Pallas kernel in interpret mode at tests/test_kernel.py's VJP
+    tolerance (rtol 5e-4, atol 5e-3). With one split it is the plain
+    backward, bit for bit."""
+    args = _inputs(3, 24, H, 3, seed=110 + H)
+    g = _upstream(3, H, 111 + H)
+    seed = _seed(777) if keep < 1 else None
+    plan = tpw.tile_plan("bwd", 3, 24, 24, H, 3, 16, esize=esize)
+    assert plan.splits == 5 and plan.grid == 15 and plan.nblk == (5 if esize == 2 else 9)
+    assert plan.bm * plan.nblk > 24 * 24 or esize == 4  # bf16: a ragged last block
+    whole = tpw.pairwise_core_bwd_reference(*_t(args), torch.from_numpy(g), 1, keep, seed)
+    split = tpw.split_bwd_reference(plan, *_t(args), torch.from_numpy(g), 1, keep, seed)
+    for name, w, d in zip(GRAD_NAMES, whole, split):
+        assert d.dtype == torch.float32 and d.shape == w.shape, name
+        assert (d - w).abs().max() <= 2e-6 * w.abs().max(), name
+    one = tpw.tile_plan("bwd", 3, 24, 24, H, 3, 3, esize=esize)
+    assert one.splits == 1
+    one_split = tpw.split_bwd_reference(one, *_t(args), torch.from_numpy(g), 1, keep, seed)
+    assert all(torch.equal(a, b) for a, b in zip(one_split, whole))
+    if keep == 1.0:
+        want = _jax_vjp(args, g, 1, jnp.float32)
+        for name, w, d in zip(GRAD_NAMES, want, split):
+            np.testing.assert_allclose(d.numpy(), w, rtol=5e-4, atol=5e-3, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # The autograd Function
 # ---------------------------------------------------------------------------
