@@ -30,10 +30,14 @@ Phases, each fatal (exit 1, no result line) when it fails:
  5b. The int8 kernel (``pairwise_fwd_int8``) vs its plain version on the
      same folded inputs (``quantize_int8``): original-fp B = 1, 64, 512 and
      ir-fp (inject 2) B=64 through ``pairwise_core_int8``, wide-fp's H=512
-     at B=64 and B=140, n=24 and a rectangular ni != nj through the wrapper,
-     and original-fp B=64 with fp32 u, v, s; each within 1e-5 of max|plain|
-     and within 3e-2 of the fp32 ``pairwise_core_reference``; the B=512
-     launch twice, bitwise.
+     (the kernel on clusters of two CTAs) at its serving buckets B=1 and 8,
+     at B=64, B=140 and its eval batch B=512, n=24 and a rectangular ni !=
+     nj through the wrapper (at H=512 too: a ragged tile with a middle
+     injection, fp32 u, v, s with the last), and original-fp B=64 with
+     fp32 u, v, s; each
+     within 1e-5 of max|plain| and within 3e-2 of the fp32
+     ``pairwise_core_reference``; the B=512 launches (H=256 and 512) twice,
+     bitwise.
  5c. The fp32 kernels (``csrc/pairwise_f32.cu``: ``pairwise_fwd_f32``,
      ``pairwise_bwd_f32``, 3xTF32) vs their plain fp32 versions at
      ``F32_CASES`` (original-fp B=512 and 64, ir-fp's injection 2, H=512 at
@@ -95,9 +99,11 @@ Phases, each fatal (exit 1, no result line) when it fails:
      (``cluster``), each forward and backward twice, bitwise, and held to
      its plain version (phases 3, 5 and 5c's tolerances; the fp32 gradients
      to the float64 chain), each forward at the serving buckets B=1 and 8
-     replayed from a graph; the phase
-     breakdown of the H=512 forwards and backwards (bf16 and fp32, on
-     clusters of two CTAs; slot ``pair_wait`` the waits for the peer).
+     replayed from a graph (int8 also with its calibration:
+     ``ms_with_calibration``); the phase breakdown of the H=512 forwards
+     and backwards (bf16 and fp32, on clusters of two CTAs; slot
+     ``pair_wait`` the waits for the peer) and of the int8 forward at B=512
+     and B=8.
   9. Augment kernel vs its plain version on the card: B = 1, 7 and 512, fp32
      and bf16 outputs, angles of ±2.8 degrees and 0, the four corner offsets
      (where the shears wrap around the canvas), repeated indices, a cache of
@@ -123,6 +129,19 @@ Phases, each fatal (exit 1, no result line) when it fails:
      questions/s of every run, one train step of (a) and of (d) timed
      alternately in both cuDNN modes, and a profile of each with the
      kernels whose device time differs most between them.
+12d. wide-fp (g_theta 4 x 512, f_phi 512-512-28) in int8 against bf16 end
+     to end (``wide_int8_phase``, after 10b): the replayed eval batch at
+     B=512 through "auto" (the bf16 cluster forward) and "pallas_int8" in
+     turns (host and busy ms, idle share, the g_theta kernel's ms, one
+     launch a batch, replay bitwise equal to eager, equal predictions);
+     ``python -m rnet_torch.evaluate --model wide-fp`` on a weights pkl of
+     seeded weights on phase 10's directory, as is (16 ``pairwise_fwd``) and
+     with ``--rl-impl pallas_int8`` under warnings as errors (16
+     ``pairwise_fwd_int8``, nothing else), eval q/s in the order bf16 int8
+     int8 bf16; wide-fp ``InferenceServer``s in bf16 and int8 at buckets
+     1/8/64 (one launch per served batch and nothing else, replays bitwise
+     equal to eager servers), latency per bucket in turns and the
+     700-request burst, and the share of equal answers.
 10c. ``python -m rnet_torch.train --model stretch-fp-32 --batch-size 16``
      on the same directory, device pipeline, capped at one epoch (512
      steps, 64 eval batches): 512 ``pairwise_bwd`` and ``augment`` and 576
@@ -758,14 +777,23 @@ def check_f32(torch, pw, seed):
 # injection at the last layer through the wrapper; original-fp B=64 with
 # fp32 u, v, s (int8 with fp32 compute, as rnet's kernel reads them);
 # original-fp's shard under pairs:2 at B=512 (ni=32 of nj=64, calibrated on
-# its own rows, as phase 13 launches it).
+# its own rows, as phase 13 launches it); wide-fp's serving buckets B=1 (64
+# clusters of one warpgroup) and B=8, and its eval batch B=512 (the cluster
+# kernel's three warpgroups), whose launch is also repeated bitwise; and the
+# cluster kernel through the wrapper with a ragged last tile (96 pairs) and
+# the injection at a middle layer, and with fp32 u, v, s and the injection
+# at the last layer.
 INT8_MAIN = (TRAIN_B, 64, 64, 256, 4, 0)
+INT8_WIDE = (TRAIN_B, 64, 64, 512, 4, 0)
 INT8_CASES = [
     ((1, 64, 64, 256, 4, 0), True, "bfloat16"), ((64, 64, 64, 256, 4, 0), True, "bfloat16"),
     (INT8_MAIN, True, "bfloat16"), ((64, 64, 64, 256, 4, 2), True, "bfloat16"),
     ((64, 64, 64, 512, 4, 0), True, "bfloat16"), ((140, 64, 64, 512, 4, 0), True, "bfloat16"),
     ((3, 24, 24, 256, 4, 1), False, "bfloat16"), ((2, 16, 40, 256, 3, 2), False, "bfloat16"),
     ((64, 64, 64, 256, 4, 0), True, "float32"), ((TRAIN_B, 32, 64, 256, 4, 0), True, "bfloat16"),
+    ((1, 64, 64, 512, 4, 0), True, "bfloat16"), ((8, 64, 64, 512, 4, 0), True, "bfloat16"),
+    (INT8_WIDE, True, "bfloat16"), ((2, 8, 12, 512, 3, 1), False, "bfloat16"),
+    ((3, 16, 24, 512, 4, 3), False, "float32"),
 ]
 
 
@@ -816,10 +844,11 @@ def check_int8(torch, pw):
         worst, drift_max = max(worst, err), max(drift_max, drift)
         if case == INT8_MAIN and dtype == "bfloat16":
             at_main = err
+        if case in (INT8_MAIN, INT8_WIDE) and dtype == "bfloat16":
             again = pw.pairwise_fwd_int8_cuda(*folded, inject=inject)
             if not torch.equal(again, pw.pairwise_fwd_int8_cuda(*folded, inject=inject)):
-                fail("pairwise_fwd_int8 is not bitwise repeatable")
-            log(f"pairwise_fwd_int8 at B={B}: the same launch twice gives bitwise-equal outputs")
+                fail(f"pairwise_fwd_int8 is not bitwise repeatable at H={H}")
+            log(f"pairwise_fwd_int8 at B={B} H={H}: the same launch twice gives bitwise-equal outputs")
         del args, folded, out, ref, fp32
         torch.cuda.empty_cache()
     return at_main, worst, drift_max
@@ -1260,42 +1289,55 @@ def phase_breakdown(torch, pw):
     return out
 
 
-WIDE_PHASE_KINDS = (("fwd", 2), ("fwd_f32", 4), ("bwd", 2), ("bwd_f32", 4))
+# (kind, esize, B): the bf16 and fp32 forwards and backwards at B=512, and
+# the int8 forward (esize 1: int8 W) at B=512 and at the serving bucket B=8.
+WIDE_PHASE_KINDS = (("fwd", 2, TRAIN_B), ("fwd_f32", 4, TRAIN_B), ("bwd", 2, TRAIN_B), ("bwd_f32", 4, TRAIN_B),
+                    ("int8", 1, TRAIN_B), ("int8", 1, 8))
 
 
-def phase_breakdown_wide(torch, pw):
-    """Phase 8 at wide-fp's H=512, B=512 (n=64, L=4): one launch of the
-    phase-timing build of each of WIDE_PHASE_KINDS ((kind, esize): the bf16
-    and fp32 forwards and backwards, all on clusters of two CTAs), its cycles
-    per phase as shares of their total, with the plan; the timing build must
-    compute the kernel's values. Rows keyed (kind, "H512")."""
-    B, n, H, L, inject = TRAIN_B, 64, 512, 4, 0
+def wide_phase_key(kind, B):
+    return (kind, "H512") if B == TRAIN_B else (kind, f"H512 B={B}")
+
+
+def phase_breakdown_wide(torch, pw, kinds=WIDE_PHASE_KINDS):
+    """Phase 8 at wide-fp's H=512 (n=64, L=4): one launch of the
+    phase-timing build of each of `kinds` ((kind, esize, B): the bf16 and
+    fp32 forwards and backwards on clusters of two CTAs, the int8 forward),
+    its cycles per phase as shares of their total, with the plan; the timing
+    build must compute the kernel's values. Rows keyed ``wide_phase_key``."""
+    n, H, L, inject = 64, 512, 4, 0
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    args = pair_inputs(torch, B, n, H, L, seed=700)
-    g = upstream(torch, B, H, seed=701)
+    args = pair_inputs(torch, TRAIN_B, n, H, L, seed=700)
+    g = upstream(torch, TRAIN_B, H, seed=701)
     out = {}
-    for kind, esize in WIDE_PHASE_KINDS:
-        fwd = kind.startswith("fwd")
-        plan = pw.tile_plan(kind[:3], B, n, n, H, L, sms, esize=esize)
-        a = [x.float() for x in args] if esize == 4 else args
+    for kind, esize, B in kinds:
+        fwd = kind.startswith("fwd") or kind == "int8"
+        plan = pw.tile_plan(kind if kind == "int8" else kind[:3], B, n, n, H, L, sms,
+                            esize=4 if esize == 4 else 2)
+        a = [x[:B] for x in args[:4]] + list(args[4:])
+        a = [x.float() for x in a] if esize == 4 else a
         cycles = torch.zeros((plan.grid, pw.PHASE_SLOTS), dtype=torch.int64, device="cuda")
-        if fwd:
+        if kind == "int8":
+            folded = pw.quantize_int8(*a, inject)
+            got = pw.pairwise_fwd_int8_cuda(*folded, inject=inject, phases=cycles)
+            want = pw.pairwise_fwd_int8_cuda(*folded, inject=inject)
+        elif fwd:
             got = pw.pairwise_fwd_cuda(*a, inject=inject, phases=cycles)
             want = pw.pairwise_fwd_cuda(*a, inject=inject)
         else:
-            got = pw.pairwise_bwd_cuda(*a, g, inject=inject, phases=cycles)[4]
-            want = pw.pairwise_bwd_cuda(*a, g, inject=inject)[4]
+            got = pw.pairwise_bwd_cuda(*a, g[:B], inject=inject, phases=cycles)[4]
+            want = pw.pairwise_bwd_cuda(*a, g[:B], inject=inject)[4]
         torch.cuda.synchronize()
-        name = "pairwise_" + kind
+        name = "pairwise_" + ("fwd_int8" if kind == "int8" else kind)
         if not torch.equal(got, want):
-            fail(f"the phase-timing build of {name} at H={H} computes other values than the kernel")
+            fail(f"the phase-timing build of {name} at H={H} B={B} computes other values than the kernel")
         total = cycles.sum(dim=0).double()
-        names = pw.FWD_PHASES if fwd else pw.BWD_PHASES
+        names = pw.INT8_PHASES if kind == "int8" else pw.FWD_PHASES if fwd else pw.BWD_PHASES
         row = {"B": B, "H": H, "cluster": plan.cluster, "total_cycles": int(total.sum().item()), "ctas": plan.grid,
                "warpgroups": plan.wgs, "bm": plan.bm,
                "shares": {nm: (total[k] / total.sum()).item() for k, nm in enumerate(names)}}
-        out[(kind, "H512")] = row
-        log(f"phases {name} H=512 {json.dumps(row)}")
+        out[wide_phase_key(kind, B)] = row
+        log(f"phases {name} H=512{'' if B == TRAIN_B else f' B={B}'} {json.dumps(row)}")
     del args, g
     torch.cuda.empty_cache()
     return out
@@ -1824,8 +1866,9 @@ def run_eval_cli(argv, int8):
     return text, by_q, sec
 
 
-def eval_entry_phase(torch, np, pw, aug, root):
-    """Phase 10b: ``python -m rnet_torch.evaluate`` on run (a)'s epoch 2, as
+def eval_entry_phase(torch, np, pw, aug, root, model="original-fp", checkpoint=None):
+    """Phase 10b: ``python -m rnet_torch.evaluate`` on run (a)'s epoch 2 (or,
+    for phase 12d, ``--model`` `model` on the weights pkl `checkpoint`), as
     is and with ``--rl-impl pallas_int8``, in the order bf16 int8 int8 bf16;
     returns (int8 launches, share of equal predictions, eval q/s of each
     run)."""
@@ -1833,12 +1876,13 @@ def eval_entry_phase(torch, np, pw, aug, root):
     import re
 
     n_batches = SYN_TRAIN_Q // TRAIN_B
+    ck = ["--checkpoint", checkpoint] if checkpoint else ["--checkpoint", "2", "--checkpoint-dir",
+                                                            os.path.join(root, "ck_a")]
     runs, qps_runs = {}, {"bf16": [], "int8": []}
     for k, tag in enumerate(("bf16", "int8", "int8", "bf16")):
         extra = ["--rl-impl", "pallas_int8"] if tag == "int8" else []
-        res = os.path.join(root, f"eval_{k}_{tag}")
-        argv = ["--clevr-dir", root, "--model", "original-fp", "--checkpoint", "2",
-                "--checkpoint-dir", os.path.join(root, "ck_a"), "--test-results-dir", res,
+        res = os.path.join(root, f"eval_{model}_{k}_{tag}")
+        argv = ["--clevr-dir", root, "--model", model, *ck, "--test-results-dir", res,
                 "--data-pipeline", "device", "--split", "train", "--batch-size", str(TRAIN_B),
                 "--num-workers", "4", *extra]
         pw.reset_launches()
@@ -1849,27 +1893,203 @@ def eval_entry_phase(torch, np, pw, aug, root):
         m = re.search(r"overall accuracy: (\S+) \| mean NLL: (\S+)", text)
         q = re.search(r"\((\d+) q/s\)", text)
         if m is None or q is None:
-            fail(f"eval ({tag}) printed no accuracy or q/s line")
+            fail(f"eval {model} ({tag}) printed no accuracy or q/s line")
         acc, nll, qps = float(m.group(1)), float(m.group(2)), float(q.group(1))
         want = {**dict.fromkeys(counts, 0), pw.KERNEL: 0 if tag == "int8" else n_batches,
                 pw.INT8_KERNEL: n_batches if tag == "int8" else 0}
-        log(f"eval entry point ({tag}): {sec:.1f} s, {qps!r} q/s (eval epoch, host clock), accuracy {acc!r}, "
+        log(f"eval entry point {model} ({tag}): {sec:.1f} s, {qps!r} q/s (eval epoch, host clock), accuracy {acc!r}, "
             f"NLL {nll!r}, {len(preds)} questions, launches {counts}")
         if counts != want:
-            fail(f"eval ({tag}) expected launches {want}, counted {counts}")
+            fail(f"eval {model} ({tag}) expected launches {want}, counted {counts}")
         if not (np.isfinite(acc) and np.isfinite(nll) and 0.0 <= acc <= 1.0) or len(preds) != SYN_TRAIN_Q:
-            fail(f"eval ({tag}) is not finite or did not predict every question")
+            fail(f"eval {model} ({tag}) is not finite or did not predict every question")
         for f in ("train_accuracy.csv", "train_confusion.csv"):
             if not os.path.exists(os.path.join(res, f)):
-                fail(f"eval ({tag}) wrote no {f}")
+                fail(f"eval {model} ({tag}) wrote no {f}")
         if tag == "int8" and "int8 calibration clip fractions per layer: [" not in text:
             fail("the int8 eval printed no clip-fraction line")
         runs.setdefault(tag, preds)
         qps_runs[tag].append(qps)
     same = float(np.mean([runs["int8"][i] == p for i, p in runs["bf16"].items()]))
-    log(f"eval entry point, int8 vs bf16 on the same checkpoint: {same!r} of predictions equal; eval q/s in the "
-        f"order bf16 int8 int8 bf16: {json.dumps(qps_runs)}")
+    log(f"eval entry point {model}, int8 vs bf16 on the same checkpoint: {same!r} of predictions equal; eval q/s "
+        f"in the order bf16 int8 int8 bf16: {json.dumps(qps_runs)}")
     return n_batches, same, qps_runs
+
+
+WIDE_INT8_WINDOW = 8  # wide-fp eval batches in a timed window
+
+
+def wide_int8_phase(torch, np, pw, aug, root):
+    """Phase 12d: wide-fp (g_theta 4 x 512, f_phi 512-512-28, bf16 compute,
+    seeded weights) in int8 end to end on the card, against the bf16
+    cluster forward that rl_impl "auto" picks:
+    (a) the eval batch at B=512 replayed (``make_chunked_steps`` on a
+    2,048-canvas device cache), "auto" against "pallas_int8" in the order
+    bf16 int8 int8 bf16: host ms, busy ms and idle share (one profiled
+    window), the g_theta kernel's device ms, one launch of its kernel and
+    nothing else a replay, the replay bitwise equal to the eager batch, and
+    the share of predictions int8 and bf16 agree on;
+    (b) ``python -m rnet_torch.evaluate --model wide-fp`` on phase 10's
+    directory with a weights pkl (``rnet_torch.checkpoint.export_weights``),
+    as is and with ``--rl-impl pallas_int8`` under warnings as errors (16
+    launches of ``pairwise_fwd`` / ``pairwise_fwd_int8`` and nothing else),
+    eval questions/s in the order bf16 int8 int8 bf16 (``eval_entry_phase``);
+    (c) ``InferenceServer``s of wide-fp in bf16 and int8 (same weights),
+    buckets 1/8/64: one launch of the kernel per served batch and nothing
+    else, every bucket's replayed answers and log-probs bitwise equal to an
+    eager server's, serve latency per bucket in turns (bf16 int8 int8 bf16)
+    and the 700-request burst, int8 against bf16: the share of equal answers
+    and the largest |log-prob difference|. Returns the numbers for the
+    result line."""
+    import os
+    import warnings
+
+    from rnet_torch.checkpoint import export_weights
+    from rnet_torch.config import load_config
+    from rnet_torch.data.vocab import build_dictionaries
+    from rnet_torch.models import RN
+    from rnet_torch.serve import InferenceServer
+    from rnet_torch.train import steps
+
+    dicts = build_dictionaries(root)
+    cfg = load_config("wide-fp").replace(n_answers=dicts.n_answers)
+    impls = {"bf16": ("auto", pw.KERNEL), "int8": ("pallas_int8", pw.INT8_KERNEL)}  # rl_impl, its kernel
+    out = {}
+
+    # (a) the eval batch at B=512, replayed
+    torch.backends.cudnn.deterministic = True  # replay and eager bitwise
+    cache, data = device_data(torch, cfg, AUG_SMALL, TRAIN_B, seed=15)
+    idx = torch.arange(TRAIN_B, dtype=torch.int32, device="cuda").view(1, TRAIN_B)
+    valid = torch.ones((1, TRAIN_B), dtype=torch.bool, device="cuda")
+    arms = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # a "NOT int8" fallback fails the run
+        for tag, (impl, kernel) in impls.items():
+            state = new_state(torch, cfg.replace(rl_impl=impl))
+            resolved = state.model.relational.resolve_impl(cfg.n_objects, torch.device("cuda"))
+            if resolved != ("pallas" if impl == "auto" else impl):
+                fail(f"wide-fp rl_impl={impl} resolves to {resolved}, not to its kernel, on the card")
+            graphs = steps.step_graphs(state)
+            replay = steps.make_chunked_steps(state, graphs)[1]
+            replay(idx, valid, data, cache)  # captures
+            torch.cuda.synchronize()
+            pw.reset_launches()
+            aug.reset_launches()
+            got = replay(idx, valid, data, cache)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
+            eager = steps.make_chunked_steps(state, None)[1](idx, valid, data, cache)
+            same = all(torch.equal(got[k], eager[k]) for k in got)
+            log(f"wide-fp eval batch B={TRAIN_B} {tag} ({impl}), replayed: launches {counts}, bitwise equal to the "
+                f"eager batch {same}, nll_sum {float(got['nll_sum'].sum())!r}")
+            if counts != {kernel: 1} or not same or not torch.isfinite(got["nll_sum"]).all():
+                fail(f"wide-fp eval batch {tag}: expected one {kernel} launch and nothing else, and a finite replay "
+                     f"equal to eager; counted {counts}, equal {same}")
+            arms[tag] = (state, graphs, lambda r=replay: r(idx, valid, data, cache), got["pred"])
+        win = timed_windows(torch, {t: a[2] for t, a in arms.items()}, order=("bf16", "int8", "int8", "bf16"),
+                            n=WIDE_INT8_WINDOW)
+    row = {"predictions_equal": (arms["int8"][3] == arms["bf16"][3]).float().mean().item()}
+    for tag, (_, graphs, fn, _) in arms.items():
+        host = sum(win[tag]) / len(win[tag])
+        prof_host = []
+        busy, kern, top = profile_device(torch, fn, reps=WIDE_INT8_WINDOW, host=prof_host)
+        if kern == 0:
+            fail(f"wide-fp eval batch {tag}: the profiler saw no kernel in the replays")
+        g_ms = sum(ms for ms, _, name in top if "pairwise_fwd" in name)
+        log(f"profile wide-fp eval batch B={TRAIN_B} {tag} (replayed): host {prof_host[0]!r} ms, device busy "
+            f"{busy!r} ms in {kern!r} kernels over the same {WIDE_INT8_WINDOW} replays, g_theta kernel {g_ms!r} ms")
+        for ms_k, count, name in top[:6]:
+            log(f"  {ms_k!r} ms x{count!r} {name[:100]}")
+        row[tag] = {"host_ms": host, "host_ms_windows": win[tag], "busy_ms": busy, "kernels": kern,
+                    "profiled_host_ms": prof_host[0], "idle_share": 1.0 - busy / prof_host[0], "g_theta_ms": g_ms,
+                    "qps": TRAIN_B / host * 1e3, "capture": graph_memory(graphs)}
+    row["int8_over_bf16_host"] = row["int8"]["host_ms"] / row["bf16"]["host_ms"]
+    log(f"wide-fp eval batch B={TRAIN_B}, replayed, {WIDE_INT8_WINDOW} a window in the order bf16 int8 int8 bf16: "
+        f"{json.dumps(row)}")
+    out["eval_batch"] = row
+    del arms, cache, data
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+
+    # (b) python -m rnet_torch.evaluate --model wide-fp on a weights pkl
+    pkl = os.path.join(root, "wide-fp.pkl")
+    export_weights(RN(cfg, dicts.vocab_size, generator=torch.Generator().manual_seed(0)), pkl, dicts=dicts)
+    launches, same, qps = eval_entry_phase(torch, np, pw, aug, root, model="wide-fp", checkpoint=pkl)
+    out["evaluate"] = {"int8_launches": launches, "predictions_equal": same, "qps": qps}
+
+    # (c) serving: bf16 and int8 servers of the same weights, replayed against eager
+    rs = np.random.RandomState(16)
+    vocab = list(dicts.word_to_idx)
+    burst = [{"question": dicts.encode_question(" ".join(rs.choice(vocab, size=rs.randint(5, 30))),
+                                                cfg.question_max_len),
+              "image": rs.randint(0, 256, size=(cfg.image_size, cfg.image_size, 3), dtype=np.uint8)}
+             for _ in range(100)]
+    servers, served = {}, {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        for tag, (impl, kernel) in impls.items():
+            for mode in ("eager", "replay"):
+                srv = InferenceServer(cfg.replace(rl_impl=impl), dicts, max_batch=64, device="cuda",
+                                      cuda_graphs=mode == "replay")
+                srv.init_weights(seed=0)
+                srv.warmup()
+                servers[(tag, mode)] = srv
+            sr, se = servers[(tag, "replay")], servers[(tag, "eager")]
+            torch.cuda.synchronize()
+            pw.reset_launches()
+            aug.reset_launches()
+            results = sr.serve_samples(burst) + sr.serve_samples(burst[:1]) + sr.serve_samples(burst[:5])
+            counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
+            log(f"wide-fp serve {tag}: {len(results)} answers, buckets {sorted({r['bucket'] for r in results})}, "
+                f"launches {counts} for 4 served batches")
+            if counts != {kernel: 4}:
+                fail(f"wide-fp serve {tag}: expected one {kernel} launch per served batch and nothing else, "
+                     f"counted {counts}")
+            if any(r["answer"] not in dicts.answer_to_idx or not r["log_prob"] <= 0.0 for r in results):
+                fail(f"wide-fp serve {tag}: a bad served result")
+            for bucket in sr.buckets:
+                inputs, q = sr.batch_arrays(burst[:bucket], bucket)
+                (pr, lr), (pe, le) = sr._predict(inputs, q), se._predict(inputs, q)
+                ok = np.array_equal(pr, pe) and np.array_equal(lr, le)
+                log(f"wide-fp serve {tag} bucket {bucket}: replayed answers and log-probs bitwise equal to eager: "
+                    f"{ok}")
+                if not ok:
+                    fail(f"wide-fp serve {tag}: the replay at bucket {bucket} differs from the eager server")
+            served[tag] = results
+    agree = float(np.mean([a["answer"] == b["answer"] for a, b in zip(served["int8"], served["bf16"])]))
+    dlp = max(abs(a["log_prob"] - b["log_prob"]) for a, b in zip(served["int8"], served["bf16"]))
+    log(f"wide-fp serve int8 vs bf16, same weights and burst: {agree!r} of answers equal, max |d log_prob| {dlp!r}")
+    out["serve"] = {"answers_equal": agree, "max_abs_dlogp": dlp}
+    pair = {tag: servers[(tag, "replay")] for tag in impls}
+    turns = ("bf16", "int8", "int8", "bf16")
+    for bucket in pair["bf16"].buckets:
+        sub = burst[:bucket]
+        for srv in pair.values():
+            for _ in range(3):
+                srv.serve_samples(sub)
+        lat = {tag: [] for tag in pair}
+        for tag in turns * 5:
+            lat[tag].append(pair[tag].serve_samples(sub)[0]["latency_ms"])
+        row = {tag: {"median_ms": sorted(v)[len(v) // 2], "min_ms": min(v), "max_ms": max(v)} for tag, v in lat.items()}
+        inputs, q = pair["bf16"].batch_arrays(sub, bucket)
+        for tag, srv in pair.items():
+            busy, kern = busy_of(torch, f"wide-fp served {tag} bucket {bucket}, replayed",
+                                 lambda s=srv: s._predict(inputs, q), row[tag]["median_ms"])
+            row[tag].update(busy_ms=busy, kernels=kern, idle_share=1.0 - busy / row[tag]["median_ms"])
+        log(f"wide-fp serve latency bucket {bucket}, replayed, 10 calls each in turns: {json.dumps(row)}")
+        out["serve"][f"bucket_{bucket}"] = row
+    big = burst * 7
+    rates = {tag: [] for tag in pair}
+    for tag in turns:
+        t0 = time.perf_counter()
+        pair[tag].serve_samples(big)
+        rates[tag].append(len(big) / (time.perf_counter() - t0))
+    log(f"wide-fp serve burst, {len(big)} requests in the order bf16 int8 int8 bf16 (questions/s): "
+        f"{json.dumps(rates)}")
+    out["serve"]["burst_qps"] = rates
+    del servers, pair
+    torch.cuda.empty_cache()
+    return out
 
 
 def f32_entry_phase(torch, np, pw, aug, root):
@@ -2830,6 +3050,9 @@ def wide_bwd_agreement(torch, pw, args, g, inject, got, dt):
     return worst
 
 
+WIDE_BUCKETS = (1, 8)  # wide-fp's serving buckets at which each H=512 forward is timed alone
+
+
 def time_wide(torch, pw, seed):
     """Phase 8, wide-fp's H=512 at B=512 (n=64, L=4): the bf16 forward and
     backward, int8 and the fp32 forward and backward, each beside its plain
@@ -2855,7 +3078,7 @@ def time_wide(torch, pw, seed):
         }
         rows[f"fwd_{dt}"].update(zip(("bound_ms", "bound_by"), fb(B, n, n, H, L)))
         buckets = rows[f"fwd_{dt}"]["buckets"] = {}
-        for b in (1, 8):  # wide-fp's serving buckets, replayed from a graph as the server replays them
+        for b in WIDE_BUCKETS:  # replayed from a graph as the server replays them
             sub = [a[:b] for a in args_[:4]] + list(args_[4:])
             plan = pw.tile_plan("fwd", b, n, n, H, L, sms, esize=2 if dt == "bf16" else 4)
             buckets[b] = {"replay_ms": replay_ms(torch, lambda: pw.pairwise_fwd_cuda(*sub, inject=inject)),
@@ -2899,13 +3122,7 @@ def time_wide(torch, pw, seed):
         rows[f"fwd_{dt}"]["err_vs_plain"] = err
         del args_, first, again, ref
         torch.cuda.empty_cache()
-    folded = pw.quantize_int8(*args, inject)
-    rows["int8"] = {
-        "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_int8_cuda(*folded, inject=inject), 10, warmup=2),
-        "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_int8_reference(*folded, inject=inject), 2, warmup=1),
-        "library_ms": cuda_ms(torch, lambda: library_chain_int8(torch, *folded, inject), 3, warmup=1),
-    }
-    rows["int8"].update(zip(("bound_ms", "bound_by"), int8_bound(B, n, n, H, L)))
+    rows["int8"] = time_int8_wide(torch, pw, args, inject)
     for name, r in rows.items():
         r.update(B=B, n=n, H=H, L=L, x_bound=r["ms"] / r["bound_ms"], ms_over_library=r["ms"] / r["library_ms"])
         log(f"time H=512 {name} {json.dumps(r)}")
@@ -2916,9 +3133,46 @@ def time_wide(torch, pw, seed):
         r = rows[f"fwd_{dt}"]
         log(f"pairwise_fwd {dt} at wide-fp B={B}, same call: kernel {r['ms']!r} ms, the cuBLAS chain "
             f"{r['library_ms']!r} ms: ms_over_library {r['ms_over_library']!r}, x_bound {r['x_bound']!r}")
-    del args, g, folded
+    del args, g
     torch.cuda.empty_cache()
     return rows
+
+
+def plan_fields(plan):
+    return {"wgs": plan.wgs, "bm": plan.bm, "cluster": plan.cluster, "stages": plan.stages, "grid": plan.grid,
+            "smem": plan.smem}
+
+
+def time_int8_wide(torch, pw, args, inject=0):
+    """Phase 8, the int8 forward at wide-fp's H=512 on the folded form of the
+    core inputs `args` at B=512 (n=64, L=4): CUDA events beside its plain
+    version, the ``torch._int_mm`` chain and the bound, with its plan, and
+    the whole core (calibration + folding + kernel: ``ms_with_calibration``);
+    and at the serving buckets B=1 and 8 (the first rows of the same folded
+    inputs) replayed from a graph, as a server replays them, and by CUDA
+    events, beside the plain version and the ``torch._int_mm`` chain."""
+    folded = pw.quantize_int8(*args, inject)
+    B, n, H, L = folded[0].shape[0], folded[0].shape[1], folded[0].shape[2], folded[4].shape[0] + 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = {
+        "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_int8_cuda(*folded, inject=inject), 10, warmup=2),
+        "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_int8_reference(*folded, inject=inject), 2, warmup=1),
+        "library_ms": cuda_ms(torch, lambda: library_chain_int8(torch, *folded, inject), 3, warmup=1),
+        "ms_with_calibration": cuda_ms(torch, lambda: pw.pairwise_core_int8(*args, inject=inject), 10, warmup=2),
+        "plan": plan_fields(pw.tile_plan("int8", B, n, n, H, L, sms)),
+    }
+    row.update(zip(("bound_ms", "bound_by"), int8_bound(B, n, n, H, L)))
+    buckets = row["buckets"] = {}
+    for b in WIDE_BUCKETS:
+        sub = [a[:b] for a in folded[:4]] + list(folded[4:])
+        buckets[b] = {"replay_ms": replay_ms(torch, lambda: pw.pairwise_fwd_int8_cuda(*sub, inject=inject)),
+                      "ms": cuda_ms(torch, lambda: pw.pairwise_fwd_int8_cuda(*sub, inject=inject), 50),
+                      "plain_ms": cuda_ms(torch, lambda: pw.pairwise_core_int8_reference(*sub, inject=inject), 3),
+                      "library_ms": cuda_ms(torch, lambda: library_chain_int8(torch, *sub, inject), 3),
+                      "plan": plan_fields(pw.tile_plan("int8", b, n, n, H, L, sms))}
+        buckets[b].update(zip(("bound_ms", "bound_by"), int8_bound(b, n, n, H, L)))
+        del sub
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3423,7 +3677,7 @@ def main() -> int:
     for name in kernels:
         with open(build.log_path(name)) as f:
             for line in f:
-                if "registers" in line or "Compiling entry" in line or "spill" in line:
+                if "registers" in line or "Compiling entry" in line or "spill" in line or "C7520" in line:
                     log(f"  ptxas {name}: {line.strip()}")
     seed = torch.tensor([0x5EED_1234_ABCD], dtype=torch.int64, device="cuda")
 
@@ -3536,6 +3790,8 @@ def main() -> int:
     try:
         entry_counts, hist_a, hist_c, hist_d, abba = entry_point_phase(torch, np, pw, aug, root)
         int8_eval_launches, int8_eval_same, eval_runs = eval_entry_phase(torch, np, pw, aug, root)
+        wide_int8 = wide_int8_phase(torch, np, pw, aug, root)
+        log(f"phase 12d (wide-fp in int8) done at {time.perf_counter() - t_start:.1f} s")
         stretch_cli = stretch_entry_phase(torch, np, pw, aug, root)
         qps = {"a_device_augment": [h["qps"] for h in hist_a], "c_cached_augment": [h["qps"] for h in hist_c],
                "d_device_no_augment": [h["qps"] for h in hist_d]}
@@ -3615,6 +3871,9 @@ def main() -> int:
                shard_eval=shard["eval"],
                phase_shares=phases[("int8", TRAIN_B)]["shares"], ms_over_pairwise_fwd=int8_rows[TRAIN_B]["ms"]
                / fwd[TRAIN_B]["ms"], tops=int8_rows[TRAIN_B]["tops"], h512=wide["int8"],
+               h512_phase_shares=phases[("int8", "H512")]["shares"],
+               h512_b8_phase_shares=phases[("int8", "H512 B=8")]["shares"],
+               wide_fp=wide_int8, wide_fp_eval_launches=wide_int8["evaluate"]["int8_launches"],
                launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
                            "--split train --batch-size 512 (16 batches)"),
         record(pw.F32_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:83",

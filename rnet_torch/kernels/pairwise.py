@@ -26,8 +26,9 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   ``pack_weight_chunks`` lays W out as the bf16 and int8 kernels stream it
   and ``pack_f32_weights`` splits W into tf32 hi / lo stages for the fp32
   ring kernels (``pair_halves`` first cuts W for each CTA of the H=512
-  kernels' clusters of two; ``dw_splits`` splits the rows of the
-  backward's dW GEMM in bf16); all are pure and tested on the CPU. A ``phases`` buffer
+  kernels' clusters of two, and ``pair_chunk_index`` gathers the int8
+  cluster kernel's stream in one launch; ``dw_splits`` splits the rows of
+  the backward's dW GEMM in bf16); all are pure and tested on the CPU. A ``phases`` buffer
   selects the phase-timing build (``PHASE_DEFINES``) of the bf16, int8 and
   fp32 ring kernels.
 * ``pairwise_core`` — a ``torch.autograd.Function`` (as ``_make_core``'s
@@ -103,7 +104,7 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.rnet_pair_mask.argtypes = [vp, i32, i32, vp, u32, vp]
         lib.rnet_pair_mask.restype = i32
     elif name == INT8_KERNEL:
-        lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 9 + [i64, i32, vp, vp]
+        lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 10 + [i64, i32, vp, vp]
         lib.rnet_pairwise_fwd_int8.restype = i32
     elif name == F32_LIB:
         lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 9 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
@@ -339,7 +340,7 @@ PHASE_SLOTS = 9
 FWD_PHASES = ("products", "epilogues", "pool", "feed_wait", "a0", "barriers", "pair_wait")
 BWD_PHASES = ("recompute", "dW_products", "dW_flush", "d_products", "column_pass", "feed_wait", "a0", "barriers",
               "pair_wait")
-INT8_PHASES = FWD_PHASES[:6]
+INT8_PHASES = FWD_PHASES  # "pair_wait": the cluster kernel's waits for its peer's half of a slot
 
 
 @dataclass(frozen=True)
@@ -402,7 +403,10 @@ class TilePlan:
         """(b, first pair row, valid rows) of every block CTA `cta` runs, in
         its order: the forward walks tiles t = cta, cta + grid, ... (t = b *
         nblk + block); the int8 forward the contiguous range [cta * tiles //
-        grid, (cta + 1) * tiles // grid), wgs tiles a round; the backward
+        grid, (cta + 1) * tiles // grid), wgs tiles a round (with a cluster,
+        both CTAs of cluster q of Q = grid / cluster the range [q * tq +
+        min(q, tr), (q + 1) * tq + min(q + 1, tr)), tq, tr = divmod(tiles,
+        Q), each on its columns); the backward
         walks the units u = cta, cta + grid, ... (unit u = b * splits + k:
         split k of sample b, the blocks ``split_blocks(k)``; with one split,
         all the blocks of the samples it owns; with a cluster, both CTAs of
@@ -416,6 +420,9 @@ class TilePlan:
                     for u in range(owner, self.B * self.splits, owners) for k in self.split_blocks(u % self.splits)]
         if self.kind == "fwd":  # with a cluster, both CTAs of cluster cta // cluster walk its tiles
             tiles = range(cta // self.cluster, ntiles, self.grid // self.cluster)
+        elif self.cluster > 1:  # int8: cluster q of Q the tiles [q * tq + min(q, tr), ...), tq = tiles // Q
+            q, (tq, tr) = cta // self.cluster, divmod(ntiles, self.grid // self.cluster)
+            tiles = range(q * tq + min(q, tr), (q + 1) * tq + min(q + 1, tr))
         else:
             tiles = range(cta * ntiles // self.grid, (cta + 1) * ntiles // self.grid)
         return [(t // self.nblk, t % self.nblk * self.bm, min(self.bm, npairs - t % self.nblk * self.bm))
@@ -432,7 +439,9 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esi
     forward: a row-scale copy per warpgroup and rows of TILE_N column sums),
     the backward a core matrix of ones. The int8 kernel keeps
     `slots` tiles of 64 x H int8 per warpgroup, the biases in fp32 and one
-    row of H column sums per warp. The fp32 kernels (``esize`` = 4) keep
+    row of H column sums per warp (a CTA of its cluster: slots of all H
+    columns and four mbarriers per warpgroup; its biases come from global
+    memory and its column sums go to a slot). The fp32 kernels (``esize`` = 4) keep
     `slots` tiles of `bm` x H floats (the ring kernels, ``ring``; H + 4
     floats a row in the wide ones), `stages` ring stages of F32_STAGE_BYTES
     with their mbarriers and, in the backward, one more (wide: W chunks of
@@ -448,6 +457,8 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esi
         return 4 * (slots * bm * (H + 4) + stages * (F32_CHUNK_FLOATS // H) * (H + 8) + bm)
     ring = stages * (CHUNK_BYTES + 16)
     warps_sums = 4 * wgs * H * 4
+    if kind == "int8" and cluster > 1:  # all H columns of the slots and four mbarriers a warpgroup
+        return slots * wgs * WG_ROWS * H * cluster + ring + wgs * 4 * 8
     if kind == "int8":
         return slots * wgs * WG_ROWS * H + ring + (L - 1) * H * 4 + warps_sums
     bm = bm or WG_ROWS * wgs
@@ -483,6 +494,10 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if H % 128 != 0:
         raise ValueError(f"the pairwise kernels need H % 128 == 0, got H={H}")
+    if H == PAIR_WIDTH and esize == 2:
+        plan = _int8_pair_plan(B, ni, nj, H, L, sms) if kind == "int8" else None
+        if plan is not None:
+            return plan
     if kind in ("fwd", "bwd") and H == PAIR_WIDTH:
         plan = _pair_plan(kind, B, ni, nj, H, L, sms, esize)
         if plan is not None:
@@ -574,6 +589,32 @@ def _pair_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int, es
     return TilePlan(kind, B, ni, nj, H, L, 2, stages, slots, grid, smem(stages), bm, esize, esize == 4, PAIR)
 
 
+def _int8_pair_plan(B: int, ni: int, nj: int, H: int, L: int, sms: int) -> Optional[TilePlan]:
+    """The int8 forward at H = PAIR_WIDTH on clusters of PAIR CTAs, or None
+    where its tiles do not fit (then the one-CTA kernel). Both CTAs of a
+    cluster take the same 64-row tiles, each on H / PAIR of every layer's
+    output columns, with two slots of all H columns per warpgroup; as many
+    warpgroups (up to INT8_MAX_WGS, each on its own tile) as leave room for
+    MIN_STAGES W chunks, one when 128-row tiles would not give every SM one
+    (serving buckets: B=1 runs 64 clusters, 128 CTAs); the ring takes what
+    is left, up to MAX_STAGES. Grid PAIR * min(ceil(tiles / wgs), sms //
+    PAIR); cluster q takes a contiguous share of the tiles (``blocks``)."""
+
+    def stages_for(wgs):
+        free = SMEM_LIMIT - smem_bytes("int8", wgs, H, L, 2, 0, cluster=PAIR)
+        return min(MAX_STAGES, free // (CHUNK_BYTES + 16))
+
+    fits = [w for w in range(INT8_MAX_WGS, 0, -1) if stages_for(w) >= MIN_STAGES]
+    if not fits:
+        return None
+    wgs = 1 if B * -(-ni * nj // (2 * WG_ROWS)) < sms else fits[0]
+    tiles = B * -(-ni * nj // WG_ROWS)
+    grid = PAIR * min(-(-tiles // wgs), sms // PAIR)
+    stages = stages_for(wgs)
+    return TilePlan("int8", B, ni, nj, H, L, wgs, stages, 2, grid,
+                    smem_bytes("int8", wgs, H, L, 2, stages, cluster=PAIR), WG_ROWS, cluster=PAIR)
+
+
 def _tile_plan_f32(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int) -> TilePlan:
     """The fp32 kernels' plan where H = PAIR_WIDTH's clusters (``_pair_plan``)
     do not take the shape. At H = F32_RING_WIDTH the ring kernels, where
@@ -658,21 +699,41 @@ def pair_halves(x: torch.Tensor, cluster: int = PAIR) -> torch.Tensor:
     return torch.stack(out).contiguous()
 
 
-def pack_weight_chunks(x: torch.Tensor) -> torch.Tensor:
+def pack_weight_chunks(x: torch.Tensor, size: Optional[int] = None) -> torch.Tensor:
     """x (L-1, N, K), row n holding B^T's row (the K-major B operand of
     ``a . B``), packed as the kernels stream it: per layer, per tile of nt =
     TILE_N rows, per depth chunk of kc = 8192 / (nt * size) columns (64
     bytes), one 8 KB chunk of core matrices (8 rows of 16 contiguous bytes:
     ce = 16 / size elements), the depth's core matrices innermost, where size
     is 1 byte for int8 and 2 for every other dtype (the bf16 operands'
-    layout). Returns a contiguous (L-1, N/nt, K/kc, nt/8, kc/ce, 8, ce)."""
+    layout), unless given (``pair_chunk_index`` moves int32 positions in the
+    int8 layout). Returns a contiguous (L-1, N/nt, K/kc, nt/8, kc/ce, 8, ce)."""
     n_l, N, K = x.shape
     nt = TILE_N
-    size = 1 if x.dtype in (torch.int8, torch.uint8) else 2
+    size = size or (1 if x.dtype in (torch.int8, torch.uint8) else 2)
     kc = CHUNK_BYTES // size // nt
     ce = 16 // size
     y = x.reshape(n_l, N // nt, nt // 8, 8, K // kc, kc // ce, ce)
     return y.permute(0, 1, 4, 2, 5, 3, 6).contiguous()
+
+
+_pair_index = {}
+
+
+def pair_chunk_index(H: int, L: int, device) -> torch.Tensor:
+    """The flat positions in w8 (L-1, H, H) of the int8 cluster kernel's W
+    stream, in stream order: ``pack_weight_chunks`` of each CTA's
+    ``pair_halves`` slice of W^T, rank after rank. One ``index_select`` by
+    it packs W in one launch where those functions take four. (L-1) * H * H
+    int32, made once per shape and device."""
+    key = (H, L, str(device))
+    idx = _pair_index.get(key)
+    if idx is None:
+        pos = torch.arange((L - 1) * H * H, dtype=torch.int32).view(L - 1, H, H).transpose(1, 2)
+        halves = pair_halves(pos)
+        idx = pack_weight_chunks(halves.reshape(-1, *halves.shape[2:]), size=1).reshape(-1)
+        idx = _pair_index[key] = idx.to(device)
+    return idx
 
 
 # ---------------------------------------------------------------------------
@@ -1100,16 +1161,20 @@ def check_int8_inputs(u, v, s, qa, w8, m, bs) -> Tuple[int, int, int, int, int]:
 
 def pairwise_fwd_int8_cuda(u, v, s, qa, w8, m, bs, *, inject: int, phases=None) -> torch.Tensor:
     """Launch the int8 kernel on the current stream for folded inputs (those
-    of ``quantize_int8``); (B, H) fp32. Raises on anything the kernel does
-    not take, on CPU tensors, and on a failed build or launch. ``phases`` as
-    ``pairwise_fwd_cuda``'s, for the grid of ``tile_plan("int8", ...)`` and
-    the INT8_PHASES."""
+    of ``quantize_int8``); (B, H) fp32: at H = PAIR_WIDTH the cluster kernel
+    (W gathered by ``pair_chunk_index``), else the one-CTA kernel. Raises on
+    anything the kernel does not take, on CPU tensors, and on a failed
+    build or launch. ``phases`` as ``pairwise_fwd_cuda``'s, for the grid of
+    ``tile_plan("int8", ...)`` and the INT8_PHASES."""
     B, ni, nj, H, L = check_int8_inputs(u, v, s, qa, w8, m, bs)
     dev = _check_device(INT8_KERNEL, (u, v, s, qa, w8, m, bs))
     plan = tile_plan("int8", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(INT8_KERNEL, defines)
-    chunks = pack_weight_chunks(w8.transpose(1, 2))  # row n = column n of W_l: the K-major B operand
+    if plan.cluster > 1:  # each CTA's pair_halves slice of W^T, packed, rank after rank
+        chunks = w8.reshape(-1).index_select(0, pair_chunk_index(H, L, dev))
+    else:  # row n = column n of W_l: the K-major B operand
+        chunks = pack_weight_chunks(w8.transpose(1, 2))
     partial = torch.empty((B, plan.nblk, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -1117,7 +1182,7 @@ def pairwise_fwd_int8_cuda(u, v, s, qa, w8, m, bs, *, inject: int, phases=None) 
         err = lib.rnet_pairwise_fwd_int8(
             u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), chunks.data_ptr(), m.data_ptr(),
             bs.data_ptr(), partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, int(inject), plan.wgs,
-            plan.stages, plan.grid, plan.smem, int(u.dtype == torch.float32), phase_ptr, stream,
+            plan.stages, plan.grid, plan.cluster, plan.smem, int(u.dtype == torch.float32), phase_ptr, stream,
         )
     _raise_on_error(lib, err, INT8_KERNEL)
     launches[INT8_KERNEL] += 1

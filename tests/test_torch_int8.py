@@ -56,6 +56,7 @@ def _both(arrs, dtype):
         (5, 64, 64, 256, 4, 0, "bfloat16"),
         (2, 16, 16, 128, 4, 1, "float32"),
         (2, 16, 32, 128, 3, 1, "bfloat16"),  # rectangular nj != ni
+        (2, 8, 8, 512, 3, 0, "bfloat16"),  # wide-fp's width: the cluster kernel on the card
     ],
 )
 def test_int8_core_matches_rnet_interpret(B, ni, nj, H, L, inject, dtype):
@@ -251,3 +252,122 @@ def test_rn_int8_matches_rnet(name, monkeypatch):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert fr.shape == (3,)
     np.testing.assert_allclose(fr, want_fr, atol=1.0 / (3 * 16 * 16 * 128))  # one probe value of 3x256x128
+
+
+def _code_bits(x: np.ndarray) -> np.ndarray:
+    """The int8 code as csrc/pairwise_fwd_int8.cu's ``code_bits`` computes
+    it, in numpy: z = fmaxf(x, 0) + 0.5 rounded to nearest (fp32), the fp32
+    sum z + 1.5 * 2^23 rounded toward zero (the exact sum in float64, moved
+    one float32 toward zero where rounding to nearest went up), its bits
+    clamped to those of 1.5 * 2^23 + 127 (unsigned), the low byte."""
+    z = (np.fmax(x.astype(np.float32), np.float32(0.0)) + np.float32(0.5)).astype(np.float32)
+    exact = z.astype(np.float64) + 12582912.0
+    s = exact.astype(np.float32)
+    up = s.astype(np.float64) > exact
+    s[up] = np.nextafter(s[up], np.float32(0.0))
+    bits = np.minimum(s.view(np.uint32), np.uint32(0x4B40007F))
+    return (bits & np.uint32(0xFF)).astype(np.int8)
+
+
+def test_code_bits_is_the_truncating_requant():
+    """The cluster kernel's float-to-code without a conversion instruction
+    gives the code of ``_requant(relu(x))`` (and so of rnet's astype) for
+    every fp32 value it can meet: the rounding ties of z = x + 0.5 just below
+    and above every integer, values past 2^22 and 2^24, negatives, +-0,
+    +-inf, and NaN (code 0, as the one-CTA kernel's unsigned conversion)."""
+    rs = np.random.RandomState(0)
+    k = np.arange(0, 130, dtype=np.float32)
+    ties = np.concatenate([k - 0.5, k + 0.5, np.nextafter(k - 0.5, -np.inf), np.nextafter(k - 0.5, np.inf),
+                           np.nextafter(k + 0.5, -np.inf), np.nextafter(k + 0.5, np.inf)])
+    x = np.concatenate([
+        ties, rs.uniform(-200.0, 200.0, 200_000).astype(np.float32),
+        np.float32([0.0, -0.0, 0.49999997, 2.0 ** 22, 2.0 ** 22 - 0.5, 2.0 ** 24, 3.0e38, -3.0e38, 1e-45, -1e-45]),
+        np.float32([np.inf, -np.inf]),
+    ]).astype(np.float32)
+    want = tpw._requant(torch.relu(torch.from_numpy(x))).numpy()
+    np.testing.assert_array_equal(_code_bits(x), want)
+    assert _code_bits(np.float32([np.nan]))[0] == 0
+
+
+def _unpack_chunk(chunks: torch.Tensor, layer: int, nt: int, kc: int) -> torch.Tensor:
+    """Chunk (layer, column tile, depth chunk) of ``pack_weight_chunks``'s int8
+    layout back as the (TILE_N rows, 64 depth) block of the packed matrix."""
+    return chunks[layer, nt, kc].permute(0, 2, 1, 3).reshape(tpw.TILE_N, tpw.CHUNK_BYTES // tpw.TILE_N)
+
+
+def _pair_chain_emulated(plan, u, v, s, qa, w8, m, bs, inject):
+    """The int8 chain as the cluster kernel decomposes it at H=512, in torch
+    on the CPU: CTA c of a cluster computes the output columns c * 256 .. of
+    every layer for each 64-row tile; its W stream is the wrapper's packing
+    (``pack_weight_chunks`` of the ``pair_halves`` slices), read chunk after
+    chunk, chunk kc of a column tile multiplying the A columns of its own
+    half first (kc < 4) and then the peer's; the int32 sums exact (int64
+    here); the epilogue as the plain version's (one rounding of the fma, the
+    inject add, the truncating requant); the last layer pooled in the
+    kernel's order (a thread's two rows, the shuffle tree over 8 row lanes,
+    the 4 warps, the tiles of a sample in block order). Returns (the codes
+    of every layer but the last, the last layer's relu rows, the pooled
+    output)."""
+    B, ni, H = u.shape
+    nj, n_l = v.shape[1], w8.shape[0]
+    W, NK, KB = H // tpw.PAIR, (H // tpw.PAIR) // 64, 64
+    chunks = tpw._pack_for(w8.transpose(1, 2), plan, tpw.pack_weight_chunks)
+    chunks = chunks.view(tpw.PAIR * n_l, W // tpw.TILE_N, H // KB, 16, KB // 16, 8, 16)
+    a = torch.relu(u.float()[:, :, None, :] + v.float()[:, None, :, :] + s.float()[:, None, None, :])
+    a8 = tpw._requant(a.reshape(B, ni * nj, H)).long()
+    codes = [a8]
+    for l in range(1, n_l + 1):
+        acc = torch.zeros(B, ni * nj, H, dtype=torch.int64)
+        for c in range(tpw.PAIR):
+            c0 = c * W
+            for nt in range(W // tpw.TILE_N):
+                cols = slice(c0 + nt * tpw.TILE_N, c0 + (nt + 1) * tpw.TILE_N)
+                for kc in range(2 * NK):
+                    col = (c0 if kc < NK else c0 ^ W) + (kc % NK) * KB
+                    blk = _unpack_chunk(chunks, c * n_l + l - 1, nt, kc).long()
+                    acc[:, :, cols] += a8[:, :, col:col + KB] @ blk.T
+        pre = (acc.double() * m[l - 1].double() + bs[l - 1].double()).float()
+        if l == inject:
+            pre = pre + qa[:, None, :]
+        out = torch.relu(pre)
+        if l < n_l:
+            a8 = tpw._requant(out).long()
+            codes.append(a8)
+    rows = torch.zeros(B, plan.nblk * 64, H)
+    rows[:, :ni * nj] = out
+    x = rows.view(B, plan.nblk, 4, 2, 8, H)  # (sample, tile, warp, row half h, lane row g, column)
+    t = x[:, :, :, 0] + x[:, :, :, 1]  # a thread's rows g and g + 8
+    t = t[..., 0::2, :] + t[..., 1::2, :]  # the shuffle tree: xor 4, 8, 16 over g
+    t = t[..., 0::2, :] + t[..., 1::2, :]
+    t = (t[..., 0::2, :] + t[..., 1::2, :])[..., 0, :]  # (sample, tile, warp, column)
+    tile = ((t[:, :, 0] + t[:, :, 1]) + t[:, :, 2]) + t[:, :, 3]
+    pooled = torch.zeros(B, H)
+    for k in range(plan.nblk):  # pool_partials_kernel: the blocks in order from 0
+        pooled = pooled + tile[:, k]
+    return codes, out, pooled
+
+
+@pytest.mark.parametrize("B, n, L, inject", [(2, 8, 3, 0), (3, 12, 4, 2), (1, 16, 2, 1)])
+def test_pair_decomposition_matches_the_plain_int8_chain(B, n, L, inject):
+    """The cluster kernel's column split and W stream at H=512, emulated,
+    give the plain version's int8 codes and last-layer rows bit for bit (the
+    int32 products are exact), and its pooled output within the 1e-5 of
+    max|plain| that chip_smoke.py holds the kernel to."""
+    H = 512
+    t = [torch.from_numpy(a).bfloat16() for a in _inputs(B, n, n, H, L, seed=B * 10 + L)]
+    u, v, s, qa, w8, m, bs = tpw.quantize_int8(*t, inject)
+    plan = tpw.tile_plan("int8", B, n, n, H, L, tpw.H100_SMS)
+    assert plan.cluster == tpw.PAIR
+    codes, last, pooled = _pair_chain_emulated(plan, u, v, s, qa, w8, m, bs, inject)
+    a = torch.relu(u.float()[:, :, None, :] + v.float()[:, None, :, :] + s.float()[:, None, None, :])
+    a8 = tpw._requant(a.reshape(B, n * n, H))
+    for l in range(1, L):
+        assert torch.equal(codes[l - 1], a8.long()), f"codes of layer {l - 1}"
+        pre = ((a8.float() @ w8[l - 1].float()).double() * m[l - 1].double() + bs[l - 1].double()).float()
+        if l == inject:
+            pre = pre + qa[:, None, :]
+        a8 = tpw._requant(torch.relu(pre)) if l < L - 1 else None
+        if l == L - 1:
+            assert torch.equal(last, torch.relu(pre))
+    ref = tpw.pairwise_core_int8_reference(u, v, s, qa, w8, m, bs, inject=inject)
+    assert (pooled - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

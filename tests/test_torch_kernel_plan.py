@@ -86,7 +86,7 @@ def test_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
     B, ni, nj, H, L = shape
     plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS)
     assert plan.smem <= tpw.SMEM_LIMIT
-    assert plan.cluster == (tpw.PAIR if kind in ("fwd", "bwd") and H == tpw.PAIR_WIDTH else 1)
+    assert plan.cluster == (tpw.PAIR if H == tpw.PAIR_WIDTH else 1)
     assert plan.smem == tpw.smem_bytes(kind, plan.wgs, H, L, plan.slots, plan.stages, bm=plan.bm,
                                        cluster=plan.cluster)
     assert tpw.MIN_STAGES <= plan.stages <= tpw.MAX_STAGES
@@ -531,17 +531,91 @@ def test_forward_fills_the_card_at_small_batches():
 
 def test_int8_plan_fills_the_card_and_takes_what_fits():
     """The int8 forward: three warpgroups on their own 64-row tiles at
-    original-fp (one round of 3 * 132 tiles at a time), two at wide-fp's
-    H=512, one at serving bucket 1 (32 tiles of 128 rows < 132 SMs: 64
-    CTAs of one warpgroup); bucket 8 fills the card."""
+    original-fp (one round of 3 * 132 tiles at a time), one at serving
+    bucket 1 (32 tiles of 128 rows < 132 SMs: 64 CTAs of one warpgroup);
+    bucket 8 fills the card. At wide-fp's H=512 clusters of two CTAs of
+    three warpgroups, each CTA on half of a tile's columns, and one
+    warpgroup at bucket 1: 64 clusters, 128 CTAs."""
     small = tpw.tile_plan("int8", 1, 64, 64, 256, 4, SMS)
     assert (small.wgs, small.bm, small.grid) == (1, 64, 64)
     big = tpw.tile_plan("int8", 512, 64, 64, 256, 4, SMS)
     assert (big.wgs, big.bm, big.grid, big.stages) == (3, 64, SMS, tpw.MAX_STAGES)
     assert tpw.tile_plan("int8", 8, 64, 64, 256, 4, SMS).grid == SMS
     wide = tpw.tile_plan("int8", 64, 64, 64, 512, 4, SMS)
-    assert (wide.wgs, wide.grid) == (2, SMS) and wide.smem <= tpw.SMEM_LIMIT
+    assert (wide.wgs, wide.cluster, wide.grid) == (3, 2, SMS)
+    assert wide.smem <= tpw.SMEM_LIMIT and wide.stages >= tpw.MIN_STAGES
+    bucket1 = tpw.tile_plan("int8", 1, 64, 64, 512, 4, SMS)
+    assert (bucket1.wgs, bucket1.cluster, bucket1.grid, bucket1.stages) == (1, 2, 128, tpw.MAX_STAGES)
     assert tpw.tile_plan("int8", 140, 64, 64, 1024, 4, SMS).wgs == 1  # one warpgroup's slots at H=1024
+
+
+# The int8 plans off the cluster width (H != 512), field for field as
+# tile_plan gave them before the H=512 clusters: (B, ni, nj, H, L) -> (wgs,
+# stages, slots, grid, smem, bm, cluster). Every such shape launches the
+# same one-CTA kernel instantiation as before, with the same grid.
+INT8_ONE_CTA_PLANS = {
+    (1, 64, 64, 256, 4): (1, 8, 2, 64, 105600, 64, 1),
+    (1, 256, 256, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (1, 1024, 1024, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (2, 16, 40, 256, 3): (1, 8, 2, 20, 104576, 64, 1),
+    (2, 16, 64, 256, 4): (1, 8, 2, 32, 105600, 64, 1),
+    (3, 12, 12, 128, 3): (1, 8, 2, 9, 85120, 64, 1),
+    (3, 24, 24, 256, 4): (1, 8, 2, 27, 105600, 64, 1),
+    (8, 64, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (8, 64, 64, 384, 4): (3, 7, 2, 132, 227952, 64, 1),
+    (8, 256, 256, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (8, 1024, 1024, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (16, 1024, 1024, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (64, 64, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (64, 256, 256, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (66, 64, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (67, 64, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (100, 64, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (131, 64, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (140, 64, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (140, 256, 256, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (512, 32, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (512, 64, 64, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+    (512, 256, 256, 256, 4): (3, 8, 2, 132, 179328, 64, 1),
+}
+
+
+def test_int8_one_cta_plans_cover_every_shape_off_the_cluster_width():
+    assert {shape for shape in SHAPES if shape[3] != tpw.PAIR_WIDTH} == set(INT8_ONE_CTA_PLANS)
+
+
+@pytest.mark.parametrize("shape", sorted(INT8_ONE_CTA_PLANS), ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_int8_plan_off_the_cluster_width_is_the_one_cta_plan(shape):
+    p = tpw.tile_plan("int8", *shape, SMS)
+    assert (p.wgs, p.stages, p.slots, p.grid, p.smem, p.bm, p.cluster) == INT8_ONE_CTA_PLANS[shape]
+
+
+INT8_PAIR_SHAPES = [shape for shape in SHAPES if shape[3] == tpw.PAIR_WIDTH]
+
+
+@pytest.mark.parametrize("shape", INT8_PAIR_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_int8_pair_plan_shares_each_tile_over_a_cluster(shape):
+    """The int8 forward at H=512: clusters of two CTAs (an even grid), both
+    on the same contiguous, ordered range of 64-row tiles, each on its half
+    of the columns, every cluster with a tile; as many rounds of wgs tiles
+    in both CTAs; B=1 on 64 clusters (128 CTAs)."""
+    plan = tpw.tile_plan("int8", *shape, SMS)
+    assert plan.cluster == tpw.PAIR and plan.grid % tpw.PAIR == 0 and plan.bm == tpw.WG_ROWS
+    assert plan.smem == tpw.smem_bytes("int8", plan.wgs, plan.H, plan.L, 2, plan.stages, cluster=tpw.PAIR)
+    assert plan.smem <= tpw.SMEM_LIMIT and tpw.MIN_STAGES <= plan.stages <= tpw.MAX_STAGES
+    ntiles = plan.B * plan.nblk
+    assert plan.grid == tpw.PAIR * min(-(-ntiles // plan.wgs), SMS // tpw.PAIR)
+    walked = []
+    for q in range(plan.grid // tpw.PAIR):
+        first, second = (plan.blocks(cta) for cta in (tpw.PAIR * q, tpw.PAIR * q + 1))
+        assert first == second and first  # the same tiles, in the same order
+        assert [plan.columns(cta).start for cta in (tpw.PAIR * q, tpw.PAIR * q + 1)] == [0, plan.width]
+        walked += [b * plan.nblk + p0 // plan.bm for b, p0, _ in first]
+    assert walked == list(range(ntiles))  # contiguous ranges, cluster after cluster
+    if plan.B * -(-plan.ni * plan.nj // (2 * tpw.WG_ROWS)) < SMS:
+        assert plan.wgs == 1  # serving buckets: one tile a CTA at a time
+    if plan.B == 1 and plan.ni * plan.nj >= 64 * 64:
+        assert plan.grid >= 120
 
 
 @pytest.mark.parametrize("H, L, match", [(96, 4, "H % 128"), (1024, 4, "does not fit"), (512, 6, "does not fit")])
@@ -599,3 +673,16 @@ def test_weight_chunks_accept_a_transposed_view():
     w = torch.randn(3, 256, 256).to(torch.bfloat16)
     assert torch.equal(tpw.pack_weight_chunks(w.transpose(1, 2)),
                        tpw.pack_weight_chunks(w.transpose(1, 2).contiguous()))
+
+
+@pytest.mark.parametrize("L", [2, 3, 4, 5])
+def test_pair_chunk_index_gathers_the_packed_pair_halves(L):
+    """The int8 cluster kernel's W stream, one gather of w8 by
+    ``pair_chunk_index``, is bit for bit ``pack_weight_chunks`` of each
+    CTA's ``pair_halves`` slice of W^T, rank after rank."""
+    w8 = torch.from_numpy(np.random.RandomState(L).randint(-127, 128, (L - 1, 512, 512)).astype(np.int8))
+    plan = tpw.tile_plan("int8", 8, 64, 64, 512, L, SMS)
+    assert plan.cluster == tpw.PAIR
+    got = w8.reshape(-1).index_select(0, tpw.pair_chunk_index(512, L, "cpu"))
+    assert got.dtype == torch.int8 and got.numel() == (L - 1) * 512 * 512
+    assert torch.equal(got, tpw._pack_for(w8.transpose(1, 2), plan, tpw.pack_weight_chunks).reshape(-1))
