@@ -235,6 +235,50 @@ Phases, each fatal (exit 1, no result line) when it fails:
      replayed from CUDA graphs, one process a card; with one card a line
      says it was not run.
      A worker that fails fails the phase.
+ 16. ``python -m rnet_torch.bench`` (the port of ``bench.py``; after phase
+     12): in process, ``measure_train_qps("auto", 512)``,
+     ``measure_infer_qps("auto", 512)`` and ``measure_train_qps("xla",
+     512)``, each with the launch counters zeroed just before: the train
+     arm counts one ``pairwise_fwd`` and one ``pairwise_bwd`` per step its
+     warm-up and timed replays took and nothing else (no ``augment``, no
+     ``pair_mask``: the batch is unpadded), the infer arm ``pairwise_fwd``
+     only, the ``xla`` arm no kernel. Then ``python -m rnet_torch.bench`` in
+     a subprocess, as a user runs it: rc 0, the last line holds exactly
+     ``bench.py``'s keys plus ``device`` (the card's line), ``backend``
+     "cuda", finite positive ``value``, ``infer_qps`` and
+     ``xla_impl_train_qps``; ``value`` within +-15 % of phase 12's replayed
+     original-fp train q/s from the same run (the same replayed step; phase
+     12 adds a 0.07 ms augment).
+ 15. rnet's trained wide-fp weights (``results/int8_eval_r4/
+     wide-fp_epoch091_weights_dicts.pkl``, the dictionaries carried) on the
+     val split rnet scored them on, expanded from the repository
+     (``tests/torch_fixtures/clevr_v2_seed1_val/``, each file at its
+     sha256; 600 images, 7,484 questions): ``rnet_torch.evaluate.main
+     --data-pipeline device --batch-size 512`` in bf16 (``auto``), with
+     ``--rl-impl pallas_int8`` (warnings as errors) and with ``--precision
+     float32``, the counters zeroed before each: 15 launches of
+     ``pairwise_fwd`` / ``pairwise_fwd_int8`` / ``pairwise_fwd_f32``
+     respectively and nothing else. Bounds, fixed before the first run:
+     overall accuracy within 0.3 pp of rnet's (bf16 and fp32 against
+     0.977686, int8 against 0.978220), mean NLL within 0.005 of rnet's
+     (0.059745 / 0.060663), each of the five ``category_*`` rows of the
+     port's ``val_accuracy.csv`` within 1.0 pp of the same row of rnet's
+     (``results/widefp_r3/int8_eval/{auto,pallas_int8}/val_accuracy.csv``),
+     fp32 within 0.1 pp of the port's CPU accuracy 0.977819, bf16 and int8
+     predictions equal on >= 0.99 of the questions. Then bf16 and int8
+     ``InferenceServer``s loaded from the same pkl serve the first 64 val
+     questions as three batches (buckets 1, 8, 64): one launch of the
+     kernel per served batch and nothing else; bf16: every answer equal to
+     ``evaluate``'s prediction; int8: every answer equal to the plain int8
+     chain's on the same served batches (int8 calibrates its scales on a
+     subsample of each call's batch, rnet's ``_activation_scales``, so a
+     question's int8 answer depends on its batch; the answers that differ
+     from ``evaluate``'s are logged: an open fault of the calibration,
+     ROADMAP §3). (c) One replayed
+     wide-fp bf16 train step at B = 1024 and 2048 through ``auto`` and
+     through ``xla``, each in a worker process (``chip_smoke.py
+     --wide-batch-worker B IMPL``): host ms, graph pool and peak memory, or
+     "OOM"; ``auto`` out of memory where ``xla`` runs fails the phase.
 Then one JSON line of kernel records and, last, the device line.
 
 Only torch, numpy and ``rnet_torch`` are imported (never JAX or ``rnet``).
@@ -264,6 +308,38 @@ CLEVR_TRAIN_IMAGES = 70_000  # CLEVR v1.0 train split
 AUG_SMALL = 2_048  # the synthetic run's train images
 SYN_TRAIN_Q, SYN_VAL_IMAGES, SYN_VAL_Q = 8_192, 256, 1_024  # 16 train steps of 512 per epoch
 FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_fixtures")  # phase 14
+VAL_FIXTURE = os.path.join(FIXTURE_DIR, "clevr_v2_seed1_val")  # phase 15
+# phase 15's files and the CLEVR subdirectory each goes to; the large ones are committed xz-compressed
+VAL_FIXTURE_FILES = {"CLEVR_val_questions.json": "questions", "val_128p8.u8": "rnet_cache",
+                     "val_128p8.json": "rnet_cache"}
+VAL_FIXTURE_XZ = ("CLEVR_val_questions.json", "val_128p8.u8")
+
+
+def expand_val_fixture(root: str) -> dict:
+    """Write the committed val split of the v2 seed-1 fixture
+    (``tests/torch_fixture_val_writer.py``) into the CLEVR directory `root`:
+    ``questions/CLEVR_val_questions.json`` and the decoded cache
+    ``rnet_cache/val_128p8.u8`` with its ``.json``, each checked against its
+    recorded sha256 (ValueError if one differs). Returns the digests file."""
+    import hashlib
+    import lzma
+
+    with open(os.path.join(VAL_FIXTURE, "digests.json")) as f:
+        digests = json.load(f)
+    for name, sub in VAL_FIXTURE_FILES.items():
+        src = os.path.join(VAL_FIXTURE, name)
+        if name in VAL_FIXTURE_XZ:
+            with lzma.open(src + ".xz") as f:
+                data = f.read()
+        else:
+            with open(src, "rb") as f:
+                data = f.read()
+        if hashlib.sha256(data).hexdigest() != digests["files"][name]["sha256"]:
+            raise ValueError(f"{name} of {VAL_FIXTURE} does not match its recorded sha256")
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        with open(os.path.join(root, sub, name), "wb") as f:
+            f.write(data)
+    return digests
 
 
 def fail(msg: str) -> None:
@@ -3637,6 +3713,342 @@ def shard_phase(torch, np, pw, cfg, root):
     return summary
 
 
+# Phase 15: rnet's trained wide-fp weights on the val split it was scored on,
+# and the bounds fixed before the first run on the card.
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+TRAINED_PKL = os.path.join(REPO_DIR, "results", "int8_eval_r4", "wide-fp_epoch091_weights_dicts.pkl")
+RNET_VAL_CSV = os.path.join(REPO_DIR, "results", "widefp_r3", "int8_eval", "{}", "val_accuracy.csv")
+TRAINED_ACC_PP = 0.3  # overall accuracy within 0.3 percentage points of rnet's
+TRAINED_NLL = 0.005  # mean NLL within 0.005 of rnet's
+TRAINED_FAMILY_PP = 1.0  # each category_* row within 1.0 pp of rnet's
+TRAINED_FP32_CPU = 0.977819  # the port's fp32 xla accuracy on the CPU (python -m rnet_torch.evaluate --platform cpu)
+TRAINED_FP32_CPU_PP = 0.1
+TRAINED_AGREE = 0.99  # bf16 and int8 predictions equal on at least this share
+TRAINED_SERVED = (1, 8, 55)  # the first 64 val questions as three served batches (buckets 1, 8, 64)
+# (tag, extra flags, the one kernel launched, rnet's results directory, its rl_impl)
+TRAINED_ARMS = (("bf16", [], "pairwise_fwd", "auto", "auto"),
+                ("int8", ["--rl-impl", "pallas_int8"], "pairwise_fwd_int8", "pallas_int8", "pallas_int8"),
+                ("fp32", ["--precision", "float32"], "pairwise_fwd_f32", "auto", "auto"))
+WIDE_BATCHES = (1024, 2048)  # ROADMAP §3 item 4: wide-fp bf16 at doubled batch sizes
+WIDE_BATCH_FLAG = "--wide-batch-worker"
+WIDE_BATCH_TIMEOUT = 300
+
+
+def read_csv_metrics(path):
+    """{metric: value} of an ``<split>_accuracy.csv``."""
+    import csv
+
+    with open(path) as f:
+        return {row["metric"]: float(row["value"]) for row in csv.DictReader(f)}
+
+
+def trained_wide_fp_phase(torch, np, pw, aug, root):
+    """Phase 15: rnet's epoch-91 wide-fp weights (``TRAINED_PKL``, the
+    dictionaries carried) through the card's kernels on the val split they
+    were scored on (``expand_val_fixture``): ``rnet_torch.evaluate.main`` in
+    bf16 (``auto``: the bf16 cluster forward), ``--rl-impl pallas_int8``
+    (under warnings as errors) and ``--precision float32`` (the fp32 ring
+    forward), each with the counters zeroed just before and one launch of its
+    kernel per eval batch and nothing else; every bound of the module
+    docstring; then bf16 and int8 ``InferenceServer``s loaded from the same
+    pkl serve the first 64 val questions (three batches: buckets 1, 8, 64),
+    one launch per served batch, each bf16 answer equal to ``evaluate``'s
+    prediction and each int8 answer to the plain int8 chain's on the same
+    batch (``plain_int8_answers``); then (c) wide-fp bf16 at doubled batch sizes in worker
+    processes. Returns the numbers for the result line."""
+    import math
+    import warnings
+
+    from rnet_torch.checkpoint import load_exported_dicts
+    from rnet_torch.config import load_config
+    from rnet_torch.data.vocab import Dictionaries
+    from rnet_torch.serve import InferenceServer
+
+    clevr = os.path.join(root, "clevr_v2_seed1")
+    t0 = time.perf_counter()
+    try:
+        digests = expand_val_fixture(clevr)
+    except (OSError, ValueError) as e:
+        fail(f"phase 15: the val fixture does not expand: {e}")
+    n_q = digests["questions"]
+    n_batches = -(-n_q // TRAIN_B)
+    log(f"phase 15: val fixture expanded in {time.perf_counter() - t0:.2f} s ({n_q} questions, cache "
+        f"{digests['cache_shape']}, every file at its sha256)")
+    out, preds = {}, {}
+    for tag, extra, kernel, rnet_dir, _ in TRAINED_ARMS:
+        res = os.path.join(root, f"trained_{tag}")
+        argv = ["--model", "wide-fp", "--checkpoint", TRAINED_PKL, "--clevr-dir", clevr, "--data-pipeline", "device",
+                "--batch-size", str(TRAIN_B), "--test-results-dir", res, "--num-workers", "4", *extra]
+        torch.cuda.synchronize()
+        pw.reset_launches()
+        aug.reset_launches()
+        text, by_q, sec = run_eval_cli(argv, int8=(tag == "int8"))
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
+        got = read_csv_metrics(os.path.join(res, "val_accuracy.csv"))
+        want = read_csv_metrics(RNET_VAL_CSV.format(rnet_dir))
+        fams = {k: (got[k], want[k], 100 * (got[k] - want[k])) for k in sorted(want) if k.startswith("category_")}
+        row = {"seconds": sec, "launches": counts, "questions": len(by_q),
+               "accuracy": got["overall_accuracy"], "rnet_accuracy": want["overall_accuracy"],
+               "accuracy_pp": 100 * (got["overall_accuracy"] - want["overall_accuracy"]),
+               "mean_nll": got["mean_nll"], "rnet_mean_nll": want["mean_nll"],
+               "nll_diff": got["mean_nll"] - want["mean_nll"],
+               "families": {k: {"port": p, "rnet": r, "pp": d} for k, (p, r, d) in fams.items()}}
+        if tag == "fp32":
+            row["fp32_cpu_accuracy"] = TRAINED_FP32_CPU
+            row["fp32_cpu_pp"] = 100 * (got["overall_accuracy"] - TRAINED_FP32_CPU)
+        log(f"phase 15 trained wide-fp {tag}: {json.dumps(row)}")
+        problems = []
+        if counts != {kernel: n_batches}:
+            problems.append(f"launches {counts}, expected {{{kernel!r}: {n_batches}}}")
+        if len(by_q) != n_q:
+            problems.append(f"{len(by_q)} questions predicted of {n_q}")
+        if not abs(row["accuracy_pp"]) <= TRAINED_ACC_PP:
+            problems.append(f"accuracy {row['accuracy']!r} vs rnet's {row['rnet_accuracy']!r}")
+        if not abs(row["nll_diff"]) <= TRAINED_NLL:
+            problems.append(f"mean NLL {row['mean_nll']!r} vs rnet's {row['rnet_mean_nll']!r}")
+        problems += [f"{k} {p!r} vs rnet's {r!r}" for k, (p, r, d) in fams.items() if not abs(d) <= TRAINED_FAMILY_PP]
+        if tag == "fp32" and not abs(row["fp32_cpu_pp"]) <= TRAINED_FP32_CPU_PP:
+            problems.append(f"fp32 accuracy {row['accuracy']!r} vs the port's CPU {TRAINED_FP32_CPU!r}")
+        if len(fams) != 5 or not all(math.isfinite(v) for v in (row["accuracy"], row["mean_nll"])):
+            problems.append(f"{len(fams)} families, accuracy {row['accuracy']!r}, NLL {row['mean_nll']!r}")
+        if problems:
+            fail(f"phase 15 trained wide-fp {tag}: " + "; ".join(problems))
+        out[tag], preds[tag] = row, by_q
+    same = float(np.mean([preds["int8"][i] == p for i, p in preds["bf16"].items()]))
+    out["int8_bf16_predictions_equal"] = same
+    log(f"phase 15: int8 and bf16 predictions equal on {same!r} of {n_q} questions (bound >= {TRAINED_AGREE})")
+    if not same >= TRAINED_AGREE:
+        fail(f"phase 15: int8 and bf16 predictions equal on only {same!r} of the questions")
+
+    # (b) servers loaded from the same pkl answer the first 64 val questions as evaluate did
+    dicts = Dictionaries(*load_exported_dicts(TRAINED_PKL))
+    cfg = load_config("wide-fp").replace(n_answers=dicts.n_answers)
+    with open(os.path.join(clevr, "questions", "CLEVR_val_questions.json")) as f:
+        questions = json.load(f)["questions"][: sum(TRAINED_SERVED)]
+    with open(os.path.join(clevr, "rnet_cache", "val_128p8.json")) as f:
+        meta = json.load(f)
+    cache = np.load(os.path.join(clevr, "rnet_cache", "val_128p8.u8"), mmap_mode="r")
+    row_of = {name: i for i, name in enumerate(meta["files"])}
+    p, S = meta["pad"], meta["image_size"]
+    samples = [{"question": dicts.encode_question(q["question"], cfg.question_max_len),
+                "image": np.ascontiguousarray(cache[row_of[q["image_filename"]], p : p + S, p : p + S])}
+               for q in questions]
+    idx_to_answer = {i: a for a, i in dicts.answer_to_idx.items()}
+    chunks, c0 = [], 0
+    for n in TRAINED_SERVED:
+        chunks.append(samples[c0 : c0 + n])
+        c0 += n
+    for tag, _, kernel, _, impl in TRAINED_ARMS[:2]:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            srv = InferenceServer(cfg.replace(rl_impl=impl), dicts, max_batch=64, device="cuda")
+            srv.load(TRAINED_PKL)
+            srv.warmup()
+            torch.cuda.synchronize()
+            pw.reset_launches()
+            aug.reset_launches()
+            results = [r for chunk in chunks for r in srv.serve_samples(chunk)]
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
+        want = [idx_to_answer[preds[tag][i]] for i in range(len(samples))]
+        equal = [r["answer"] == w for r, w in zip(results, want)]
+        right = [r["answer"] == str(q["answer"]).lower() for r, q in zip(results, questions)]
+        row = out[f"serve_{tag}"] = {"launches": counts, "buckets": sorted({r["bucket"] for r in results}),
+                                     "answers_equal_to_evaluate": sum(equal), "answers_right": sum(right),
+                                     "served": len(results)}
+        if tag == "int8":
+            # int8 answers depend on the batch: its scales come from a subsample of each call's batch
+            # (rnet's _activation_scales), so the reference is the plain int8 chain on the same batches
+            plain = plain_int8_answers(torch, pw, srv, chunks)
+            row["answers_equal_to_plain_int8"] = sum(r["answer"] == p for r, p in zip(results, plain))
+            row["differ_from_evaluate"] = [
+                {"question": i, "served": r["answer"], "evaluate": w, "label": str(questions[i]["answer"]).lower(),
+                 "bucket": r["bucket"]} for i, (r, w) in enumerate(zip(results, want)) if r["answer"] != w]
+        log(f"phase 15 served trained wide-fp {tag}: {json.dumps(row)}")
+        if counts != {kernel: len(TRAINED_SERVED)}:
+            fail(f"phase 15 serve {tag}: expected one {kernel} launch per served batch ({len(TRAINED_SERVED)}) and "
+                 f"nothing else, counted {counts}")
+        if tag == "int8" and row["answers_equal_to_plain_int8"] != len(results):
+            fail(f"phase 15 serve int8: {row['answers_equal_to_plain_int8']} of {len(results)} answers equal to the "
+                 "plain int8 chain's on the same batches")
+        if tag == "bf16" and not all(equal):
+            fail(f"phase 15 serve bf16: {sum(equal)} of {len(results)} answers equal to evaluate's")
+        del srv
+    torch.cuda.empty_cache()
+    out["doubled_batches"] = wide_batch_check()
+    return out
+
+
+def plain_int8_answers(torch, pw, srv, chunks):
+    """The answers of ``srv``'s int8 model to each chunk of encoded samples,
+    padded to its bucket as the server pads it, with the int8 kernel swapped
+    for its plain version on the CPU (the same folded inputs, made on the
+    card): the reference for int8 served answers, whose calibration depends
+    on the batch they are served in."""
+    real = pw.pairwise_core_int8
+
+    def plain(u, v, s, qa, ws, bs, *, inject):
+        folded = pw.quantize_int8(u, v, s, qa, ws, bs, inject)
+        return pw.pairwise_core_int8_reference(*(t.cpu() for t in folded), inject=inject).to(u.device)
+
+    pw.pairwise_core_int8 = plain
+    try:
+        answers = []
+        for chunk in chunks:
+            inputs, q = srv.batch_arrays(chunk, srv._bucket_for(len(chunk)))
+            best = srv.log_probs(inputs, q).argmax(-1)[: len(chunk)]
+            answers += [srv._idx_to_answer[int(k)] for k in best.tolist()]
+    finally:
+        pw.pairwise_core_int8 = real
+    return answers
+
+
+def wide_batch_check():
+    """Phase 15 (c), ROADMAP §3 item 4: one replayed wide-fp bf16 train step
+    at each B of ``WIDE_BATCHES`` through rl_impl "auto" (the kernels; the
+    backward stores B x 25.2 MB of tiles) and through "xla", each in a worker
+    process of its own (``wide_batch_worker``), so that running out of the
+    card's memory leaves nothing behind. ``auto`` out of memory where ``xla``
+    runs is a fault."""
+    rows = {}
+    for B in WIDE_BATCHES:
+        for impl in ("auto", "xla"):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, __file__, WIDE_BATCH_FLAG, str(B), impl], capture_output=True,
+                                  text=True, timeout=WIDE_BATCH_TIMEOUT)
+            lines = proc.stdout.strip().splitlines()
+            if proc.returncode != 0 or not lines:
+                log(proc.stderr[-3000:])
+                fail(f"phase 15 (c): the worker for wide-fp B={B} {impl} exited {proc.returncode}")
+            rows[f"{B} {impl}"] = row = json.loads(lines[-1])
+            log(f"phase 15 (c) wide-fp bf16 replayed train step B={B} {impl} ({time.perf_counter() - t0:.1f} s "
+                f"with the process): " + ("OOM: " + row["oom"] if "oom" in row else json.dumps(row)))
+        auto, xla = rows[f"{B} auto"], rows[f"{B} xla"]
+        if "oom" in auto and "oom" not in xla:
+            fail(f"phase 15 (c): wide-fp B={B} runs out of memory through auto where xla runs")
+        for impl, row in (("auto", auto), ("xla", xla)):
+            if "oom" not in row and not row["finite"]:
+                fail(f"phase 15 (c): wide-fp B={B} {impl} gave non-finite metrics")
+        if "oom" not in auto and auto["launches"] != {"pairwise_fwd": 1, "pairwise_bwd": 1, "augment": 1}:
+            fail(f"phase 15 (c): wide-fp B={B} auto launched {auto['launches']} in one replay")
+    return rows
+
+
+def wide_batch_worker(argv) -> int:
+    """``chip_smoke.py --wide-batch-worker B IMPL``: one replayed wide-fp
+    bf16 train step at batch size B through rl_impl IMPL, on device data (a
+    2,048-canvas cache, device augment, as phase 12b); prints one JSON line:
+    the replay's host ms, its launches, the first step's loss, the graph's
+    pool and the peak allocated memory, or "oom" and the error's first
+    line."""
+    import torch
+
+    from rnet_torch.config import load_config
+    from rnet_torch.kernels import augment as aug
+    from rnet_torch.kernels import pairwise as pw
+    from rnet_torch.train import steps
+
+    B, impl = int(argv[0]), argv[1]
+    cfg = load_config("wide-fp").replace(device_augment=True, rl_impl=impl)
+    row = {"B": B, "impl": impl}
+    try:
+        cache, data = device_data(torch, cfg, AUG_SMALL, B, seed=18)
+        state = new_state(torch, cfg)
+        graphs = steps.step_graphs(state)
+        train = steps.make_chunked_steps(state, graphs)[0]
+        idx = torch.arange(B, dtype=torch.int32, device="cuda").view(1, B)
+        torch.cuda.reset_peak_memory_stats()
+        first = train(idx, data, cache)  # captures, then replays the first step
+        torch.cuda.synchronize()
+        pw.reset_launches()
+        aug.reset_launches()
+        t0 = time.perf_counter()
+        metrics = train(idx, data, cache)
+        torch.cuda.synchronize()
+        row.update(host_ms=(time.perf_counter() - t0) * 1e3, first_loss=float(first[0, 0]),
+                   finite=bool(torch.isfinite(metrics).all()),
+                   launches={k: v for k, v in {**pw.launches, **aug.launches}.items() if v},
+                   pool_mb=sum(c.pool_bytes for c in graphs.captured.values()) / 2**20,
+                   peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    except torch.cuda.OutOfMemoryError as e:
+        row["oom"] = str(e).strip().splitlines()[0][:400]
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+# Phase 16: python -m rnet_torch.bench
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "backend", "batch_size", "baseline_def", "infer_qps",
+              "xla_impl_train_qps", "vs_v100_fp32_flop_bound", "vs_a100_tf32_flop_bound", "device")
+BENCH_TARGET_S = 0.5  # the in-process arms' long window (python -m rnet_torch.bench: 2 s, bench.py's)
+BENCH_REL = 0.15  # the bench's value within 15 % of phase 12's replayed train q/s
+BENCH_TIMEOUT = 600
+
+
+def bench_phase(torch, pw, aug, card, phase12_qps):
+    """Phase 16: ``rnet_torch.bench`` (the port of ``bench.py``) at
+    original-fp B=512. In process, each arm with the launch counters zeroed
+    just before: ``measure_train_qps("auto", ...)`` counts one
+    ``pairwise_fwd`` and one ``pairwise_bwd`` launch per step its warm-up and
+    timed replays took and nothing else (no ``augment``, no ``pair_mask``),
+    ``measure_infer_qps("auto", ...)`` ``pairwise_fwd`` only, the ``xla``
+    arm no kernel. Then ``python -m rnet_torch.bench`` as a user runs it:
+    rc 0, its last line with exactly ``BENCH_KEYS``, ``backend`` "cuda",
+    finite positive q/s, ``device`` the card's line, and ``value`` within
+    ``BENCH_REL`` of phase 12's replayed train q/s (both time the same
+    replayed step; phase 12 adds a 0.07 ms augment). Returns the numbers for
+    the result line."""
+    import math
+
+    from rnet_torch import bench
+
+    out = {}
+    arms = (("train auto", lambda: bench.measure_train_qps("auto", TRAIN_B, "cuda", target_s=BENCH_TARGET_S),
+             (pw.KERNEL, pw.BWD_KERNEL)),
+            ("infer auto", lambda: bench.measure_infer_qps("auto", TRAIN_B, "cuda", target_s=BENCH_TARGET_S),
+             (pw.KERNEL,)),
+            ("train xla", lambda: bench.measure_train_qps("xla", TRAIN_B, "cuda", target_s=BENCH_TARGET_S), ()))
+    for what, run, kernels in arms:
+        torch.cuda.synchronize()
+        pw.reset_launches()
+        aug.reset_launches()
+        m = run()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
+        out[what] = {"qps": m.qps, "step_ms": m.step_s * 1e3, "k": m.k, "windows": list(m.windows),
+                     "replayed_steps": m.steps, "launches": counts, "pool_mb": m.pool_mb}
+        log(f"phase 16 bench in process, {what} B={TRAIN_B}: {json.dumps(out[what])}")
+        if counts != {k: m.steps for k in kernels}:
+            fail(f"phase 16 {what}: expected {m.steps} launches of each of {kernels} and nothing else, "
+                 f"counted {counts}")
+        if not (math.isfinite(m.qps) and m.qps > 0):
+            fail(f"phase 16 {what}: q/s {m.qps!r}")
+        del m
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rnet_torch.bench"], cwd=REPO_DIR, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT)
+    sec = time.perf_counter() - t0
+    log("\n".join(f"  | {line}" for line in (proc.stderr.strip().splitlines()[-8:] + proc.stdout.strip().splitlines())))
+    if proc.returncode != 0 or not proc.stdout.strip():
+        fail(f"phase 16: python -m rnet_torch.bench exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    qps_keys = ("value", "infer_qps", "xla_impl_train_qps")
+    if set(line) != set(BENCH_KEYS) or line["backend"] != "cuda" or line["batch_size"] != TRAIN_B or \
+            line["device"] != card or not all(isinstance(line[k], (int, float)) and math.isfinite(line[k])
+                                              and line[k] > 0 for k in qps_keys):
+        fail(f"phase 16: python -m rnet_torch.bench printed {line}")
+    ratio = line["value"] / phase12_qps
+    out["cli"] = {"seconds": sec, "line": line, "phase12_replay_qps": phase12_qps, "value_over_phase12": ratio}
+    log(f"phase 16: python -m rnet_torch.bench in {sec:.1f} s: value {line['value']!r} q/s beside phase 12's "
+        f"replayed train step {phase12_qps!r} q/s (ratio {ratio!r}, bound 1 +- {BENCH_REL}); infer "
+        f"{line['infer_qps']!r}, xla {line['xla_impl_train_qps']!r}")
+    if not abs(ratio - 1.0) <= BENCH_REL:
+        fail(f"phase 16: the bench's {line['value']!r} q/s is not within {BENCH_REL} of phase 12's {phase12_qps!r}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3777,6 +4189,8 @@ def main() -> int:
     # ---- 12. compiled dispatch: replayed CUDA graphs against eager steps ----
     graph_out = graph_phase(torch, np, pw, aug, cfg, dicts, burst)
     log(f"phase 12 (graphs) done at {time.perf_counter() - t_start:.1f} s")
+    bench_out = bench_phase(torch, pw, aug, card, graph_out["train_step"]["replay"]["qps"])
+    log(f"phase 16 (python -m rnet_torch.bench) done at {time.perf_counter() - t_start:.1f} s")
     graph_out["wide_fp_steps"] = wide_fp_steps(torch, pw, aug, dicts.n_answers)
     log(f"phase 12b (wide-fp steps) done at {time.perf_counter() - t_start:.1f} s")
     stretch = stretch_steps(torch, pw, aug, dicts.n_answers)
@@ -3805,6 +4219,8 @@ def main() -> int:
         extract_phase(torch, np, pw, root)
         rnet_fixture_phase(torch, np, pw, aug, root)
         log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+        trained = trained_wide_fp_phase(torch, np, pw, aug, root)
+        log(f"phase 15 (rnet's trained wide-fp) done at {time.perf_counter() - t_start:.1f} s")
         graph_out["trainer_epochs"] = trainer_epochs(torch, root)
         log(f"phase 12 (Trainer epochs) done at {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
@@ -3834,7 +4250,8 @@ def main() -> int:
                wide_fp_step_launches=graph_out["wide_fp_steps"]["bfloat16"]["auto"]["launches_per_step"],
                per_shard_ms={k: v["fwd_ms"] for k, v in shard["per_shard"].items()},
                per_shard_max_abs_err={k: v["fwd_max_abs_err"] for k, v in shard["per_shard"].items()},
-               shard_launches_per_rank={k: shard[k]["launches_per_rank"] for k in SHARD_SHAPES if k in shard}),
+               shard_launches_per_rank={k: shard[k]["launches_per_rank"] for k in SHARD_SHAPES if k in shard},
+               bench_launches=bench_out["train auto"]["launches"], trained_wide_fp_launches=trained["bf16"]["launches"]),
         record(pw.BWD_KERNEL, "rnet_torch/csrc/pairwise_bwd.cu", "rnet/kernels/pairwise.py:120",
                train_counts[pw.BWD_KERNEL], bwd_err_at_shape, bwd[TRAIN_B], shape=shape,
                max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL],
@@ -3848,7 +4265,7 @@ def main() -> int:
                b64={k: bwd[64][k] for k in ("ms", "library_ms", "bound_ms", "ctas", "splits")},
                stretch={k: v for k, v in stretch_bwd.items() if k.startswith("bfloat16")},
                stretch_step_launches={B: r["auto"]["launches_per_step"] for B, r in stretch.items()},
-               stretch_entry_point_launches=stretch_cli[0]),
+               stretch_entry_point_launches=stretch_cli[0], bench_launches=bench_out["train auto"]["launches"]),
         record("pair_mask", "rnet_torch/csrc/philox.cuh", "rnet/kernels/pairwise.py:69",
                pd_counts["pair_mask"], float(mask_err), mask,
                shape={"B": TRAIN_B, "n": 64}, launches_of="one train step with pair_dropout 0.25",
@@ -3874,6 +4291,7 @@ def main() -> int:
                h512_phase_shares=phases[("int8", "H512")]["shares"],
                h512_b8_phase_shares=phases[("int8", "H512 B=8")]["shares"],
                wide_fp=wide_int8, wide_fp_eval_launches=wide_int8["evaluate"]["int8_launches"],
+               trained_wide_fp_launches=trained["int8"]["launches"],
                launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
                            "--split train --batch-size 512 (16 batches)"),
         record(pw.F32_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:83",
@@ -3883,6 +4301,7 @@ def main() -> int:
                phase_shares=phases[("fwd_f32", TRAIN_B)]["shares"], step_launches=f32_step_counts[pw.F32_KERNEL],
                h512=wide["fwd_fp32"], h512_phase_shares=phases[("fwd_f32", "H512")]["shares"],
                wide_fp_step_launches=graph_out["wide_fp_steps"]["float32"]["pallas"]["launches_per_step"],
+               trained_wide_fp_launches=trained["fp32"]["launches"],
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512 (16 train + 2 eval batches)"),
         record(pw.F32_BWD_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:120",
@@ -3900,6 +4319,8 @@ def main() -> int:
     log(f"graphs summary {json.dumps(graph_out)}")
     log(f"stretch-fp-32 summary {json.dumps({'steps': stretch, 'bwd': stretch_bwd, 'entry_point': stretch_cli})}")
     log(f"phase 13 summary {json.dumps(shard)}")
+    log(f"phase 15 summary {json.dumps(trained)}")
+    log(f"phase 16 summary {json.dumps(bench_out)}")
     log(card)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3909,4 +4330,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == WORKER_FLAG:
         sys.exit(phase13_worker(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1] == WIDE_BATCH_FLAG:
+        sys.exit(wide_batch_worker(sys.argv[2:]))
     sys.exit(main())

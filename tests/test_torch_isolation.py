@@ -44,14 +44,15 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "rnet",
-                                    "serve", "train", "PIL"))
+                                    "serve", "train", "bench", "PIL"))
 print(len(names), bad)
 assert not bad, bad
 want = {"rnet_torch.kernels.augment", "rnet_torch.data.augment", "rnet_torch.data.cache",
         "rnet_torch.data.categories", "rnet_torch.data.pipeline", "rnet_torch.eval.metrics",
         "rnet_torch.train.checkpoint", "rnet_torch.train.loop", "rnet_torch.train.__main__",
         "rnet_torch.utils.watchdog", "rnet_torch.utils.profiling", "rnet_torch.evaluate", "rnet_torch.extract",
-        "rnet_torch.parallel.mesh", "rnet_torch.ocdbt", "rnet_torch.zstd"}
+        "rnet_torch.parallel.mesh", "rnet_torch.ocdbt", "rnet_torch.zstd",
+        "rnet_torch.bench"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 """

@@ -126,13 +126,17 @@ def main() -> int:
         state, metrics = step(state, batch)
         print({k: float(v) for k, v in metrics.items()})
         assert float(metrics["loss"]) == 0.0 and float(metrics["grad_norm"]) == 0.0
-    shutil.rmtree(OUT, ignore_errors=True)
+    # only this writer's files: the directory holds other fixtures too
+    shutil.rmtree(os.path.join(OUT, f"{MODEL}_epoch_{EPOCH:03d}"), ignore_errors=True)
+    for name in (f"{MODEL}_dictionaries.json", "digests.json"):
+        if os.path.exists(os.path.join(OUT, name)):
+            os.remove(os.path.join(OUT, name))
     path = CheckpointManager(OUT, MODEL, dicts=dicts).save(state, EPOCH)
     leaves = leaf_digests(ocp.StandardCheckpointer().restore(path))
     with open(os.path.join(OUT, "digests.json"), "w") as f:
         json.dump({"epoch": os.path.basename(path), "model": MODEL, "steps": STEPS, "synthetic_seed": SEED,
                    "leaves": leaves}, f, indent=1, sort_keys=True)
-    size = sum(os.path.getsize(os.path.join(r, n)) for r, _, fs in os.walk(OUT) for n in fs)
+    size = sum(os.path.getsize(os.path.join(r, n)) for r, _, fs in os.walk(path) for n in fs)
     print(f"wrote {path}: {len(leaves)} leaves, {size} bytes in {OUT}")
     return 0
 
