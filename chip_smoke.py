@@ -279,6 +279,58 @@ Phases, each fatal (exit 1, no result line) when it fails:
      through ``xla``, each in a worker process (``chip_smoke.py
      --wide-batch-worker B IMPL``): host ms, graph pool and peak memory, or
      "OOM"; ``auto`` out of memory where ``xla`` runs fails the phase.
+17. The port's fixture generator (``rnet_torch.data.synth``) on the card
+     and rnet's trained original-fp (``results/campaign_r3/
+     original-fp_epoch119_weights.pkl``: 120 epochs on ``python -m
+     rnet.data.synth <dir> --n-train 70000 --n-val 15000 --style v2 --seed
+     1``; it carries no dictionaries) through the card's kernels, on that
+     fixture regenerated here. (a) ``generate(<dir>, 4000, 600, style="v2",
+     seed=1)`` and the port's val cache of it: ``CLEVR_val_questions.json``
+     and the cache's ``.json`` at the sha256 rnet's generator gave
+     (``tests/torch_fixtures/clevr_v2_seed1_val/digests.json``), the cache
+     (600 x 144 x 144 x 3 uint8) at its sha256 too or, if the card's Pillow
+     renders otherwise (its version is printed), against the committed
+     cache of rnet's PNGs: at most 0.1 % of the bytes differ and none by
+     more than 8 levels (a Pillow difference, not the port's). (b) The
+     70,000 train scenes and questions drawn without rendering
+     (``_draw_split``, the completion pass included) and written: both JSON
+     files at the sha256 of ``tests/torch_fixtures/clevr_v2_seed1_70k/
+     digests.json`` (``tests/torch_fixture_v2_70k_writer.py``, rnet's
+     generator), 870,780 questions; ``rnet_torch.cli.load_dicts`` builds the
+     dictionaries from them (the pkl carries none), each map equal to the
+     committed ``dictionaries.json`` in content and order; the 15,000 val
+     scenes drawn next, rendered in worker processes, their JSON at its
+     sha256 (186,681 questions) and the val cache built (0.93 GB), at its
+     sha256 unless (a) found a Pillow difference. (c) ``rnet_torch.evaluate
+     .main --model original-fp`` on the pkl, the val split, device
+     pipeline, B=512: bf16 (``auto``), ``--rl-impl pallas_int8`` (warnings
+     as errors) and ``--precision float32``, the counters zeroed before
+     each: 365 launches of ``pairwise_fwd`` / ``pairwise_fwd_int8`` /
+     ``pairwise_fwd_f32`` respectively and nothing else. Bounds, fixed
+     before the first run, against rnet's report (``results/campaign_r3/
+     final_epoch119/val_accuracy.csv``: 0.999818, NLL 0.000719): bf16 and
+     fp32 overall within 0.02 pp (37 questions), mean NLL within 0.0005,
+     each of the five ``category_*`` rows within 0.05 pp. The int8 bounds
+     fixed with them (int8 overall >= 0.9995, bf16 and int8 predictions
+     equal on >= 0.999) failed on the card (0.997048: ``count`` 1.1 pp
+     down). rnet's own int8 loses as much: on eval batches 0 and 45 (45 is
+     where the card's int8 and bf16 differ most) its kernel in interpret
+     mode on the CPU answers 512 and 489 of 512 right, its bf16 512 and 512
+     (``tests/torch_fixtures/clevr_v2_seed1_70k/int8_batches.json``, from
+     ``tests/torch_fixture_v2_70k_writer.py``; with fp32 compute the port's
+     plain int8 chain equals it question for question). So int8 is held,
+     by bounds set after the card's first run from those readings, to:
+     overall at least bf16's less 0.5 pp, predictions equal to bf16's on
+     >= 0.995, mean NLL <= 0.03, each ``category_*`` at least bf16's less
+     2 pp; and on batches 0 and 45, the same folded inputs through the
+     kernel and through ``pairwise_core_int8_reference`` on the card give
+     every prediction equal, and the kernel's predictions equal rnet's int8
+     ones on >= 0.98 of the batch, its right answers within 6 of rnet's and
+     its mean NLL at most 1.5 x rnet's + 0.01. (d) bf16 and int8
+     servers loaded from the pkl serve the first 64 val questions at buckets
+     1, 8 and 64 under phase 15's rules (bf16 answers equal to
+     ``evaluate``'s, int8 answers to the plain int8 chain's on the same
+     batches, those that differ from ``evaluate``'s logged).
 Then one JSON line of kernel records and, last, the device line.
 
 Only torch, numpy and ``rnet_torch`` are imported (never JAX or ``rnet``).
@@ -3734,6 +3786,43 @@ WIDE_BATCH_FLAG = "--wide-batch-worker"
 WIDE_BATCH_TIMEOUT = 300
 
 
+# Phase 17: rnet's round-3 campaign fixture regenerated by the port, rnet's epoch-119 original-fp on it
+CAMPAIGN_FIXTURE = os.path.join(FIXTURE_DIR, "clevr_v2_seed1_70k")
+CAMPAIGN_PKL = os.path.join(REPO_DIR, "results", "campaign_r3", "original-fp_epoch119_weights.pkl")
+CAMPAIGN_CSV = os.path.join(REPO_DIR, "results", "campaign_r3", "final_epoch119", "val_accuracy.csv")
+CAMPAIGN_SYNTH = (70_000, 15_000, "v2", 1)  # n_train, n_val, style, seed
+VAL_FIXTURE_SYNTH = (4_000, 600, "v2", 1)  # phase 15's committed val split came from this fixture
+SYNTH_BYTE_SHARE = 1e-3  # (a): at most this share of the cache's bytes may differ from rnet's PNGs' ...
+SYNTH_LEVELS = 8  # ... and none by more than this many levels (a Pillow difference)
+CAMPAIGN_ACC_PP = 0.02  # bf16 and fp32 overall accuracy within 0.02 pp of rnet's 0.999818
+CAMPAIGN_NLL = 5e-4  # mean NLL within 0.0005 of rnet's 0.000719
+CAMPAIGN_FAMILY_PP = 0.05  # each category_* row within 0.05 pp of rnet's
+# int8: the bounds fixed before the first run (int8 >= 0.9995, predictions equal to bf16's on >= 0.999) failed on
+# the card (0.997048, agreement 0.99717, NLL 0.012017, count 1.10 pp down); these were set after it, from rnet's
+# own int8 on the CPU on eval batches 0 and 45 (CAMPAIGN_INT8, tests/torch_fixture_v2_70k_writer.py: on batch 45
+# 489 of 512 right, NLL 0.151, where its bf16 has 512) and from the card's reading
+CAMPAIGN_INT8 = os.path.join(CAMPAIGN_FIXTURE, "int8_batches.json")
+CAMPAIGN_INT8_PP = 0.5  # int8 overall at least bf16's less 0.5 pp
+CAMPAIGN_INT8_AGREE = 0.995  # int8 and bf16 predictions equal on at least this share
+CAMPAIGN_INT8_NLL = 0.03  # int8 mean NLL at most this
+CAMPAIGN_INT8_FAMILY_PP = 2.0  # each int8 category_* at least bf16's less 2 pp
+# on each eval batch of CAMPAIGN_INT8, against rnet's int8 there (bf16 compute, its kernel in interpret mode on
+# the CPU; the port's plain chain on the CPU equals it on 507 and 512 of 512, 493 and 512 right against 489 and 512)
+CAMPAIGN_INT8_RNET_AGREE = 0.98  # the card's int8 predictions equal rnet's on at least this share
+CAMPAIGN_INT8_RNET_RIGHT = 6  # its right answers within 6 of rnet's
+CAMPAIGN_INT8_RNET_NLL = (1.5, 0.01)  # its mean NLL at most 1.5 x rnet's + 0.01
+
+
+def sha256_of(path: str) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
 def read_csv_metrics(path):
     """{metric: value} of an ``<split>_accuracy.csv``."""
     import csv
@@ -3756,13 +3845,9 @@ def trained_wide_fp_phase(torch, np, pw, aug, root):
     prediction and each int8 answer to the plain int8 chain's on the same
     batch (``plain_int8_answers``); then (c) wide-fp bf16 at doubled batch sizes in worker
     processes. Returns the numbers for the result line."""
-    import math
-    import warnings
-
     from rnet_torch.checkpoint import load_exported_dicts
     from rnet_torch.config import load_config
     from rnet_torch.data.vocab import Dictionaries
-    from rnet_torch.serve import InferenceServer
 
     clevr = os.path.join(root, "clevr_v2_seed1")
     t0 = time.perf_counter()
@@ -3771,38 +3856,23 @@ def trained_wide_fp_phase(torch, np, pw, aug, root):
     except (OSError, ValueError) as e:
         fail(f"phase 15: the val fixture does not expand: {e}")
     n_q = digests["questions"]
-    n_batches = -(-n_q // TRAIN_B)
     log(f"phase 15: val fixture expanded in {time.perf_counter() - t0:.2f} s ({n_q} questions, cache "
         f"{digests['cache_shape']}, every file at its sha256)")
+    base = ["--model", "wide-fp", "--checkpoint", TRAINED_PKL, "--clevr-dir", clevr]
     out, preds = {}, {}
     for tag, extra, kernel, rnet_dir, _ in TRAINED_ARMS:
-        res = os.path.join(root, f"trained_{tag}")
-        argv = ["--model", "wide-fp", "--checkpoint", TRAINED_PKL, "--clevr-dir", clevr, "--data-pipeline", "device",
-                "--batch-size", str(TRAIN_B), "--test-results-dir", res, "--num-workers", "4", *extra]
-        torch.cuda.synchronize()
-        pw.reset_launches()
-        aug.reset_launches()
-        text, by_q, sec = run_eval_cli(argv, int8=(tag == "int8"))
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
-        got = read_csv_metrics(os.path.join(res, "val_accuracy.csv"))
+        got, row, by_q, problems = eval_arm(torch, pw, aug, base + extra, os.path.join(root, f"trained_{tag}"),
+                                            tag == "int8", kernel, n_q)
         want = read_csv_metrics(RNET_VAL_CSV.format(rnet_dir))
         fams = {k: (got[k], want[k], 100 * (got[k] - want[k])) for k in sorted(want) if k.startswith("category_")}
-        row = {"seconds": sec, "launches": counts, "questions": len(by_q),
-               "accuracy": got["overall_accuracy"], "rnet_accuracy": want["overall_accuracy"],
-               "accuracy_pp": 100 * (got["overall_accuracy"] - want["overall_accuracy"]),
-               "mean_nll": got["mean_nll"], "rnet_mean_nll": want["mean_nll"],
-               "nll_diff": got["mean_nll"] - want["mean_nll"],
-               "families": {k: {"port": p, "rnet": r, "pp": d} for k, (p, r, d) in fams.items()}}
+        row.update(rnet_accuracy=want["overall_accuracy"],
+                   accuracy_pp=100 * (got["overall_accuracy"] - want["overall_accuracy"]),
+                   rnet_mean_nll=want["mean_nll"], nll_diff=got["mean_nll"] - want["mean_nll"],
+                   families={k: {"port": p, "rnet": r, "pp": d} for k, (p, r, d) in fams.items()})
         if tag == "fp32":
             row["fp32_cpu_accuracy"] = TRAINED_FP32_CPU
             row["fp32_cpu_pp"] = 100 * (got["overall_accuracy"] - TRAINED_FP32_CPU)
         log(f"phase 15 trained wide-fp {tag}: {json.dumps(row)}")
-        problems = []
-        if counts != {kernel: n_batches}:
-            problems.append(f"launches {counts}, expected {{{kernel!r}: {n_batches}}}")
-        if len(by_q) != n_q:
-            problems.append(f"{len(by_q)} questions predicted of {n_q}")
         if not abs(row["accuracy_pp"]) <= TRAINED_ACC_PP:
             problems.append(f"accuracy {row['accuracy']!r} vs rnet's {row['rnet_accuracy']!r}")
         if not abs(row["nll_diff"]) <= TRAINED_NLL:
@@ -3810,8 +3880,8 @@ def trained_wide_fp_phase(torch, np, pw, aug, root):
         problems += [f"{k} {p!r} vs rnet's {r!r}" for k, (p, r, d) in fams.items() if not abs(d) <= TRAINED_FAMILY_PP]
         if tag == "fp32" and not abs(row["fp32_cpu_pp"]) <= TRAINED_FP32_CPU_PP:
             problems.append(f"fp32 accuracy {row['accuracy']!r} vs the port's CPU {TRAINED_FP32_CPU!r}")
-        if len(fams) != 5 or not all(math.isfinite(v) for v in (row["accuracy"], row["mean_nll"])):
-            problems.append(f"{len(fams)} families, accuracy {row['accuracy']!r}, NLL {row['mean_nll']!r}")
+        if len(fams) != 5:
+            problems.append(f"{len(fams)} families")
         if problems:
             fail(f"phase 15 trained wide-fp {tag}: " + "; ".join(problems))
         out[tag], preds[tag] = row, by_q
@@ -3824,6 +3894,285 @@ def trained_wide_fp_phase(torch, np, pw, aug, root):
     # (b) servers loaded from the same pkl answer the first 64 val questions as evaluate did
     dicts = Dictionaries(*load_exported_dicts(TRAINED_PKL))
     cfg = load_config("wide-fp").replace(n_answers=dicts.n_answers)
+    out.update(serve_trained(torch, np, pw, aug, "phase 15 served trained wide-fp", cfg, dicts, TRAINED_PKL, clevr,
+                             preds))
+    torch.cuda.empty_cache()
+    out["doubled_batches"] = wide_batch_check()
+    return out
+
+
+def campaign_phase(torch, np, pw, aug, root):
+    """Phase 17 (the module docstring has its steps and bounds): the port's
+    fixture generator against rnet's digests, (a) at the committed val
+    split's size and (b) at rnet's campaign fixture (70k / 15k), then (c)
+    rnet's epoch-119 original-fp on that val split through the card's bf16,
+    int8 and fp32 forwards and (d) served. Returns the numbers for the
+    result line."""
+    import argparse
+    import random
+
+    try:
+        import PIL
+    except ImportError:
+        fail("phase 17: Pillow does not import, and the fixture generator renders through it")
+    from rnet_torch.cli import load_dicts
+    from rnet_torch.config import load_config
+    from rnet_torch.data import synth
+    from rnet_torch.data.cache import build_image_cache
+
+    out = {"pillow": PIL.__version__, "render_workers": os.cpu_count()}
+
+    # (a) the committed val split's fixture, written by generate as a user runs it
+    small = os.path.join(root, "synth_v2_4000")
+    n_train, n_val, style, seed = VAL_FIXTURE_SYNTH
+    t0 = time.perf_counter()
+    synth.generate(small, n_train, n_val, style=style, seed=seed)
+    t1 = time.perf_counter()
+    build_image_cache(small, "val")
+    with open(os.path.join(VAL_FIXTURE, "digests.json")) as f:
+        want = json.load(f)["files"]
+    equal = {name: sha256_of(os.path.join(small, sub, name)) == want[name]["sha256"]
+             for name, sub in VAL_FIXTURE_FILES.items()}
+    row = out["val_fixture"] = {"generate_s": t1 - t0, "cache_s": time.perf_counter() - t1, "sha256_equal": equal}
+    if not equal["val_128p8.u8"]:
+        ref = os.path.join(root, "synth_v2_4000_rnet")
+        expand_val_fixture(ref)
+        a = np.load(os.path.join(small, "rnet_cache", "val_128p8.u8"), mmap_mode="r")
+        b = np.load(os.path.join(ref, "rnet_cache", "val_128p8.u8"), mmap_mode="r")
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16)) if a.shape == b.shape else None
+        row.update(cache_shape=list(a.shape), bytes_differing=float((d != 0).mean()) if d is not None else None,
+                   max_level_difference=int(d.max()) if d is not None else None)
+    log(f"phase 17 (a) generate(<dir>, {n_train}, {n_val}, style={style!r}, seed={seed}) with Pillow "
+        f"{PIL.__version__}: {json.dumps(row)}")
+    if not (equal["CLEVR_val_questions.json"] and equal["val_128p8.json"]):
+        fail(f"phase 17 (a): the port's questions or cache meta differ from rnet's: {equal}")
+    pillow_differs = not equal["val_128p8.u8"]
+    if pillow_differs:
+        log(f"phase 17 (a): the cache differs from the one of rnet's PNGs: Pillow {PIL.__version__} renders "
+            "otherwise here than where rnet's digests were taken (the questions are rnet's byte for byte)")
+        if row["bytes_differing"] is None or not (row["bytes_differing"] <= SYNTH_BYTE_SHARE
+                                                   and row["max_level_difference"] <= SYNTH_LEVELS):
+            fail(f"phase 17 (a): the cache differs beyond {SYNTH_BYTE_SHARE} of its bytes or {SYNTH_LEVELS} "
+                 f"levels: {row}")
+
+    # (b) rnet's campaign fixture: the train split drawn, not rendered; the val split rendered
+    with open(os.path.join(CAMPAIGN_FIXTURE, "digests.json")) as f:
+        want = json.load(f)
+    with open(os.path.join(CAMPAIGN_FIXTURE, "dictionaries.json")) as f:
+        want_dicts = json.load(f)
+    clevr = os.path.join(root, "clevr_v2_seed1_70k")
+    n_train, n_val, style, seed = CAMPAIGN_SYNTH
+    rng = random.Random(seed)
+    row = out["campaign_fixture"] = {}
+    t0 = time.perf_counter()
+    scenes, questions = synth._draw_split(rng, "train", n_train, style)
+    t1 = time.perf_counter()
+    synth._write_split(clevr, "train", scenes, questions)
+    row.update(train_draw_s=t1 - t0, train_write_s=time.perf_counter() - t1, train_questions=len(questions))
+    del scenes, questions
+    t0 = time.perf_counter()
+    dicts = load_dicts(argparse.Namespace(clevr_dir=clevr, oov="error"), checkpoint=CAMPAIGN_PKL)
+    row["dictionaries_s"] = time.perf_counter() - t0
+    row["dictionaries_equal"] = (list(dicts.word_to_idx.items()) == list(want_dicts["word_to_idx"].items())
+                                 and list(dicts.answer_to_idx.items()) == list(want_dicts["answer_to_idx"].items()))
+    t0 = time.perf_counter()
+    scenes, questions = synth._draw_split(rng, "val", n_val, style)
+    synth._write_split(clevr, "val", scenes, questions)
+    t1 = time.perf_counter()
+    H, W = synth._image_hw(style)
+    synth._render_split(clevr, "val", scenes, H, W, style, workers=os.cpu_count())
+    t2 = time.perf_counter()
+    build_image_cache(clevr, "val")
+    n_q = len(questions)
+    row.update(val_draw_write_s=t1 - t0, val_render_s=t2 - t1, val_cache_s=time.perf_counter() - t2,
+               val_questions=n_q, val_images=len(scenes))
+    del scenes, questions
+    names = {f"CLEVR_{split}_{kind}.json": os.path.join(clevr, kind, f"CLEVR_{split}_{kind}.json")
+             for split in ("train", "val") for kind in ("questions", "scenes")}
+    names.update({name: os.path.join(clevr, "rnet_cache", name) for name in ("val_128p8.u8", "val_128p8.json")})
+    row["sha256_equal"] = {name: sha256_of(path) == want["files"][name]["sha256"] for name, path in names.items()}
+    log(f"phase 17 (b) rnet's campaign fixture {CAMPAIGN_SYNTH}: {json.dumps(row)}")
+    problems = [f"{name} differs from rnet's" for name, ok in row["sha256_equal"].items()
+                if not ok and not (pillow_differs and name == "val_128p8.u8")]
+    if (row["train_questions"], n_q) != (want["train_questions"], want["val_questions"]):
+        problems.append(f"{row['train_questions']} train and {n_q} val questions, rnet's "
+                        f"{want['train_questions']} and {want['val_questions']}")
+    if not row["dictionaries_equal"]:
+        problems.append("the dictionaries differ from rnet's")
+    if problems:
+        fail("phase 17 (b): " + "; ".join(problems))
+
+    # (c) rnet's epoch-119 original-fp on the val split, in bf16, int8 and fp32
+    rnet_row = read_csv_metrics(CAMPAIGN_CSV)
+    base = ["--model", "original-fp", "--checkpoint", CAMPAIGN_PKL, "--clevr-dir", clevr]
+    preds = {}
+    for tag, extra, kernel, _, _ in TRAINED_ARMS:
+        got, row, by_q, problems = eval_arm(torch, pw, aug, base + extra, os.path.join(root, f"campaign_{tag}"),
+                                            tag == "int8", kernel, n_q)
+        fams = {k: (got[k], r, 100 * (got[k] - r)) for k, r in sorted(rnet_row.items()) if k.startswith("category_")}
+        row.update(rnet_accuracy=rnet_row["overall_accuracy"],
+                   accuracy_pp=100 * (got["overall_accuracy"] - rnet_row["overall_accuracy"]),
+                   rnet_mean_nll=rnet_row["mean_nll"], nll_diff=got["mean_nll"] - rnet_row["mean_nll"],
+                   families={k: {"port": p, "rnet": r, "pp": d} for k, (p, r, d) in fams.items()})
+        log(f"phase 17 (c) rnet's epoch-119 original-fp {tag}: {json.dumps(row)}")
+        if tag == "int8":
+            bf16 = out["bf16"]
+            if not row["accuracy"] >= bf16["accuracy"] - CAMPAIGN_INT8_PP / 100:
+                problems.append(f"accuracy {row['accuracy']!r} below bf16's {bf16['accuracy']!r} less "
+                                f"{CAMPAIGN_INT8_PP} pp")
+            if not row["mean_nll"] <= CAMPAIGN_INT8_NLL:
+                problems.append(f"mean NLL {row['mean_nll']!r} above {CAMPAIGN_INT8_NLL}")
+            problems += [f"{k} {p!r} below bf16's {bf16['families'][k]['port']!r} less {CAMPAIGN_INT8_FAMILY_PP} pp"
+                         for k, (p, _, _) in fams.items()
+                         if not p >= bf16["families"][k]["port"] - CAMPAIGN_INT8_FAMILY_PP / 100]
+        else:
+            if not abs(row["accuracy_pp"]) <= CAMPAIGN_ACC_PP:
+                problems.append(f"accuracy {row['accuracy']!r} vs rnet's {row['rnet_accuracy']!r}")
+            if not abs(row["nll_diff"]) <= CAMPAIGN_NLL:
+                problems.append(f"mean NLL {row['mean_nll']!r} vs rnet's {row['rnet_mean_nll']!r}")
+            problems += [f"{k} {p!r} vs rnet's {r!r}" for k, (p, r, d) in fams.items()
+                         if not abs(d) <= CAMPAIGN_FAMILY_PP]
+        if len(fams) != 5:
+            problems.append(f"{len(fams)} families")
+        if problems:
+            fail(f"phase 17 (c) {tag}: " + "; ".join(problems))
+        out[tag], preds[tag] = row, by_q
+    same = float(np.mean([preds["int8"][i] == p for i, p in preds["bf16"].items()]))
+    out["int8_bf16_predictions_equal"] = same
+    differ = np.bincount([i // TRAIN_B for i, p in preds["bf16"].items() if preds["int8"][i] != p],
+                         minlength=-(-n_q // TRAIN_B))
+    out["int8_bf16_most_different_batch"] = [int(differ.argmax()), int(differ.max())]
+    log(f"phase 17 (c): int8 and bf16 predictions equal on {same!r} of {n_q} questions (bound >= "
+        f"{CAMPAIGN_INT8_AGREE}); most different on eval batch {differ.argmax()} ({differ.max()} of {TRAIN_B})")
+    if not same >= CAMPAIGN_INT8_AGREE:
+        fail(f"phase 17 (c): int8 and bf16 predictions equal on only {same!r} of the questions")
+    cfg = load_config("original-fp").replace(n_answers=dicts.n_answers)
+    # the int8 kernel against its plain version and against rnet's int8 on the eval batches rnet's was read on
+    with open(CAMPAIGN_INT8) as f:
+        rnet_int8 = json.load(f)
+    batches = sorted(int(k) for k in rnet_int8["batches"])
+    out["int8_plain"] = int8_batches_vs_plain(torch, np, pw, cfg, dicts, CAMPAIGN_PKL, clevr, batches, preds["int8"],
+                                              rnet_int8)
+
+    # (d) served
+    out.update(serve_trained(torch, np, pw, aug, "phase 17 (d) served rnet's epoch-119 original-fp", cfg, dicts,
+                             CAMPAIGN_PKL, clevr, preds))
+    return out
+
+
+def int8_batches_vs_plain(torch, np, pw, cfg, dicts, pkl, clevr, batches, evaluated, rnet):
+    """Phase 17 (c): the int8 model of `pkl` on eval batches `batches` of
+    the val split (B=512, in ``evaluate``'s order; the eval transform, the
+    questions inverted), once through the int8 kernel and once with the
+    kernel swapped for its plain version on the card (TF32 off: exact) on the
+    same folded inputs (int8 calibrates on each batch, so the batch is the
+    reference's unit). Fails unless every prediction agrees, and unless the
+    kernel's predictions, right answers and mean NLL are within the
+    ``CAMPAIGN_INT8_RNET_*`` bounds of rnet's int8 on the same batch
+    (`rnet`, the committed ``CAMPAIGN_INT8``); logs the largest log-prob
+    difference and the share of the kernel's predictions equal to
+    ``evaluate``'s (`evaluated`, by question). Returns the rows."""
+    from rnet_torch.checkpoint import load_weights
+    from rnet_torch.data.cache import CachedClevrDataset
+    from rnet_torch.data.vocab import invert_questions
+    from rnet_torch.models import RN
+
+    model = RN(cfg.replace(rl_impl="pallas_int8"), dicts.vocab_size)
+    load_weights(model, pkl)
+    model = model.to("cuda").eval()
+    ds = CachedClevrDataset(clevr, "val", dicts, image_size=cfg.image_size, question_max_len=cfg.question_max_len,
+                            train_transform=False)
+    real = pw.pairwise_core_int8
+
+    def plain(u, v, s, qa, ws, bs, *, inject):
+        return pw.pairwise_core_int8_reference(*pw.quantize_int8(u, v, s, qa, ws, bs, inject), inject=inject)
+
+    rows = {}
+    for k in batches:
+        idx = np.arange(k * TRAIN_B, min(len(ds), (k + 1) * TRAIN_B))
+        batch = ds.get_batch(idx)
+        x = torch.from_numpy(batch["image"]).cuda()
+        q = torch.from_numpy(invert_questions(batch["question"])).cuda()
+        before = pw.launches[pw.INT8_KERNEL]
+        with torch.no_grad():
+            got = model(x, q)
+            pw.pairwise_core_int8 = plain
+            try:
+                ref = model(x, q)
+            finally:
+                pw.pairwise_core_int8 = real
+        launched = pw.launches[pw.INT8_KERNEL] - before
+        pred, ref_pred = got.argmax(-1).cpu().numpy(), ref.argmax(-1).cpu().numpy()
+        labels = batch["answer"]
+        want = rnet["batches"][str(k)]["rnet_int8"]
+        rnet_pred = np.array([rnet["answer_digits"].index(c) for c in want["predictions"]])
+        rows[k] = row = {"questions": len(idx), "launches": launched,
+                         "predictions_equal_to_plain": int((pred == ref_pred).sum()),
+                         "max_abs_logp_diff": float((got - ref).abs().max()),
+                         "equal_to_evaluate": int(sum(evaluated[int(i)] == p for i, p in zip(idx, pred))),
+                         "right": int((pred == labels).sum()),
+                         "mean_nll": float(-got.double().cpu().numpy()[np.arange(len(idx)), labels].mean()),
+                         "equal_to_rnet_int8": int((pred == rnet_pred).sum()),
+                         "rnet_int8_right": want["right"], "rnet_int8_mean_nll": want["mean_nll"]}
+        log(f"phase 17 (c) int8 eval batch {k} through the kernel and its plain version: {json.dumps(row)}")
+        if launched != 1 or row["predictions_equal_to_plain"] != len(idx):
+            fail(f"phase 17 (c): int8 eval batch {k}: {launched} launches, {row['predictions_equal_to_plain']} of "
+                 f"{len(idx)} predictions equal to the plain int8 chain's")
+        scale, add = CAMPAIGN_INT8_RNET_NLL
+        if not (row["equal_to_rnet_int8"] >= CAMPAIGN_INT8_RNET_AGREE * len(idx)
+                and abs(row["right"] - want["right"]) <= CAMPAIGN_INT8_RNET_RIGHT
+                and row["mean_nll"] <= scale * want["mean_nll"] + add):
+            fail(f"phase 17 (c): int8 eval batch {k} against rnet's int8 there: {row}")
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def eval_arm(torch, pw, aug, argv, res, int8, kernel, n_q):
+    """One ``rnet_torch.evaluate.main`` run of a trained-weights phase: the
+    val split of ``--clevr-dir`` through the device pipeline at B=512 with
+    `argv` (model, checkpoint, directory and the arm's flags), the counters
+    zeroed just before (an int8 run under warnings as errors). Returns its
+    ``val_accuracy.csv`` metrics, a row (seconds, launches, questions,
+    accuracy, NLL), the predictions by question, and the problems found: any
+    launch but one of `kernel` a batch, a question not predicted, a metric
+    not finite."""
+    import math
+
+    argv = [*argv, "--data-pipeline", "device", "--batch-size", str(TRAIN_B), "--test-results-dir", res,
+            "--num-workers", "4"]
+    torch.cuda.synchronize()
+    pw.reset_launches()
+    aug.reset_launches()
+    _, by_q, sec = run_eval_cli(argv, int8=int8)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
+    got = read_csv_metrics(os.path.join(res, "val_accuracy.csv"))
+    row = {"seconds": sec, "launches": counts, "questions": len(by_q), "accuracy": got["overall_accuracy"],
+           "mean_nll": got["mean_nll"]}
+    problems = []
+    n_batches = -(-n_q // TRAIN_B)
+    if counts != {kernel: n_batches}:
+        problems.append(f"launches {counts}, expected {{{kernel!r}: {n_batches}}}")
+    if len(by_q) != n_q:
+        problems.append(f"{len(by_q)} questions predicted of {n_q}")
+    if not all(math.isfinite(v) for v in (row["accuracy"], row["mean_nll"])):
+        problems.append(f"accuracy {row['accuracy']!r}, NLL {row['mean_nll']!r}")
+    return got, row, by_q, problems
+
+
+def serve_trained(torch, np, pw, aug, what, cfg, dicts, pkl, clevr, preds):
+    """bf16 and int8 ``InferenceServer``s loaded from `pkl` serve the first
+    64 val questions of `clevr` as three batches (``TRAINED_SERVED``:
+    buckets 1, 8, 64), the counters zeroed just before: one launch of the
+    arm's kernel per served batch and nothing else; each bf16 answer equal to
+    ``evaluate``'s prediction (`preds`, by question), each int8 answer to the
+    plain int8 chain's on the same batch (``plain_int8_answers``), the int8
+    answers that differ from ``evaluate``'s logged. Returns the rows."""
+    import warnings
+
+    from rnet_torch.serve import InferenceServer
+
     with open(os.path.join(clevr, "questions", "CLEVR_val_questions.json")) as f:
         questions = json.load(f)["questions"][: sum(TRAINED_SERVED)]
     with open(os.path.join(clevr, "rnet_cache", "val_128p8.json")) as f:
@@ -3839,11 +4188,12 @@ def trained_wide_fp_phase(torch, np, pw, aug, root):
     for n in TRAINED_SERVED:
         chunks.append(samples[c0 : c0 + n])
         c0 += n
+    out = {}
     for tag, _, kernel, _, impl in TRAINED_ARMS[:2]:
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             srv = InferenceServer(cfg.replace(rl_impl=impl), dicts, max_batch=64, device="cuda")
-            srv.load(TRAINED_PKL)
+            srv.load(pkl)
             srv.warmup()
             torch.cuda.synchronize()
             pw.reset_launches()
@@ -3865,18 +4215,17 @@ def trained_wide_fp_phase(torch, np, pw, aug, root):
             row["differ_from_evaluate"] = [
                 {"question": i, "served": r["answer"], "evaluate": w, "label": str(questions[i]["answer"]).lower(),
                  "bucket": r["bucket"]} for i, (r, w) in enumerate(zip(results, want)) if r["answer"] != w]
-        log(f"phase 15 served trained wide-fp {tag}: {json.dumps(row)}")
+        log(f"{what} {tag}: {json.dumps(row)}")
         if counts != {kernel: len(TRAINED_SERVED)}:
-            fail(f"phase 15 serve {tag}: expected one {kernel} launch per served batch ({len(TRAINED_SERVED)}) and "
+            fail(f"{what} {tag}: expected one {kernel} launch per served batch ({len(TRAINED_SERVED)}) and "
                  f"nothing else, counted {counts}")
         if tag == "int8" and row["answers_equal_to_plain_int8"] != len(results):
-            fail(f"phase 15 serve int8: {row['answers_equal_to_plain_int8']} of {len(results)} answers equal to the "
+            fail(f"{what} int8: {row['answers_equal_to_plain_int8']} of {len(results)} answers equal to the "
                  "plain int8 chain's on the same batches")
         if tag == "bf16" and not all(equal):
-            fail(f"phase 15 serve bf16: {sum(equal)} of {len(results)} answers equal to evaluate's")
+            fail(f"{what} bf16: {sum(equal)} of {len(results)} answers equal to evaluate's")
         del srv
     torch.cuda.empty_cache()
-    out["doubled_batches"] = wide_batch_check()
     return out
 
 
@@ -4221,6 +4570,8 @@ def main() -> int:
         log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
         trained = trained_wide_fp_phase(torch, np, pw, aug, root)
         log(f"phase 15 (rnet's trained wide-fp) done at {time.perf_counter() - t_start:.1f} s")
+        campaign = campaign_phase(torch, np, pw, aug, root)
+        log(f"phase 17 (the port's synth; rnet's epoch-119 original-fp) done at {time.perf_counter() - t_start:.1f} s")
         graph_out["trainer_epochs"] = trainer_epochs(torch, root)
         log(f"phase 12 (Trainer epochs) done at {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
@@ -4251,7 +4602,8 @@ def main() -> int:
                per_shard_ms={k: v["fwd_ms"] for k, v in shard["per_shard"].items()},
                per_shard_max_abs_err={k: v["fwd_max_abs_err"] for k, v in shard["per_shard"].items()},
                shard_launches_per_rank={k: shard[k]["launches_per_rank"] for k in SHARD_SHAPES if k in shard},
-               bench_launches=bench_out["train auto"]["launches"], trained_wide_fp_launches=trained["bf16"]["launches"]),
+               bench_launches=bench_out["train auto"]["launches"], trained_wide_fp_launches=trained["bf16"]["launches"],
+               campaign_epoch119_launches=campaign["bf16"]["launches"]),
         record(pw.BWD_KERNEL, "rnet_torch/csrc/pairwise_bwd.cu", "rnet/kernels/pairwise.py:120",
                train_counts[pw.BWD_KERNEL], bwd_err_at_shape, bwd[TRAIN_B], shape=shape,
                max_abs_err_all_cases=bwd_err, entry_point_launches=entry_counts[pw.BWD_KERNEL],
@@ -4292,6 +4644,7 @@ def main() -> int:
                h512_b8_phase_shares=phases[("int8", "H512 B=8")]["shares"],
                wide_fp=wide_int8, wide_fp_eval_launches=wide_int8["evaluate"]["int8_launches"],
                trained_wide_fp_launches=trained["int8"]["launches"],
+               campaign_epoch119_launches=campaign["int8"]["launches"],
                launches_of="python -m rnet_torch.evaluate --rl-impl pallas_int8 --data-pipeline device "
                            "--split train --batch-size 512 (16 batches)"),
         record(pw.F32_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:83",
@@ -4302,6 +4655,7 @@ def main() -> int:
                h512=wide["fwd_fp32"], h512_phase_shares=phases[("fwd_f32", "H512")]["shares"],
                wide_fp_step_launches=graph_out["wide_fp_steps"]["float32"]["pallas"]["launches_per_step"],
                trained_wide_fp_launches=trained["fp32"]["launches"],
+               campaign_epoch119_launches=campaign["fp32"]["launches"],
                launches_of="python -m rnet_torch.train --precision float32 --rl-impl pallas --data-pipeline "
                            "device, 1 epoch of 16 steps at B=512 (16 train + 2 eval batches)"),
         record(pw.F32_BWD_KERNEL, "rnet_torch/csrc/pairwise_f32.cu", "rnet/kernels/pairwise.py:120",
@@ -4320,6 +4674,7 @@ def main() -> int:
     log(f"stretch-fp-32 summary {json.dumps({'steps': stretch, 'bwd': stretch_bwd, 'entry_point': stretch_cli})}")
     log(f"phase 13 summary {json.dumps(shard)}")
     log(f"phase 15 summary {json.dumps(trained)}")
+    log(f"phase 17 summary {json.dumps(campaign)}")
     log(f"phase 16 summary {json.dumps(bench_out)}")
     log(card)
     log(json.dumps({"kernels": records}))

@@ -52,7 +52,7 @@ want = {"rnet_torch.kernels.augment", "rnet_torch.data.augment", "rnet_torch.dat
         "rnet_torch.train.checkpoint", "rnet_torch.train.loop", "rnet_torch.train.__main__",
         "rnet_torch.utils.watchdog", "rnet_torch.utils.profiling", "rnet_torch.evaluate", "rnet_torch.extract",
         "rnet_torch.parallel.mesh", "rnet_torch.ocdbt", "rnet_torch.zstd",
-        "rnet_torch.bench"}
+        "rnet_torch.bench", "rnet_torch.data.synth"}
 assert want <= set(names), sorted(want - set(names))
 assert len(names) >= 30, names
 """
