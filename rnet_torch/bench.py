@@ -32,10 +32,7 @@ each on the last.
 Arms: "auto" (the metric), the eval arm on "auto" (``infer_qps``) and
 "xla" (the decomposed plain-torch path, no kernel: ``xla_impl_train_qps``).
 An eval or xla arm that fails prints its traceback to stderr and leaves its
-key null, as in rnet. Each arm frees its graphs before the next. Before the
-line, stderr gets the device busy time and idle share of one profiled train
-window of the "auto" arm (torch.profiler against the host clock over N1
-replays).
+key null, as in rnet. Each arm frees its graphs before the next.
 
 ``vs_baseline``: ``bench.py``'s baseline is its torch-CPU oracle's train
 questions/s, cached in ``BENCH_BASELINE.json``
@@ -46,7 +43,7 @@ FLOP-model bounds (``reference_gpu_bound_qps``) are ``bench.py``'s,
 computed from the port's copy of the config.
 
 Runs on CUDA; without a card it raises. ``--platform cpu`` runs the same
-functions eagerly on the CPU (no graphs, no profile) for the tests: its
+functions eagerly on the CPU (no graphs) for the tests: its
 numbers are CPU numbers.
 
 Example (on the card, from the repository root)::
@@ -64,7 +61,7 @@ import subprocess
 import sys
 import time
 import traceback
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -179,9 +176,8 @@ def pick_windows(ta: float, tb: float, k: int, target_s: float = TARGET_S) -> Tu
 class Measured:
     """One arm's result: questions/s, the differenced seconds a step, the
     steps a chunk, the windows (N1, N2), the chunk calls made (warm-up,
-    probes, windows and the profiled window: each ran ``k`` steps), the
-    first call's outputs, the train state, the graph pool's MB (None
-    eagerly) and, where profiled, the window's host and busy ms per step."""
+    probes and windows: each ran ``k`` steps), the first call's outputs,
+    the train state and the graph pool's MB (None eagerly)."""
 
     qps: float
     step_s: float
@@ -191,7 +187,6 @@ class Measured:
     first: Any
     state: steps.TrainState
     pool_mb: Optional[float] = None
-    profile: Optional[Dict[str, float]] = None
 
     @property
     def steps(self) -> int:
@@ -203,27 +198,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _profile_window(call: Callable[[], Any], n: int, k: int, device: torch.device) -> Dict[str, float]:
-    """Host ms and device busy ms a step over one window of ``n`` calls
-    (torch.profiler), and the idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    _sync(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            call()
-        _sync(device)
-        host = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
-    return {"host_ms": host / (n * k), "busy_ms": busy / (n * k), "idle_share": 1.0 - busy / host,
-            "kernels": sum(e.count for e in dev) / (n * k)}
-
-
-def _measure(call: Callable[[], Any], state, k: int, batch_size: int, graphs, target_s: float,
-             profile: bool) -> Measured:
+def _measure(call: Callable[[], Any], state, k: int, batch_size: int, graphs, target_s: float) -> Measured:
     """Differenced windows of ``call``, one chunk of ``k`` steps (see the
     module docstring)."""
     dev = state.device
@@ -246,15 +221,11 @@ def _measure(call: Callable[[], Any], state, k: int, batch_size: int, graphs, ta
     t1 = min(window(n1) for _ in range(REPEATS))
     t2 = min(window(n2) for _ in range(REPEATS))
     step_s = max((t2 - t1) / ((n2 - n1) * k), 1e-9)
-    prof = None
-    if profile:
-        prof = _profile_window(call, n1, k, dev)
-        calls += n1
     pool = None
     if graphs is not None:
         pool = sum(c.pool_bytes for c in graphs.captured.values()) / 2**20
         graphs.clear()
-    return Measured(batch_size / step_s, step_s, k, (n1, n2), calls, first, state, pool, prof)
+    return Measured(batch_size / step_s, step_s, k, (n1, n2), calls, first, state, pool)
 
 
 def _chunk_inputs(batch_size: int, k: int, device: torch.device):
@@ -263,7 +234,7 @@ def _chunk_inputs(batch_size: int, k: int, device: torch.device):
 
 
 def measure_train_qps(rl_impl: str, batch_size: int, device="cuda", *, config_path: Optional[str] = None,
-                      k: int = STEPS_PER_CHUNK, target_s: float = TARGET_S, profile: bool = False) -> Measured:
+                      k: int = STEPS_PER_CHUNK, target_s: float = TARGET_S) -> Measured:
     """Train questions/s of original-fp through ``rl_impl``: one chunk of
     ``k`` train steps on the resident batch (``bench.py``'s ``fori_loop``),
     replayed from a CUDA graph on the card and run eagerly on the CPU."""
@@ -271,7 +242,7 @@ def measure_train_qps(rl_impl: str, batch_size: int, device="cuda", *, config_pa
     graphs = steps.step_graphs(state) if state.device.type == "cuda" else None
     train_chunk, _ = steps.make_chunked_steps(state, graphs)
     idx, _ = _chunk_inputs(batch_size, k, state.device)
-    return _measure(lambda: train_chunk(idx, batch), state, k, batch_size, graphs, target_s, profile)
+    return _measure(lambda: train_chunk(idx, batch), state, k, batch_size, graphs, target_s)
 
 
 def measure_infer_qps(rl_impl: str, batch_size: int, device="cuda", *, config_path: Optional[str] = None,
@@ -282,7 +253,7 @@ def measure_infer_qps(rl_impl: str, batch_size: int, device="cuda", *, config_pa
     graphs = steps.step_graphs(state) if state.device.type == "cuda" else None
     _, eval_chunk = steps.make_chunked_steps(state, graphs)
     idx, valid = _chunk_inputs(batch_size, k, state.device)
-    return _measure(lambda: eval_chunk(idx, valid, batch), state, k, batch_size, graphs, target_s, False)
+    return _measure(lambda: eval_chunk(idx, valid, batch), state, k, batch_size, graphs, target_s)
 
 
 def _optional_arm(what: str, fn) -> float:
@@ -313,14 +284,7 @@ def main(argv=None) -> int:
     device = resolve_device("cpu" if args.platform == "cpu" else "cuda")
     batch_size = int(os.environ.get("RNET_BENCH_BS", "512"))
     kw = {"config_path": args.config, "k": STEPS_PER_CHUNK, "target_s": TARGET_S}
-    fused_arm = measure_train_qps("auto", batch_size, device, profile=device.type == "cuda", **kw)
-    fused = fused_arm.qps
-    if fused_arm.profile is not None:
-        p = fused_arm.profile
-        print(f"bench: profiled train window (auto, B={batch_size}, {fused_arm.windows[0]} replays of "
-              f"{fused_arm.k} steps): host {p['host_ms']!r} ms a step, device busy {p['busy_ms']!r} ms, idle share "
-              f"{p['idle_share']!r}, {p['kernels']!r} kernels a step (torch.profiler)", file=sys.stderr)
-    del fused_arm
+    fused = measure_train_qps("auto", batch_size, device, **kw).qps
     torch.cuda.empty_cache()
     infer = _optional_arm("infer", lambda: measure_infer_qps("auto", batch_size, device, **kw))
     xla_alg = _optional_arm("xla", lambda: measure_train_qps("xla", batch_size, device, **kw))

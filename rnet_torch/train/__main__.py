@@ -60,7 +60,12 @@ def parse_args(argv=None) -> argparse.Namespace:
         "MASTER_PORT) and fail without it; torchrun's runs join it anyway",
     )
     p.add_argument("--tb-dir", default=None, help="TensorBoard/CSV scalar log dir")
-    p.add_argument("--profile-dir", default=None, help="write a torch.profiler trace of one epoch here")
+    p.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler trace of one epoch here (trace.json); besides the kernels it carries the "
+        "port's rn.* ranges: rn.train.order (the epoch's order), rn.train.fetch (the metrics' wait and the log "
+        "line), rn.graph.run (a graph dispatch: copy_in, replay, copy_out), rn.graph.capture",
+    )
     p.add_argument("--profile-epoch", type=int, default=1)
     p.add_argument(
         "--stall-timeout", type=float, default=0.0,

@@ -35,6 +35,12 @@ keep their storage, while the graph lives. Capturing a key:
 All graphs of one ``StepGraphs`` share one memory pool. A capture that fails
 raises; nothing falls back to eager execution. ``clear()`` frees every graph
 (a batch-size change, new weights).
+
+While a ``torch.profiler`` records (``rnet_torch/utils/profiling.py``), a
+dispatch is the span ``rn.graph.run``, with CUDA events on the current
+stream at its edges, and in it ``rn.graph.copy_in``, ``rn.graph.replay``
+(the host call that launches the graph) and ``rn.graph.copy_out``; a
+capture is ``rn.graph.capture``.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 
 from ..kernels import augment as _augment
 from ..kernels import pairwise as _pairwise
+from ..utils.profiling import span
 
 # Every kernel wrapper's launch counter (chip_smoke.py's main-path proofs).
 COUNTERS = (_pairwise.launches, _augment.launches)
@@ -146,40 +153,46 @@ class StepGraphs:
         c = self.captured.get(key)
         if c is None:
             c = self.captured[key] = self._capture(fn, inputs)
-        for name, t in inputs.items():
-            c.inputs[name].copy_(t)
-        self.backend.replay(c.graph)
-        for counter, delta in zip(self.counters, c.deltas):
-            for name, d in delta.items():
-                counter[name] += d
-        return _tree_map(torch.clone, c.outputs)
+        with span("graph.run", device=self.device.type == "cuda"):
+            with span("graph.copy_in"):
+                for name, t in inputs.items():
+                    c.inputs[name].copy_(t)
+            with span("graph.replay"):
+                self.backend.replay(c.graph)
+            for counter, delta in zip(self.counters, c.deltas):
+                for name, d in delta.items():
+                    counter[name] += d
+            with span("graph.copy_out"):
+                return _tree_map(torch.clone, c.outputs)
 
     def _capture(self, fn, inputs) -> Captured:
-        static = {k: torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t) for k, t in inputs.items()}
-        before = [dict(c) for c in self.counters]
-        snap = self.rollback.snapshot() if self.rollback is not None else None
-        try:
-            with self.backend.warmup():  # one run: a chunk's is already its K steps
-                fn(static)
-            if self._pool is None:
-                self._pool = self.backend.new_pool()
-            graph = self.backend.new_graph()
-            at_capture = [dict(c) for c in self.counters]
-            reserved = self.backend.reserved_bytes()
-            t0 = time.perf_counter()
-            with self.backend.capture(graph, self._pool, self.generators):
-                outputs = fn(static)
-            capture_s = time.perf_counter() - t0
-            pool_bytes = self.backend.reserved_bytes() - reserved
-            deltas = [{n: c[n] - a.get(n, 0) for n in c if c[n] != a.get(n, 0)}
-                      for c, a in zip(self.counters, at_capture)]
-        finally:
-            for c, b in zip(self.counters, before):
-                c.clear()
-                c.update(b)
-            if snap is not None:
-                self.rollback.restore(snap)
-        return Captured(graph, static, outputs, deltas, capture_s, pool_bytes)
+        with span("graph.capture"):
+            static = {k: torch.empty(t.shape, dtype=t.dtype, device=self.device).copy_(t)
+                      for k, t in inputs.items()}
+            before = [dict(c) for c in self.counters]
+            snap = self.rollback.snapshot() if self.rollback is not None else None
+            try:
+                with self.backend.warmup():  # one run: a chunk's is already its K steps
+                    fn(static)
+                if self._pool is None:
+                    self._pool = self.backend.new_pool()
+                graph = self.backend.new_graph()
+                at_capture = [dict(c) for c in self.counters]
+                reserved = self.backend.reserved_bytes()
+                t0 = time.perf_counter()
+                with self.backend.capture(graph, self._pool, self.generators):
+                    outputs = fn(static)
+                capture_s = time.perf_counter() - t0
+                pool_bytes = self.backend.reserved_bytes() - reserved
+                deltas = [{n: c[n] - a.get(n, 0) for n in c if c[n] != a.get(n, 0)}
+                          for c, a in zip(self.counters, at_capture)]
+            finally:
+                for c, b in zip(self.counters, before):
+                    c.clear()
+                    c.update(b)
+                if snap is not None:
+                    self.rollback.restore(snap)
+            return Captured(graph, static, outputs, deltas, capture_s, pool_bytes)
 
 
 def tensor_key(t: Optional[torch.Tensor]) -> Hashable:

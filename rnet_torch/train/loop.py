@@ -62,7 +62,7 @@ from ..eval.metrics import EvalAccumulator
 from ..models import RN
 from ..parallel import mesh as pmesh
 from ..serve import resolve_device
-from ..utils.profiling import ScalarWriter, profile_trace
+from ..utils.profiling import ScalarWriter, profile_trace, span
 from . import steps
 from .checkpoint import CheckpointManager
 from .schedules import DoublingSchedule
@@ -231,13 +231,14 @@ class Trainer:
         ``log_interval`` steps; (steps, 3) loss, accuracy, grad_norm."""
         n = len(self.train_ds)
         nb = n // bs
-        order = (
-            np.random.RandomState((self.seed * 1_000_003 + epoch) % (2**31))
-            .permutation(n)[: nb * bs]
-            .astype(np.int32)
-            .reshape(nb, bs)
-        )
-        order = pmesh.shard_batch(pmesh.put_global(order, self.device), self.mesh, dim=1)  # one upload per epoch
+        with span("train.order"):
+            order = (
+                np.random.RandomState((self.seed * 1_000_003 + epoch) % (2**31))
+                .permutation(n)[: nb * bs]
+                .astype(np.int32)
+                .reshape(nb, bs)
+            )
+            order = pmesh.shard_batch(pmesh.put_global(order, self.device), self.mesh, dim=1)  # one upload an epoch
         out, pending = [], None
         for c0 in range(0, nb, self.log_interval):
             ms = self.train_chunk(order[c0 : c0 + self.log_interval], self.train_data, self.train_cache)
@@ -251,8 +252,11 @@ class Trainer:
 
     def _drain(self, epoch: int, nb: int, pending, lr: float, bs: int) -> np.ndarray:
         ms, done, step = pending
-        ms = ms.cpu().numpy()
-        self._log_step(epoch, done, nb, ms[-1], lr, bs, step)
+        with span("train.fetch"):
+            with span("train.fetch_wait"):
+                ms = ms.cpu().numpy()
+            with span("train.log"):
+                self._log_step(epoch, done, nb, ms[-1], lr, bs, step)
         return ms
 
     def _train_steps(self, epoch: int, bs: int, lr: float) -> np.ndarray:
@@ -304,12 +308,13 @@ class Trainer:
         chunks of ``log_interval`` batches."""
         n = len(self.val_ds)
         nb = -(-n // bs)
-        idx = np.zeros((nb * bs,), np.int32)
-        idx[:n] = np.arange(n, dtype=np.int32)
-        valid = np.zeros((nb * bs,), bool)
-        valid[:n] = True
-        idx_d = pmesh.shard_batch(pmesh.put_global(idx.reshape(nb, bs), self.device), self.mesh, dim=1)
-        valid_d = pmesh.shard_batch(pmesh.put_global(valid.reshape(nb, bs), self.device), self.mesh, dim=1)
+        with span("eval.upload"):
+            idx = np.zeros((nb * bs,), np.int32)
+            idx[:n] = np.arange(n, dtype=np.int32)
+            valid = np.zeros((nb * bs,), bool)
+            valid[:n] = True
+            idx_d = pmesh.shard_batch(pmesh.put_global(idx.reshape(nb, bs), self.device), self.mesh, dim=1)
+            valid_d = pmesh.shard_batch(pmesh.put_global(valid.reshape(nb, bs), self.device), self.mesh, dim=1)
         for c0 in range(0, nb, self.log_interval):
             c = slice(c0, c0 + self.log_interval)
             out = self.eval_chunk(idx_d[c], valid_d[c], self.val_data, self.val_cache)
@@ -336,14 +341,18 @@ class Trainer:
             nll = nll + out["nll_sum"].sum()
         # one fetch per epoch: everything stayed on the device until here;
         # under a mesh every data rank's rows, gathered on every rank
+        packed = None
         if outs["pred"]:
-            packed = torch.stack([torch.cat(outs[k]).long() for k in outs])
-            packed = pmesh.fetch_global(packed, self.mesh, dim=1).cpu().numpy()
-            nll = pmesh.fetch_global(nll.reshape(1), self.mesh).sum()
-            acc.update(packed[0], packed[1], packed[2], float(nll), qidx=packed[3])
-        dt = time.time() - t0
-        self.log(f"Eval Epoch: {epoch} accuracy: {acc.accuracy:.4f} nll: {acc.mean_nll:.4f} ({acc.n / dt:.0f} q/s)")
-        self._beat()
+            with span("eval.fetch"):
+                packed = torch.stack([torch.cat(outs[k]).long() for k in outs])
+                packed = pmesh.fetch_global(packed, self.mesh, dim=1).cpu().numpy()
+                nll = float(pmesh.fetch_global(nll.reshape(1), self.mesh).sum())
+        with span("eval.accumulate"):
+            if packed is not None:
+                acc.update(packed[0], packed[1], packed[2], nll, qidx=packed[3])
+            dt = time.time() - t0
+            self.log(f"Eval Epoch: {epoch} accuracy: {acc.accuracy:.4f} nll: {acc.mean_nll:.4f} ({acc.n / dt:.0f} q/s)")
+            self._beat()
         return {
             "epoch": epoch,
             "val_acc": acc.accuracy,

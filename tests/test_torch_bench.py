@@ -104,7 +104,7 @@ def test_measure_train_qps_steps_and_first_loss(small_config, rl_impl):
     assert m.k == K and m.windows[0] < m.windows[1]
     assert m.calls == 1 + sum(bench.PROBES) + bench.REPEATS * sum(m.windows)
     assert m.state.step == m.steps == m.calls * K
-    assert m.pool_mb is None and m.profile is None and tuple(m.first.shape) == (K, 3)
+    assert m.pool_mb is None and tuple(m.first.shape) == (K, 3)
     state, batch = bench.bench_setup(rl_impl, B, "cpu", small_config)
     first = tsteps.train_step(state, batch)
     assert torch.equal(m.first[0], torch.stack([first["loss"], first["accuracy"], first["grad_norm"]]))
