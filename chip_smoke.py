@@ -598,16 +598,18 @@ def log_profile(torch, what, fn, wall_ms, top=8):
 # block at n=64, 132 of 62 blocks at the 1,024 objects), B=2, 3, 8 and 64
 # (2 splits of 16 blocks), stretch-fp-16's grid of 256 objects at B=8 (16
 # splits of 32 blocks) and stretch-fp-32's 1,024 objects at B=8 (16 splits
-# of 512 blocks); the same launch twice is bitwise equal at B=64.
+# of 512 blocks); the same launch twice is bitwise equal at B=64 and at
+# stretch-fp-32's B=8, whose stored tiles run in two sample groups.
 TRAIN_CASE = (TRAIN_B, 64, 64, 256, 4, 0)
 SPLIT_CASE = (64, 64, 64, 256, 4, 0)
+GROUPS_CASE = (8, 1024, 1024, 256, 4, 0)  # stretch-fp-32: the stored tiles in two sample groups
 CASES = [
     (1, 64, 64, 256, 4, 0), (64, 64, 64, 256, 4, 0), (1, 64, 64, 256, 4, 2),
     (64, 64, 64, 256, 4, 2), (64, 64, 64, 512, 4, 0), (3, 12, 12, 128, 3, 1),
     (2, 16, 64, 256, 4, 1), (1, 1024, 1024, 256, 4, 1), TRAIN_CASE, (140, 64, 64, 512, 4, 2),
     (3, 64, 64, 512, 3, 1), (5, 12, 12, 512, 4, 2), (8, 64, 64, 384, 4, 1),
     (1, 64, 64, 512, 4, 0), (8, 64, 64, 512, 4, 0), (3, 64, 64, 512, 3, 2), (8, 256, 256, 256, 4, 0),
-    (8, 1024, 1024, 256, 4, 0),
+    GROUPS_CASE,
 ]
 KEEPS = (1.0, 0.75)
 GRAD_NAMES = ("du", "dv", "ds", "dqa", "dws", "dbs")
@@ -718,6 +720,8 @@ def check_backward(torch, pw, seed):
         fail(f"no backward case has more samples than the card's {sms} SMs")
     if pw.tile_plan("bwd", *SPLIT_CASE[:5], sms).splits < 2:
         fail(f"the backward at {SPLIT_CASE} should split each sample over several CTAs on {sms} SMs")
+    if len(pw.bwd_groups(*GROUPS_CASE[:5], sms)) < 2 or len(pw.bwd_groups(*TRAIN_CASE[:5], sms)) != 1:
+        fail(f"the backward should run {GROUPS_CASE} in several sample groups and {TRAIN_CASE} in one")
     max_err = at_shape = 0.0
     for k, (B, ni, nj, H, L, inject) in enumerate(CASES):
         args = pair_inputs(torch, B, nj, H, L, seed=k)
@@ -728,7 +732,8 @@ def check_backward(torch, pw, seed):
             max_err = max(max_err, err)
             if CASES[k] == TRAIN_CASE:
                 at_shape = max(at_shape, err)
-        if CASES[k] in (TRAIN_CASE, SPLIT_CASE):  # the same launch twice, bitwise (one owner; sample splits)
+        if CASES[k] in (TRAIN_CASE, SPLIT_CASE, GROUPS_CASE):  # the same launch twice, bitwise (one owner;
+            # sample splits; sample groups)
             again = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=0.75, seed=seed)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"pairwise_bwd is not bitwise repeatable at B={B}")
@@ -745,7 +750,19 @@ def bwd_agreement(torch, pw, args, g, inject, keep, seed, tag="", chunk=None):
     (``plain_in_chunks``); returns (the gradients, max |kernel - plain| over
     them)."""
     (B, ni, H), nj, L = args[0].shape, args[1].shape[1], args[4].shape[0] + 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     got = pw.pairwise_bwd_cuda(*args, g, inject=inject, pair_keep=keep, seed=seed)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    groups = pw.bwd_groups(B, ni, nj, H, L, sms)
+    # the stored tiles within the budget (or one sample's, where one alone is more), the rest (gradients,
+    # split slices, partials, packed W) within BWD_OTHER_BYTES
+    if peak > max(pw.BWD_STORE_BUDGET, pw.stored_bytes(groups[0][1])) + BWD_OTHER_BYTES:
+        fail(f"pairwise_bwd at B={B} ni={ni} nj={nj} H={H} L={L} took {peak} B of device memory over "
+             f"BWD_STORE_BUDGET {pw.BWD_STORE_BUDGET} + {BWD_OTHER_BYTES}")
     want = plain_in_chunks(torch, lambda a, gg: pw.pairwise_core_bwd_reference(*a, gg, inject, keep, seed),
                            args, g, chunk or B, keep)
     torch.cuda.synchronize()
@@ -762,16 +779,21 @@ def bwd_agreement(torch, pw, args, g, inject, keep, seed, tag="", chunk=None):
             fail(f"pairwise_bwd {name} disagrees with its plain version at {case}: "
                  f"max_abs_err {err} (max {scale}), relative norm {rel}")
         max_err = max(max_err, err)
-    plan = pw.tile_plan("bwd", B, ni, nj, H, L, torch.cuda.get_device_properties(0).multi_processor_count)
+    plan = groups[0][1]
     unit = "cluster of 2" if plan.cluster > 1 else "CTA"
     spread = (f"{plan.splits} CTAs per sample" if plan.splits > 1 else
               f"{-(-B // (plan.grid // plan.cluster))} samples per {unit} at most")
     chunks = f", plain {chunk} samples at a time" if chunk and chunk < B else ""
     log(f"pairwise_bwd vs plain{tag} B={B} ni={ni} nj={nj} H={H} L={L} inject={inject} keep={keep} "
-        f"(grid {plan.grid}, {spread}{chunks}): " + " | ".join(parts))
+        f"({len(groups)} sample groups of {plan.B}, grid {plan.grid}, {spread}{chunks}; peak {peak} B): "
+        + " | ".join(parts))
     return got, max_err
 
 
+# Device memory a bf16 backward call may take beside its stored tiles: the
+# gradients, the sample splits' slices (277 MB at stretch-fp-32's groups of
+# 4), the dW and db partials, the packed W.
+BWD_OTHER_BYTES = 1 << 30
 # Pair rows a plain backward takes at once on the card: the bf16 plain
 # version's fp32 chain fits 8 x 2^20 rows (stretch-fp-32 at B=8), the float64
 # chain (vjp64) 2^20 rows.
@@ -1113,10 +1135,13 @@ def train_phase(torch, np, pw, cfg):
     counts = dict(pw.launches)
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
-    log(f"train original-fp B={TRAIN_B}: {TRAIN_STEPS} steps, launches {counts}, "
+    log(f"train original-fp B={TRAIN_B}: {TRAIN_STEPS} steps, launches {counts} ({pw.BWD_KERNEL} "
+        f"{counts[pw.BWD_KERNEL]} in {counts[pw.STORED_GROUPS]} {pw.STORED_GROUPS}), "
         f"loss {losses}, grad_norm {norms}, accuracy {[float(m['accuracy']) for m in metrics]}")
-    if counts[pw.KERNEL] != TRAIN_STEPS or counts[pw.BWD_KERNEL] != TRAIN_STEPS or counts["pair_mask"]:
-        fail(f"expected {TRAIN_STEPS} pairwise_fwd and pairwise_bwd launches and no mask draw, counted {counts}")
+    if counts[pw.KERNEL] != TRAIN_STEPS or counts[pw.BWD_KERNEL] != TRAIN_STEPS or counts["pair_mask"] or \
+            counts[pw.STORED_GROUPS] != TRAIN_STEPS:
+        fail(f"expected {TRAIN_STEPS} pairwise_fwd and pairwise_bwd launches, one sample group each, and no mask "
+             f"draw, counted {counts}")
     if not all(np.isfinite(losses + norms)):
         fail("a train step gave a non-finite loss or gradient norm")
     if not losses[-1] < losses[0]:
@@ -1145,7 +1170,8 @@ def train_phase(torch, np, pw, cfg):
     pd_counts = dict(pw.launches)
     log(f"train with pair_dropout 0.25: launches {pd_counts}, loss {float(m['loss'])!r}, "
         f"grad_norm {float(m['grad_norm'])!r}")
-    if pd_counts != {**dict.fromkeys(pd_counts, 0), pw.KERNEL: 1, pw.BWD_KERNEL: 1, "pair_mask": 2}:
+    if pd_counts != {**dict.fromkeys(pd_counts, 0), pw.KERNEL: 1, pw.BWD_KERNEL: 1, pw.STORED_GROUPS: 1,
+                     "pair_mask": 2}:
         fail(f"a pair-dropout step should launch each kernel once, both drawing the mask; counted {pd_counts}")
     if not (np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))):
         fail("the pair-dropout step is not finite")
@@ -1383,7 +1409,7 @@ def phase_breakdown(torch, pw):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     kinds = (("fwd", pw.FWD_PHASES, 2), ("bwd", pw.BWD_PHASES, 2), ("int8", pw.INT8_PHASES, 2),
-             ("fwd_f32", pw.FWD_PHASES, 4), ("bwd_f32", pw.BWD_PHASES, 4))
+             ("fwd_f32", pw.FWD_PHASES, 4), ("bwd_f32", pw.F32_BWD_PHASES, 4))
     for B in (64, TRAIN_B):
         args = pair_inputs(torch, B, n, H, L, seed=100 + B)
         args32 = [a.float() for a in args]
@@ -1460,7 +1486,8 @@ def phase_breakdown_wide(torch, pw, kinds=WIDE_PHASE_KINDS):
         if not torch.equal(got, want):
             fail(f"the phase-timing build of {name} at H={H} B={B} computes other values than the kernel")
         total = cycles.sum(dim=0).double()
-        names = pw.INT8_PHASES if kind == "int8" else pw.FWD_PHASES if fwd else pw.BWD_PHASES
+        names = (pw.INT8_PHASES if kind == "int8" else pw.FWD_PHASES if fwd else
+                 pw.F32_BWD_PHASES if esize == 4 else pw.BWD_PHASES)
         row = {"B": B, "H": H, "cluster": plan.cluster, "total_cycles": int(total.sum().item()), "ctas": plan.grid,
                "warpgroups": plan.wgs, "bm": plan.bm,
                "shares": {nm: (total[k] / total.sum()).item() for k, nm in enumerate(names)}}
@@ -1878,7 +1905,7 @@ def entry_point_phase(torch, np, pw, aug, root):
     n_steps = 2 * steps_per_epoch
     log(f"entry point (a) device pipeline, 2 epochs of {steps_per_epoch} steps at B={TRAIN_B}: "
         f"{sec:.1f} s, launches {counts}; history {json.dumps(hist_a)}")
-    want = {**dict.fromkeys(counts, 0), aug.KERNEL: n_steps, pw.BWD_KERNEL: n_steps,
+    want = {**dict.fromkeys(counts, 0), aug.KERNEL: n_steps, pw.BWD_KERNEL: n_steps, pw.STORED_GROUPS: n_steps,
             pw.KERNEL: n_steps + 2 * eval_batches}
     if counts != want:
         fail(f"(a) expected launches {want} (augment = train steps, eval never augments), counted {counts}")
@@ -2273,8 +2300,10 @@ def stretch_entry_phase(torch, np, pw, aug, root):
     (h,) = read_history(os.path.join(root, "res_stretch"))
     log(f"entry point, stretch-fp-32 (1,024 objects), 1 epoch of {steps_per_epoch} steps at B={STRETCH_CLI_B}: "
         f"{sec:.1f} s, launches {counts}; history {json.dumps(h)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    groups = len(pw.bwd_groups(STRETCH_CLI_B, 1024, 1024, 256, 4, sms))
     want = {**dict.fromkeys(counts, 0), pw.KERNEL: steps_per_epoch + eval_batches, pw.BWD_KERNEL: steps_per_epoch,
-            aug.KERNEL: steps_per_epoch}
+            pw.STORED_GROUPS: groups * steps_per_epoch, aug.KERNEL: steps_per_epoch}
     if counts != want:
         fail(f"the stretch-fp-32 train run expected launches {want}, counted {counts}")
     if not (np.isfinite(h["train_loss"]) and np.isfinite(h["val_nll"]) and 0.0 <= h["val_acc"] <= 1.0):
@@ -2548,7 +2577,7 @@ def rnet_fixture_phase(torch, np, pw, aug, root):
     log(f"phase 14 train --resume rnet's epoch {resumed}: {sec:.1f} s, launches {counts}, step {payload['step']} "
         f"(fixture {rec['steps']} + {steps_per_epoch}), Adam steps {adam_steps}; history {json.dumps(h)}")
     want = {**dict.fromkeys(counts, 0), aug.KERNEL: steps_per_epoch, pw.BWD_KERNEL: steps_per_epoch,
-            pw.KERNEL: steps_per_epoch + eval_batches}
+            pw.STORED_GROUPS: steps_per_epoch, pw.KERNEL: steps_per_epoch + eval_batches}
     if counts != want:
         fail(f"train --resume from the rnet fixture: expected launches {want}, counted {counts}")
     total = rec["steps"] + steps_per_epoch
@@ -2799,7 +2828,8 @@ def graph_phase(torch, np, pw, aug, cfg, dicts, burst):
     # 1. bf16 train steps, device augment and f_phi dropout 0.5; LR changed after 4 steps
     state, fns, order, counts, graphs, peaks = replay_vs_eager(
         torch, pw, aug, cfg_dev, data, cache, "bf16 train B=512", lr_change_at=GRAPH_STEPS // 2)
-    want = {**dict.fromkeys(counts, 0), pw.KERNEL: GRAPH_STEPS, pw.BWD_KERNEL: GRAPH_STEPS, aug.KERNEL: GRAPH_STEPS}
+    want = {**dict.fromkeys(counts, 0), pw.KERNEL: GRAPH_STEPS, pw.BWD_KERNEL: GRAPH_STEPS,
+            pw.STORED_GROUPS: GRAPH_STEPS, aug.KERNEL: GRAPH_STEPS}
     if counts != want:
         fail(f"graphs: {GRAPH_STEPS} replays should count {want}, counted {counts}")
     out["train_counts"], out["train_capture"] = counts, graph_memory(graphs)
@@ -3024,6 +3054,7 @@ def stretch_steps(torch, pw, aug, n_answers, batches=STRETCH_BATCHES):
     torch.backends.cudnn.deterministic = True
     cfg = load_config("stretch-fp-32").replace(n_answers=n_answers, device_augment=True)
     cache, data = device_data(torch, cfg, AUG_SMALL, 2 * max(batches), seed=17)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for B in batches:
         idx = torch.arange(B, dtype=torch.int32, device="cuda").view(1, B)
@@ -3048,7 +3079,10 @@ def stretch_steps(torch, pw, aug, n_answers, batches=STRETCH_BATCHES):
                 fail(f"stretch-fp-32 B={B} {impl}: non-finite step metrics {metrics.tolist()}")
             counts = {k: v for k, v in {**pw.launches, **aug.launches}.items() if v}
             arms[impl] = (graphs, lambda t=train: t(idx, data, cache), counts, loss0)
-        want = {pw.KERNEL: 1, pw.BWD_KERNEL: 1, aug.KERNEL: 1}
+        groups = len(pw.bwd_groups(B, 1024, 1024, 256, 4, sms))
+        want = {pw.KERNEL: 1, pw.BWD_KERNEL: 1, pw.STORED_GROUPS: groups, aug.KERNEL: 1}
+        if groups < 2:
+            fail(f"stretch-fp-32 B={B}: the backward's stored tiles should run in several sample groups, not {groups}")
         if "auto" not in arms or arms["auto"][2] != want:
             fail(f"stretch-fp-32 B={B}: auto should launch {want} a step, counted "
                  f"{arms['auto'][2] if 'auto' in arms else row.get('auto')}")
@@ -3647,7 +3681,8 @@ def check_shards(np, pw, ranks, one, ev_one, tag):
         if runs[0]["loss"] != runs[1]["loss"] or runs[0]["digest"] != runs[1]["digest"]:
             fail(f"phase {tag} {spec}: the ranks' losses or parameters differ")
         for r in runs:
-            want = {**dict.fromkeys(r["counts"], 0), pw.KERNEL: SHARD_STEPS, pw.BWD_KERNEL: SHARD_STEPS}
+            want = {**dict.fromkeys(r["counts"], 0), pw.KERNEL: SHARD_STEPS, pw.BWD_KERNEL: SHARD_STEPS,
+                    pw.STORED_GROUPS: SHARD_STEPS}
             shapes = {tuple(x[:3]) for k in ("fwd", "bwd") for x in r["launches"][k]}
             if r["counts"] != want or shapes != {tuple(shape)}:
                 fail(f"phase {tag} {spec}: expected one pairwise_fwd and pairwise_bwd a step at {shape}, "
@@ -4256,10 +4291,13 @@ def plain_int8_answers(torch, pw, srv, chunks):
 def wide_batch_check():
     """Phase 15 (c), ROADMAP §3 item 4: one replayed wide-fp bf16 train step
     at each B of ``WIDE_BATCHES`` through rl_impl "auto" (the kernels; the
-    backward stores B x 25.2 MB of tiles) and through "xla", each in a worker
+    backward stores 25.2 MB of tiles a sample, in sample groups within
+    ``BWD_STORE_BUDGET``) and through "xla", each in a worker
     process of its own (``wide_batch_worker``), so that running out of the
     card's memory leaves nothing behind. ``auto`` out of memory where ``xla``
     runs is a fault."""
+    from rnet_torch.kernels import pairwise as pw
+
     rows = {}
     for B in WIDE_BATCHES:
         for impl in ("auto", "xla"):
@@ -4279,8 +4317,11 @@ def wide_batch_check():
         for impl, row in (("auto", auto), ("xla", xla)):
             if "oom" not in row and not row["finite"]:
                 fail(f"phase 15 (c): wide-fp B={B} {impl} gave non-finite metrics")
-        if "oom" not in auto and auto["launches"] != {"pairwise_fwd": 1, "pairwise_bwd": 1, "augment": 1}:
-            fail(f"phase 15 (c): wide-fp B={B} auto launched {auto['launches']} in one replay")
+        groups = len(pw.bwd_groups(B, 64, 64, 512, 4))
+        if "oom" not in auto and auto["launches"] != {pw.KERNEL: 1, pw.BWD_KERNEL: 1, pw.STORED_GROUPS: groups,
+                                                      "augment": 1}:
+            fail(f"phase 15 (c): wide-fp B={B} auto launched {auto['launches']} in one replay, want {groups} "
+                 f"sample groups of the backward")
     return rows
 
 
@@ -4353,7 +4394,7 @@ def bench_phase(torch, pw, aug, card, phase12_qps):
 
     out = {}
     arms = (("train auto", lambda: bench.measure_train_qps("auto", TRAIN_B, "cuda", target_s=BENCH_TARGET_S),
-             (pw.KERNEL, pw.BWD_KERNEL)),
+             (pw.KERNEL, pw.BWD_KERNEL, pw.STORED_GROUPS)),
             ("infer auto", lambda: bench.measure_infer_qps("auto", TRAIN_B, "cuda", target_s=BENCH_TARGET_S),
              (pw.KERNEL,)),
             ("train xla", lambda: bench.measure_train_qps("xla", TRAIN_B, "cuda", target_s=BENCH_TARGET_S), ()))

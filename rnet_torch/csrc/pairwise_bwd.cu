@@ -14,17 +14,16 @@
 //     d      = dpre_l W_l^T                   (fp32)
 //     dpre_0 = d * [a_0 > 0]                  (fp32)
 //     ds += sum_rows dpre_0,  du[i] += sum_j dpre_0,  dv[j] += sum_i dpre_0
-// The n^2 pair rows never reach device memory (at H=512 in bf16 they do,
-// once, for dW: below).
+// The n^2 pair rows reach device memory once, as the bf16 a_{l-1} and
+// dpre_l tiles that dW is summed from (below).
 //
 // What bounds it: tensor-core operations. The recompute, d and dW products
 // are each 2*B*ni*nj*(L-1)*H^2 FLOPs, 3x the forward: at original-fp B=512
 // (n=64, H=256, L=4) 2.47 TFLOP, 2.50 ms at 989 TFLOP/s bf16 (the H100 SXM
 // data sheet's peak at 700 W), against ~20 MB of inputs and outputs; at
 // wide-fp's H=512, 9.9 TFLOP, 10.0 ms. Behind them: the W feed (every
-// block of rows reads all of W twice) and the dW partial, (L-1)*H^2 fp32
-// (786 KB at H=256, 3 MB at H=512) added once per block by each of up to
-// 132 CTAs (104 MB in all at H=256, twice L2; 415 MB at H=512).
+// block of rows reads all of W twice) and the stored tiles, 2*(L-1)*H bf16
+// per pair row written once and read once (6.44 GB at original-fp B=512).
 //
 // Design (pairwise_chain.cuh has the layout, the W feed and the products).
 // CTAs run in no order, so every output has one fixed writer, and the
@@ -37,10 +36,10 @@
 //     (at most nblk) and one unit a CTA, so that a batch of 8 still runs on
 //     128 of the 132 SMs (kernels/pairwise.py::tile_plan, sample_splits).
 //     rnet's kernel runs its grid (B, ni/TI) in order on one core and needs
-//     no split. dW / db go to the CTA's own fp32 partial, which a second
-//     kernel adds over the CTAs in CTA order; du, dv, ds and dqa go to the
-//     split's own slice (S > 1; S = 1 writes them directly), and
-//     reduce_partials_kernel adds the S slices in split order;
+//     no split. db goes to the CTA's own fp32 partial, which
+//     reduce_partials_kernel adds over the CTAs in CTA order; du, dv, ds and
+//     dqa go to the split's own slice (S > 1; S = 1 writes them directly),
+//     added in split order the same way; dW is a GEMM (below);
 //   * warpgroup WGS is the producer (one thread of it): per block it streams the packed W_l^T
 //     chunks of the recompute and the packed W_l chunks of the L-1 d
 //     products through the ring, running ahead into the next block;
@@ -51,18 +50,28 @@
 //     pass), in slot L-1 or, when that does not exist, in slot 0 (a_0 is
 //     rebuilt from u, v, s for layer 1). dpre_{l-1} overwrites a_{l-1} in
 //     place in the epilogue of d = dpre_l W_l^T.
-//   * The dW flush. dW_l = a_{l-1}^T dpre_l is wgmma on both slots read
-//     MN-major, 64 x 128 tiles split between the warpgroups. The partial
-//     tile, kept in the accumulator's own fragment order (coalesced 16-byte
-//     loads and stores, one thread per element), is loaded as the
-//     accumulator and wgmma adds the block's rows onto it; the next tile's
-//     partial loads while this tile's product runs, so the load is off the
-//     critical path, and the partials are read and written with an L2
-//     evict-first policy, so that they do not push the W chunks and du / dv
-//     out of L2. A fixed thread adds every element, once per block, in
-//     block order: the order of adds is fixed. Vector reductions
-//     (red.add.v4.f32) took as long, and there is no shared memory left for
-//     a staged bulk reduction: the slots and a 4-stage ring fill 227 KB.
+//   * dW. rnet's TPU kernel keeps all of dW in VMEM across its sequential
+//     grid (the constant index maps of the dW and db out blocks,
+//     rnet/kernels/pairwise.py:501-511, of the kernel at :120). Here no CTA
+//     holds dW: per block and layer, one thread of each warpgroup stores its
+//     64 rows of a_{l-1} and of dpre_l (the CTA's columns) to device memory
+//     as they lie in shared memory (two bulk stores, cp.async.bulk, under an
+//     L2 evict-first policy, so that they do not push the W chunks out of
+//     L2) while the column sums run; the warpgroup waits only for a_{l-1}'s
+//     store to have read it before the d product overwrites it. That is
+//     6.44 GB at original-fp B=512 (the buffer `act`, 2 x (L-1) x B x 32
+//     blocks x 64 KB; 12.9 GB at wide-fp), written once and read back once
+//     by dw_gemm_kernel, which sums a_{l-1}^T dpre_l over all rows in 128 x
+//     256 output tiles (128 x 128 where 256 does not divide H), the rows
+//     split over dw_splits(...) CTAs per tile; reduce_partials_kernel adds
+//     the splits in order (a per-CTA fp32 partial of dW, loaded and stored
+//     around every block's product, would move 25.8 GB at original-fp
+//     B=512 and spend half the kernel's cycles on it). The
+//     buffer grows with B n^2, so kernels/pairwise.py::bwd_groups runs the
+//     batch in groups of samples whose tiles fit BWD_STORE_BUDGET: each group
+//     one launch of this kernel (its first sample b0 keeps the pair mask of
+//     the whole batch) and one of the GEMM, which adds onto the earlier
+//     groups' split partials, so the order of adds is fixed.
 //   * The serial phases. db_l (and dqa) are one more wgmma, 1^T dpre_l,
 //     against a single core matrix of ones read with both strides 0, so the
 //     column sums come from the tensor cores. dpre_0 = d * [a_0 > 0] goes in
@@ -73,13 +82,10 @@
 //     reductions to one address apply in program order), so no thread waits
 //     on a load from device memory.
 //
-// H = 512 (wide-fp, the SD models): clusters of two CTAs (CL = 2) and a
-// GEMM for dW, one unit a sample (S = 1). rnet's TPU kernel keeps all of dW
-// (3 MB at L=4) in VMEM across its sequential grid (the constant index maps
-// of the dW and db out blocks, rnet/kernels/pairwise.py:501-511, of the
-// kernel at :120). One CTA holding that partial would flush 6 MB per
-// 64-row block (197 GB in all at wide-fp B=512, 59 ms at 3.35 TB/s, the
-// H100 SXM data sheet's rate at 700 W), so dW leaves the fused kernel:
+// H = 512 (wide-fp, the SD models): clusters of two CTAs (CL = 2), one unit
+// a sample (S = 1). One CTA's slots of all 512 columns would hold only
+// 64-row blocks on one warpgroup, as at H=384; the pair keeps the H=256
+// kernel's 128-row blocks on two:
 //   * The two CTAs of a cluster, on neighbouring SMs, share each block of
 //     BM = 128 rows and split the output columns: rank c computes the
 //     columns c*256 .. c*256 + 255 of every product and keeps only those of
@@ -94,17 +100,9 @@
 //     (pairwise_chain.cuh::pair_product_rows).
 //     Each CTA streams only its 256 rows of W_l^T and W_l, its own depth
 //     first (kernels/pairwise.py::pair_halves).
-//   * dW. Per block and layer, one thread stores a_{l-1} and dpre_l, the
-//     CTA's 128 x 256 of each, to device memory as they lie in shared
-//     memory (two 64 KB bulk stores, cp.async.bulk) while the column sums
-//     run; the consumers wait only for the stores to have read a_{l-1}
-//     before the d product overwrites it. That is 12.9 GB at wide-fp B=512
-//     (the buffer `act`, 2 x (L-1) x B x 32 blocks x 2 ranks x 64 KB),
-//     written once and read back once by dw_gemm_kernel, against the 98 GB
-//     a (L-1) x 512 x 256 fp32 partial per CTA would move through its
-//     flushes. dw_gemm_kernel (below) sums a_{l-1}^T dpre_l over all rows
-//     in 128 x 256 output tiles, the rows split over dw_splits(...) CTAs
-//     per tile, and reduce_partials_kernel adds the splits in order.
+//   * Each rank stores its 256 columns of a_{l-1} and dpre_l; the peer reads
+//     neither again in the layer, so only the rank's own consumers wait for
+//     its stores.
 //   * The pair meets (PairSync: mbarriers the peer arrives on remotely)
 //     after a_0, after each recompute layer and before each backward layer
 //     that reads what the peer just wrote; the producer warpgroup hands its
@@ -113,9 +111,9 @@
 //     column); every dW element is the ordered sum of its GEMM splits' products.
 //     Bitwise repeatable as the one-CTA kernel.
 // With -DRNET_PHASE_TIMES the first consumer thread of each CTA sums
-// clock64() per phase (recompute, dW products, dW flush, d products,
-// column pass, W feed waits, a_0, barriers, the pair's waits) into `phases`
-// (grid, NPHASE).
+// clock64() per phase (recompute, column sums, the stores' issue and waits,
+// d products, column pass, W feed waits, a_0, barriers, the pair's waits)
+// into `phases` (grid, NPHASE).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,7 +127,7 @@ namespace {
 
 using namespace rnet;
 
-enum { PH_RECOMPUTE, PH_DW, PH_FLUSH, PH_D, PH_COLUMNS, PH_FEED, PH_A0, PH_SYNC, PH_PAIR };
+enum { PH_RECOMPUTE, PH_COLSUM, PH_STORE, PH_D, PH_COLUMNS, PH_FEED, PH_A0, PH_SYNC, PH_PAIR };
 
 // Shared memory: the activation slots (bm rows x the CTA's W columns), the W
 // ring and its mbarriers, the per-row scale, one core matrix of ones and, in
@@ -144,8 +142,9 @@ size_t smem_bytes(int bm, int W, int slots, int stages, int cl) {
 // stores spread over the banks.
 __device__ __forceinline__ int f32_off(int r, int c) { return r * NT + (c ^ ((r & 7) << 3)); }
 
-// The consumer warpgroups' part of pairwise_bwd_kernel (below). CL = 1: the
-// CTA owns its samples and every column; CL = 2: a cluster CTA of rank c
+// The consumer warpgroups' part of pairwise_bwd_kernel (below), on the B
+// samples of a group whose first is sample b0 of the batch (the pair mask's
+// b). CL = 1: the CTA owns its samples and every column; CL = 2: a cluster CTA of rank c
 // keeps the columns c W .. c W + W - 1 (W = H / 2) of every tile, reads the
 // peer's other half through distributed shared memory, and meets its peer
 // at `ps` wherever one CTA is about to read what the other wrote, or to
@@ -155,8 +154,8 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
                                          const bf16* __restrict__ s, const bf16* __restrict__ qa,
                                          const bf16* __restrict__ bs, const float* __restrict__ g,
                                          float* __restrict__ du, float* __restrict__ dv, float* __restrict__ ds,
-                                         float* __restrict__ dqa, float* __restrict__ dw_part,
-                                         float* __restrict__ db_part, bf16* __restrict__ act, int B, int ni, int nj,
+                                         float* __restrict__ dqa, float* __restrict__ db_part,
+                                         bf16* __restrict__ act, int B, int b0, int ni, int nj,
                                          int H, int L, int inject, int splits, long long split_stride,
                                          int nslots, bf16* slots, float* rowscale,
                                          const bf16* ones,
@@ -179,11 +178,9 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
   auto slot = [&](int k) { return slots + (size_t)k * BM * W; };
   const uint32_t peer_slots = CL == 1 ? 0u : mapa(smem_u32(slots), rank ^ 1);
   auto peer_slot = [&](int k) { return peer_slots + (uint32_t)(k * BM * W * 2); };
-  const int dw_tiles = (H / 64) * (W / NT);
-  float* dwp = dw_part + (size_t)blockIdx.x * (L - 1) * H * W;
   float* dbp = db_part + (size_t)blockIdx.x * (L - 1) * H;
   const uint64_t key = DROP ? (uint64_t)*seed : 0;
-  const uint64_t pol = l2_evict_first();
+  const uint64_t pol = l2_evict_first();  // the stored tiles, read again only by the next kernel
   // all consumers of both CTAs (CL = 2), or `id` over `n` threads of this CTA
   auto sync = [&](int id, int n) {
     pc.mark(PH_SYNC);
@@ -217,7 +214,7 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
       pc.mark(PH_A0);
       for (int rr = ctid; rr < BM; rr += NC) {
         float sc = rr < valid ? 1.0f : 0.0f;
-        if (DROP && rr < valid) sc = pair_kept(key, p0 + rr, b, thr) ? inv_keep : 0.0f;
+        if (DROP && rr < valid) sc = pair_kept(key, p0 + rr, b0 + b, thr) ? inv_keep : 0.0f;
         rowscale[rr] = sc;
       }
       make_a0(u, v, s, slot(0), b, p0, r0, 64, valid, ni, nj, H, tid, WG_THREADS, W, c0);
@@ -292,9 +289,8 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
         // column sums db_l (and dqa at the inject layer).
         auto column_sums = [&](int nt) {
           float acc[NT / 2];
-          pc.mark(PH_DW);
+          pc.mark(PH_COLSUM);
           colsum_product(acc, smem_u32(ones), smem_u32(D), nt, W, BM);
-          pc.mark(PH_FLUSH);
           if (tid < 4) {  // row 0 of the tile: registers i with (i / 2) even
 #pragma unroll
             for (int i = 0; i < NT / 2; ++i) {
@@ -305,67 +301,28 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
             }
           }
         };
-        if constexpr (CL == 2) {
-          // a_{l-1} and dpre_l of the block (the CTA's columns) leave for
-          // dw_gemm_kernel as two bulk stores while the column sums run; the
-          // peer reads neither of them again in this layer, so only this
-          // CTA's consumers wait for the stores to have read a_{l-1}
-          pc.mark(PH_FLUSH);
-          if (ctid == 0) {
-            const size_t tile = (size_t)BM * W, nb = (size_t)B * nblk;
-            bf16* dst = act + (((size_t)(l - 1) * nb + (size_t)b * nblk + blk) * CL + rank) * tile;
-            bulk_s2g(dst, smem_u32(P), (uint32_t)(tile * sizeof(bf16)));
-            bulk_s2g(dst + (size_t)(L - 1) * nb * CL * tile, smem_u32(D), (uint32_t)(tile * sizeof(bf16)));
-            bulk_commit();
-          }
-          column_sums(wg);
-          pc.mark(PH_FLUSH);
-          if (ctid == 0) bulk_wait_read();
-          pc.mark(PH_SYNC);
-          bar_sync(1, NC);  // the stores have read a_{l-1} before it is overwritten
-        } else {
-          // dW_l tiles (the warpgroup's tiles wg, wg + WGS, ...): the partial
-          // tile, in fragment order, is the accumulator that wgmma adds the
-          // block's rows onto; the next tile's partial loads while this
-          // one's product runs. Then the column sums.
-          float4* part = reinterpret_cast<float4*>(dwp + (size_t)(l - 1) * dw_tiles * 64 * NT) + tid;
-          float nxt[NT / 2];
-          pc.mark(PH_FLUSH);
-          if (wg < dw_tiles) {
-#pragma unroll
-            for (int j = 0; j < NT / 8; ++j) {
-              const float4 o = ld_stream(part + (size_t)wg * 16 * NT + j * WG_THREADS, pol);
-              nxt[4 * j] = o.x;
-              nxt[4 * j + 1] = o.y;
-              nxt[4 * j + 2] = o.z;
-              nxt[4 * j + 3] = o.w;
-            }
-          }
-          for (int tile = wg; tile < dw_tiles; tile += WGS) {
-            float acc[NT / 2];
-#pragma unroll
-            for (int i = 0; i < NT / 2; ++i) acc[i] = nxt[i];
-            if (tile + WGS < dw_tiles) {
-#pragma unroll
-              for (int j = 0; j < NT / 8; ++j) {
-                const float4 o = ld_stream(part + (size_t)(tile + WGS) * 16 * NT + j * WG_THREADS, pol);
-                nxt[4 * j] = o.x;
-                nxt[4 * j + 1] = o.y;
-                nxt[4 * j + 2] = o.z;
-                nxt[4 * j + 3] = o.w;
-              }
-            }
-            pc.mark(PH_DW);
-            dw_product(acc, smem_u32(P), smem_u32(D), tile / (W / NT), tile % (W / NT), W, BM);
-            pc.mark(PH_FLUSH);
-#pragma unroll
-            for (int j = 0; j < NT / 8; ++j)
-              st_stream(part + (size_t)tile * 16 * NT + j * WG_THREADS,
-                        make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]), pol);
-          }
-          for (int nt = wg; nt < W / NT; nt += WGS) column_sums(nt);
-          sync(1, NC);  // every dW_l product has read a_{l-1} before it is overwritten
+        // The warpgroup's 64 rows of a_{l-1} and of dpre_l (the CTA's
+        // columns, 64 x W contiguous in the tile) leave for dw_gemm_kernel as
+        // two bulk stores, a group each, while the column sums run. Only the
+        // d product's epilogue overwrites them, a_{l-1} in the warpgroup's own
+        // rows (no other thread of either CTA reads a_{l-1} again), so the
+        // warpgroup waits for that store alone; dpre_l stays until the last
+        // layer's dpre_0, before which the stores' thread waits for the rest.
+        pc.mark(PH_STORE);
+        if (tid == 0) {
+          const size_t tile = (size_t)BM * W, nb = (size_t)B * nblk;
+          bf16* dst = act + (((size_t)(l - 1) * nb + (size_t)b * nblk + blk) * CL + rank) * tile + (size_t)r0 * W;
+          bulk_s2g(dst, smem_u32(P + r0 * W), (uint32_t)(64 * W * sizeof(bf16)), pol);
+          bulk_commit();
+          bulk_s2g(dst + (size_t)(L - 1) * nb * CL * tile, smem_u32(D + r0 * W), (uint32_t)(64 * W * sizeof(bf16)),
+                   pol);
+          bulk_commit();
         }
+        for (int nt = wg; nt < W / NT; nt += WGS) column_sums(nt);
+        pc.mark(PH_STORE);
+        if (tid == 0) bulk_wait_read<1>();
+        pc.mark(PH_SYNC);
+        bar_sync(2 + wg, WG_THREADS);  // the store has read the warpgroup's a_{l-1} before it is overwritten
 
         // ---- d = dpre_l W_l^T: dpre_{l-1} in place over a_{l-1}, or dpre_0 ----
         for (int nt = 0; nt < W / NT; ++nt) {
@@ -390,8 +347,10 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
           // l == 1: dpre_0 = d * [a_0 > 0] in fp32, into the dead slots (slot 1 and 2
           // when one tile spans W; else slot 2), then the column pass of these NT columns
           float* F = reinterpret_cast<float*>(slot(W / NT == 1 ? 1 : 2));
+          pc.mark(PH_STORE);
+          if (nt == 0 && tid == 0) bulk_wait_read();  // every store of the block has read its rows
           pc.mark(PH_SYNC);
-          bar_sync(1, NC);  // every warpgroup's product has read dpre_1 (slot 1)
+          bar_sync(1, NC);  // every warpgroup's product has read dpre_1 (slot 1), every store its rows
           pc.mark(PH_D);
           {
             const int sw = frow & 7;  // f32_off's swizzle, the same for both rows
@@ -457,10 +416,8 @@ __device__ __forceinline__ void consumer(const bf16* __restrict__ u, const bf16*
       }
     }
   }
-  if constexpr (CL == 2) {
-    if (ctid == 0) bulk_wait_all();  // the stored tiles are in device memory for dw_gemm_kernel
-    sync(1, NC);                     // the peer has read the last of this CTA's tiles: it may exit
-  }
+  if (tid == 0) bulk_wait_all();  // the stored tiles are in device memory for dw_gemm_kernel
+  if constexpr (CL == 2) sync(1, NC);  // the peer has read the last of this CTA's tiles: it may exit
   pc.mark(PH_A0);
   if (ctid == 0 && phases) pc.store(phases + (size_t)blockIdx.x * NPHASE);
 }
@@ -471,8 +428,8 @@ pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, cons
                     const bf16* __restrict__ qa, const bf16* __restrict__ wt_chunks,
                     const bf16* __restrict__ w_chunks, const bf16* __restrict__ bs, const float* __restrict__ g,
                     float* __restrict__ du, float* __restrict__ dv, float* __restrict__ ds,
-                    float* __restrict__ dqa, float* __restrict__ dw_part, float* __restrict__ db_part,
-                    bf16* __restrict__ act, int B, int ni, int nj, int H, int L, int inject, int splits,
+                    float* __restrict__ dqa, float* __restrict__ db_part, bf16* __restrict__ act, int B, int b0,
+                    int ni, int nj, int H, int L, int inject, int splits,
                     long long split_stride, int nslots, int stages, const int64_t* __restrict__ seed, uint32_t thr,
                     float inv_keep, long long* phases) {
   constexpr int BM = 64 * WGS;
@@ -528,74 +485,71 @@ pairwise_bwd_kernel(const bf16* __restrict__ u, const bf16* __restrict__ v, cons
     }
   } else {
     if constexpr (CL == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consumer<WGS, CL, DROP>(u, v, s, qa, bs, g, du, dv, ds, dqa, dw_part, db_part, act, B, ni, nj, H, L, inject,
-                            splits, split_stride, nslots, slots, rowscale, ones, r, ps, pc, seed, thr, inv_keep,
-                            phases);
+    consumer<WGS, CL, DROP>(u, v, s, qa, bs, g, du, dv, ds, dqa, db_part, act, B, b0, ni, nj, H, L, inject, splits,
+                            split_stride, nslots, slots, rowscale, ones, r, ps, pc, seed, thr, inv_keep, phases);
   }
 }
 
-// dws[l, m, n] = sum over the CTAs c = 0..G-1 (in order) of the partial
-// element k holding it. A partial is laid out as the consumers'
-// accumulators: per layer, per 64 x NT tile (mt, nt), per group j of 4
-// registers, per thread t of the warpgroup, 4 floats; register 4j + e of
-// thread t holds row 16*(t/32) + (t%32)/4 + 8*(e/2) and column 8j +
-// 2*(t%4) + e%2 of the tile.
-__global__ void reduce_dw_kernel(const float* __restrict__ part, float* __restrict__ out, int G, int H, long long n) {
+// out[k] = sum over c = 0..G-1 of part[c * stride + k], in order (CTAs,
+// GEMM splits or sample splits).
+__global__ void reduce_partials_kernel(const float* __restrict__ part, long long stride, float* __restrict__ out,
+                                       int G, long long n) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   float sum = 0.0f;
-  for (int c = 0; c < G; ++c) sum += part[(size_t)c * n + k];
-  const long long per = (long long)H * H;
-  const int l = (int)(k / per);
-  const int kk = (int)(k % per);
-  const int tile = kk / (64 * NT);
-  const int w = kk % (64 * NT);
-  const int j = w / (4 * WG_THREADS);
-  const int t = (w / 4) % WG_THREADS;
-  const int e = w % 4;
-  const int row = (tile / (H / NT)) * 64 + (t / 32) * 16 + (t % 32) / 4 + 8 * (e / 2);
-  const int col = (tile % (H / NT)) * NT + 8 * j + 2 * (t % 4) + e % 2;
-  out[l * per + (long long)row * H + col] = sum;
-}
-
-// out[k] = sum over c = 0..G-1 of part[c, k], in order (CTAs, GEMM splits or sample splits).
-__global__ void reduce_partials_kernel(const float* __restrict__ part, float* __restrict__ out, int G, long long n) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  float sum = 0.0f;
-  for (int c = 0; c < G; ++c) sum += part[(size_t)c * n + k];
+  for (int c = 0; c < G; ++c) sum += part[(size_t)c * stride + k];
   out[k] = sum;
 }
 
-// dW of the cluster backward, a GEMM over the tiles it stored: act[0][l-1]
-// [block][rank] holds a_{l-1} and act[1][l-1][block][rank] dpre_l, the 128
-// rows of a block by the W = H / 2 columns of a rank, in core-matrix order.
-// CTA (split s, tile t) computes the G_M x G_N output tile t of one layer,
-// dW_l[m0.., n0..] = sum over the 64-row chunks of split s (the splits
-// cover all rows, in order) of a_{l-1}[:, m0..]^T dpre_l[:, n0..], into
-// part[s] (row-major, L-1 x H x H): two consumer warpgroups of 64 x 256
-// (two m64n128 accumulators each, both operands read MN-major as in
-// dw_product), one producer thread streaming a ring of G_STAGES chunks, A
-// by one 2 KB copy per row group, D by one 32 KB copy. The splits are then
-// added in order (reduce_partials_kernel): every dW element has one writer
-// per split and a fixed order of adds.
-constexpr int G_ROWS = 64, G_M = 128, G_N = 256, G_STAGES = 4;
-constexpr int G_A_BYTES = G_ROWS * G_M * 2, G_D_BYTES = G_ROWS * G_N * 2;
-constexpr int G_STAGE_BYTES = G_A_BYTES + G_D_BYTES;
-constexpr size_t G_SMEM = (size_t)G_STAGES * (G_STAGE_BYTES + 16);
+void reduce_partials(const float* part, long long stride, float* out, int G, long long n, cudaStream_t st) {
+  reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(part, stride, out, G, n);
+}
 
+// dW, a GEMM over the tiles the fused kernel stored: act[0][l-1][block]
+// [rank] holds a_{l-1} and act[1][l-1][block][rank] dpre_l, the bm rows of a
+// block by the W = H / cl columns of a rank (cl = 2 the ranks of a cluster,
+// 1 one CTA), in core-matrix order. CTA (split s, tile t) computes the G_M x
+// G_N output tile t of one layer (G_N = 128 * NSUB), dW_l[m0.., n0..] = sum
+// over the 64-row chunks of split s (the splits cover all rows, in order)
+// of a_{l-1}[:, m0..]^T dpre_l[:, n0..], into part[s] (row-major, L-1 x H x
+// H), added onto what part[s] holds when `accumulate` (a later sample group;
+// the accumulators start at zero: registers loaded before the first wgmma
+// would serialize every wgmma, ptxas C7515): two
+// consumer warpgroups of 64 x G_N (NSUB m64n128 accumulators each, both
+// operands read MN-major), one producer thread streaming a ring of
+// G_STAGES chunks: A by one copy per 8-row group, D by one copy where the
+// chunk's rows lie contiguous (G_N = W; 8 copies of 4 KB took a quarter
+// longer at H=512), else per 8-row group. t varies
+// fastest over the grid, so the CTAs of a split run side by side and the M
+// tiles of a layer read the same dpre_l rows together (L2 serves all but
+// the first read). The splits are then added in order
+// (reduce_partials_kernel): every dW element has one writer per split and
+// a fixed order of adds.
+constexpr int G_ROWS = 64, G_M = 128, G_STAGES = 4;
+constexpr int G_A_BYTES = G_ROWS * G_M * 2;
+
+template <int NSUB>
+constexpr size_t gemm_smem() {
+  return (size_t)G_STAGES * (G_A_BYTES + G_ROWS * NT * NSUB * 2 + 16);
+}
+
+template <int NSUB>
 __global__ void __launch_bounds__(2 * WG_THREADS + 32, 1)
-dw_gemm_kernel(const bf16* __restrict__ act, float* __restrict__ part, int H, int L, long long nb, int splits) {
+dw_gemm_kernel(const bf16* __restrict__ act, float* __restrict__ part, int H, int L, int cl, int bm, long long nb,
+               int splits, int accumulate) {
+  constexpr int G_N = NT * NSUB;
+  constexpr int STAGE = G_A_BYTES + G_ROWS * G_N * 2;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const int W = H / 2;
-  const size_t tile_el = (size_t)2 * G_ROWS * W;  // a stored tile: 128 rows x W
+  const int W = H / cl;
+  const size_t tile_el = (size_t)bm * W;  // a stored tile: bm rows x W
+  const int cpb = bm / G_ROWS;             // 64-row chunks a block
   const int per_layer = (H / G_M) * (H / G_N);
   const int ntiles = (L - 1) * per_layer;
   const int sp = blockIdx.x / ntiles, t = blockIdx.x % ntiles;
   const int li = t / per_layer, m0 = (t % per_layer) / (H / G_N) * G_M, n0 = t % (H / G_N) * G_N;
-  const long long nq = 2 * nb;  // 64-row chunks
+  const long long nq = cpb * nb;  // 64-row chunks
   const long long q0 = nq * sp / splits, q1 = nq * (sp + 1) / splits;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)G_STAGES * G_STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + (size_t)G_STAGES * STAGE);
   uint64_t* empty = full + G_STAGES;
   if (threadIdx.x == 0) {
     for (int k = 0; k < G_STAGES; ++k) {
@@ -608,20 +562,31 @@ dw_gemm_kernel(const bf16* __restrict__ act, float* __restrict__ part, int H, in
   const int role = threadIdx.x / WG_THREADS;
   if (role == 2) {  // the producer
     if (threadIdx.x != 2 * WG_THREADS) return;
-    // A: a_{l-1}, stored by rank m0 / W, columns m0 % W ..; D: dpre_l, stored by rank n0 / W
-    const bf16* A = act + ((size_t)li * nb * 2 + m0 / W) * tile_el + (m0 % W) / 8 * 64;
-    const bf16* D = act + (((size_t)(L - 1) + li) * nb * 2 + n0 / W) * tile_el;
+    // A: a_{l-1}, stored by rank m0 / W, columns m0 % W ..; D: dpre_l, stored by rank n0 / W, columns n0 % W ..
+    const bf16* A = act + ((size_t)li * nb * cl + m0 / W) * tile_el + (m0 % W) / 8 * 64;
+    const bf16* D = act + (((size_t)(L - 1) + li) * nb * cl + n0 / W) * tile_el + (n0 % W) / 8 * 64;
     int stage = 0;
     uint32_t parity = 0;
+    long long blk = q0 / cpb;  // chunk q = blk * cpb + c
+    int c = (int)(q0 % cpb);
     for (long long q = q0; q < q1; ++q) {
       mbar_wait(smem_u32(empty + stage), parity ^ 1);
       const uint32_t bar = smem_u32(full + stage);
-      mbar_expect_tx(bar, G_STAGE_BYTES);
-      const uint32_t dst = smem_u32(smem + (size_t)stage * G_STAGE_BYTES);
-      const size_t off = (size_t)(q >> 1) * 2 * tile_el + (size_t)(q & 1) * G_ROWS * W;  // block, then half
+      mbar_expect_tx(bar, STAGE);
+      const uint32_t dst = smem_u32(smem + (size_t)stage * STAGE);
+      const size_t off = (size_t)blk * cl * tile_el + (size_t)c * G_ROWS * W;
       for (int rg = 0; rg < G_ROWS / 8; ++rg)
         bulk_g2s(dst + rg * (G_M / 8) * 128, A + off + (size_t)rg * 8 * W, (G_M / 8) * 128, bar);
-      bulk_g2s(dst + G_A_BYTES, D + off, G_D_BYTES, bar);
+      if (G_N == W) {  // the chunk's rows of D are contiguous: one copy
+        bulk_g2s(dst + G_A_BYTES, D + off, G_ROWS * G_N * 2, bar);
+      } else {
+        for (int rg = 0; rg < G_ROWS / 8; ++rg)
+          bulk_g2s(dst + G_A_BYTES + rg * (G_N / 8) * 128, D + off + (size_t)rg * 8 * W, (G_N / 8) * 128, bar);
+      }
+      if (++c == cpb) {
+        c = 0;
+        ++blk;
+      }
       if (++stage == G_STAGES) {
         stage = 0;
         parity ^= 1;
@@ -630,21 +595,26 @@ dw_gemm_kernel(const bf16* __restrict__ act, float* __restrict__ part, int H, in
     return;
   }
   const int tid = threadIdx.x - role * WG_THREADS;
-  float acc0[NT / 2], acc1[NT / 2];
+  float* out = part + (((size_t)sp * (L - 1) + li) * H + m0 + 64 * role + 16 * (tid >> 5) + ((tid & 31) >> 2)) * H +
+               n0 + 2 * (tid & 3);
+  float acc[NSUB][NT / 2];
 #pragma unroll
-  for (int i = 0; i < NT / 2; ++i) acc0[i] = acc1[i] = 0.0f;
+  for (int n = 0; n < NSUB; ++n)
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[n][i] = 0.0f;
   int stage = 0, prev = 0;
   uint32_t parity = 0;
   for (long long q = q0; q < q1; ++q) {
     mbar_wait(smem_u32(full + stage), parity);
-    const uint32_t a = smem_u32(smem + (size_t)stage * G_STAGE_BYTES) + role * 8 * 128;  // the warpgroup's 64 m
-    const uint32_t d = smem_u32(smem + (size_t)stage * G_STAGE_BYTES + G_A_BYTES);
+    const uint32_t a = smem_u32(smem + (size_t)stage * STAGE) + role * 8 * 128;  // the warpgroup's 64 m
+    const uint32_t d = smem_u32(smem + (size_t)stage * STAGE + G_A_BYTES);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < G_ROWS / 16; ++ks) {
       const uint64_t da = desc(a + ks * 32 * G_M, 16 * G_M, 128);
-      wgmma_m64n128<1, 1>(acc0, da, desc(d + ks * 32 * G_N, 16 * G_N, 128), 1);
-      wgmma_m64n128<1, 1>(acc1, da, desc(d + (NT / 8) * 128 + ks * 32 * G_N, 16 * G_N, 128), 1);
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n)
+        wgmma_m64n128<1, 1>(acc[n], da, desc(d + n * (NT / 8) * 128 + ks * 32 * G_N, 16 * G_N, 128), 1);
     }
     wgmma_commit();
     if (q > q0) {
@@ -659,28 +629,45 @@ dw_gemm_kernel(const bf16* __restrict__ act, float* __restrict__ part, int H, in
   }
   wgmma_wait<0>();
 #pragma unroll
-  for (int i = 0; i < NT / 2; ++i) {
-    keep(acc0[i]);
-    keep(acc1[i]);
-  }
-  float* out = part + (((size_t)sp * (L - 1) + li) * H + m0 + 64 * role + 16 * (tid >> 5) + ((tid & 31) >> 2)) * H +
-               n0 + 2 * (tid & 3);
+  for (int n = 0; n < NSUB; ++n)
 #pragma unroll
-  for (int j = 0; j < NT / 8; ++j)
+    for (int i = 0; i < NT / 2; ++i) keep(acc[n][i]);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* o = out + (size_t)8 * h * H + 8 * j;
-      *reinterpret_cast<float2*>(o) = make_float2(acc0[4 * j + 2 * h], acc0[4 * j + 2 * h + 1]);
-      *reinterpret_cast<float2*>(o + NT) = make_float2(acc1[4 * j + 2 * h], acc1[4 * j + 2 * h + 1]);
-    }
+  for (int n = 0; n < NSUB; ++n)
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2* o = reinterpret_cast<float2*>(out + (size_t)8 * h * H + 8 * j + n * NT);
+        float2 v = make_float2(acc[n][4 * j + 2 * h], acc[n][4 * j + 2 * h + 1]);
+        if (accumulate) {  // the earlier groups' sum of this split, plus this group's
+          const float2 was = *o;
+          v.x += was.x;
+          v.y += was.y;
+        }
+        *o = v;
+      }
+}
+
+// dw_gemm_kernel<NSUB> over `splits` splits of nb stored blocks of bm rows.
+template <int NSUB>
+cudaError_t launch_gemm(const bf16* act, float* part, int H, int L, int cl, int bm, long long nb, int splits,
+                        int accumulate, cudaStream_t st) {
+  static size_t allowed = 0;
+  cudaError_t err = raise_smem_limit(dw_gemm_kernel<NSUB>, gemm_smem<NSUB>(), allowed);
+  if (err != cudaSuccess) return err;
+  const int ntiles = (L - 1) * (H / G_M) * (H / (NT * NSUB));
+  dw_gemm_kernel<NSUB><<<(unsigned)(splits * ntiles), 2 * WG_THREADS + 32, gemm_smem<NSUB>(), st>>>(
+      act, part, H, L, cl, bm, nb, splits, accumulate);
+  return cudaGetLastError();
 }
 
 struct Args {
   const bf16 *u, *v, *s, *qa, *wt, *w, *bs;
   const float* g;
-  float *du, *dv, *ds, *dqa, *dw_part, *db_part;  // du .. dqa: split 0's slice
+  float *du, *dv, *ds, *dqa, *db_part;  // du .. dqa: the group's rows of split 0's slice
   bf16* act;
-  int B, ni, nj, H, L, inject, splits;
+  int B, b0, ni, nj, H, L, inject, splits;  // B: the group's samples, b0 its first in the batch
   long long split_stride;
   int slots, stages;
   const int64_t* seed;
@@ -696,7 +683,7 @@ cudaError_t launch(const Args& a, int grid, size_t smem, cudaStream_t st) {
   cudaError_t err = raise_smem_limit(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   return launch_cluster(kern, grid, (WGS + 1) * WG_THREADS, smem, st, CL, a.u, a.v, a.s, a.qa, a.wt, a.w, a.bs, a.g,
-                        a.du, a.dv, a.ds, a.dqa, a.dw_part, a.db_part, a.act, a.B, a.ni, a.nj, a.H, a.L, a.inject,
+                        a.du, a.dv, a.ds, a.dqa, a.db_part, a.act, a.B, a.b0, a.ni, a.nj, a.H, a.L, a.inject,
                         a.splits, a.split_stride, a.slots, a.stages, a.seed, a.thr, a.inv_keep, a.phases);
 }
 
@@ -710,72 +697,81 @@ cudaError_t dispatch(const Args& a, int wgs, int cl, int grid, size_t smem, cuda
 
 extern "C" {
 
-// Launches the backward on `stream` for the tile plan (wgs, slots,
-// stages, grid, cluster, splits, smem) of kernels/pairwise.py::tile_plan:
-// the fused kernel, then (splits > 1) the ordered sum of the sample
-// splits' slices of du, dv, ds, dqa, then (cluster 2) dw_gemm_kernel over
-// `dw_splits` splits of the rows, then the ordered sums of the dW and db
-// partials; returns cudaErrorInvalidValue for a plan it cannot take.
-// Device pointers to contiguous tensors: u (B,ni,H), v (B,nj,H), s, qa
-// (B,H), bs (L-1,H) in bf16; wt_chunks = pack_weight_chunks(W^T), w_chunks
-// = pack_weight_chunks(W) (cluster 2: of each CTA's pair_halves slice, rank
+// Launches the backward of the samples b0 .. b0 + group - 1 of a batch of B
+// (one sample group of kernels/pairwise.py::bwd_groups) on `stream` for
+// their tile plan (wgs, slots, stages, grid, cluster, splits, smem) of
+// kernels/pairwise.py::tile_plan: the fused kernel, then (splits > 1) the
+// ordered sum of the sample splits' slices of du, dv, ds, dqa, then
+// dw_gemm_kernel over `dw_splits` splits of the group's rows, each split's
+// sum added onto its partial of the groups before (b0 > 0); after the last group (b0 +
+// group == B), the ordered sums of the dW and db partials. Returns
+// cudaErrorInvalidValue for a plan it cannot take. Device pointers to
+// contiguous tensors of the whole batch: u (B,ni,H), v (B,nj,H), s, qa (B,H),
+// bs (L-1,H) in bf16; wt_chunks = pack_weight_chunks(W^T), w_chunks =
+// pack_weight_chunks(W) (cluster 2: of each CTA's pair_halves slice, rank
 // after rank); g (B,H) fp32; outputs grads, fp32 zero, du (B,ni,H) | dv
-// (B,nj,H) | ds (B,H) | dqa (B,H) in one buffer, dws (L-1,H,H), dbs
-// (L-1,H) fp32; grad_part (splits, size of grads) fp32 zero when splits >
-// 1 (cluster 1 only), else null; db_part (grid,L-1,H) fp32 zero; dw_part
-// (grid,L-1,H,H) fp32 zero (cluster 1) or (dw_splits,L-1,H,H) fp32
-// (cluster 2); act (2,L-1,B*nblk,2,128*H/2) bf16 for the stored tiles
-// (cluster 2; null otherwise); phases (grid, 9) int64 or null. Pair
-// dropout as in rnet_pairwise_fwd. Returns cudaGetLastError().
+// (B,nj,H) | ds (B,H) | dqa (B,H) in one buffer, dws (L-1,H,H), dbs (L-1,H)
+// fp32; grad_part (splits, the group's du | dv | ds | dqa) fp32 zero when
+// splits > 1, else null; db_part (db_rows >= every group's grid, L-1, H)
+// fp32 zero before the first group; dw_part (dw_splits, L-1, H, H) fp32;
+// act (2, L-1, group * nblk, cluster, 64 * wgs * H / cluster) bf16 for the
+// stored tiles; phases (grid, 9) int64 or null. Pair dropout as in
+// rnet_pairwise_fwd. Returns cudaGetLastError().
 int rnet_pairwise_bwd(const void* u, const void* v, const void* s, const void* qa, const void* wt_chunks,
                       const void* w_chunks, const void* bs, const void* g, void* grads, void* grad_part, void* dws,
-                      void* dbs, void* dw_part, void* db_part, void* act, int B, int ni, int nj, int H, int L,
-                      int inject, int wgs, int slots, int stages, int grid, int cluster, int dw_splits, int splits,
-                      long long smem, int drop, const void* seed, unsigned int thr, float inv_keep, void* phases,
-                      void* stream) {
+                      void* dbs, void* dw_part, void* db_part, void* act, int B, int b0, int group, int ni, int nj,
+                      int H, int L, int inject, int wgs, int slots, int stages, int grid, int cluster, int dw_splits,
+                      int db_rows, int splits, long long smem, int drop, const void* seed, unsigned int thr,
+                      float inv_keep, void* phases, void* stream) {
   // a cluster of 2: two warpgroups on the NT columns each of a CTA's H / 2, one sample a unit
-  const bool pair_ok = cluster == 2 && wgs == 2 && H == 2 * NT * 2 && grid % 2 == 0 && act != nullptr &&
-                       dw_splits >= 1 && splits == 1;
+  const bool pair_ok = cluster == 2 && wgs == 2 && H == 2 * NT * 2 && grid % 2 == 0 && splits == 1;
   if ((wgs != 1 && wgs != 2) || H % NT != 0 || L < 2 || (cluster != 1 && !pair_ok) ||
-      slots < (L - 1 > 3 ? L - 1 : 3) || stages < 3 || grid < 1 || splits < 1 ||
-      (splits > 1) != (grad_part != nullptr) ||
+      slots < (L - 1 > 3 ? L - 1 : 3) || stages < 3 || grid < 1 || splits < 1 || act == nullptr || dw_splits < 1 ||
+      db_rows < grid || b0 < 0 || group < 1 || b0 + group > B || (splits > 1) != (grad_part != nullptr) ||
       smem != (long long)smem_bytes(64 * wgs, H / cluster, slots, stages, cluster))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long ngrad = (long long)B * (ni + nj + 2) * H;  // du | dv | ds | dqa
-  float* du = static_cast<float*>(splits > 1 ? grad_part : grads);
-  float* dv = du + (size_t)B * ni * H;
-  float* ds = dv + (size_t)B * nj * H;
-  Args a{static_cast<const bf16*>(u), static_cast<const bf16*>(v), static_cast<const bf16*>(s),
-         static_cast<const bf16*>(qa), static_cast<const bf16*>(wt_chunks), static_cast<const bf16*>(w_chunks),
-         static_cast<const bf16*>(bs), static_cast<const float*>(g), du, dv, ds, ds + (size_t)B * H,
-         static_cast<float*>(dw_part), static_cast<float*>(db_part), static_cast<bf16*>(act), B, ni, nj, H, L,
-         inject, splits, splits > 1 ? ngrad : 0, slots, stages, static_cast<const int64_t*>(seed), thr, inv_keep,
+  // the group's rows of du | dv | ds | dqa in grads, and their sizes
+  float* const gr = static_cast<float*>(grads);
+  float* const rows[4] = {gr + (size_t)b0 * ni * H, gr + ((size_t)B * ni + (size_t)b0 * nj) * H,
+                          gr + ((size_t)B * (ni + nj) + b0) * H, gr + ((size_t)B * (ni + nj + 1) + b0) * H};
+  const long long n[4] = {(long long)group * ni * H, (long long)group * nj * H, (long long)group * H,
+                          (long long)group * H};
+  const long long ngrad = n[0] + n[1] + n[2] + n[3];
+  float* part = static_cast<float*>(grad_part);  // split slices: the group's du | dv | ds | dqa
+  float* du = splits > 1 ? part : rows[0];
+  float* dv = splits > 1 ? du + n[0] : rows[1];
+  float* ds = splits > 1 ? dv + n[1] : rows[2];
+  float* dqa = splits > 1 ? ds + n[2] : rows[3];
+  const size_t o = (size_t)b0 * H;
+  Args a{static_cast<const bf16*>(u) + o * ni, static_cast<const bf16*>(v) + o * nj, static_cast<const bf16*>(s) + o,
+         static_cast<const bf16*>(qa) + o, static_cast<const bf16*>(wt_chunks), static_cast<const bf16*>(w_chunks),
+         static_cast<const bf16*>(bs), static_cast<const float*>(g) + o, du, dv, ds, dqa,
+         static_cast<float*>(db_part), static_cast<bf16*>(act), group, b0, ni, nj, H, L, inject, splits,
+         splits > 1 ? ngrad : 0, slots, stages, static_cast<const int64_t*>(seed), thr, inv_keep,
          static_cast<long long*>(phases)};
   cudaError_t err = drop ? dispatch<true>(a, wgs, cluster, grid, (size_t)smem, st)
                          : dispatch<false>(a, wgs, cluster, grid, (size_t)smem, st);
   if (err != cudaSuccess) return (int)err;
-  if (splits > 1)
-    reduce_partials_kernel<<<(unsigned)((ngrad + 255) / 256), 256, 0, st>>>(
-        static_cast<const float*>(grad_part), static_cast<float*>(grads), splits, ngrad);
-  const long long nw = (long long)(L - 1) * H * H;
-  const long long nb = (long long)(L - 1) * H;
-  if (cluster == 2) {
-    static size_t allowed = 0;
-    err = raise_smem_limit(dw_gemm_kernel, G_SMEM, allowed);
-    if (err != cudaSuccess) return (int)err;
-    const long long blocks = (long long)B * ((ni * nj + 127) / 128);
-    const int ntiles = (L - 1) * (H / G_M) * (H / G_N);
-    dw_gemm_kernel<<<(unsigned)(dw_splits * ntiles), 2 * WG_THREADS + 32, G_SMEM, st>>>(a.act, a.dw_part, H, L,
-                                                                                         blocks, dw_splits);
-    reduce_partials_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws),
-                                                                          dw_splits, nw);
-  } else {
-    reduce_dw_kernel<<<(unsigned)((nw + 255) / 256), 256, 0, st>>>(a.dw_part, static_cast<float*>(dws), grid, H,
-                                                                    nw);
+  if (splits > 1) {  // the slices are laid out as the batch's rows when the group is the batch
+    if (group == B) {
+      reduce_partials(part, ngrad, gr, splits, ngrad, st);
+    } else {
+      long long at = 0;
+      for (int k = 0; k < 4; at += n[k++]) reduce_partials(part + at, ngrad, rows[k], splits, n[k], st);
+    }
   }
-  reduce_partials_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, st>>>(a.db_part, static_cast<float*>(dbs), grid,
-                                                                        nb);
+  const int bm = 64 * wgs;
+  const long long blocks = (long long)group * ((ni * nj + bm - 1) / bm);
+  float* dwp = static_cast<float*>(dw_part);
+  err = H % (2 * NT) == 0 ? launch_gemm<2>(a.act, dwp, H, L, cluster, bm, blocks, dw_splits, b0 > 0, st)
+                          : launch_gemm<1>(a.act, dwp, H, L, cluster, bm, blocks, dw_splits, b0 > 0, st);
+  if (err != cudaSuccess) return (int)err;
+  if (b0 + group == B) {
+    const long long nw = (long long)(L - 1) * H * H, nbias = (long long)(L - 1) * H;
+    reduce_partials(dwp, nw, static_cast<float*>(dws), dw_splits, nw, st);
+    reduce_partials(a.db_part, nbias, static_cast<float*>(dbs), db_rows, nbias, st);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -144,20 +144,26 @@ __device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t
       : "memory");
 }
 
-// 1-D bulk copy shared -> global, in the issuing thread's current bulk
-// group (bulk_commit closes it; bulk_wait_read waits until every committed
-// group has read its shared memory, bulk_wait_all until it is written).
-__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
+// 1-D bulk copy shared -> global under the L2 policy `pol`, in the issuing
+// thread's current bulk group (bulk_commit closes it; bulk_wait_read<N>
+// waits until all but the N newest committed groups have read their shared
+// memory, bulk_wait_all until every one is written).
+__device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src, uint32_t bytes, uint64_t pol) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], %2, %3;\n" ::"l"(dst),
+               "r"(src), "r"(bytes), "l"(pol)
                : "memory");
 }
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+template <int N = 0>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
 __device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 // An L2 policy that evicts the lines it touches first: for data streamed
-// once per pass (the dW partials), so that it does not push out what is
-// reused (the packed W chunks, du / dv of the sample in hand).
+// once per pass (the fp32 dW partials, the bf16 backward's stored tiles),
+// so that it does not push out what is reused (the packed W chunks, du / dv
+// of the sample in hand).
 __device__ __forceinline__ uint64_t l2_evict_first() {
   uint64_t pol;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(pol));
@@ -617,22 +623,6 @@ __device__ __forceinline__ void pair_product_rows(float (&acc)[MH][NT / 2], uint
   for (int m = 0; m < MH; ++m)
 #pragma unroll
     for (int i = 0; i < NT / 2; ++i) keep(acc[m][i]);
-}
-
-// acc += A^T . D over `rows` (a multiple of 16) tile rows: the 64 x NT block
-// of dW = a_{l-1}^T dpre_l whose rows start at column 64*mt of a_{l-1} and
-// whose columns start at column NT*nt of dpre_l. Both operands are read
-// MN-major from core-matrix tiles of width H.
-__device__ __forceinline__ void dw_product(float (&acc)[NT / 2], uint32_t a_tile, uint32_t d_tile, int mt, int nt,
-                                           int H, int rows) {
-  const uint32_t a0 = a_tile + mt * 8 * 128;
-  const uint32_t d0 = d_tile + nt * (NT / 8) * 128;
-  const uint32_t kstep = 2 * 16 * H;  // 16 rows = two 8-row groups of 16*H bytes
-  wgmma_fence();
-  for (int ks = 0; ks < rows / 16; ++ks)
-    wgmma_m64n128<1, 1>(acc, desc(a0 + ks * kstep, 16 * H, 128), desc(d0 + ks * kstep, 16 * H, 128), 1);
-  wgmma_commit();
-  wgmma_wait<0>();
 }
 
 // acc = 1^T . D over `rows` tile rows for the NT columns from NT*nt of D:

@@ -85,7 +85,11 @@ INT8_EXACT_MAX_H = 1040
 # Kernel launches since the last reset_launches() (the main-path proof in
 # chip_smoke.py). "pair_mask" counts the launches that drew Philox pair-mask
 # bits: a forward or backward launch with pair_keep < 1, or the mask kernel.
-launches = {KERNEL: 0, BWD_KERNEL: 0, "pair_mask": 0, INT8_KERNEL: 0, F32_KERNEL: 0, F32_BWD_KERNEL: 0}
+# STORED_GROUPS counts the bf16 backward's sample groups (``bwd_groups``): one
+# fused launch and one dW GEMM each, so BWD_KERNEL calls or more.
+STORED_GROUPS = "bwd_stored_groups"
+launches = {KERNEL: 0, BWD_KERNEL: 0, STORED_GROUPS: 0, "pair_mask": 0, INT8_KERNEL: 0, F32_KERNEL: 0,
+            F32_BWD_KERNEL: 0}
 
 _libs = {}
 
@@ -112,7 +116,7 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 17 + [i32] * 13 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd_f32.restype = i32
     else:
-        lib.rnet_pairwise_bwd.argtypes = [vp] * 15 + [i32] * 13 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_bwd.argtypes = [vp] * 15 + [i32] * 16 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd.restype = i32
     lib.rnet_cuda_error_string.argtypes = [i32]
     lib.rnet_cuda_error_string.restype = ctypes.c_char_p
@@ -320,12 +324,11 @@ H100_SMS = 132
 # columns c * H / PAIR .. of every product, with H / PAIR = 256 columns of
 # every activation tile in its shared memory (the layout of the H=256
 # kernels) and the peer's half read through distributed shared memory; each
-# CTA streams only its rows of W (``pair_halves``). In the backward, bf16: each CTA
-# stores a_{l-1} and dpre_l of its columns for every block (bf16, the tiles
-# as they are) and a GEMM kernel sums dW over all rows afterwards
-# (``dw_splits``). fp32: its dW partial is (L-1) x H x H / PAIR, so a block
-# of rows costs half the flush of one CTA holding all of dW, over four
-# times the rows.
+# CTA streams only its rows of W (``pair_halves``). In the fp32 backward its
+# dW partial is (L-1) x H x H / PAIR, so a block of rows costs half the flush
+# of one CTA holding all of dW, over four times the rows. (The bf16 backward,
+# one CTA or a cluster, stores a_{l-1} and dpre_l of every block and sums dW
+# in a GEMM: ``bwd_groups``, ``dw_splits``.)
 PAIR_WIDTH = 512
 PAIR = 2
 KINDS = ("fwd", "bwd", "int8")
@@ -334,12 +337,14 @@ KINDS = ("fwd", "bwd", "int8")
 PHASE_DEFINES = ("RNET_PHASE_TIMES",)
 PHASE_SLOTS = 9
 # "pair_wait": a cluster kernel's waits for its peer CTA (0 in the one-CTA
-# kernels). In the bf16 cluster backward "dW_products" holds the column sums'
-# products and "dW_flush" the stores of a_{l-1} and dpre_l (their dW is a
-# second kernel).
+# kernels). In the bf16 backward "column_sums" holds the db / dqa products
+# and "store" the issue of a_{l-1} and dpre_l's bulk stores and the wait for
+# them to be read (dW is a second kernel); the fp32 backward's slots 1 and 2
+# are its dW products and the flush of its dW partial (F32_BWD_PHASES).
 FWD_PHASES = ("products", "epilogues", "pool", "feed_wait", "a0", "barriers", "pair_wait")
-BWD_PHASES = ("recompute", "dW_products", "dW_flush", "d_products", "column_pass", "feed_wait", "a0", "barriers",
+BWD_PHASES = ("recompute", "column_sums", "store", "d_products", "column_pass", "feed_wait", "a0", "barriers",
               "pair_wait")
+F32_BWD_PHASES = ("recompute", "dW_products", "dW_flush", *BWD_PHASES[3:])
 INT8_PHASES = FWD_PHASES  # "pair_wait": the cluster kernel's waits for its peer's half of a slot
 
 
@@ -542,15 +547,49 @@ def sample_splits(B: int, nblk: int, sms: int = H100_SMS) -> int:
     return max(1, min(sms // B, nblk))
 
 
-DW_TILE = (128, 256)  # the output tile of the bf16 cluster backward's dW GEMM (dw_gemm_kernel)
+# Bytes of stored a_{l-1} and dpre_l tiles (the ``act`` buffer) one call of
+# the bf16 backward may hold: ``bwd_groups`` runs a batch whose tiles would
+# not fit in groups of samples. It holds wide-fp's 12.9 GB at B=512, so that
+# the B=512 train steps of both widths (original-fp's 6.44 GB) run as one.
+BWD_STORE_BUDGET = 16 << 30
+
+
+def stored_bytes(plan: TilePlan) -> int:
+    """Bytes of the bf16 backward's stored tiles a sample: a_{l-1} and
+    dpre_l (l = 1 .. L-1) of each of its nblk blocks of bm rows, all H
+    columns (every rank's share in a cluster), in bf16."""
+    return 2 * (plan.L - 1) * plan.nblk * plan.bm * plan.H * 2
+
+
+def bwd_groups(B: int, ni: int, nj: int, H: int, L: int, sms: int = H100_SMS) -> Tuple[Tuple[int, TilePlan], ...]:
+    """The sample groups of the bf16 backward: (first sample, the group's
+    ``tile_plan("bwd", ...)``) for consecutive groups that cover the batch in
+    order. One group when the batch's stored tiles fit BWD_STORE_BUDGET;
+    else groups of the most samples that fit (at least one), rounded down to
+    fill the card: to whole multiples of ``sms`` samples when that many fit,
+    else to sms // ceil(sms / n), whose sample splits give one CTA a unit on
+    (nearly) every SM. The last group takes what is left. The shape alone
+    decides."""
+    per = stored_bytes(tile_plan("bwd", 1, ni, nj, H, L, sms))
+    n = max(1, min(B, BWD_STORE_BUDGET // per))
+    if n < B:
+        n = n // sms * sms if n >= sms else sms // -(-sms // n)
+    return tuple((b0, tile_plan("bwd", min(n, B - b0), ni, nj, H, L, sms)) for b0 in range(0, B, n))
+
+
+def dw_tile(H: int) -> Tuple[int, int]:
+    """The output tile (rows, columns) of the bf16 backward's dW GEMM
+    (dw_gemm_kernel): 128 x 256, or 128 x 128 where 256 does not divide H."""
+    return 128, (256 if H % 256 == 0 else 128)
 
 
 def dw_splits(plan: TilePlan, sms: int = H100_SMS) -> int:
-    """Splits of the pair rows in the bf16 cluster backward's dW GEMM: as
-    many as give every SM two of its (L-1) x (H / 128) x (H / 256) output
-    tiles, at most one per 64-row chunk."""
-    tiles = (plan.L - 1) * (plan.H // DW_TILE[0]) * (plan.H // DW_TILE[1])
-    return max(1, min(2 * plan.B * plan.nblk, 2 * sms // tiles))
+    """Splits of the pair rows in the bf16 backward's dW GEMM: as many as
+    give every SM two of its (L-1) x (H / rows) x (H / columns) output tiles
+    (``dw_tile``), at most one per 64-row chunk of the plan's blocks."""
+    gm, gn = dw_tile(plan.H)
+    tiles = (plan.L - 1) * (plan.H // gm) * (plan.H // gn)
+    return max(1, min(plan.B * plan.nblk * plan.bm // WG_ROWS, 2 * sms // tiles))
 
 
 def _pair_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int, esize: int) -> Optional[TilePlan]:
@@ -862,13 +901,19 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
     upstream gradient g (B, H) fp32; (du, dv, ds, dqa, dws, dbs) in fp32,
     du, dv, ds and dqa views of one buffer. Raises as ``pairwise_fwd_cuda``
     does; ``phases`` as there, for the grid of ``tile_plan("bwd", ...)`` and
-    the BWD_PHASES.
+    the BWD_PHASES (F32_BWD_PHASES in fp32), where the batch is one sample
+    group.
+
+    bf16: each sample group of ``bwd_groups`` is one launch of the fused
+    kernel and one of the dW GEMM (``launches[STORED_GROUPS]``), through one
+    buffer of stored a_{l-1} and dpre_l tiles within BWD_STORE_BUDGET
+    (``stored_bytes`` a sample: 6.44 GB at original-fp B=512).
 
     Memory: a plan of S = ``plan.splits`` > 1 CTAs per sample adds S zeroed
     fp32 slices of du, dv, ds and dqa (bf16; fp32: of du and dv, and S fp64
     (2, B, H) sums), which a second kernel adds in split order: at
-    stretch-fp-32's B=8 (n = 1,024, H = 256, S = 16) the du and dv slices
-    are 134 MB each."""
+    stretch-fp-32's B=8 (n = 1,024, H = 256) in fp32 (S = 16) the du and dv
+    slices are 134 MB each."""
     B, ni, nj, H, L = check_kernel_inputs(u, v, s, qa, ws, bs)
     if g.dtype != torch.float32 or tuple(g.shape) != (B, H) or not g.is_contiguous():
         raise ValueError(f"g must be a contiguous fp32 ({B}, {H}) tensor; got {g.dtype} {tuple(g.shape)}")
@@ -877,34 +922,38 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
     if u.dtype == torch.float32:
         return _bwd_f32(u, v, s, qa, ws, bs, g, int(inject), B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep,
                         phases)
-    plan = tile_plan("bwd", B, ni, nj, H, L, _sms(dev))
-    phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
+    groups = bwd_groups(B, ni, nj, H, L, _sms(dev))
+    first = groups[0][1]
+    if phases is not None and len(groups) > 1:
+        raise ValueError(f"phases: the backward at B={B} runs {len(groups)} sample groups; time one group")
+    phase_ptr, defines = _phase_buffer(phases, first.grid, dev)
     lib = _kernel_lib(BWD_KERNEL, defines)
-    wt_chunks, w_chunks = (_pack_for(x, plan, pack_weight_chunks) for x in (ws.transpose(1, 2), ws))
+    wt_chunks, w_chunks = (_pack_for(x, first, pack_weight_chunks) for x in (ws.transpose(1, 2), ws))
     f32 = dict(dtype=torch.float32, device=dev)
     grads, views = _grad_buffer(B, ni, nj, H, dev)
-    # the splits' slices of du | dv | ds | dqa, added in split order after the kernel
-    grad_part = torch.zeros((plan.splits, grads.numel()), **f32) if plan.splits > 1 else None
     dws, dbs = torch.empty((L - 1, H, H), **f32), torch.empty((L - 1, H), **f32)
-    gemm_splits, act = 0, None
-    if plan.cluster > 1:  # the stored a_{l-1}, dpre_l tiles and the GEMM's split partials of dW
-        gemm_splits = dw_splits(plan, _sms(dev))
-        act = torch.empty((2, L - 1, B * plan.nblk, plan.cluster, plan.bm * plan.width), dtype=torch.bfloat16,
-                          device=dev)
-        dw_part = torch.empty((gemm_splits, L - 1, H, H), **f32)
-    else:
-        dw_part = torch.zeros((plan.grid, L - 1, H, H), **f32)
-    db_part = torch.zeros((plan.grid, L - 1, H), **f32)
+    gemm_splits = dw_splits(first, _sms(dev))
+    # the stored a_{l-1}, dpre_l tiles of the largest group, the GEMM's split partials of dW, the CTAs' of db
+    act = torch.empty((2, L - 1, first.B * first.nblk, first.cluster, first.bm * first.width), dtype=torch.bfloat16,
+                      device=dev)
+    dw_part = torch.empty((gemm_splits, L - 1, H, H), **f32)
+    db_rows = max(plan.grid for _, plan in groups)
+    db_part = torch.zeros((db_rows, L - 1, H), **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rnet_pairwise_bwd(
-            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), wt_chunks.data_ptr(), w_chunks.data_ptr(),
-            bs.data_ptr(), g.data_ptr(), grads.data_ptr(), _ptr(grad_part), dws.data_ptr(), dbs.data_ptr(),
-            dw_part.data_ptr(), db_part.data_ptr(), _ptr(act), B, ni, nj, H, L, int(inject), plan.wgs, plan.slots,
-            plan.stages, plan.grid, plan.cluster, gemm_splits, plan.splits, plan.smem, drop, seed_ptr, thr,
-            inv_keep, phase_ptr, stream,
-        )
-    _raise_on_error(lib, err, BWD_KERNEL)
+        for b0, plan in groups:
+            # the splits' slices of the group's du | dv | ds | dqa, added in split order after the kernel
+            grad_part = (torch.zeros((plan.splits, plan.B * (ni + nj + 2) * H), **f32) if plan.splits > 1
+                         else None)
+            err = lib.rnet_pairwise_bwd(
+                u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), wt_chunks.data_ptr(), w_chunks.data_ptr(),
+                bs.data_ptr(), g.data_ptr(), grads.data_ptr(), _ptr(grad_part), dws.data_ptr(), dbs.data_ptr(),
+                dw_part.data_ptr(), db_part.data_ptr(), act.data_ptr(), B, b0, plan.B, ni, nj, H, L, int(inject),
+                plan.wgs, plan.slots, plan.stages, plan.grid, plan.cluster, gemm_splits, db_rows, plan.splits,
+                plan.smem, drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
+            )
+            _raise_on_error(lib, err, BWD_KERNEL)
+            launches[STORED_GROUPS] += 1
     launches[BWD_KERNEL] += 1
     launches["pair_mask"] += drop
     return (*views, dws, dbs)

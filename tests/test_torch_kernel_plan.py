@@ -19,12 +19,16 @@ object grid of ``config.json``, and every agreement case of
   and dqa; at H = 512 one owner cluster of two CTAs, each on its half of
   the output columns, so that every (row, column) still has one writer;
 * at B >= SMs the backward's plan is the one-owner plan field for field;
+* the bf16 backward's sample groups (``bwd_groups``) cover the batch in
+  order, each group's stored tiles within BWD_STORE_BUDGET, and its dW
+  GEMM's row splits cover every 64-row chunk once, in order;
 * at H = 512 the forward on clusters of two CTAs too, both on the same
   tiles, each on its half of the columns.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 
@@ -310,8 +314,8 @@ def test_pair_plan_splits_the_columns_over_a_cluster(esize, shape):
     its (L-1) x H x H/2 partial once per 64 rows, a quarter of what the
     one-CTA wide kernel's (L-1) x H x H partial cost per row over its
     16-row blocks; bf16, each CTA writes a_{l-1} and dpre_l of its columns
-    once and the GEMM reads them once, an eighth of what the one-CTA
-    plan's partial cost per row over its 64-row blocks."""
+    once and the GEMM reads them once, ``stored_bytes`` a sample, per row and
+    column what the one-CTA route stores at H=256."""
     B, ni, nj, H, L = shape
     plan = tpw.tile_plan("bwd", *shape, SMS, esize=esize)
     assert (plan.cluster, plan.width, plan.wgs) == (tpw.PAIR, H // 2, 2) and plan.grid % 2 == 0
@@ -323,13 +327,13 @@ def test_pair_plan_splits_the_columns_over_a_cluster(esize, shape):
         assert plan.ring and (plan.bm, plan.slots) == (64, max(2, L - 1)) and plan.stages >= 2
     _assert_tiles_every_row_once(plan)
     _assert_backward_units(plan)
-    # bytes per pair row; the one-CTA plans this replaced read and wrote an
-    # (L-1) x H x H fp32 partial per 64-row (bf16) or 16-row (fp32) block
-    one_cta = 2 * (L - 1) * H * H * 4 / (64 if esize == 2 else 16)
-    if esize == 2:  # a_{l-1} and dpre_l of each rank's columns in bf16, written once and read once
+    if esize == 2:  # a_{l-1} and dpre_l of each rank's columns in bf16, written once and read once, per pair row
         stored = 2 * plan.cluster * 2 * (L - 1) * plan.width * 2
-        assert stored * 8 == one_cta
-    else:
+        assert stored == 2 * tpw.stored_bytes(plan) / (plan.nblk * plan.bm)
+        one = tpw.tile_plan("bwd", B, ni, nj, 256, L, SMS)
+        assert one.cluster == 1 and stored / H == 2 * tpw.stored_bytes(one) / (one.nblk * one.bm) / 256
+    else:  # the one-CTA wide kernel read and wrote an (L-1) x H x H fp32 partial per 16-row block
+        one_cta = 2 * (L - 1) * H * H * 4 / 16
         flush = plan.cluster * 2 * (L - 1) * H * plan.width * 4 / plan.bm
         assert flush * 4 == one_cta
 
@@ -375,24 +379,74 @@ def test_pair_forward_plan_splits_the_columns_over_a_cluster(esize, shape):
     assert new * (plan.bm // 64 if esize == 2 else 2) == old
 
 
-@pytest.mark.parametrize("shape", PAIR_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+# The bf16 backward's dW GEMM off the cluster width: original-fp at B=512 and
+# 64 (128-row blocks, tiles of 128 x 256), H=384 (64-row blocks, 128 x 128)
+# and H=128 (128-row blocks, 128 x 128)
+ONE_CTA_GEMM_SHAPES = [(512, 64, 64, 256, 4), (64, 64, 64, 256, 4), (8, 64, 64, 384, 4), (140, 64, 64, 384, 4),
+                       (3, 12, 12, 128, 3)]
+
+
+@pytest.mark.parametrize("shape", PAIR_SHAPES + ONE_CTA_GEMM_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_dw_gemm_splits_cover_the_rows_in_order(shape):
-    """The bf16 cluster backward's dW GEMM: (L-1) x (H/128) x (H/256) output
-    tiles cover every dW element once; the rows (B x nblk blocks of 128,
-    two 64-row chunks each) split into dw_splits contiguous ranges, in
-    order, each chunk in one range, about two CTAs per SM and never more
-    splits than chunks."""
+    """The bf16 backward's dW GEMM: (L-1) x (H/128) x (H/gn) output tiles
+    (``dw_tile``: gn = 256, or 128 where 256 does not divide H) cover every
+    dW element once, each within one rank's columns; the rows (B x nblk
+    blocks of bm, bm / 64 chunks of 64 rows each) split into dw_splits
+    contiguous ranges, in order, each chunk in one range, about two CTAs per
+    SM and never more splits than chunks. At original-fp's H=256, 6 tiles
+    and 44 splits: 264 CTAs, two full waves of the card."""
     plan = tpw.tile_plan("bwd", *shape, SMS)
     B, _, _, H, L = shape
-    gm, gn = tpw.DW_TILE
+    gm, gn = tpw.dw_tile(H)
     tiles = (L - 1) * (H // gm) * (H // gn)
-    assert tiles * gm * gn == (L - 1) * H * H and gn == plan.width
+    assert tiles * gm * gn == (L - 1) * H * H and plan.width % gn == 0 and gn == (256 if H % 256 == 0 else 128)
     splits = tpw.dw_splits(plan, SMS)
-    nq = 2 * B * plan.nblk
+    nq = plan.bm // 64 * B * plan.nblk
     assert 1 <= splits <= nq and splits * tiles <= max(2 * SMS, tiles)
     assert splits == nq or (splits + 1) * tiles > 2 * SMS
     ranges = [range(nq * sp // splits, nq * (sp + 1) // splits) for sp in range(splits)]
     assert [q for r in ranges for q in r] == list(range(nq))
+    if shape[1:] == (64, 64, 256, 4) and B == 512:
+        assert (tiles, splits) == (6, 44)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+def test_backward_sample_groups_cover_the_batch_within_the_budget(shape):
+    """``bwd_groups``: consecutive groups of samples cover the batch in
+    order, each with the plan ``tile_plan`` gives its size, and each group's
+    stored tiles within BWD_STORE_BUDGET (a group of one sample where one
+    alone is more); one group when the batch's tiles fit. Several groups
+    are all of one size but the last, and fill the card: a whole multiple
+    of the SMs, or one unit a CTA on at least 128 of the 132."""
+    B, ni, nj, H, L = shape
+    groups = tpw.bwd_groups(*shape, SMS)
+    per = tpw.stored_bytes(tpw.tile_plan("bwd", 1, ni, nj, H, L, SMS))
+    assert [b0 for b0, _ in groups] == list(itertools.accumulate([0] + [p.B for _, p in groups][:-1]))
+    assert sum(p.B for _, p in groups) == B
+    for b0, plan in groups:
+        assert plan == tpw.tile_plan("bwd", plan.B, ni, nj, H, L, SMS)
+        assert tpw.stored_bytes(plan) == per
+        assert plan.B * per <= tpw.BWD_STORE_BUDGET or plan.B == 1
+    assert (len(groups) == 1) == (B * per <= tpw.BWD_STORE_BUDGET)
+    if len(groups) > 1:
+        n = groups[0][1].B
+        assert all(p.B == n for _, p in groups[:-1]) and groups[-1][1].B <= n
+        assert n % SMS == 0 or (n < SMS and groups[0][1].grid >= 128)
+
+
+@pytest.mark.parametrize("shape, n_groups", [
+    ((512, 64, 64, 256, 4), 1), ((1024, 64, 64, 256, 4), 1), ((512, 64, 64, 512, 4), 1),
+    ((8, 1024, 1024, 256, 4), 2), ((16, 1024, 1024, 256, 4), 4), ((512, 256, 256, 256, 4), 8),
+    ((2048, 64, 64, 512, 4), 4)], ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s) if isinstance(s, tuple) else str(s))
+def test_backward_sample_groups_by_shape(shape, n_groups):
+    """original-fp at B=512 (6.44 GB of tiles) and 1024, and wide-fp at
+    B=512 (12.9 GB), run as one group; stretch-fp-32 at B=8 and 16 (3.22 GB
+    a sample) in groups of 4 on 33 CTAs a sample, stretch-fp-16 at B=512 (201
+    MB a sample) in groups of 66 on 2, wide-fp at B=2048 in groups of 660."""
+    groups = tpw.bwd_groups(*shape, SMS)
+    assert len(groups) == n_groups
+    if n_groups > 1:
+        assert groups[0][1].grid == SMS
 
 
 @pytest.mark.parametrize("esize", [2, 4])

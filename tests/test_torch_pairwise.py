@@ -278,36 +278,46 @@ def _core_index(rows, width):
     return ((((r >> 3) * (width >> 3) + (c >> 3)) << 6) + ((r & 7) << 3) + (c & 7))
 
 
-def _stored_tiles_dw(stored, plan, L, splits):
-    """dw_gemm_kernel's dW over the tiles the bf16 cluster kernel stored:
-    `stored` is the flat act buffer (2, L-1, blocks, 2 ranks, 128 x W tiles
-    in core-matrix order); CTA (split, tile) gathers its 64-row chunks with
-    the kernel's offsets (A: 128 columns of a_{l-1}, one 2 KB copy per row
-    group; D: 256 columns of dpre_l, one copy), multiplies, and the splits
-    are added in order."""
-    H, W = plan.H, plan.width
-    gm, gn = tpw.DW_TILE
-    tile_el = 2 * 64 * W
-    nb = stored.numel() // (2 * (L - 1) * 2 * tile_el)
+def _stored_tiles_dw(stored, plan, L, splits, part=None):
+    """dw_gemm_kernel over the tiles one launch of the bf16 backward stored
+    under `plan` (one sample group): `stored` is the flat act buffer (2, L-1,
+    the group's B x nblk blocks, cluster ranks, bm x W tiles in core-matrix
+    order); CTA (split, tile) gathers its 64-row chunks with the kernel's
+    offsets (A: 128 columns of a_{l-1}, D: ``dw_tile``'s columns of dpre_l,
+    one copy per 8-row group each), multiplies, sums its chunks from zero
+    and adds the sum onto `part`, the splits' partials of the groups before
+    (zero when None). Returns part."""
+    H, W, cl, bm = plan.H, plan.width, plan.cluster, plan.bm
+    gm, gn = tpw.dw_tile(H)
+    tile_el = bm * W
+    nb = plan.B * plan.nblk
     per_layer = (H // gm) * (H // gn)
     ntiles = (L - 1) * per_layer
-    nq = 2 * nb
+    cpb = bm // 64
+    nq = cpb * nb
     a_idx, d_idx = _core_index(64, gm), _core_index(64, gn)
-    part = torch.zeros((splits, L - 1, H, H))
+    part = torch.zeros((splits, L - 1, H, H)) if part is None else part
     for cta in range(splits * ntiles):
         sp, t = divmod(cta, ntiles)
         li, m0, n0 = t // per_layer, (t % per_layer) // (H // gn) * gm, t % (H // gn) * gn
-        a_base = (li * nb * 2 + m0 // W) * tile_el + (m0 % W) // 8 * 64
-        d_base = ((L - 1 + li) * nb * 2 + n0 // W) * tile_el
+        a_base = (li * nb * cl + m0 // W) * tile_el + (m0 % W) // 8 * 64
+        d_base = ((L - 1 + li) * nb * cl + n0 // W) * tile_el + (n0 % W) // 8 * 64
+        acc = torch.zeros(gm, gn)
         for q in range(nq * sp // splits, nq * (sp + 1) // splits):
-            off = (q >> 1) * 2 * tile_el + (q & 1) * 64 * W
+            off = (q // cpb) * cl * tile_el + (q % cpb) * 64 * W  # block, then chunk
             a_stage = torch.cat([stored[a_base + off + rg * 8 * W:][:gm // 8 * 64] for rg in range(8)])
-            d_stage = stored[d_base + off:][:64 * gn]
-            part[sp, li, m0:m0 + gm, n0:n0 + gn] += a_stage[a_idx].T @ d_stage[d_idx]
-    dws = torch.zeros(L - 1, H, H)
-    for sp in range(splits):  # in split order, as reduce_partials_kernel
-        dws += part[sp]
-    return dws
+            d_stage = torch.cat([stored[d_base + off + rg * 8 * W:][:gn // 8 * 64] for rg in range(8)])
+            acc += a_stage[a_idx].T @ d_stage[d_idx]
+        part[sp, li, m0:m0 + gm, n0:n0 + gn] += acc
+    return part
+
+
+def _in_order(parts):
+    """parts[0] + parts[1] + ..., in order, as reduce_partials_kernel adds them."""
+    total = torch.zeros_like(parts[0])
+    for p in parts:
+        total += p
+    return total
 
 
 def _pair_backward_emulation(args, g, inject, sms, esize=4):
@@ -379,7 +389,7 @@ def _pair_backward_emulation(args, g, inject, sms, esize=4):
                 ds[b, cols[c]] += dpre[c].sum(0)
     dws = torch.zeros(L - 1, H, H)
     if esize == 2:
-        dws = _stored_tiles_dw(stored, plan, L, tpw.dw_splits(plan, 64))
+        dws = _in_order(_stored_tiles_dw(stored, plan, L, tpw.dw_splits(plan, 64)))
     for c in range(2 if esize == 4 else 0):
         for q in range(0, plan.grid, 2):  # pair order
             dws[:, :, cols[c]] += part[q + c]
@@ -420,6 +430,147 @@ def test_pair_backward_stored_tiles_match_jax_vjp_fp32(inject):
     got = _pair_backward_emulation(args, g, inject, sms=4, esize=2)
     for name, w, d in zip(GRAD_NAMES, want, got):
         assert d.shape == w.shape, name
+        np.testing.assert_allclose(d, w, rtol=5e-4, atol=5e-3, err_msg=name)
+
+
+def _one_cta_backward_emulation(args, g, inject, sms, keep=1.0, seed=None):
+    """The one-CTA bf16 backward (H <= 384) as csrc/pairwise_bwd.cu
+    decomposes it, emulated in fp32 torch on the CPU: the batch in
+    ``bwd_groups`` (BWD_STORE_BUDGET), each group under its own plan. Every
+    CTA walks its blocks (``blocks``), recomputes their rows, scales the
+    upstream gradient by the pair mask of the sample's place in the whole
+    batch, and per layer stores a_{l-1} and dpre_l as bm-row core-matrix
+    tiles at the kernel's offsets of the group's act buffer (rows past the
+    block's end: a garbage, dpre 0, as the kernel leaves them), adds db into
+    its CTA's partial and dqa, du, dv and ds into its split's slice (the
+    slices added in split order after each group). dW: _stored_tiles_dw over
+    each group's tiles onto the splits' partials of the groups before, the
+    splits then added in order; db: the CTAs' partials in CTA order."""
+    u, v, s, qa, ws, bs = (torch.from_numpy(a) for a in args)
+    g = torch.from_numpy(g)
+    B, n, H = u.shape
+    L = ws.shape[0] + 1
+    groups = tpw.bwd_groups(B, n, n, H, L, sms)
+    first = groups[0][1]
+    assert first.cluster == 1
+    scale = tpw._pair_scale(seed, B, n, n, keep) if keep < 1.0 else torch.ones(B, n * n)
+    du, dv, ds, dqa = torch.zeros(B, n, H), torch.zeros(B, n, H), torch.zeros(B, H), torch.zeros(B, H)
+    db_part = torch.zeros(max(plan.grid for _, plan in groups), L - 1, H)
+    gemm_splits, part = tpw.dw_splits(first, sms), None
+    for b0, plan in groups:
+        G, S, bm, tile_el = plan.B, plan.splits, plan.bm, plan.bm * H
+        stored = torch.zeros(2 * (L - 1) * G * plan.nblk * tile_el)
+        t_idx = _core_index(bm, H).flatten()
+        sdu, sdv = torch.zeros(S, G, n, H), torch.zeros(S, G, n, H)  # the splits' slices
+        sds, sdqa = torch.zeros(S, G, H), torch.zeros(S, G, H)
+        for cta in range(plan.grid):
+            k = cta % S  # one unit a CTA when S > 1: split k of its sample
+            for bl, p0, rows in plan.blocks(cta):
+                b = b0 + bl
+                p = torch.arange(p0, p0 + rows)
+                i, j = p // n, p % n
+                acts = [torch.relu(u[b, i] + v[b, j] + s[b])]
+                for l in range(1, L):
+                    acts.append(torch.relu(acts[-1] @ ws[l - 1] + bs[l - 1] + (qa[b] if l == inject else 0.0)))
+                dpre = torch.where(acts[L - 1] > 0, g[b] * scale[b, p][:, None], 0.0)
+                for l in range(L - 1, 0, -1):
+                    blk = bl * plan.nblk + p0 // bm
+                    for which, x, pad in ((0, acts[l - 1], 1.0), (1, dpre, 0.0)):
+                        tile = torch.full((bm, H), pad)
+                        tile[:rows] = x
+                        at = ((which * (L - 1) + l - 1) * G * plan.nblk + blk) * tile_el
+                        stored[at:at + tile_el][t_idx] = tile.flatten()
+                    db_part[cta, l - 1] += dpre.sum(0)
+                    if l == inject:
+                        sdqa[k, bl] += dpre.sum(0)
+                    dpre = torch.where(acts[l - 1] > 0, dpre @ ws[l - 1].T, 0.0)
+                sdu[k, bl] += torch.zeros(n, H).index_add_(0, i, dpre)
+                sdv[k, bl] += torch.zeros(n, H).index_add_(0, j, dpre)
+                sds[k, bl] += dpre.sum(0)
+        for full, sl in ((du, sdu), (dv, sdv), (ds, sds), (dqa, sdqa)):
+            full[b0:b0 + G] = _in_order(sl)
+        part = _stored_tiles_dw(stored, plan, L, gemm_splits, part)
+    return [t.numpy() for t in (du, dv, ds, dqa, _in_order(part), _in_order(db_part))]
+
+
+def _jax_vjp_per_pair(args, g, inject, scale):
+    """The VJP of the pooled core under an explicit per-pair scale (B, ni*nj)
+    (the pair mask over keep), in fp32: rnet's jnp reference on every pair as
+    a sample of one pair, its upstream gradient g[b] times the pair's scale,
+    the per-pair gradients gathered back (du over j, dv over i, ds and dqa
+    over the pairs)."""
+    u, v, s, qa, ws, bs = args
+    B, n, H = u.shape
+    bb, ii, jj = (x.ravel() for x in np.meshgrid(np.arange(B), np.arange(n), np.arange(n), indexing="ij"))
+    core = lambda *a: jpw.pairwise_core_reference(*a, inject)  # noqa: E731
+    _, vjp = jax.vjp(core, *[jnp.asarray(a) for a in (u[bb, ii][:, None], v[bb, jj][:, None], s[bb], qa[bb], ws, bs)])
+    pg = jnp.asarray(g[bb] * np.asarray(scale, np.float32).reshape(-1)[:, None])
+    du1, dv1, ds1, dqa1, dws, dbs = (np.asarray(d, np.float32) for d in vjp(pg))
+    du, dv, ds, dqa = np.zeros((B, n, H)), np.zeros((B, n, H)), np.zeros((B, H)), np.zeros((B, H))
+    np.add.at(du, (bb, ii), du1[:, 0])
+    np.add.at(dv, (bb, jj), dv1[:, 0])
+    np.add.at(ds, bb, ds1)
+    np.add.at(dqa, bb, dqa1)
+    return [x.astype(np.float32) for x in (du, dv, ds, dqa, dws, dbs)]
+
+
+# (H, sms, warpgroups, CTAs a sample): original-fp's width (128-row blocks,
+# dW tiles of 128 x 256) on a card of 8 SMs and H=384 (64-row blocks, tiles
+# of 128 x 128) on 32, each with 2 GEMM splits
+ONE_CTA_ROUTES = [(256, 8, 2, 2), (384, 32, 1, 3)]
+
+
+@pytest.mark.parametrize("keep", [1.0, 0.75])
+@pytest.mark.parametrize("inject", [1, 2])
+@pytest.mark.parametrize("H, sms, wgs, splits", ONE_CTA_ROUTES, ids=["H256-wgs2", "H384-wgs1"])
+def test_one_cta_backward_stored_tiles_match_jax_vjp_fp32(H, sms, wgs, splits, inject, keep):
+    """The one-CTA bf16 backward's route to dW (B=3, n=12: 144 pair rows a
+    sample, the last block ragged, L=4), emulated in fp32: each CTA stores
+    a_{l-1} and dpre_l of its blocks as core-matrix tiles, and
+    dw_gemm_kernel's tiles, chunk offsets and splits sum a_{l-1}^T dpre_l over
+    them; db from the CTAs' partials, du, dv, ds, dqa from the sample
+    splits' slices. Against JAX's VJP at tests/test_kernel.py's VJP
+    tolerance (rtol 5e-4, atol 5e-3: the sums in another order): rnet's
+    Pallas kernel in interpret mode at keep 1; at keep 0.75, rnet's jnp
+    reference under the explicit Philox mask (``_jax_vjp_per_pair``)."""
+    args = _inputs(3, 12, H, 4, seed=H + 10 * inject + int(4 * keep))
+    g = _upstream(3, H, H + 11 * inject)
+    plan = tpw.tile_plan("bwd", 3, 12, 12, H, 4, sms)
+    assert (plan.wgs, plan.splits, len(tpw.bwd_groups(3, 12, 12, H, 4, sms))) == (wgs, splits, 1)
+    assert tpw.dw_splits(plan, sms) == 2 and plan.nblk * plan.bm > 144
+    seed = _seed(4242 + H) if keep < 1 else None
+    got = _one_cta_backward_emulation(args, g, inject, sms, keep, seed)
+    if keep == 1.0:
+        want = _jax_vjp(args, g, inject, jnp.float32)
+    else:
+        scale = tpw._pair_scale(seed, 3, 12, 12, keep).numpy()
+        assert 0 < (scale == 0).mean() < 0.5
+        want = _jax_vjp_per_pair(args, g, inject, scale)
+    for name, w, d in zip(GRAD_NAMES, want, got):
+        assert d.shape == w.shape, name
+        np.testing.assert_allclose(d, w, rtol=5e-4, atol=5e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("H, sms, keep", [(256, 8, 0.75), (384, 32, 1.0)], ids=["H256-keep0.75", "H384-keep1"])
+def test_one_cta_backward_in_sample_groups_matches_jax_vjp_fp32(monkeypatch, H, sms, keep):
+    """The same route with BWD_STORE_BUDGET shrunk to two samples' tiles:
+    B=3 runs as groups of 2 and 1 samples, each with its own plan (sample
+    splits, grid), the GEMM of the second adding onto the first's split
+    partials, db onto the same CTA partials, the pair mask drawn at each
+    sample's place in the batch; against JAX's VJP as above."""
+    stored = tpw.stored_bytes(tpw.tile_plan("bwd", 1, 12, 12, H, 4, sms))
+    monkeypatch.setattr(tpw, "BWD_STORE_BUDGET", 2 * stored)
+    groups = tpw.bwd_groups(3, 12, 12, H, 4, sms)
+    assert [(b0, plan.B) for b0, plan in groups] == [(0, 2), (2, 1)]
+    args = _inputs(3, 12, H, 4, seed=H + 7)
+    g = _upstream(3, H, H + 8)
+    seed = _seed(99 + H) if keep < 1 else None
+    got = _one_cta_backward_emulation(args, g, 2, sms, keep, seed)
+    if keep == 1.0:
+        want = _jax_vjp(args, g, 2, jnp.float32)
+    else:
+        want = _jax_vjp_per_pair(args, g, 2, tpw._pair_scale(seed, 3, 12, 12, keep).numpy())
+    for name, w, d in zip(GRAD_NAMES, want, got):
         np.testing.assert_allclose(d, w, rtol=5e-4, atol=5e-3, err_msg=name)
 
 
@@ -787,3 +938,4 @@ def test_phase_buffer_is_checked_before_any_launch():
     with pytest.raises(ValueError, match="CUDA tensors"):
         tpw.pairwise_fwd_cuda(*args, inject=0, phases=torch.zeros(1, tpw.PHASE_SLOTS, dtype=torch.int64))
     assert len(tpw.FWD_PHASES) <= tpw.PHASE_SLOTS and len(tpw.BWD_PHASES) <= tpw.PHASE_SLOTS
+    assert len(tpw.F32_BWD_PHASES) == len(tpw.BWD_PHASES)
