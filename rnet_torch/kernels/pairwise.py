@@ -86,10 +86,13 @@ INT8_EXACT_MAX_H = 1040
 # chip_smoke.py). "pair_mask" counts the launches that drew Philox pair-mask
 # bits: a forward or backward launch with pair_keep < 1, or the mask kernel.
 # STORED_GROUPS counts the bf16 backward's sample groups (``bwd_groups``): one
-# fused launch and one dW GEMM each, so BWD_KERNEL calls or more.
+# fused launch and one dW GEMM each, so BWD_KERNEL calls or more. XLA_ROUTE
+# counts the g_theta calls of ``RelationalLayer.forward`` that took the plain
+# ``xla`` route, on any device (no kernel of this module runs there).
 STORED_GROUPS = "bwd_stored_groups"
+XLA_ROUTE = "g_xla"
 launches = {KERNEL: 0, BWD_KERNEL: 0, STORED_GROUPS: 0, "pair_mask": 0, INT8_KERNEL: 0, F32_KERNEL: 0,
-            F32_BWD_KERNEL: 0}
+            F32_BWD_KERNEL: 0, XLA_ROUTE: 0}
 
 _libs = {}
 

@@ -23,7 +23,8 @@ set (flax layout: ``g{l}_kernel`` (in, out), ``g{l}_bias``, ``f{l}_*``):
 ``auto`` is rnet's rule with "on CUDA" in place of "on TPU": the kernels,
 in bf16 or fp32, for n >= 32 objects and uniform g widths that are multiples
 of 128 (in fp32: one of ``F32_WIDTHS``, the widths the fp32 kernels take),
-else ``xla``.
+else ``xla`` (the state-description models' 12 objects). Each forward that
+takes ``xla`` counts one ``launches["g_xla"]`` beside the kernels' counts.
 
 In train mode (``module.train()``) f_phi drops its last hidden layer's units
 with rate ``dropout`` (inverted, in fp32) and, with ``pair_dropout`` > 0,
@@ -54,7 +55,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.pairwise import F32_WIDTHS, fused_pairwise_g, pairwise_clip_fractions
+from ..kernels.pairwise import F32_WIDTHS, XLA_ROUTE, fused_pairwise_g, launches, pairwise_clip_fractions
 from ..parallel.mesh import Mesh, global_batch, local_rows, reduce_pairs, replicate_pairs
 from .initializers import fan_in_uniform, linear_kernel
 
@@ -265,6 +266,8 @@ class RelationalLayer(nn.Module):
                 L = len(gw)
                 x, q, *params = replicate_pairs([x, q, *gw, *gb], self.mesh)
                 gw, gb, rows = params[:L], params[L:], self.mesh.pair_rows(n)
+            if impl == "xla":
+                launches[XLA_ROUTE] += 1
             a = (self._g_naive if impl == "naive" else self._g_xla)(x, q, gw, gb, rows)
             if pair_mask is not None:
                 a = a * pair_mask.reshape(B, n, n)[:, rows].reshape(B, -1)[..., None].to(a.dtype)
