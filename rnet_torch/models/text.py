@@ -4,7 +4,11 @@ Port of ``rnet/models/text.py``. Embedding with pad index 0 (pad rows enter
 as zero vectors), then an LSTM written as an explicit loop over T: the input
 projection is hoisted out of the loop, the gate order is torch's (i, f, g,
 o), there is one bias ``b`` (torch's ``bias_ih + bias_hh``), and the
-recurrence runs in fp32 whatever the compute dtype.
+recurrence runs in fp32 whatever the compute dtype. The loop takes its time
+slices of the input projection from one ``xg.unbind(1)``: its backward stacks
+the T slice gradients once, where each ``xg[:, t]`` would have a select
+backward that zero-fills a tensor the size of all of ``xg`` and adds it into
+``xg``'s gradient, T times a step.
 
 With ``mask_pads=True`` a pad step carries ``h`` and ``c`` through unchanged,
 so the encoding is the state after the last real token, whether the pads
@@ -50,8 +54,8 @@ class QuestionEmbedModel(nn.Module):
         xg = torch.addmm(self.b, x.reshape(B * T, -1), self.wx).reshape(B, T, 4 * self.hidden)
         h = torch.zeros(B, self.hidden, device=tokens.device)
         c = torch.zeros_like(h)
-        for t in range(T):
-            gates = torch.addmm(xg[:, t], h, self.wh)
+        for t, xg_t in enumerate(xg.unbind(1)):
+            gates = torch.addmm(xg_t, h, self.wh)
             i, f, g, o = gates.chunk(4, dim=-1)
             c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h_new = torch.sigmoid(o) * torch.tanh(c_new)

@@ -80,12 +80,17 @@ def test_conv_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("mask_pads", [True, False])
-@pytest.mark.parametrize("pads", ["trailing", "leading"])
-def test_text_matches_jax(pads, mask_pads):
+def _text_tokens(pads):
     tokens = np.array([[3, 9, 2, 7, 0, 0], [5, 1, 0, 0, 0, 0], [4, 4, 8, 1, 2, 6]], dtype=np.int32)
     if pads == "leading":  # inverted questions, the serving default
         tokens = np.ascontiguousarray(tokens[:, ::-1])
+    return tokens
+
+
+@pytest.mark.parametrize("mask_pads", [True, False])
+@pytest.mark.parametrize("pads", ["trailing", "leading"])
+def test_text_matches_jax(pads, mask_pads):
+    tokens = _text_tokens(pads)
     m = JaxText(vocab_size=V, emb_dim=8, hidden=16, mask_pads=mask_pads)
     variables = _np_tree(m.init(jax.random.key(1), jnp.asarray(tokens)))
     want = m.apply(variables, jnp.asarray(tokens))
@@ -93,6 +98,111 @@ def test_text_matches_jax(pads, mask_pads):
     with torch.no_grad():
         got = port(torch.from_numpy(tokens))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mask_pads", [True, False])
+@pytest.mark.parametrize("pads", ["trailing", "leading"])
+def test_text_grads_match_jax(pads, mask_pads):
+    """The encoder's parameter gradients, of a fixed random projection of
+    the encoding summed, against ``jax.grad`` of rnet's."""
+    tokens = _text_tokens(pads)
+    proj = np.random.RandomState(7).randn(tokens.shape[0], 16).astype(np.float32)
+    m = JaxText(vocab_size=V, emb_dim=8, hidden=16, mask_pads=mask_pads)
+    variables = _np_tree(m.init(jax.random.key(1), jnp.asarray(tokens)))
+
+    def scalar(params):
+        return jnp.sum(m.apply({"params": params}, jnp.asarray(tokens)) * proj)
+
+    want = _np_tree(jax.grad(scalar)(variables["params"]))
+    port = _load(QuestionEmbedModel(V, 8, 16, mask_pads=mask_pads), variables)
+    (port(torch.from_numpy(tokens)) * torch.from_numpy(proj)).sum().backward()
+    for name in ("embedding", "wx", "wh", "b"):
+        np.testing.assert_allclose(getattr(port, name).grad.numpy(), want[name], rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+def _select_loop(m, tokens):
+    """The encoder with ``xg[:, t]`` a step in place of the slices of one
+    ``unbind``: the formulation the port avoids, whose select backward
+    zero-fills and adds a gradient the size of all of ``xg``. Gives
+    (encoding, xg)."""
+    B, T = tokens.shape
+    tokens = tokens.long()
+    mask = tokens != 0
+    x = m.embedding[tokens] * mask[..., None]
+    xg = torch.addmm(m.b, x.reshape(B * T, -1), m.wx).reshape(B, T, 4 * m.hidden)
+    h = torch.zeros(B, m.hidden)
+    c = torch.zeros_like(h)
+    for t in range(T):
+        gates = torch.addmm(xg[:, t], h, m.wh)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        if m.mask_pads:
+            mt = mask[:, t, None]
+            h = torch.where(mt, h_new, h)
+            c = torch.where(mt, c_new, c)
+        else:
+            h, c = h_new, c_new
+    return h, xg
+
+
+def _xg_consumers(out, wx):
+    """The backward nodes that take ``xg`` as their input, found from
+    ``out.grad_fn``: ``xg`` is the view of the addmm whose weight is ``wx``.
+    Gives (xg's node, its consumers' nodes)."""
+    consumers, seen, todo = {}, set(), [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        for child, _ in node.next_functions:
+            if child is not None:
+                consumers.setdefault(child, []).append(node)
+                todo.append(child)
+    proj = [n for n in seen if type(n).__name__ == "AddmmBackward0"
+            and any(getattr(c, "variable", None) is wx for c, _ in n.next_functions)]
+    assert len(proj) == 1
+    (xg_node,) = consumers[proj[0]]
+    return xg_node, consumers[xg_node]
+
+
+@pytest.mark.parametrize("mask_pads", [True, False])
+@pytest.mark.parametrize("pads", ["trailing", "leading"])
+def test_text_unbind_grads_equal_the_select_loop(pads, mask_pads):
+    """The slices of one ``xg.unbind(1)`` give the encoding and every
+    gradient (``xg``'s, the parameters') bit for bit as the select loop
+    does, at a batch with mixed pad lengths; in the backward ``xg`` feeds
+    one ``UnbindBackward0`` and no ``SelectBackward0``."""
+    rs = np.random.RandomState(8)
+    B, T = 6, 9
+    tokens = rs.randint(1, V, size=(B, T))
+    for row, n_pads in enumerate([0, 2, 4, 7, 8, 9]):
+        tokens[row, T - n_pads:] = 0
+    if pads == "leading":
+        tokens = np.ascontiguousarray(tokens[:, ::-1])
+    tokens = torch.from_numpy(tokens)
+    m = QuestionEmbedModel(V, 8, 16, mask_pads=mask_pads, generator=torch.Generator().manual_seed(9))
+    proj = torch.from_numpy(rs.randn(B, 16).astype(np.float32))
+    params = [m.embedding, m.wx, m.wh, m.b]
+
+    want_h, xg = _select_loop(m, tokens)
+    xg_node, used = _xg_consumers(want_h, m.wx)
+    assert xg_node is xg.grad_fn
+    assert sorted(type(n).__name__ for n in used) == ["SelectBackward0"] * T  # what the walk must see
+    want = torch.autograd.grad((want_h * proj).sum(), [xg, *params])
+
+    got_h = m(tokens)
+    _, used = _xg_consumers(got_h, m.wx)
+    assert [type(n).__name__ for n in used] == ["UnbindBackward0"]
+    got_xg = []
+    used[0].register_hook(lambda grad_inputs, grad_outputs: got_xg.append(grad_inputs[0]))
+    got = torch.autograd.grad((got_h * proj).sum(), params)
+
+    assert torch.equal(got_h, want_h)
+    assert len(got_xg) == 1 and torch.equal(got_xg[0], want[0])
+    for name, g, w in zip(("embedding", "wx", "wh", "b"), got, want[1:]):
+        assert torch.equal(g, w), name
 
 
 def _relational_pair(impl, inject, pool, g_layers=(32, 32, 32), object_mask=False):
