@@ -26,11 +26,12 @@ pair and 0 for a dropped one, drawn by Philox4x32-10 from (seed, b, i, j)
   ``pack_weight_chunks`` lays W out as the bf16 and int8 kernels stream it
   and ``pack_f32_weights`` splits W into tf32 hi / lo stages for the fp32
   ring kernels (``pair_halves`` first cuts W for each CTA of the H=512
-  kernels' clusters of two, and ``pair_chunk_index`` gathers the int8
-  cluster kernel's stream in one launch; ``dw_splits`` splits the rows of
-  the backward's dW GEMM in bf16); all are pure and tested on the CPU. A ``phases`` buffer
-  selects the phase-timing build (``PHASE_DEFINES``) of the bf16, int8 and
-  fp32 ring kernels.
+  kernels' clusters of two, and ``pair_chunk_index`` gathers the bf16 and
+  int8 cluster kernels' streams in one launch; ``dw_splits`` splits the rows
+  of the backward's dW GEMM in bf16); all are pure and tested on the CPU.
+  ``f32_supported`` says which shapes the fp32 kernels take. A ``phases``
+  buffer selects the phase-timing build (``PHASE_DEFINES``) of the bf16,
+  int8 and fp32 ring kernels.
 * ``pairwise_core`` — a ``torch.autograd.Function`` (as ``_make_core``'s
   custom VJP): CPU tensors take the plain versions, CUDA tensors the kernels
   or an exception. It saves only its inputs and the seed; the backward
@@ -114,9 +115,9 @@ def _bind(lib: ctypes.CDLL, name: str) -> ctypes.CDLL:
         lib.rnet_pairwise_fwd_int8.argtypes = [vp] * 9 + [i32] * 10 + [i64, i32, vp, vp]
         lib.rnet_pairwise_fwd_int8.restype = i32
     elif name == F32_LIB:
-        lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 9 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_fwd_f32.argtypes = [vp] * 8 + [i32] * 11 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_fwd_f32.restype = i32
-        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 17 + [i32] * 13 + [i64, i32, vp, u32, f32, vp, vp]
+        lib.rnet_pairwise_bwd_f32.argtypes = [vp] * 15 + [i32] * 12 + [i64, i32, vp, u32, f32, vp, vp]
         lib.rnet_pairwise_bwd_f32.restype = i32
     else:
         lib.rnet_pairwise_bwd.argtypes = [vp] * 15 + [i32] * 16 + [i64, i32, vp, u32, f32, vp, vp]
@@ -301,26 +302,18 @@ WG_ROWS = 64  # pair rows of one consumer warpgroup (wgmma's M)
 TILE_N = 128  # output columns of one wgmma tile, the rows of a W chunk
 MIN_STAGES, MAX_STAGES = 3, 8  # depth of the W chunk ring
 INT8_MAX_WGS = 3  # consumer warpgroups of an int8 CTA, each on its own tile
-# The fp32 kernels (csrc/pairwise_f32.cu). At H = F32_RING_WIDTH the ring
-# kernels: blocks of F32_RING_ROWS[kind] pair rows, two consumer warpgroups
-# on tf32 wgmma, W split into tf32 hi / lo once per call (pack_f32_weights)
-# and streamed in F32_STAGE_BYTES stages through a ring of >= 2 stages (at H
-# = PAIR_WIDTH on clusters of PAIR CTAs, each with the tiles of H = 256). At H
-# = 128, or where the ring backward's tiles do not fit, the wide kernels: 8
-# warps, each with at most two 16 x 64 output tiles of a layer (H / 64
-# divides 8), W streamed as fp32 through two chunks of F32_CHUNK_FLOATS / H
-# rows of H + 8 floats, activation tiles of rows of H + 4 floats.
-F32_WIDTHS = (128, 256, 512)
-# The ring kernels' blocks: the forward keeps one tile of 64 rows per
-# warpgroup over all H columns, the backward max(2, L-1) tiles of 64 rows
-# (each warpgroup on 128 of the columns).
+# The fp32 ring kernels (csrc/pairwise_f32.cu) at H = F32_RING_WIDTH, and at
+# H = PAIR_WIDTH on clusters of PAIR CTAs, each with the tiles of H = 256:
+# blocks of F32_RING_ROWS[kind] pair rows, two consumer warpgroups on tf32
+# wgmma, W split into tf32 hi / lo once per call (pack_f32_weights) and
+# streamed in F32_STAGE_BYTES stages through a ring of >= 2 stages. The
+# forward keeps one tile of 64 rows per warpgroup over all H columns, the
+# backward max(2, L-1) tiles of 64 rows (each warpgroup on 128 of the
+# columns), which fit beside two stages up to L = 4.
 F32_RING_WIDTH = 256
 F32_RING_ROWS = {"fwd": 128, "bwd": 64}
 F32_STAGE_BYTES = 16384  # one ring stage: KD = F32_STAGE_BYTES / 8 / H rows of depth, hi and lo
 F32_MAX_STAGES = 8
-F32_ROWS = (64, 32, 16)  # the wide kernels' block rows, the largest that fits first
-F32_MAX_TILE = 2 * 8 * 16 * 64  # bm * H: two 16 x 64 tiles for each of the 8 warps
-F32_CHUNK_FLOATS = 8192
 H100_SMS = 132
 # The forward and backward at H = PAIR_WIDTH (bf16 and fp32): a cluster of
 # PAIR CTAs on neighbouring SMs shares each block of rows, CTA c on the output
@@ -360,15 +353,13 @@ class TilePlan:
     a block of ``bm`` = 64 * wgs rows (the cluster forward's two warpgroups
     split the columns of blocks of ``bm`` = 64 or 128); the int8 kernel's
     each take their own 64-row block (``bm`` = 64), wgs consecutive blocks a
-    round of the CTA's contiguous range. The fp32 kernels (``esize`` = 4) run two warpgroups
-    (``wgs`` = 2): the ring kernels (``ring``) on blocks of ``bm`` =
-    F32_RING_ROWS[kind] rows with ``stages`` ring stages of F32_STAGE_BYTES,
-    the wide kernels on blocks of ``bm`` = 64, 32 or 16 rows with W streamed
-    through ``stages`` = 2 chunks. The one-CTA backwards (bf16 and fp32)
-    give each sample ``splits`` CTAs when the batch is smaller than the
-    card (``sample_splits``), each on a contiguous share of its blocks
-    (``split_blocks``). The C launchers check the plan and refuse what they
-    cannot take."""
+    round of the CTA's contiguous range. The fp32 ring kernels (``esize`` =
+    4) run two warpgroups (``wgs`` = 2) on blocks of ``bm`` =
+    F32_RING_ROWS[kind] rows with ``stages`` ring stages of F32_STAGE_BYTES.
+    The one-CTA backwards (bf16 and fp32) give each sample ``splits`` CTAs
+    when the batch is smaller than the card (``sample_splits``), each on a
+    contiguous share of its blocks (``split_blocks``). The C launchers check
+    the plan and refuse what they cannot take."""
 
     kind: str  # one of KINDS
     B: int
@@ -383,7 +374,6 @@ class TilePlan:
     smem: int
     bm: int  # pair rows of one block
     esize: int = 2  # bytes of an input element: 4 for the fp32 kernels
-    ring: bool = False  # the fp32 ring kernels (H = F32_RING_WIDTH, or PAIR_WIDTH on clusters); else the wide ones
     cluster: int = 1  # CTAs of a cluster that share a block of rows, each on H / cluster columns
     splits: int = 1  # the backward's CTAs per sample (S), each on a contiguous share of its blocks
 
@@ -438,7 +428,7 @@ class TilePlan:
 
 
 def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esize: int = 2, bm: int = 0,
-               ring: bool = False, cluster: int = 1) -> int:
+               cluster: int = 1) -> int:
     """Shared memory of a CTA with `wgs` consumer warpgroups: the activation
     slots, the W ring and its full and empty mbarriers (8 B each). The bf16
     kernels' slots are (64 * wgs) x H bf16 (``bm`` x H / cluster in the
@@ -449,20 +439,16 @@ def smem_bytes(kind: str, wgs: int, H: int, L: int, slots: int, stages: int, esi
     `slots` tiles of 64 x H int8 per warpgroup, the biases in fp32 and one
     row of H column sums per warp (a CTA of its cluster: slots of all H
     columns and four mbarriers per warpgroup; its biases come from global
-    memory and its column sums go to a slot). The fp32 kernels (``esize`` = 4) keep
-    `slots` tiles of `bm` x H floats (the ring kernels, ``ring``; H + 4
-    floats a row in the wide ones), `stages` ring stages of F32_STAGE_BYTES
-    with their mbarriers and, in the backward, one more (wide: W chunks of
-    F32_CHUNK_FLOATS / H rows of H + 8 floats) and a per-row scale. A CTA of
-    a ``cluster`` of PAIR (H = PAIR_WIDTH) keeps H / cluster columns of each
-    tile (bf16 forward: of the biases and column sums too) and two more
-    mbarriers, for its peer's arrivals."""
+    memory and its column sums go to a slot). The fp32 kernels (``esize`` =
+    4) keep `slots` tiles of `bm` x H floats, `stages` ring stages of
+    F32_STAGE_BYTES with their mbarriers and, in the backward, one more and
+    a per-row scale. A CTA of a ``cluster`` of PAIR (H = PAIR_WIDTH) keeps H
+    / cluster columns of each tile (bf16 forward: of the biases and column
+    sums too) and two more mbarriers, for its peer's arrivals."""
     pair = 16 if cluster > 1 else 0
     H //= cluster
-    if esize == 4 and ring:  # the backward adds the mbarrier of its dW products
+    if esize == 4:  # the backward adds the mbarrier of its dW products
         return slots * bm * H * 4 + stages * (F32_STAGE_BYTES + 16) + (8 if kind == "bwd" else 0) + bm * 4 + pair
-    if esize == 4:
-        return 4 * (slots * bm * (H + 4) + stages * (F32_CHUNK_FLOATS // H) * (H + 8) + bm)
     ring = stages * (CHUNK_BYTES + 16)
     warps_sums = 4 * wgs * H * 4
     if kind == "int8" and cluster > 1:  # all H columns of the slots and four mbarriers a warpgroup
@@ -494,10 +480,10 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
     one when 128-row tiles would not give every SM one. The ring takes what
     shared memory is left, up to MAX_STAGES. The forward and backward at H =
     PAIR_WIDTH run on clusters of PAIR CTAs where their tiles fit
-    (``_pair_plan``; the forward's always do), and on one CTA where they do
-    not (deeper chains in the backward). The one-CTA backward gives each
-    sample ``sample_splits(B, nblk, sms)`` CTAs: a grid of min(B, sms) owner
-    CTAs when B >= sms, else B * S. ValueError if the plan does not fit."""
+    (``_pair_plan``; the forward's always do); deeper chains in the backward
+    have no plan there. The one-CTA backward gives each sample
+    ``sample_splits(B, nblk, sms)`` CTAs: a grid of min(B, sms) owner CTAs
+    when B >= sms, else B * S. ValueError if the plan does not fit."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if H % 128 != 0:
@@ -543,8 +529,8 @@ def tile_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int = H1
 
 
 def sample_splits(B: int, nblk: int, sms: int = H100_SMS) -> int:
-    """CTAs per sample of the one-CTA backwards (bf16 H <= 384, fp32 H = 128
-    and 256): 1 when the batch fills the card (B >= sms: a CTA owns whole
+    """CTAs per sample of the one-CTA backwards (bf16 H <= 384, fp32 H =
+    256): 1 when the batch fills the card (B >= sms: a CTA owns whole
     samples), else sms // B, so that B * S CTAs cover the card, and never
     more than the sample's nblk blocks (no split without a block)."""
     return max(1, min(sms // B, nblk))
@@ -619,7 +605,7 @@ def _pair_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int, es
         slots = 2 if kind == "fwd" else max(3, L - 1)
 
     def smem(stages):
-        return smem_bytes(kind, 2, H, L, slots, stages, esize, bm, ring=esize == 4, cluster=PAIR)
+        return smem_bytes(kind, 2, H, L, slots, stages, esize, bm, cluster=PAIR)
 
     stages = min(hi, (SMEM_LIMIT - smem(0)) // unit)
     if kind == "fwd" and esize == 2:  # a ring of stages / 2 chunks per consumer warpgroup
@@ -628,7 +614,7 @@ def _pair_plan(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int, es
         return None
     units = B if kind == "bwd" else B * -(-ni * nj // bm)
     grid = PAIR * min(units, sms // PAIR)
-    return TilePlan(kind, B, ni, nj, H, L, 2, stages, slots, grid, smem(stages), bm, esize, esize == 4, PAIR)
+    return TilePlan(kind, B, ni, nj, H, L, 2, stages, slots, grid, smem(stages), bm, esize, PAIR)
 
 
 def _int8_pair_plan(B: int, ni: int, nj: int, H: int, L: int, sms: int) -> Optional[TilePlan]:
@@ -658,44 +644,36 @@ def _int8_pair_plan(B: int, ni: int, nj: int, H: int, L: int, sms: int) -> Optio
 
 
 def _tile_plan_f32(kind: str, B: int, ni: int, nj: int, H: int, L: int, sms: int) -> TilePlan:
-    """The fp32 kernels' plan where H = PAIR_WIDTH's clusters (``_pair_plan``)
-    do not take the shape. At H = F32_RING_WIDTH the ring kernels, where
-    they fit: blocks of F32_RING_ROWS[kind] rows, one activation tile in the
-    forward (each layer in place) and max(2, L-1) in the backward (a_0 ..
-    a_{L-2}, dpre_{L-1} in a_0's tile, a_0 rebuilt), and as many ring
-    stages (at least 2, at most F32_MAX_STAGES) as shared memory leaves.
-    Else the wide kernels: two tiles in the forward, L in the backward, and
-    the most rows of F32_ROWS that leave at most two 16 x 64 output tiles a
-    warp and fit beside the two W chunks. The forward walks (sample, block)
-    tiles over min(tiles, SMs) CTAs; the backward gives each sample
-    ``sample_splits`` CTAs (one owner CTA of min(B, SMs) when B >= SMs).
-    ValueError if no plan fits."""
+    """The fp32 ring kernels' plan at H = F32_RING_WIDTH (H = PAIR_WIDTH
+    takes ``_pair_plan``'s clusters): blocks of F32_RING_ROWS[kind] rows,
+    one activation tile in the forward (each layer in place) and max(2,
+    L-1) in the backward (a_0 .. a_{L-2}, dpre_{L-1} in a_0's tile, a_0
+    rebuilt), and as many ring stages (at least 2, at most F32_MAX_STAGES)
+    as shared memory leaves. The forward walks (sample, block) tiles over
+    min(tiles, SMs) CTAs; the backward gives each sample ``sample_splits``
+    CTAs (one owner CTA of min(B, SMs) when B >= SMs). ValueError at other
+    widths, and where the tiles and two stages do not fit (the backward at
+    L > 4, at either width)."""
     if kind == "int8":
         raise ValueError("the int8 kernel has no fp32 plan (esize=4)")
-    if H not in F32_WIDTHS:
-        raise ValueError(f"the fp32 pairwise kernels take H in {F32_WIDTHS}, got H={H}")
-    stages, ring = 0, H == F32_RING_WIDTH
-    if ring:
-        bm = F32_RING_ROWS[kind]
-        slots = 1 if kind == "fwd" else max(2, L - 1)
-        free = SMEM_LIMIT - smem_bytes(kind, 2, H, L, slots, 0, 4, bm, ring=True)
+    if H not in (F32_RING_WIDTH, PAIR_WIDTH):
+        raise ValueError(f"the fp32 pairwise kernels take H in {(F32_RING_WIDTH, PAIR_WIDTH)}, got H={H}")
+    bm = F32_RING_ROWS[kind]
+    slots = 1 if kind == "fwd" else max(2, L - 1)
+    stages = 0
+    if H == F32_RING_WIDTH:
+        free = SMEM_LIMIT - smem_bytes(kind, 2, H, L, slots, 0, 4, bm)
         stages = min(F32_MAX_STAGES, free // (F32_STAGE_BYTES + 16))
-        ring = stages >= 2
-    if not ring:
-        slots, stages = (2 if kind == "fwd" else L), 2
-        fits = [bm for bm in F32_ROWS
-                if bm * H <= F32_MAX_TILE and smem_bytes(kind, 2, H, L, slots, 2, 4, bm) <= SMEM_LIMIT]
-        if not fits:
-            raise ValueError(
-                f"pairwise_{kind} fp32 kernel at H={H}, L={L} does not fit {SMEM_LIMIT} B of shared memory "
-                f"({slots} activation tiles of {F32_ROWS[-1]} x {H} fp32 and two W chunks)"
-            )
-        bm = fits[0]
+    if stages < 2:
+        raise ValueError(
+            f"pairwise_{kind} fp32 kernel at H={H}, L={L} does not fit {SMEM_LIMIT} B of shared memory "
+            f"({slots} activation tiles of {bm} x {F32_RING_WIDTH} fp32 and two ring stages)"
+        )
     nblk = -(-ni * nj // bm)
     splits = sample_splits(B, nblk, sms) if kind == "bwd" else 1
     grid = min(B * splits, sms) if kind == "bwd" else min(B * nblk, sms)
-    return TilePlan(kind, B, ni, nj, H, L, 2, stages, slots, grid,
-                    smem_bytes(kind, 2, H, L, slots, stages, 4, bm, ring=ring), bm, 4, ring, splits=splits)
+    return TilePlan(kind, B, ni, nj, H, L, 2, stages, slots, grid, smem_bytes(kind, 2, H, L, slots, stages, 4, bm),
+                    bm, 4, splits=splits)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -748,8 +726,8 @@ def pack_weight_chunks(x: torch.Tensor, size: Optional[int] = None) -> torch.Ten
     bytes), one 8 KB chunk of core matrices (8 rows of 16 contiguous bytes:
     ce = 16 / size elements), the depth's core matrices innermost, where size
     is 1 byte for int8 and 2 for every other dtype (the bf16 operands'
-    layout), unless given (``pair_chunk_index`` moves int32 positions in the
-    int8 layout). Returns a contiguous (L-1, N/nt, K/kc, nt/8, kc/ce, 8, ce)."""
+    layout), unless given (``pair_chunk_index`` moves int32 positions in
+    either layout). Returns a contiguous (L-1, N/nt, K/kc, nt/8, kc/ce, 8, ce)."""
     n_l, N, K = x.shape
     nt = TILE_N
     size = size or (1 if x.dtype in (torch.int8, torch.uint8) else 2)
@@ -762,18 +740,20 @@ def pack_weight_chunks(x: torch.Tensor, size: Optional[int] = None) -> torch.Ten
 _pair_index = {}
 
 
-def pair_chunk_index(H: int, L: int, device) -> torch.Tensor:
-    """The flat positions in w8 (L-1, H, H) of the int8 cluster kernel's W
-    stream, in stream order: ``pack_weight_chunks`` of each CTA's
-    ``pair_halves`` slice of W^T, rank after rank. One ``index_select`` by
-    it packs W in one launch where those functions take four. (L-1) * H * H
-    int32, made once per shape and device."""
-    key = (H, L, str(device))
+def pair_chunk_index(H: int, L: int, size: int, transpose: bool, device) -> torch.Tensor:
+    """The flat positions in ws (L-1, H, H) of a cluster kernel's W stream,
+    in stream order: ``pack_weight_chunks`` (elements of ``size`` bytes: 1
+    for int8, 2 for bf16) of each CTA's ``pair_halves`` slice of W^T
+    (``transpose``, the chain's B operand) or of W (the bf16 backward's d
+    products'), rank after rank. One ``index_select`` by it packs W in one
+    launch where those functions take several. (L-1) * H * H int32, made
+    once per shape, layout and device."""
+    key = (H, L, size, transpose, str(device))
     idx = _pair_index.get(key)
     if idx is None:
-        pos = torch.arange((L - 1) * H * H, dtype=torch.int32).view(L - 1, H, H).transpose(1, 2)
-        halves = pair_halves(pos)
-        idx = pack_weight_chunks(halves.reshape(-1, *halves.shape[2:]), size=1).reshape(-1)
+        pos = torch.arange((L - 1) * H * H, dtype=torch.int32).view(L - 1, H, H)
+        halves = pair_halves(pos.transpose(1, 2) if transpose else pos)
+        idx = pack_weight_chunks(halves.reshape(-1, *halves.shape[2:]), size=size).reshape(-1)
         idx = _pair_index[key] = idx.to(device)
     return idx
 
@@ -816,7 +796,7 @@ def _check_core_inputs(what: str, ts: dict, dtypes: dict) -> Tuple[int, int, int
 def check_kernel_inputs(u, v, s, qa, ws, bs) -> Tuple[int, int, int, int, int]:
     """Validate what the pairwise kernels take: u, v, s, qa, ws and bs all
     bf16 (the bf16 kernels) or all fp32 (the fp32 kernels, which also read
-    u, v, s and ws in 16-byte vectors); (B, ni, nj, H, L) or ValueError."""
+    u, v and s in 16-byte vectors); (B, ni, nj, H, L) or ValueError."""
     dt = u.dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the pairwise kernels: u must be {torch.bfloat16} or {torch.float32}, got {dt}")
@@ -825,8 +805,8 @@ def check_kernel_inputs(u, v, s, qa, ws, bs) -> Tuple[int, int, int, int, int]:
         if t.dtype != dt:
             raise ValueError(f"the pairwise kernels take inputs all of one dtype: {name} is {t.dtype}, u is {dt}")
     dims = _check_core_inputs("the pairwise kernels", ts, dict.fromkeys(ts, dt))
-    if dt == torch.float32 and any(t.data_ptr() % 16 for t in (u, v, s, ws)):
-        raise ValueError("the fp32 kernels read u, v, s, ws in 16-byte vectors: their storage must be 16-byte aligned")
+    if dt == torch.float32 and any(t.data_ptr() % 16 for t in (u, v, s)):
+        raise ValueError("the fp32 kernels read u, v, s in 16-byte vectors: their storage must be 16-byte aligned")
     return dims
 
 
@@ -881,7 +861,7 @@ def pairwise_fwd_cuda(u, v, s, qa, ws, bs, *, inject: int, pair_keep: float = 1.
     plan = tile_plan("fwd", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(KERNEL, defines)
-    chunks = _pack_for(ws.transpose(1, 2), plan, pack_weight_chunks)
+    chunks = _pack_for(ws, plan, transpose=True)
     parts = 1 if plan.cluster > 1 else plan.wgs  # pooled rows per block: one per warpgroup of a one-CTA block
     partial = torch.empty((B, plan.nblk * parts, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
@@ -931,7 +911,7 @@ def pairwise_bwd_cuda(u, v, s, qa, ws, bs, g, *, inject: int, pair_keep: float =
         raise ValueError(f"phases: the backward at B={B} runs {len(groups)} sample groups; time one group")
     phase_ptr, defines = _phase_buffer(phases, first.grid, dev)
     lib = _kernel_lib(BWD_KERNEL, defines)
-    wt_chunks, w_chunks = (_pack_for(x, first, pack_weight_chunks) for x in (ws.transpose(1, 2), ws))
+    wt_chunks, w_chunks = (_pack_for(ws, first, transpose) for transpose in (True, False))
     f32 = dict(dtype=torch.float32, device=dev)
     grads, views = _grad_buffer(B, ni, nj, H, dev)
     dws, dbs = torch.empty((L - 1, H, H), **f32), torch.empty((L - 1, H), **f32)
@@ -974,40 +954,49 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _pack_for(x: torch.Tensor, plan: TilePlan, pack) -> torch.Tensor:
-    """x (L-1, N, K) packed by `pack` for the plan's kernel: as it is for one
-    CTA, or each cluster CTA's ``pair_halves`` slice, rank after rank."""
+def _pack_for(ws: torch.Tensor, plan: TilePlan, transpose: bool) -> torch.Tensor:
+    """W^T (``transpose``) or W of ws (L-1, H, H) as the plan's bf16 or int8
+    kernel streams it: ``pack_weight_chunks`` for one CTA; for a cluster,
+    each CTA's ``pair_halves`` slice, rank after rank, in one
+    ``index_select`` by ``pair_chunk_index``."""
     if plan.cluster == 1:
-        return pack(x)
-    halves = pair_halves(x, plan.cluster)
-    return pack(halves.reshape(-1, *halves.shape[2:]))
+        return pack_weight_chunks(ws.transpose(1, 2) if transpose else ws)
+    size = 1 if ws.dtype in (torch.int8, torch.uint8) else 2
+    return ws.reshape(-1).index_select(0, pair_chunk_index(plan.H, plan.L, size, transpose, ws.device))
+
+
+def _pack_f32_for(ws: torch.Tensor, plan: TilePlan, transpose: bool) -> torch.Tensor:
+    """W^T (``transpose``, the chain's B operand) or W (the d products') of
+    ws as the fp32 ring kernels stream it: ``pack_f32_weights``, for a
+    cluster of each CTA's ``pair_halves`` slice, rank after rank."""
+    x = ws.transpose(1, 2) if transpose else ws
+    if plan.cluster > 1:
+        halves = pair_halves(x, plan.cluster)
+        x = halves.reshape(-1, *halves.shape[2:])
+    return pack_f32_weights(x)
 
 
 def _f32_plan(kind, B, ni, nj, H, L, dev, phases):
     """The fp32 plan, the phase buffer's pointer and the library (the
-    phase-timing build when ``phases`` is given; the ring kernels only)."""
+    phase-timing build when ``phases`` is given)."""
     plan = tile_plan(kind, B, ni, nj, H, L, _sms(dev), esize=4)
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
-    if phases is not None and not plan.ring:
-        raise ValueError(f"the wide fp32 kernels (H={H}, L={L}) have no phase-timing build: phases must be None")
     return plan, phase_ptr, _kernel_lib(F32_LIB, defines)
 
 
 def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep, phases):
     """The fp32 forward's launch (``pairwise_fwd_cuda`` for fp32 inputs): the
-    ring kernel reads W^T split and packed by pack_f32_weights (each cluster
-    CTA its ``pair_halves`` slice), the wide one W itself."""
+    ring kernel reads W^T split and packed by ``_pack_f32_for``."""
     plan, phase_ptr, lib = _f32_plan("fwd", B, ni, nj, H, L, dev, phases)
-    chain = _pack_for(ws.transpose(1, 2), plan, pack_f32_weights) if plan.ring else None
+    chain = _pack_f32_for(ws, plan, transpose=True)
     partial = torch.empty((B, plan.nblk, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_fwd_f32(
-            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), _ptr(chain),
-            bs.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            B, ni, nj, H, L, inject, int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.cluster,
-            plan.smem, drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), chain.data_ptr(), bs.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), B, ni, nj, H, L, inject, plan.bm, plan.slots, plan.stages, plan.grid,
+            plan.cluster, plan.smem, drop, seed_ptr, thr, inv_keep, phase_ptr, stream,
         )
     _raise_on_error(lib, err, F32_KERNEL)
     launches[F32_KERNEL] += 1
@@ -1017,15 +1006,10 @@ def _fwd_f32(u, v, s, qa, ws, bs, inject, B, ni, nj, H, L, dev, drop, seed_ptr, 
 
 def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_ptr, thr, inv_keep, phases):
     """The fp32 backward's launch (``pairwise_bwd_cuda`` for fp32 inputs):
-    the ring kernels read W^T (the chain) and W (the d products) split and
-    packed by pack_f32_weights (each cluster CTA its ``pair_halves`` slice),
-    the wide one W and W^T."""
+    the ring kernel reads W^T (the chain) and W (the d products) split and
+    packed by ``_pack_f32_for``."""
     plan, phase_ptr, lib = _f32_plan("bwd", B, ni, nj, H, L, dev, phases)
-    if plan.ring:
-        wt = None
-        chain, dstages = (_pack_for(x, plan, pack_f32_weights) for x in (ws.transpose(1, 2), ws))
-    else:
-        wt, chain, dstages = ws.transpose(1, 2).contiguous(), None, None
+    chain, dstages = (_pack_f32_for(ws, plan, transpose) for transpose in (True, False))
     f32 = dict(dtype=torch.float32, device=dev)
     grads, views = _grad_buffer(B, ni, nj, H, dev)
     # the splits' slices of du | dv (fp32), added in split order after the kernel
@@ -1039,11 +1023,11 @@ def _bwd_f32(u, v, s, qa, ws, bs, g, inject, B, ni, nj, H, L, dev, drop, seed_pt
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rnet_pairwise_bwd_f32(
-            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), ws.data_ptr(), _ptr(wt), _ptr(chain),
-            _ptr(dstages), bs.data_ptr(), g.data_ptr(), grads.data_ptr(), _ptr(grad_part), dws.data_ptr(),
-            dbs.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(), sums.data_ptr(), B, ni, nj, H, L, inject,
-            int(plan.ring), plan.bm, plan.slots, plan.stages, plan.grid, plan.cluster, plan.splits, plan.smem, drop,
-            seed_ptr, thr, inv_keep, phase_ptr, stream,
+            u.data_ptr(), v.data_ptr(), s.data_ptr(), qa.data_ptr(), chain.data_ptr(), dstages.data_ptr(),
+            bs.data_ptr(), g.data_ptr(), grads.data_ptr(), _ptr(grad_part), dws.data_ptr(), dbs.data_ptr(),
+            dw_part.data_ptr(), db_part.data_ptr(), sums.data_ptr(), B, ni, nj, H, L, inject, plan.bm, plan.slots,
+            plan.stages, plan.grid, plan.cluster, plan.splits, plan.smem, drop, seed_ptr, thr, inv_keep, phase_ptr,
+            stream,
         )
     _raise_on_error(lib, err, F32_BWD_KERNEL)
     launches[F32_BWD_KERNEL] += 1
@@ -1223,10 +1207,7 @@ def pairwise_fwd_int8_cuda(u, v, s, qa, w8, m, bs, *, inject: int, phases=None) 
     plan = tile_plan("int8", B, ni, nj, H, L, _sms(dev))
     phase_ptr, defines = _phase_buffer(phases, plan.grid, dev)
     lib = _kernel_lib(INT8_KERNEL, defines)
-    if plan.cluster > 1:  # each CTA's pair_halves slice of W^T, packed, rank after rank
-        chunks = w8.reshape(-1).index_select(0, pair_chunk_index(H, L, dev))
-    else:  # row n = column n of W_l: the K-major B operand
-        chunks = pack_weight_chunks(w8.transpose(1, 2))
+    chunks = _pack_for(w8, plan, transpose=True)  # row n = column n of W_l: the K-major B operand
     partial = torch.empty((B, plan.nblk, H), dtype=torch.float32, device=dev)
     out = torch.empty((B, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -1239,6 +1220,21 @@ def pairwise_fwd_int8_cuda(u, v, s, qa, w8, m, bs, *, inject: int, phases=None) 
     _raise_on_error(lib, err, INT8_KERNEL)
     launches[INT8_KERNEL] += 1
     return out
+
+
+def f32_supported(H: int, L: int) -> bool:
+    """Whether the fp32 kernels take a g_theta chain of width H and L >= 2
+    layers, as a shape predicate: ``tile_plan`` has both an fp32 forward and
+    an fp32 backward plan for it. That is H in {256, 512} with L <= 4. At
+    every other shape (H = 128, or L > 4) ``RelationalLayer``'s ``auto``
+    takes ``xla`` and an explicit ``pallas`` raises the planner's
+    ValueError."""
+    try:
+        for kind in ("fwd", "bwd"):
+            tile_plan(kind, 1, 1, 1, H, L, esize=4)
+    except ValueError:
+        return False
+    return L >= 2
 
 
 def int8_supported(ni: int, nj: int, H: int, L: int) -> bool:

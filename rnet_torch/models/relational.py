@@ -22,7 +22,7 @@ set (flax layout: ``g{l}_kernel`` (in, out), ``g{l}_bias``, ``f{l}_*``):
 
 ``auto`` is rnet's rule with "on CUDA" in place of "on TPU": the kernels,
 in bf16 or fp32, for n >= 32 objects and uniform g widths that are multiples
-of 128 (in fp32: one of ``F32_WIDTHS``, the widths the fp32 kernels take),
+of 128 (in fp32: a width and depth the fp32 kernels take, ``f32_supported``),
 else ``xla`` (the state-description models' 12 objects). Each forward that
 takes ``xla`` counts one ``launches["g_xla"]`` beside the kernels' counts.
 
@@ -55,7 +55,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..kernels.pairwise import F32_WIDTHS, XLA_ROUTE, fused_pairwise_g, launches, pairwise_clip_fractions
+from ..kernels.pairwise import XLA_ROUTE, f32_supported, fused_pairwise_g, launches, pairwise_clip_fractions
 from ..parallel.mesh import Mesh, global_batch, local_rows, reduce_pairs, replicate_pairs
 from .initializers import fan_in_uniform, linear_kernel
 
@@ -154,8 +154,8 @@ class RelationalLayer(nn.Module):
         impl = self.impl
         if impl == "auto":
             uniform = len(set(self.g_layers)) == 1 and self.g_layers[0] % 128 == 0
-            if self.dtype == torch.float32:  # the fp32 kernels take fewer widths
-                uniform = uniform and self.g_layers[0] in F32_WIDTHS
+            if self.dtype == torch.float32:  # the fp32 kernels take fewer shapes
+                uniform = uniform and f32_supported(self.g_layers[0], len(self.g_layers))
             impl = "pallas" if (n >= 32 and uniform and device.type == "cuda") else "xla"
         if impl not in ("naive", "xla", "pallas", "pallas_int8"):
             raise ValueError(f"unknown relational impl {impl!r}")

@@ -311,7 +311,7 @@ def _pair_chain_emulated(plan, u, v, s, qa, w8, m, bs, inject):
     B, ni, H = u.shape
     nj, n_l = v.shape[1], w8.shape[0]
     W, NK, KB = H // tpw.PAIR, (H // tpw.PAIR) // 64, 64
-    chunks = tpw._pack_for(w8.transpose(1, 2), plan, tpw.pack_weight_chunks)
+    chunks = tpw._pack_for(w8, plan, transpose=True)
     chunks = chunks.view(tpw.PAIR * n_l, W // tpw.TILE_N, H // KB, 16, KB // 16, 8, 16)
     a = torch.relu(u.float()[:, :, None, :] + v.float()[:, None, :, :] + s.float()[:, None, None, :])
     a8 = tpw._requant(a.reshape(B, ni * nj, H)).long()

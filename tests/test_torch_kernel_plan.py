@@ -14,7 +14,7 @@ object grid of ``config.json``, and every agreement case of
   sample ragged (its surplus rows masked);
 * in the backward, one owner CTA per sample when the batch fills the card
   (du, dv, ds, dqa have one writer); with fewer samples than SMs, SMs // B
-  CTAs per sample (at H <= 384 in bf16, H = 128 and 256 in fp32), each on a
+  CTAs per sample (at H <= 384 in bf16, H = 256 in fp32), each on a
   contiguous, ordered share of its blocks and its own slice of du, dv, ds
   and dqa; at H = 512 one owner cluster of two CTAs, each on its half of
   the output columns, so that every (row, column) still has one writer;
@@ -178,32 +178,30 @@ def _assert_backward_units(plan, sms=SMS):
 
 # The parent's backward plans at B >= SMs (one owner CTA or cluster per
 # sample), field for field: (B, ni, nj, H, L, esize) -> (wgs, stages, slots,
-# grid, smem, bm, ring, cluster), as tile_plan gave them before the sample
+# grid, smem, bm, cluster), as tile_plan gave them before the sample
 # splits; the split plan must leave every one of them as it was (bitwise the
 # same gradients at B=512 and B=140).
 ONE_OWNER_PLANS = {
-    (140, 12, 12, 512, 4, 2): (2, 4, 3, 132, 230096, 128, False, 2),
-    (140, 64, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
-    (140, 64, 64, 512, 4, 2): (2, 4, 3, 132, 230096, 128, False, 2),
-    (140, 256, 256, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
-    (512, 12, 12, 512, 4, 2): (2, 4, 3, 132, 230096, 128, False, 2),
-    (512, 32, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
-    (512, 64, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
-    (512, 64, 64, 512, 4, 2): (2, 4, 3, 132, 230096, 128, False, 2),
-    (512, 256, 256, 256, 4, 2): (2, 4, 3, 132, 230080, 128, False, 1),
-    (140, 64, 64, 384, 4, 2): (1, 8, 3, 132, 213504, 64, False, 1),
-    (140, 12, 12, 512, 4, 4): (2, 2, 3, 132, 229688, 64, True, 2),
-    (140, 64, 64, 128, 4, 4): (2, 2, 4, 132, 205056, 64, False, 1),
-    (140, 64, 64, 256, 5, 4): (2, 2, 5, 132, 150848, 16, False, 1),
-    (512, 64, 64, 256, 2, 4): (2, 6, 2, 132, 229736, 64, True, 1),
-    (512, 64, 64, 256, 3, 4): (2, 6, 2, 132, 229736, 64, True, 1),
-    (140, 64, 64, 256, 4, 4): (2, 2, 3, 132, 229672, 64, True, 1),
-    (140, 64, 64, 512, 4, 4): (2, 2, 3, 132, 229688, 64, True, 2),
-    (140, 256, 256, 256, 4, 4): (2, 2, 3, 132, 229672, 64, True, 1),
-    (512, 12, 12, 512, 4, 4): (2, 2, 3, 132, 229688, 64, True, 2),
-    (512, 64, 64, 256, 4, 4): (2, 2, 3, 132, 229672, 64, True, 1),
-    (512, 64, 64, 512, 4, 4): (2, 2, 3, 132, 229688, 64, True, 2),
-    (512, 256, 256, 256, 4, 4): (2, 2, 3, 132, 229672, 64, True, 1),
+    (140, 12, 12, 512, 4, 2): (2, 4, 3, 132, 230096, 128, 2),
+    (140, 64, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, 1),
+    (140, 64, 64, 512, 4, 2): (2, 4, 3, 132, 230096, 128, 2),
+    (140, 256, 256, 256, 4, 2): (2, 4, 3, 132, 230080, 128, 1),
+    (512, 12, 12, 512, 4, 2): (2, 4, 3, 132, 230096, 128, 2),
+    (512, 32, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, 1),
+    (512, 64, 64, 256, 4, 2): (2, 4, 3, 132, 230080, 128, 1),
+    (512, 64, 64, 512, 4, 2): (2, 4, 3, 132, 230096, 128, 2),
+    (512, 256, 256, 256, 4, 2): (2, 4, 3, 132, 230080, 128, 1),
+    (140, 64, 64, 384, 4, 2): (1, 8, 3, 132, 213504, 64, 1),
+    (140, 12, 12, 512, 4, 4): (2, 2, 3, 132, 229688, 64, 2),
+    (512, 64, 64, 256, 2, 4): (2, 6, 2, 132, 229736, 64, 1),
+    (512, 64, 64, 256, 3, 4): (2, 6, 2, 132, 229736, 64, 1),
+    (140, 64, 64, 256, 4, 4): (2, 2, 3, 132, 229672, 64, 1),
+    (140, 64, 64, 512, 4, 4): (2, 2, 3, 132, 229688, 64, 2),
+    (140, 256, 256, 256, 4, 4): (2, 2, 3, 132, 229672, 64, 1),
+    (512, 12, 12, 512, 4, 4): (2, 2, 3, 132, 229688, 64, 2),
+    (512, 64, 64, 256, 4, 4): (2, 2, 3, 132, 229672, 64, 1),
+    (512, 64, 64, 512, 4, 4): (2, 2, 3, 132, 229688, 64, 2),
+    (512, 256, 256, 256, 4, 4): (2, 2, 3, 132, 229672, 64, 1),
 }
 
 
@@ -213,8 +211,7 @@ def test_backward_plan_at_full_batches_is_the_one_owner_plan(key):
     the blocks of the samples c, c + grid, ... (the same launch)."""
     *shape, esize = key
     plan = tpw.tile_plan("bwd", *shape, SMS, esize=esize)
-    assert (plan.wgs, plan.stages, plan.slots, plan.grid, plan.smem, plan.bm, plan.ring, plan.cluster) == \
-        ONE_OWNER_PLANS[key]
+    assert (plan.wgs, plan.stages, plan.slots, plan.grid, plan.smem, plan.bm, plan.cluster) == ONE_OWNER_PLANS[key]
     assert plan.splits == 1 and plan.split_blocks(0) == range(plan.nblk)
     npairs = plan.ni * plan.nj
     for cta in (0, 1, plan.grid - 1):
@@ -236,14 +233,16 @@ def test_backward_splits_small_batches_over_the_card(esize, shape, splits, grid)
     assert (plan.splits, plan.grid) == (splits, grid)
 
 
-@pytest.mark.parametrize("esize", [2, 4], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("shape", [(1, 64, 64, 256, 4), (3, 12, 12, 128, 3), (3, 24, 24, 256, 4),
-                                   (8, 256, 256, 256, 4), (16, 64, 64, 256, 4)],
-                         ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
+@pytest.mark.parametrize("shape, esize", [
+    pytest.param(shape, esize, id="B{}-{}x{}-H{}-L{}-".format(*shape) + name)
+    for shape in [(1, 64, 64, 256, 4), (3, 12, 12, 128, 3), (3, 24, 24, 256, 4), (8, 256, 256, 256, 4),
+                  (16, 64, 64, 256, 4)]
+    for esize, name in ((2, "bf16"), (4, "fp32")) if esize == 2 or shape[3] != 128])
 def test_backward_splits_on_a_smaller_card(esize, shape):
     """tile_plan(..., sms=16), the switch the CPU tests build split plans
     with: the same units on 16 SMs (B=3 at 12 x 12: 5 splits capped at the
-    sample's blocks; B=16: one owner CTA)."""
+    sample's blocks; B=16: one owner CTA). H=128 in bf16 alone: the fp32
+    kernels have no plan there."""
     plan = tpw.tile_plan("bwd", *shape, 16, esize=esize)
     _assert_tiles_every_row_once(plan)
     _assert_backward_units(plan, sms=16)
@@ -252,39 +251,27 @@ def test_backward_splits_on_a_smaller_card(esize, shape):
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
 @pytest.mark.parametrize("shape", F32_SHAPES, ids=lambda s: "B{}-{}x{}-H{}-L{}".format(*s))
 def test_f32_plan_fits_shared_memory_and_the_kernels_limits(kind, shape):
-    """The fp32 kernels. At H = 256 the ring kernels: blocks of
-    F32_RING_ROWS[kind] rows (64 per consumer warpgroup), one activation
-    tile in the forward and max(2, L-1) in the backward, and as many 16 KB ring
-    stages (2 .. F32_MAX_STAGES) as shared memory leaves; at H = 512 the
-    same on clusters of two CTAs, each on 256 of the columns. At H = 128
-    the wide kernels: 8 warps with at most two
-    16 x 64 output tiles each, on the same 64 columns (H / 64 divides 8), two
-    W chunks, two tiles in the forward and L in the backward. Within shared
-    memory either way."""
+    """The fp32 ring kernels. At H = 256: blocks of F32_RING_ROWS[kind] rows
+    (64 per consumer warpgroup), one activation tile in the forward and
+    max(2, L-1) in the backward, and as many 16 KB ring stages (2 ..
+    F32_MAX_STAGES) as shared memory leaves; at H = 512 the same on clusters
+    of two CTAs, each on 256 of the columns. Within shared memory."""
     B, ni, nj, H, L = shape
     plan = tpw.tile_plan(kind, B, ni, nj, H, L, SMS, esize=4)
     assert plan.esize == 4 and plan.smem <= tpw.SMEM_LIMIT and plan.wgs == 2
-    assert plan.smem == tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages, esize=4, bm=plan.bm, ring=plan.ring,
+    assert plan.smem == tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages, esize=4, bm=plan.bm,
                                        cluster=plan.cluster)
     assert 1 <= plan.grid <= SMS
     pair = H == tpw.PAIR_WIDTH
     assert plan.cluster == (tpw.PAIR if pair else 1)
-    assert not pair or plan.width == tpw.F32_RING_WIDTH
-    assert plan.ring == (H == tpw.F32_RING_WIDTH or pair)  # every config's L = 4 fits the ring at H = 256
-    if plan.ring:
-        # two warpgroups: on their own 64 rows each (all H columns), or on 128 columns each of 64 rows
-        assert plan.bm == tpw.F32_RING_ROWS[kind] == (128 if kind == "fwd" else 64)
-        assert plan.slots == (max(2, L - 1) if kind == "bwd" else 1)
-        assert 2 <= plan.stages <= tpw.F32_MAX_STAGES
-        more = tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages + 1, esize=4, bm=plan.bm, ring=True,
-                              cluster=plan.cluster)
-        assert plan.stages == tpw.F32_MAX_STAGES or more > tpw.SMEM_LIMIT
-        assert H % (tpw.F32_STAGE_BYTES // 8 // plan.width) == 0  # whole stages a layer
-    else:
-        assert plan.bm in tpw.F32_ROWS and plan.bm * H <= tpw.F32_MAX_TILE and 8 % (H // 64) == 0
-        assert (plan.stages, plan.slots) == (2, L if kind == "bwd" else 2)
-        bigger = [bm for bm in tpw.F32_ROWS if bm > plan.bm and bm * H <= tpw.F32_MAX_TILE]
-        assert all(tpw.smem_bytes(kind, 2, H, L, plan.slots, 2, esize=4, bm=bm) > tpw.SMEM_LIMIT for bm in bigger)
+    assert plan.width == tpw.F32_RING_WIDTH
+    # two warpgroups: on their own 64 rows each (all H columns), or on 128 columns each of 64 rows
+    assert plan.bm == tpw.F32_RING_ROWS[kind] == (128 if kind == "fwd" else 64)
+    assert plan.slots == (max(2, L - 1) if kind == "bwd" else 1)
+    assert 2 <= plan.stages <= tpw.F32_MAX_STAGES
+    more = tpw.smem_bytes(kind, 2, H, L, plan.slots, plan.stages + 1, esize=4, bm=plan.bm, cluster=plan.cluster)
+    assert plan.stages == tpw.F32_MAX_STAGES or more > tpw.SMEM_LIMIT
+    assert H % (tpw.F32_STAGE_BYTES // 8 // plan.width) == 0  # whole stages a layer
 
 
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
@@ -320,11 +307,11 @@ def test_pair_plan_splits_the_columns_over_a_cluster(esize, shape):
     plan = tpw.tile_plan("bwd", *shape, SMS, esize=esize)
     assert (plan.cluster, plan.width, plan.wgs) == (tpw.PAIR, H // 2, 2) and plan.grid % 2 == 0
     assert plan.smem <= tpw.SMEM_LIMIT
-    assert plan.smem == tpw.smem_bytes("bwd", 2, H, L, plan.slots, plan.stages, esize, plan.bm, plan.ring, tpw.PAIR)
+    assert plan.smem == tpw.smem_bytes("bwd", 2, H, L, plan.slots, plan.stages, esize, plan.bm, tpw.PAIR)
     if esize == 2:
         assert (plan.bm, plan.slots) == (128, max(3, L - 1)) and plan.stages >= tpw.MIN_STAGES
     else:
-        assert plan.ring and (plan.bm, plan.slots) == (64, max(2, L - 1)) and plan.stages >= 2
+        assert (plan.bm, plan.slots) == (64, max(2, L - 1)) and plan.stages >= 2
     _assert_tiles_every_row_once(plan)
     _assert_backward_units(plan)
     if esize == 2:  # a_{l-1} and dpre_l of each rank's columns in bf16, written once and read once, per pair row
@@ -357,8 +344,7 @@ def test_pair_forward_plan_splits_the_columns_over_a_cluster(esize, shape):
     plan = tpw.tile_plan("fwd", *shape, SMS, esize=esize)
     assert (plan.cluster, plan.width) == (tpw.PAIR, H // 2) and plan.grid % 2 == 0
     assert plan.smem <= tpw.SMEM_LIMIT
-    assert plan.smem == tpw.smem_bytes("fwd", plan.wgs, H, L, plan.slots, plan.stages, esize, plan.bm, plan.ring,
-                                       tpw.PAIR)
+    assert plan.smem == tpw.smem_bytes("fwd", plan.wgs, H, L, plan.slots, plan.stages, esize, plan.bm, tpw.PAIR)
     tiles = B * plan.nblk
     assert plan.grid == tpw.PAIR * min(tiles, SMS // tpw.PAIR)
     for q in range(0, plan.grid, plan.cluster):
@@ -366,7 +352,7 @@ def test_pair_forward_plan_splits_the_columns_over_a_cluster(esize, shape):
         assert [plan.columns(c) for c in (q, q + 1)] == [range(0, H // 2), range(H // 2, H)]
     _assert_tiles_every_row_once(plan)
     if esize == 4:
-        assert plan.ring and (plan.bm, plan.slots, plan.wgs) == (128, 1, 2)
+        assert (plan.bm, plan.slots, plan.wgs) == (128, 1, 2)
         assert 2 <= plan.stages <= tpw.F32_MAX_STAGES
         old = H * H * 4 / 32  # fp32 W bytes per pair row of the one-CTA wide forward
         new = plan.cluster * plan.width * H * 8 / plan.bm  # tf32 hi and lo of each rank's rows
@@ -452,17 +438,12 @@ def test_backward_sample_groups_by_shape(shape, n_groups):
 @pytest.mark.parametrize("esize", [2, 4])
 def test_pair_plan_refuses_what_the_cluster_kernels_cannot_take(esize):
     """The plan picks the cluster from the shape alone: clusters of two only
-    at H=512, in the backward where its tiles fit (L <= 4; at L=5 the fp32
-    backward falls back to the one-CTA wide kernel and bf16 has no plan),
-    in the forward at every depth (its tiles do not grow with L); the other
-    widths and kinds run on one CTA."""
+    at H=512, in the backward where its tiles fit (L <= 4; at L=5 neither
+    bf16 nor fp32 has a plan), in the forward at every depth (its tiles do
+    not grow with L); the other widths and kinds run on one CTA."""
     assert tpw._pair_plan("bwd", 4, 8, 8, 512, 5, SMS, esize) is None
-    if esize == 2:
-        with pytest.raises(ValueError, match="does not fit"):
-            tpw.tile_plan("bwd", 4, 8, 8, 512, 5, SMS)
-    else:
-        deep = tpw.tile_plan("bwd", 4, 8, 8, 512, 5, SMS, esize=4)
-        assert (deep.cluster, deep.ring, deep.bm) == (1, False, 16)
+    with pytest.raises(ValueError, match="does not fit"):
+        tpw.tile_plan("bwd", 4, 8, 8, 512, 5, SMS, esize=esize)
     assert tpw.tile_plan("bwd", 4, 8, 8, 256, 4, SMS, esize=esize).cluster == 1
     assert tpw.tile_plan("fwd", 4, 8, 8, 512, 4, SMS, esize=esize).cluster == 2
     assert tpw.tile_plan("fwd", 4, 8, 8, 512, 6, SMS, esize=esize).cluster == 2
@@ -478,18 +459,14 @@ def test_f32_plan_takes_the_most_rows_that_fit():
     of all 256 columns, one 128 KB tile, 6 stages), the ring backward's
     64-row blocks (two warpgroups on 128 columns each, 2 stages beside three
     64 KB tiles); H=512: the ring backward's 64-row blocks on a cluster of
-    two CTAs (256 columns each; at L=5, where those tiles do not fit, the
-    one-CTA wide kernel's 16 rows), the ring forward's 128-row blocks on a
-    cluster of two (one 128 KB tile of 256 columns each, 6 stages); H=128:
-    the wide kernels' 64 rows."""
+    two CTAs (256 columns each), the ring forward's 128-row blocks on a
+    cluster of two (one 128 KB tile of 256 columns each, 6 stages)."""
     plans = {(kind, H): tpw.tile_plan(kind, 512, 64, 64, H, 4, SMS, esize=4)
-             for kind in ("fwd", "bwd") for H in (128, 256, 512)}
-    assert {k: (p.bm, p.ring) for k, p in plans.items()} == {
-        ("fwd", 128): (64, False), ("fwd", 256): (128, True), ("fwd", 512): (128, True),
-        ("bwd", 128): (64, False), ("bwd", 256): (64, True), ("bwd", 512): (64, True)}
+             for kind in ("fwd", "bwd") for H in (256, 512)}
+    assert {k: p.bm for k, p in plans.items()} == {
+        ("fwd", 256): 128, ("fwd", 512): 128, ("bwd", 256): 64, ("bwd", 512): 64}
     assert (plans[("bwd", 512)].cluster, plans[("bwd", 512)].stages, plans[("bwd", 512)].slots) == (2, 2, 3)
     assert (plans[("fwd", 512)].cluster, plans[("fwd", 512)].stages, plans[("fwd", 512)].slots) == (2, 6, 1)
-    assert tpw.tile_plan("bwd", 512, 64, 64, 512, 5, SMS, esize=4).bm == 16  # L=5: the one-CTA wide kernel
     assert (plans[("fwd", 256)].stages, plans[("bwd", 256)].stages, plans[("bwd", 256)].slots) == (6, 2, 3)
     assert tpw.tile_plan("fwd", 1, 12, 12, 512, 4, SMS, esize=4).nblk == 2  # 144 rows: a ragged second block
     assert tpw.tile_plan("bwd", 1, 12, 12, 256, 4, SMS, esize=4).nblk == 3  # 144 rows in blocks of 64
@@ -500,12 +477,16 @@ def test_f32_plan_takes_the_most_rows_that_fit():
 def test_f32_backward_takes_the_wide_kernel_where_the_ring_does_not_fit(H, L, ring):
     """The ring backward (H = 256, and H = 512 on clusters of two CTAs with
     256 columns each) keeps max(2, L-1) tiles of 64 x 256 fp32 (64 KB): up to
-    L = 4 beside two stages; deeper chains and H = 128 take the wide kernel,
-    so every shape the wrappers took still runs."""
+    L = 4 beside two stages. Where the ring does not fit (``ring`` False:
+    deeper chains, and H = 128) there is no fp32 plan."""
+    if not ring:
+        with pytest.raises(ValueError):
+            tpw.tile_plan("bwd", 140, 64, 64, H, L, SMS, esize=4)
+        return
     plan = tpw.tile_plan("bwd", 140, 64, 64, H, L, SMS, esize=4)
-    assert plan.ring == ring and plan.smem <= tpw.SMEM_LIMIT
+    assert plan.smem <= tpw.SMEM_LIMIT
     assert plan.cluster == (2 if H == 512 else 1)
-    assert plan.slots == (max(2, L - 1) if ring else L)
+    assert plan.slots == max(2, L - 1)
 
 
 @pytest.mark.parametrize("kind, H, L, match", [("fwd", 384, 4, "take H in"), ("bwd", 1024, 4, "take H in"),
@@ -514,6 +495,36 @@ def test_f32_backward_takes_the_wide_kernel_where_the_ring_does_not_fit(H, L, ri
 def test_f32_plan_refuses_what_the_kernels_cannot_take(kind, H, L, match):
     with pytest.raises(ValueError, match=match):
         tpw.tile_plan(kind, 4, 8, 8, H, L, SMS, esize=4)
+
+
+@pytest.mark.parametrize("kind, H, L, match", [("fwd", 128, 3, "take H in"), ("bwd", 128, 3, "take H in"),
+                                               ("bwd", 256, 5, "does not fit"), ("bwd", 512, 5, "does not fit")])
+def test_f32_plan_has_no_plan_off_the_ring_kernels(kind, H, L, match):
+    """The fp32 planner raises where the ring kernels do not run: H=128 (no
+    configuration's width) and backward chains deeper than L = 4, whose
+    tiles do not fit beside two ring stages, at H=256 and at H=512 (where
+    the cluster's tiles do not fit either)."""
+    with pytest.raises(ValueError, match=match):
+        tpw.tile_plan(kind, 140, 64, 64, H, L, SMS, esize=4)
+
+
+@pytest.mark.parametrize("H, L, want", [(256, 4, True), (512, 4, True), (256, 2, True), (512, 3, True),
+                                        (128, 3, False), (384, 4, False), (256, 5, False), (512, 5, False),
+                                        (256, 1, False)])
+def test_f32_supported_is_where_both_fp32_plans_exist(H, L, want):
+    """``f32_supported`` (the fp32 rule of ``RelationalLayer``'s ``auto``)
+    holds exactly where the planner gives an fp32 forward and an fp32
+    backward plan, and the chain has the two layers the kernels need."""
+    assert tpw.f32_supported(H, L) == want
+
+    def plans():
+        return [tpw.tile_plan(kind, 8, 64, 64, H, L, SMS, esize=4) for kind in ("fwd", "bwd")]
+
+    if want:
+        assert all(p.esize == 4 for p in plans())
+    elif L >= 2:
+        with pytest.raises(ValueError):
+            plans()
 
 
 def _tf32_reference(x: np.ndarray) -> np.ndarray:
@@ -729,6 +740,13 @@ def test_weight_chunks_accept_a_transposed_view():
                        tpw.pack_weight_chunks(w.transpose(1, 2).contiguous()))
 
 
+def _pair_halves_packed(x):
+    """The W stream of a cluster kernel built in steps: ``pack_weight_chunks``
+    of each CTA's ``pair_halves`` slice of x, rank after rank, flat."""
+    halves = tpw.pair_halves(x)
+    return tpw.pack_weight_chunks(halves.reshape(-1, *halves.shape[2:])).reshape(-1)
+
+
 @pytest.mark.parametrize("L", [2, 3, 4, 5])
 def test_pair_chunk_index_gathers_the_packed_pair_halves(L):
     """The int8 cluster kernel's W stream, one gather of w8 by
@@ -737,6 +755,24 @@ def test_pair_chunk_index_gathers_the_packed_pair_halves(L):
     w8 = torch.from_numpy(np.random.RandomState(L).randint(-127, 128, (L - 1, 512, 512)).astype(np.int8))
     plan = tpw.tile_plan("int8", 8, 64, 64, 512, L, SMS)
     assert plan.cluster == tpw.PAIR
-    got = w8.reshape(-1).index_select(0, tpw.pair_chunk_index(512, L, "cpu"))
+    got = w8.reshape(-1).index_select(0, tpw.pair_chunk_index(512, L, 1, True, "cpu"))
     assert got.dtype == torch.int8 and got.numel() == (L - 1) * 512 * 512
-    assert torch.equal(got, tpw._pack_for(w8.transpose(1, 2), plan, tpw.pack_weight_chunks).reshape(-1))
+    assert torch.equal(got, _pair_halves_packed(w8.transpose(1, 2)))
+    assert torch.equal(tpw._pack_for(w8, plan, transpose=True), got)
+
+
+@pytest.mark.parametrize("transpose", [True, False], ids=["WT", "W"])
+@pytest.mark.parametrize("L", [3, 4])
+def test_pair_chunk_index_gathers_the_bf16_streams(L, transpose):
+    """The bf16 cluster kernels' W^T (the chain's) and W (the backward's d
+    products') streams at H=512, one gather of ws by ``pair_chunk_index``
+    in ``_pack_for``, are bit for bit ``pack_weight_chunks`` of each CTA's
+    ``pair_halves`` slice, rank after rank, for the forward's and the
+    backward's plans alike."""
+    ws = torch.from_numpy(np.random.RandomState(10 + L).randn(L - 1, 512, 512).astype(np.float32)).bfloat16()
+    want = _pair_halves_packed(ws.transpose(1, 2) if transpose else ws)
+    for kind in ("fwd", "bwd"):
+        plan = tpw.tile_plan(kind, 8, 64, 64, 512, L, SMS)
+        assert plan.cluster == tpw.PAIR
+        got = tpw._pack_for(ws, plan, transpose)
+        assert got.dtype == torch.bfloat16 and torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -367,13 +367,17 @@ def test_auto_impl_rule(name, device, dtype, want):
     assert m.relational.resolve_impl(cfg.n_objects, torch.device(device)) == want
 
 
-@pytest.mark.parametrize("width, dtype, want", [(384, "float32", "xla"), (640, "float32", "xla"),
-                                                (384, "bfloat16", "pallas"), (512, "float32", "pallas")])
-def test_auto_impl_rule_takes_only_the_kernels_widths(width, dtype, want):
-    """In fp32, ``auto`` takes the kernels only at the widths the fp32
-    kernels take (F32_WIDTHS); a uniform 384- or 640-wide fp32 model runs
-    ``xla`` rather than raising in the kernel's plan."""
-    cfg = load_config("original-fp", overrides={"compute_dtype": dtype, "g_layers": (width,) * 4})
+@pytest.mark.parametrize("width, depth, dtype, want", [
+    pytest.param(w, d, dt, want, id=f"{w}-{dt}-{want}" if d == 4 else f"{w}-L{d}-{dt}-{want}")
+    for w, d, dt, want in [(384, 4, "float32", "xla"), (640, 4, "float32", "xla"), (384, 4, "bfloat16", "pallas"),
+                           (512, 4, "float32", "pallas"), (128, 4, "float32", "xla"), (256, 5, "float32", "xla"),
+                           (256, 5, "bfloat16", "pallas")]])
+def test_auto_impl_rule_takes_only_the_kernels_widths(width, depth, dtype, want):
+    """In fp32, ``auto`` takes the kernels only at the shapes the fp32
+    kernels take (``f32_supported``: H in {256, 512}, L <= 4); a uniform
+    128-, 384- or 640-wide fp32 model, or a chain of 5 layers, runs ``xla``
+    rather than raising in the kernel's plan. bf16 keeps rnet's rule."""
+    cfg = load_config("original-fp", overrides={"compute_dtype": dtype, "g_layers": (width,) * depth})
     m = RN(cfg, V)
     assert m.relational.resolve_impl(cfg.n_objects, torch.device("cuda")) == want
 

@@ -253,16 +253,17 @@ def _jax_vjp(args, g, inject, dtype):
 GRAD_NAMES = ["du", "dv", "ds", "dqa", "dws", "dbs"]
 
 
-def _streamed(x, plan):
-    """What each CTA of the plan's cluster reads of x (L-1, N, K) from its W
-    stream: ``pack_weight_chunks`` of its ``pair_halves`` slice, read back
-    at the chunk and core-matrix offsets the kernel's descriptors use
-    (chunk q = n_tile * (K / kc) + k_chunk of nt x kc, core matrices of 8 x
-    8). Returns (cluster, L-1, N / cluster, K): rank c's row n, at depth k
-    of its stream (its own K share first)."""
-    n_l, N, K = x.shape
+def _streamed(ws, plan, transpose):
+    """What each CTA of the plan's cluster reads of x = W^T (``transpose``)
+    or W of ws (L-1, N, K) from its W stream: ``pack_weight_chunks`` of its
+    ``pair_halves`` slice (``_pack_for``), read back at the chunk and
+    core-matrix offsets the kernel's descriptors use (chunk q = n_tile * (K
+    / kc) + k_chunk of nt x kc, core matrices of 8 x 8). Returns (cluster,
+    L-1, N / cluster, K): rank c's row n, at depth k of its stream (its own
+    K share first)."""
+    n_l, N, K = ws.shape
     width = N // plan.cluster
-    packed = tpw._pack_for(x, plan, tpw.pack_weight_chunks).reshape(plan.cluster, n_l, -1)
+    packed = tpw._pack_for(ws, plan, transpose).reshape(plan.cluster, n_l, -1)
     nt, kc = tpw.TILE_N, tpw.CHUNK_BYTES // 2 // tpw.TILE_N
     nn, kk = torch.arange(width)[:, None], torch.arange(K)[None, :]
     chunk = (nn // nt) * (K // kc) + kk // kc
@@ -342,7 +343,7 @@ def _pair_backward_emulation(args, g, inject, sms, esize=4):
     plan = tpw.tile_plan("bwd", B, n, n, H, L, sms, esize=esize)
     assert plan.cluster == 2 and plan.grid > 2  # several pairs: their partials are added in order
     W = plan.width
-    chain, dstream = _streamed(ws.transpose(1, 2), plan), _streamed(ws, plan)
+    chain, dstream = _streamed(ws, plan, True), _streamed(ws, plan, False)
     cols = [plan.columns(c) for c in range(2)]
     part = torch.zeros((plan.grid, L - 1, H, W))
     tile_el = plan.bm * W
@@ -574,19 +575,19 @@ def test_one_cta_backward_in_sample_groups_matches_jax_vjp_fp32(monkeypatch, H, 
         np.testing.assert_allclose(d, w, rtol=5e-4, atol=5e-3, err_msg=name)
 
 
-def _f32_streamed(x, plan):
-    """What each CTA of the plan's cluster reads of x (L-1, N, K) from its
-    fp32 W stream: ``pack_f32_weights`` of its ``pair_halves`` slice, read
-    back at the offsets the ring kernels' descriptors use (stage k // KD,
-    column tile n // 128 at 128 KD floats, core matrices of 8 rows x 4 fp32
-    of depth, lo half a stage after hi). Returns (hi, lo), each (cluster,
-    L-1, N / cluster, K): rank c's row n at depth k of its stream (its own
-    K share first)."""
-    n_l, N, K = x.shape
+def _f32_streamed(ws, plan, transpose):
+    """What each CTA of the plan's cluster reads of x = W^T (``transpose``)
+    or W of ws (L-1, N, K) from its fp32 W stream: ``pack_f32_weights`` of
+    its ``pair_halves`` slice (``_pack_f32_for``), read back at the offsets
+    the ring kernels' descriptors use (stage k // KD, column tile n // 128
+    at 128 KD floats, core matrices of 8 rows x 4 fp32 of depth, lo half a
+    stage after hi). Returns (hi, lo), each (cluster, L-1, N / cluster, K):
+    rank c's row n at depth k of its stream (its own K share first)."""
+    n_l, N, K = ws.shape
     width = N // plan.cluster
     kd = tpw.F32_STAGE_BYTES // 8 // width
     stage = tpw.F32_STAGE_BYTES // 4
-    packed = tpw._pack_for(x, plan, tpw.pack_f32_weights).reshape(plan.cluster, n_l, -1)
+    packed = tpw._pack_f32_for(ws, plan, transpose).reshape(plan.cluster, n_l, -1)
     nn, kk = torch.arange(width)[:, None], torch.arange(K)[None, :]
     idx = ((kk // kd) * stage + (nn // 128) * 128 * kd + (nn % 128) // 8 * 8 * kd + (kk % kd) // 4 * 32
            + (nn % 8) * 4 + kk % 4)
@@ -611,14 +612,14 @@ def _pair_forward_emulation(args, inject, sms, esize):
     B, n, H = u.shape
     L = ws.shape[0] + 1
     plan = tpw.tile_plan("fwd", B, n, n, H, L, sms, esize=esize)
-    assert plan.cluster == 2 and plan.width == H // 2 and plan.ring == (esize == 4)
+    assert plan.cluster == 2 and plan.width == H // 2
     W = plan.width
     cols = [plan.columns(c) for c in range(2)]
     if esize == 4:
-        hi, lo = _f32_streamed(ws.transpose(1, 2), plan)
+        hi, lo = _f32_streamed(ws, plan, True)
         kd = tpw.F32_STAGE_BYTES // 8 // W
     else:
-        chain = _streamed(ws.transpose(1, 2), plan)
+        chain = _streamed(ws, plan, True)
     partial = torch.zeros(B, plan.nblk, H)
 
     def product(c, x, l):  # rank c's output columns of a . W_l over the depth as it streams: own share first
