@@ -112,6 +112,18 @@ Phases, each fatal (exit 1, no result line) when it fails:
      34,500, and a batch-local source (idx = arange(B)). Angle 0 at offset
      (8, 8) must give the centre crop x (1/255) exactly; an index outside
      the cache gives NaN rows.
+ 9b. The question embedding's backward (``csrc/embedding_bwd.cu``) at
+     (B, T, V, E) = (640, 48, 90, 32), (512, 48, 90, 32) and (3, 7, 11, 20)
+     with CLEVR-like pads: bit for bit its plain version and itself, and
+     both it and the parent route (``index_put_``'s gradient of
+     ``weight[tokens] * mask``) within the fp32 bound of any summation
+     order of the float64 sum; an all-pad batch gives zeros;
+     ``QuestionEmbedModel`` at B=640 launches it once a backward and never
+     under ``no_grad`` or inference mode, every other gradient bit for bit
+     the parent route's; CUDA-event times at both train cells' shapes of the
+     kernel (replayed), the parent route and ``F.embedding(...,
+     padding_idx=0)``'s backward. Phases 7 and 12 count one launch a train
+     step.
  10. Training through the entry point, ``rnet_torch.train.__main__.main``,
      on a synthetic CLEVR directory the script writes itself (seeded
      questions over every answer and family; the decoded caches written
@@ -1120,6 +1132,7 @@ def new_state(torch, cfg, state_dict=None, mesh=None):
 def train_phase(torch, np, pw, cfg):
     """Phase 7; returns (kernel-path state, batch, counts of the K steps,
     counts of the pair-dropout step)."""
+    from rnet_torch.kernels import embedding as em
     from rnet_torch.train import steps
 
     state = new_state(torch, cfg)
@@ -1130,9 +1143,12 @@ def train_phase(torch, np, pw, cfg):
     steps.train_step(state, batch)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     pw.reset_launches()
+    em.reset_launches()
     metrics = [steps.train_step(state, batch) for _ in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     counts = dict(pw.launches)
+    if em.launches[em.KERNEL] != TRAIN_STEPS:
+        fail(f"expected one embedding_bwd launch per train step, {TRAIN_STEPS}; counted {dict(em.launches)}")
     losses = [float(m["loss"]) for m in metrics]
     norms = [float(m["grad_norm"]) for m in metrics]
     log(f"train original-fp B={TRAIN_B}: {TRAIN_STEPS} steps, launches {counts} ({pw.BWD_KERNEL} "
@@ -1773,6 +1789,142 @@ def time_augment(torch, np, aug, caches):
         rows[cname]["x_bound"] = rows[cname]["ms"] / b_ms
         log(f"time augment {json.dumps(rows[cname])}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# 9b. The question embedding's backward
+# ---------------------------------------------------------------------------
+
+# (B, T, V, E): osd.train.b640's and ofp.train.b512's questions (48 tokens, a
+# vocabulary of 90, embedding 32), then a shape that is no multiple of 32
+EMB_CASES = ((640, 48, VOCAB, 32), (TRAIN_B, 48, VOCAB, 32), (3, 7, 11, 20))
+EMB_HIDDEN = 256  # original-sd's LSTM, for the model-level check
+EMB_TARGET_MS = 0.03  # the kernel's aim a call (both passes) at the train cells' shapes; logged, not enforced
+
+
+def emb_tokens(torch, B, T, V, seed):
+    """(B, T) int64 ids with trailing pads: at T = 48, 5 to 32 words a
+    question (18.5 on average, as CLEVR's 18.4), else 1 to T."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tok = torch.randint(1, V, (B, T), generator=gen, device="cuda")
+    lo, hi = (5, 32) if T == 48 else (1, T)
+    n = torch.randint(lo, hi + 1, (B, 1), generator=gen, device="cuda")
+    return torch.where(torch.arange(T, device="cuda")[None, :] < n, tok, 0)
+
+
+def sum_bound(torch, g, tok, V):
+    """Elementwise bound on any fp32 order's error of the gradient (n terms
+    of a row: n * 2**-24 * sum of |terms|), and the float64 sum."""
+    E = g.shape[-1]
+    keep = (tok != 0)[..., None]
+    rows = tok.reshape(-1)
+    exact = torch.zeros((V, E), dtype=torch.float64, device="cuda").index_add_(
+        0, rows, (g * keep).reshape(-1, E).double())
+    mag = torch.zeros_like(exact).index_add_(0, rows, (g.abs() * keep).reshape(-1, E).double())
+    n = torch.zeros((V, 1), dtype=torch.float64, device="cuda").index_add_(
+        0, rows, keep.reshape(-1, 1).double())
+    return exact, n * 2.0**-24 * mag
+
+
+def embedding_phase(torch, em):
+    """Phase 9b: the kernel against its plain version (bit for bit) and the
+    parent route, ``index_put_``'s gradient of ``weight[tokens] * mask``
+    (both within the fp32 bound of any summation order); an all-pad batch;
+    ``QuestionEmbedModel`` on the card (one launch a backward, none without
+    gradients, every other gradient bit for bit the parent route's); times
+    at both train cells' shapes. Returns the record's row."""
+    import torch.nn.functional as F
+
+    from rnet_torch.models.text import QuestionEmbedModel
+
+    out = {}
+    for k, (B, T, V, E) in enumerate(EMB_CASES):
+        tok = emb_tokens(torch, B, T, V, seed=900 + k)
+        g = torch.randn((B, T, E), generator=torch.Generator(device="cuda").manual_seed(910 + k), device="cuda")
+        em.reset_launches()
+        got = em.embedding_bwd_cuda(g, tok, V)
+        again = em.embedding_bwd_cuda(g, tok, V)
+        want = em.embedding_bwd_reference(g, tok, V)
+        w = torch.randn((V, E), device="cuda", requires_grad=True)
+        (parent,) = torch.autograd.grad(w[tok] * (tok != 0)[..., None], w, g)
+        exact, bound = sum_bound(torch, g, tok, V)
+        err, perr = (got.double() - exact).abs(), (parent.double() - exact).abs()
+        row = {"plan": em.plan(B * T, V, E), "pads": float((tok == 0).float().mean()),
+               "bitwise_plain": torch.equal(got, want), "bitwise_repeat": torch.equal(got, again),
+               "max_abs_gap_to_parent": float((got - parent).abs().max()),
+               "max_rel_gap_to_parent": float((got - parent).abs().max() / parent.abs().max()),
+               "max_err_over_bound": float((err / bound.clamp_min(1e-300)).max()),
+               "parent_max_err_over_bound": float((perr / bound.clamp_min(1e-300)).max()),
+               "launches": em.launches[em.KERNEL]}
+        log(f"embedding_bwd (B, T, V, E) = {(B, T, V, E)}: {json.dumps(row)}")
+        if not (row["bitwise_plain"] and row["bitwise_repeat"]):
+            fail(f"embedding_bwd at {(B, T, V, E)}: the kernel differs from its plain version or from itself")
+        if not (err <= bound).all():
+            fail(f"embedding_bwd at {(B, T, V, E)}: past the fp32 bound of any summation order")
+        if row["launches"] != 2:
+            fail(f"embedding_bwd: two calls counted {row['launches']}")
+        out[(B, T, V, E)] = row
+    # all pads: a zero gradient, equal to the plain version's
+    tok = torch.zeros((TRAIN_B, 48), dtype=torch.long, device="cuda")
+    g = torch.randn((TRAIN_B, 48, 32), device="cuda")
+    got = em.embedding_bwd_cuda(g, tok, VOCAB)
+    if not (torch.equal(got, em.embedding_bwd_reference(g, tok, VOCAB)) and not got.any()):
+        fail("embedding_bwd of an all-pad batch is not zero, or not the plain version's")
+    log("embedding_bwd all pads at (512, 48, 90, 32): zero, bitwise the plain version's")
+
+    # QuestionEmbedModel on the card: the kernel against the parent route
+    B, T = 640, 48
+    tok = emb_tokens(torch, B, T, VOCAB, seed=920)
+    m = QuestionEmbedModel(VOCAB, 32, EMB_HIDDEN, generator=torch.Generator().manual_seed(5)).cuda()
+    proj = torch.randn((B, EMB_HIDDEN), device="cuda")
+    grads, counts = {}, {}
+    takes = em.takes_kernel
+    for route in ("kernel", "parent"):
+        em.takes_kernel = takes if route == "kernel" else (lambda *a: False)
+        try:
+            em.reset_launches()
+            grads[route] = torch.autograd.grad((m(tok) * proj).sum(), list(m.parameters()))
+            counts[route] = em.launches[em.KERNEL]
+        finally:
+            em.takes_kernel = takes
+    em.reset_launches()
+    with torch.no_grad():
+        m(tok)
+    with torch.inference_mode():
+        m(tok)
+    counts["no_grad"] = em.launches[em.KERNEL]
+    names = [n for n, _ in m.named_parameters()]
+    equal = {n: torch.equal(a, b) for n, a, b in zip(names, grads["kernel"], grads["parent"])}
+    e_gap = float((grads["kernel"][0] - grads["parent"][0]).abs().max() / grads["parent"][0].abs().max())
+    log(f"QuestionEmbedModel B={B} (hidden {EMB_HIDDEN}): launches {counts}, gradients bitwise equal to the parent "
+        f"route's {equal}, the embedding's relative gap {e_gap!r}")
+    if counts != {"kernel": 1, "parent": 0, "no_grad": 0}:
+        fail(f"QuestionEmbedModel should launch embedding_bwd once a backward and never without gradients: {counts}")
+    if names[0] != "embedding" or not all(v for n, v in equal.items() if n != "embedding") or not e_gap < 1e-5:
+        fail(f"QuestionEmbedModel: gradients off the parent route's: {equal}, embedding gap {e_gap!r}")
+    out["model"] = {"launches": counts, "equal": equal, "embedding_rel_gap": e_gap}
+
+    # times at the train cells' shapes (CUDA events): the kernel replayed
+    # from a graph (both passes, no host between calls), the parent route
+    # (index_put_) and F.embedding(padding_idx=0)'s backward
+    for B, T, V, E in EMB_CASES[:2]:
+        tok = emb_tokens(torch, B, T, V, seed=930)
+        g = torch.randn((B, T, E), device="cuda")
+        w = torch.randn((V, E), device="cuda", requires_grad=True)
+        x_parent = w[tok] * (tok != 0)[..., None]
+        x_lib = F.embedding(tok, w, padding_idx=0)
+        N = B * T
+        bound_ms = (N * E * 4 + N * 8 + V * E * 4) / PEAK_BYTES * 1e3
+        row = {"B": B, "T": T, "V": V, "E": E,
+               "ms": replay_ms(torch, lambda: em.embedding_bwd_cuda(g, tok, V)),
+               "ms_eager": cuda_ms(torch, lambda: em.embedding_bwd_cuda(g, tok, V), 50),
+               "plain_ms": cuda_ms(torch, lambda: torch.autograd.grad(x_parent, w, g, retain_graph=True), 20),
+               "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(x_lib, w, g, retain_graph=True), 20),
+               "bound_ms": bound_ms, "bound_by": "bytes"}
+        row["x_bound"], row["within_target"] = row["ms"] / bound_ms, row["ms"] <= EMB_TARGET_MS
+        log(f"time embedding_bwd {json.dumps(row)}")
+        out[("time", B)] = row
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2708,6 +2860,7 @@ def replay_vs_eager(torch, pw, aug, cfg, data, cache, tag, lr_change_at=None, me
     must be bitwise equal / as expected. Returns (state, eager and graph
     chunk fns, idx block, counts, capture record, peak GB of eager and of
     the capturing run)."""
+    from rnet_torch.kernels import embedding as em
     from rnet_torch.train import steps
 
     state = new_state(torch, cfg, mesh=mesh)
@@ -2727,13 +2880,14 @@ def replay_vs_eager(torch, pw, aug, cfg, data, cache, tag, lr_change_at=None, me
         torch.cuda.reset_peak_memory_stats()
         pw.reset_launches()
         aug.reset_launches()
+        em.reset_launches()
         ms = []
         for k in range(GRAPH_STEPS):
             if k == lr_change_at:
                 steps.set_learning_rate(state, 3 * LR)
             ms.append(fns[mode][0](order[k], data, cache))
         torch.cuda.synchronize()
-        runs[mode] = (torch.cat(ms), state_tensors(state), {**pw.launches, **aug.launches},
+        runs[mode] = (torch.cat(ms), state_tensors(state), {**pw.launches, **aug.launches, **em.launches},
                       torch.cuda.max_memory_allocated() / 1e9)
     steps.set_learning_rate(state, LR)
     (me, te, ce, peak_e), (mr, tr, cr, peak_r) = runs["eager"], runs["replay"]
@@ -2829,7 +2983,7 @@ def graph_phase(torch, np, pw, aug, cfg, dicts, burst):
     state, fns, order, counts, graphs, peaks = replay_vs_eager(
         torch, pw, aug, cfg_dev, data, cache, "bf16 train B=512", lr_change_at=GRAPH_STEPS // 2)
     want = {**dict.fromkeys(counts, 0), pw.KERNEL: GRAPH_STEPS, pw.BWD_KERNEL: GRAPH_STEPS,
-            pw.STORED_GROUPS: GRAPH_STEPS, aug.KERNEL: GRAPH_STEPS}
+            pw.STORED_GROUPS: GRAPH_STEPS, aug.KERNEL: GRAPH_STEPS, "embedding_bwd": GRAPH_STEPS}
     if counts != want:
         fail(f"graphs: {GRAPH_STEPS} replays should count {want}, counted {counts}")
     out["train_counts"], out["train_capture"] = counts, graph_memory(graphs)
@@ -4381,8 +4535,9 @@ def bench_phase(torch, pw, aug, card, phase12_qps):
     ``pairwise_fwd`` and one ``pairwise_bwd`` launch per step its warm-up and
     timed replays took and nothing else (no ``augment``, no ``pair_mask``),
     ``measure_infer_qps("auto", ...)`` ``pairwise_fwd`` only, the ``xla``
-    arm no kernel. Then ``python -m rnet_torch.bench`` as a user runs it:
-    rc 0, its last line with exactly ``BENCH_KEYS``, ``backend`` "cuda",
+    arm no kernel and one ``g_xla`` count (an ``xla``-route forward) a
+    step. Then ``python -m rnet_torch.bench`` as a user runs it: rc 0, its
+    last line with exactly ``BENCH_KEYS``, ``backend`` "cuda",
     finite positive q/s, ``device`` the card's line, and ``value`` within
     ``BENCH_REL`` of phase 12's replayed train q/s (both time the same
     replayed step; phase 12 adds a 0.07 ms augment). Returns the numbers for
@@ -4396,7 +4551,8 @@ def bench_phase(torch, pw, aug, card, phase12_qps):
              (pw.KERNEL, pw.BWD_KERNEL, pw.STORED_GROUPS)),
             ("infer auto", lambda: bench.measure_infer_qps("auto", TRAIN_B, "cuda", target_s=BENCH_TARGET_S),
              (pw.KERNEL,)),
-            ("train xla", lambda: bench.measure_train_qps("xla", TRAIN_B, "cuda", target_s=BENCH_TARGET_S), ()))
+            ("train xla", lambda: bench.measure_train_qps("xla", TRAIN_B, "cuda", target_s=BENCH_TARGET_S),
+             (pw.XLA_ROUTE,)))
     for what, run, kernels in arms:
         torch.cuda.synchronize()
         pw.reset_launches()
@@ -4454,6 +4610,7 @@ def main() -> int:
         )
         from rnet_torch.kernels import augment as aug
         from rnet_torch.kernels import build
+        from rnet_torch.kernels import embedding as em
         from rnet_torch.kernels import pairwise as pw
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
@@ -4468,7 +4625,7 @@ def main() -> int:
     # ---- 2. build (the kernels and the phase-timing build, all nvcc at once) ----
     from concurrent.futures import ThreadPoolExecutor
 
-    kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL, pw.INT8_KERNEL, pw.F32_LIB]
+    kernels = [pw.KERNEL, pw.BWD_KERNEL, aug.KERNEL, pw.INT8_KERNEL, pw.F32_LIB, em.KERNEL]
     timed = [pw.KERNEL, pw.BWD_KERNEL, pw.INT8_KERNEL, pw.F32_LIB]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
@@ -4574,6 +4731,8 @@ def main() -> int:
     del caches
     torch.cuda.empty_cache()
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+    emb = embedding_phase(torch, em)
+    log(f"phase 9b (embedding backward) done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 12. compiled dispatch: replayed CUDA graphs against eager steps ----
     graph_out = graph_phase(torch, np, pw, aug, cfg, dicts, burst)
@@ -4670,6 +4829,11 @@ def main() -> int:
                ms_cache_2048=aug_times[str(AUG_SMALL)]["ms"],
                replay_launches=graph_out["train_counts"][aug.KERNEL],
                launches_of="run (a): python -m rnet_torch.train --data-pipeline device, 2 epochs of 16 steps"),
+        record(em.KERNEL, "rnet_torch/csrc/embedding_bwd.cu", "none (rnet: XLA's scatter-add)",
+               graph_out["train_counts"][em.KERNEL], emb[EMB_CASES[0]]["max_abs_gap_to_parent"],
+               emb[("time", EMB_CASES[0][0])], shape=dict(zip("BTVE", EMB_CASES[0])),
+               b512=emb[("time", TRAIN_B)], bitwise_plain={str(c): emb[c]["bitwise_plain"] for c in EMB_CASES},
+               model=emb["model"], launches_of=f"phase 12: {GRAPH_STEPS} replayed original-fp train steps"),
         record(pw.INT8_KERNEL, "rnet_torch/csrc/pairwise_fwd_int8.cu", "rnet/kernels/pairwise.py:190",
                int8_eval_launches, int8_err, int8_rows[TRAIN_B], shape=shape,
                max_abs_err_all_cases=int8_err_all, max_drift_from_fp32=int8_drift,

@@ -10,6 +10,11 @@ the T slice gradients once, where each ``xg[:, t]`` would have a select
 backward that zero-fills a tensor the size of all of ``xg`` and adds it into
 ``xg``'s gradient, T times a step.
 
+The embedding is ``weight[tokens] * (tokens != 0)`` on every route. On the
+card, in training, its gradient is summed by ``kernels/embedding.py``'s
+kernel, which skips the pads, in place of ``index_put_``'s sorted
+accumulate; on the CPU and without gradients the plain expression runs.
+
 With ``mask_pads=True`` a pad step carries ``h`` and ``c`` through unchanged,
 so the encoding is the state after the last real token, whether the pads
 trail or (with inverted questions, the serving default) lead. ``nn.LSTM`` /
@@ -24,6 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..kernels.embedding import masked_embedding
 from .initializers import embedding_normal, lstm_uniform
 
 
@@ -50,7 +56,7 @@ class QuestionEmbedModel(nn.Module):
         B, T = tokens.shape
         tokens = tokens.long()
         mask = tokens != 0  # (B, T)
-        x = self.embedding[tokens] * mask[..., None]  # (B, T, E)
+        x = masked_embedding(self.embedding, tokens, mask)  # (B, T, E)
         xg = torch.addmm(self.b, x.reshape(B * T, -1), self.wx).reshape(B, T, 4 * self.hidden)
         h = torch.zeros(B, self.hidden, device=tokens.device)
         c = torch.zeros_like(h)

@@ -53,11 +53,12 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Sequence
 import torch
 
 from ..kernels import augment as _augment
+from ..kernels import embedding as _embedding
 from ..kernels import pairwise as _pairwise
 from ..utils.profiling import span
 
 # Every kernel wrapper's launch counter (chip_smoke.py's main-path proofs).
-COUNTERS = (_pairwise.launches, _augment.launches)
+COUNTERS = (_pairwise.launches, _augment.launches, _embedding.launches)
 
 
 class CudaGraphBackend:
